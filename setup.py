@@ -23,8 +23,11 @@ setup(
     version=_read_version(),
     description="TPU-native deep learning framework with the MXNet API "
                 "surface (JAX/XLA/Pallas compute, C++ host runtime)",
-    packages=find_packages(include=["mxnet_tpu", "mxnet_tpu.*"]),
-    package_data={"mxnet_tpu": ["../cpp/build/libmxtpu*.so"]},
+    packages=find_packages(include=["mxnet_tpu", "mxnet_tpu.*",
+                                    "mxnet_tpu_torch", "mxnet_tpu_torch.*"]),
+    package_data={"mxnet_tpu": ["../cpp/build/libmxtpu*.so"],
+                  # the PyTorch port's CUDA kernels, compiled at first use
+                  "mxnet_tpu_torch": ["ops/csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["numpy", "jax"],
     extras_require={"test": ["pytest"]},
