@@ -1,14 +1,16 @@
 // Paged attention over one layer's KV pool, for sm_90a.
 //
-// Replaces: mxnet_tpu/ops/paged_attention.py `_paged_kernel` (behind
-// `paged_attention`), the attention of the generation engine's every model
-// step: decode (T = 1 query per slot) and chunked prefill (T = a seq bucket
-// at B = 1), against K/V that live in fixed-size blocks named by a per-row
-// block table.
+// Replaces: mxnet_tpu/ops/paged_attention.py `_paged_kernel` (float pool)
+// and `_paged_kernel_q` (int8 pool, per-(block, head) f32 scales), both
+// behind `paged_attention`: the attention of the generation engine's every
+// model step, decode (T = 1 query per slot) and chunked prefill (T = a seq
+// bucket at B = 1), against K/V that live in fixed-size blocks named by a
+// per-row block table.
 //
 // What bounds it on an H100: bytes.  The work is the live K/V blocks of
-// each row (read once), plus q and the output; the least time is those
-// bytes over 3.35 TB/s.  Flops per byte are ~2*T_tile, far below the
+// each row (read once; one byte an element plus two f32 scales per block
+// and head for the int8 pool), plus q and the output; the least time is
+// those bytes over 3.35 TB/s.  Flops per byte are ~2*T_tile, far below the
 // card's ridge for T = 1; for the prefill tiles the f32 CUDA-core math
 // (67 TFLOP/s) is what bounds it.
 //
@@ -19,13 +21,18 @@
 //   - the block reads its row's table entries and max_pos[b] itself (there
 //     is no scalar prefetch); a table entry of 0 (the null block) or a
 //     logical block past max_pos[b] is skipped, as is a block wholly past
-//     the tile's last query position (every score in it is masked);
+//     the tile's last query position (every score in it is masked); so
+//     block 0 and its scales are never read;
 //   - a live (block_size, D) K/V tile is staged in shared memory as f32
 //     (K rows padded to D+1 floats so lanes reading different keys hit
 //     different banks), then walked 32 keys at a time: lane j scores key
 //     j, the warp reduces max and sum with shuffles, and each lane
 //     accumulates D/32 output dims with the probabilities broadcast by
 //     shuffle; m, l and acc are f32 per query in registers;
+//   - int8 pool: the tile is dequantized while it is staged (int8 -> f32
+//     times the block's scale for head h, one scale load per tile and
+//     head, as the TPU kernel's `k.astype(f32) * ks`), so the attend loop
+//     and the shared-memory layout are the float pool's;
 //   - prefill tiles (T > 4): the block stages each tile once and every
 //     warp attends its own four queries to it;
 //   - decode (T <= 4): one tile would leave three warps idle, so the warps
@@ -34,11 +41,15 @@
 //     four partial (m, l, acc) states merge in shared memory at the end;
 //   - mask is cache position <= query position with the TPU kernel's
 //     -1e30 fill; a query that saw no live block (max_pos = -1) writes 0.
-// The scale is the caller's f32 1/sqrt(D).  Split-K across blocks for long
-// contexts at small batch, wgmma for the prefill tiles and TMA staging are
-// later work.
+// The scale is the caller's f32 1/sqrt(D), applied to q before the dot
+// product as the TPU kernel does.  Split-K across blocks for long contexts
+// at small batch, wgmma for the prefill tiles, TMA staging and int8 tiles
+// kept int8 in shared memory are later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -49,6 +60,9 @@ constexpr float kNeg = -1e30f;
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_f32(int8_t v) {
+  return static_cast<float>(v);
 }
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) {
@@ -73,18 +87,32 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // Stage one (bs, D) K/V tile of head h from physical block `blk` as f32,
-// threads `first`.. stepping by `stride`.
-template <typename T>
+// threads `first`.. stepping by `stride`.  KV = int8_t dequantizes with the
+// block's (layer-sliced, (num_blocks, H)) scales; a float pool ignores them.
+template <typename KV>
 __device__ __forceinline__ void stage_tile(
-    const T* __restrict__ k_pool, const T* __restrict__ v_pool, float* k_s,
-    float* v_s, int blk, int h, int H, int D, int bs, int first,
+    const KV* __restrict__ k_pool, const KV* __restrict__ v_pool,
+    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+    float* k_s, float* v_s, int blk, int h, int H, int D, int bs, int first,
     int stride) {
+  constexpr bool kQuant = std::is_same<KV, int8_t>::value;
   const size_t blk_off = static_cast<size_t>(blk) * bs * H * D;
+  float ks = 1.f, vs = 1.f;
+  if constexpr (kQuant) {
+    ks = k_scale[static_cast<size_t>(blk) * H + h];
+    vs = v_scale[static_cast<size_t>(blk) * H + h];
+  }
   for (int i = first; i < bs * D; i += stride) {
     const int j = i / D, d = i - j * D;
     const size_t src = blk_off + (static_cast<size_t>(j) * H + h) * D + d;
-    k_s[j * (D + 1) + d] = to_f32(k_pool[src]);
-    v_s[j * D + d] = to_f32(v_pool[src]);
+    float kv = to_f32(k_pool[src]);
+    float vv = to_f32(v_pool[src]);
+    if constexpr (kQuant) {
+      kv *= ks;
+      vv *= vs;
+    }
+    k_s[j * (D + 1) + d] = kv;
+    v_s[j * D + d] = vv;
   }
 }
 
@@ -140,11 +168,13 @@ __device__ __forceinline__ void write_row(T* __restrict__ orow, float l,
 
 // Prefill tiles: kWarps * kQPW queries per block, each live tile staged
 // once for the whole block.
-template <typename T, int DPL>
+template <typename T, typename KV, int DPL>
 __global__ void __launch_bounds__(kWarps * 32)
 paged_attention_tile_kernel(const T* __restrict__ q,
-                            const T* __restrict__ k_pool,
-                            const T* __restrict__ v_pool,
+                            const KV* __restrict__ k_pool,
+                            const KV* __restrict__ v_pool,
+                            const float* __restrict__ k_scale,
+                            const float* __restrict__ v_scale,
                             const int* __restrict__ tables,
                             const int* __restrict__ positions,
                             const int* __restrict__ max_pos,
@@ -204,7 +234,8 @@ paged_attention_tile_kernel(const T* __restrict__ q,
     // past every query of this tile
     if (blk == 0 || base > mp || base > last_pos) continue;
     __syncthreads();  // previous tile fully consumed
-    stage_tile(k_pool, v_pool, k_s, v_s, blk, h, H, D, bs, tid, kWarps * 32);
+    stage_tile(k_pool, v_pool, k_scale, v_scale, k_s, v_s, blk, h, H, D, bs,
+               tid, kWarps * 32);
     __syncthreads();
 #pragma unroll
     for (int j = 0; j < kQPW; ++j) {
@@ -224,11 +255,13 @@ paged_attention_tile_kernel(const T* __restrict__ q,
 
 // Decode (T <= kWarps): one block per (head, row); the warps split the
 // row's logical blocks and merge their partial softmax states at the end.
-template <typename T, int DPL>
+template <typename T, typename KV, int DPL>
 __global__ void __launch_bounds__(kWarps * 32)
 paged_attention_split_kernel(const T* __restrict__ q,
-                             const T* __restrict__ k_pool,
-                             const T* __restrict__ v_pool,
+                             const KV* __restrict__ k_pool,
+                             const KV* __restrict__ v_pool,
+                             const float* __restrict__ k_scale,
+                             const float* __restrict__ v_scale,
                              const int* __restrict__ tables,
                              const int* __restrict__ positions,
                              const int* __restrict__ max_pos,
@@ -275,7 +308,8 @@ paged_attention_split_kernel(const T* __restrict__ q,
     const int base = w * bs;
     if (blk == 0 || base > mp || base > last_pos) continue;  // warp-uniform
     __syncwarp();  // this warp's previous tile fully consumed
-    stage_tile(k_pool, v_pool, k_s, v_s, blk, h, H, D, bs, lane, 32);
+    stage_tile(k_pool, v_pool, k_scale, v_scale, k_s, v_s, blk, h, H, D, bs,
+               lane, 32);
     __syncwarp();
 #pragma unroll
     for (int j = 0; j < QN; ++j) {
@@ -323,27 +357,29 @@ paged_attention_split_kernel(const T* __restrict__ q,
   }
 }
 
-template <typename T, int DPL>
+template <typename T, typename KV, int DPL>
 int launch(const void* q, const void* k_pool, const void* v_pool,
-           const int* tables, const int* positions, const int* max_pos,
-           void* out, int B, int T_len, int H, int D, int bs, int W,
-           float scale, cudaStream_t stream) {
+           const float* k_scale, const float* v_scale, const int* tables,
+           const int* positions, const int* max_pos, void* out, int B,
+           int T_len, int H, int D, int bs, int W, float scale,
+           cudaStream_t stream) {
   const bool split = T_len <= kWarps;
   size_t smem;
   dim3 grid;
-  void (*kern)(const T*, const T*, const T*, const int*, const int*,
-               const int*, T*, int, int, int, int, int, float);
+  void (*kern)(const T*, const KV*, const KV*, const float*, const float*,
+               const int*, const int*, const int*, T*, int, int, int, int,
+               int, float);
   if (split) {
     smem = sizeof(float) *
            (static_cast<size_t>(kWarps) * bs * (2 * D + 1) + kWarps * D +
             2 * kWarps * kWarps + static_cast<size_t>(kWarps) * kWarps * D);
     grid = dim3(1, H, B);
-    kern = paged_attention_split_kernel<T, DPL>;
+    kern = paged_attention_split_kernel<T, KV, DPL>;
   } else {
     constexpr int QT = kWarps * kQPW;
     smem = sizeof(float) * (static_cast<size_t>(bs) * (2 * D + 1) + QT * D);
     grid = dim3((T_len + QT - 1) / QT, H, B);
-    kern = paged_attention_tile_kernel<T, DPL>;
+    kern = paged_attention_tile_kernel<T, KV, DPL>;
   }
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -352,26 +388,58 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   kern<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), tables, positions, max_pos,
-      static_cast<T*>(out), T_len, H, D, bs, W, scale);
+      static_cast<const T*>(q), static_cast<const KV*>(k_pool),
+      static_cast<const KV*>(v_pool), k_scale, v_scale, tables, positions,
+      max_pos, static_cast<T*>(out), T_len, H, D, bs, W, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, typename KV>
 int dispatch(const void* q, const void* k_pool, const void* v_pool,
-             const int* tables, const int* positions, const int* max_pos,
-             void* out, int B, int T_len, int H, int D, int bs, int W,
-             float scale, cudaStream_t stream) {
+             const float* k_scale, const float* v_scale, const int* tables,
+             const int* positions, const int* max_pos, void* out, int B,
+             int T_len, int H, int D, int bs, int W, float scale,
+             cudaStream_t stream) {
   if (D <= 32)
-    return launch<T, 1>(q, k_pool, v_pool, tables, positions, max_pos, out,
-                        B, T_len, H, D, bs, W, scale, stream);
+    return launch<T, KV, 1>(q, k_pool, v_pool, k_scale, v_scale, tables,
+                            positions, max_pos, out, B, T_len, H, D, bs, W,
+                            scale, stream);
   if (D <= 64)
-    return launch<T, 2>(q, k_pool, v_pool, tables, positions, max_pos, out,
-                        B, T_len, H, D, bs, W, scale, stream);
+    return launch<T, KV, 2>(q, k_pool, v_pool, k_scale, v_scale, tables,
+                            positions, max_pos, out, B, T_len, H, D, bs, W,
+                            scale, stream);
   if (D <= 128)
-    return launch<T, 4>(q, k_pool, v_pool, tables, positions, max_pos, out,
-                        B, T_len, H, D, bs, W, scale, stream);
+    return launch<T, KV, 4>(q, k_pool, v_pool, k_scale, v_scale, tables,
+                            positions, max_pos, out, B, T_len, H, D, bs, W,
+                            scale, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// q's dtype code: 0 = float32, 1 = bfloat16.  The float pool has q's
+// dtype; the quantized one is int8.
+template <bool kQuant>
+int dispatch_q_dtype(const void* q, const void* k_pool, const void* v_pool,
+                     const void* k_scale, const void* v_scale,
+                     const void* tables, const void* positions,
+                     const void* max_pos, void* out, int B, int T_len, int H,
+                     int D, int bs, int W, float scale, int dtype,
+                     void* stream) {
+  if (B <= 0 || T_len <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
+  const int* tb = static_cast<const int*>(tables);
+  const int* ps = static_cast<const int*>(positions);
+  const int* mp = static_cast<const int*>(max_pos);
+  if (dtype == 0)
+    return dispatch<float, std::conditional_t<kQuant, int8_t, float>>(
+        q, k_pool, v_pool, ks, vs, tb, ps, mp, out, B, T_len, H, D, bs, W,
+        scale, s);
+  if (dtype == 1)
+    return dispatch<__nv_bfloat16,
+                    std::conditional_t<kQuant, int8_t, __nv_bfloat16>>(
+        q, k_pool, v_pool, ks, vs, tb, ps, mp, out, B, T_len, H, D, bs, W,
+        scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -386,16 +454,23 @@ extern "C" int tpumx_paged_attention(const void* q, const void* k_pool,
                                      const void* max_pos, void* out, int B,
                                      int T_len, int H, int D, int bs, int W,
                                      float scale, int dtype, void* stream) {
-  if (B <= 0 || T_len <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* tb = static_cast<const int*>(tables);
-  const int* ps = static_cast<const int*>(positions);
-  const int* mp = static_cast<const int*>(max_pos);
-  if (dtype == 0)
-    return dispatch<float>(q, k_pool, v_pool, tb, ps, mp, out, B, T_len, H,
-                           D, bs, W, scale, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k_pool, v_pool, tb, ps, mp, out, B,
-                                   T_len, H, D, bs, W, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_q_dtype<false>(q, k_pool, v_pool, nullptr, nullptr,
+                                 tables, positions, max_pos, out, B, T_len,
+                                 H, D, bs, W, scale, dtype, stream);
+}
+
+// The int8 pool: k_pool, v_pool (num_blocks, bs, H, D) int8 with k_scale,
+// v_scale (num_blocks, H) float32; q and out in `dtype` as above.
+extern "C" int tpumx_paged_attention_q(const void* q, const void* k_pool,
+                                       const void* v_pool,
+                                       const void* k_scale,
+                                       const void* v_scale,
+                                       const void* tables,
+                                       const void* positions,
+                                       const void* max_pos, void* out, int B,
+                                       int T_len, int H, int D, int bs, int W,
+                                       float scale, int dtype, void* stream) {
+  return dispatch_q_dtype<true>(q, k_pool, v_pool, k_scale, v_scale, tables,
+                                positions, max_pos, out, B, T_len, H, D, bs,
+                                W, scale, dtype, stream);
 }

@@ -1,21 +1,21 @@
-"""Paged attention over a block-table KV pool — kernel 2 of the serving slice.
+"""Paged attention over a block-table KV pool.
 
-PyTorch counterpart of ``mxnet_tpu/ops/paged_attention.py`` (the
-``_paged_kernel`` Pallas kernel, float-pool path).  :func:`paged_attention`
+PyTorch counterpart of ``mxnet_tpu/ops/paged_attention.py``: the
+``_paged_kernel`` (float pool) and ``_paged_kernel_q`` (int8 pool with
+per-(block, head) f32 scales) Pallas kernels.  :func:`paged_attention`
 walks each row's block table inside the hand-written CUDA kernel
 ``csrc/paged_attention.cu`` for CUDA tensors; for CPU tensors it takes the
-plain version, :func:`paged_attention_plain`, which gathers the row's
-context and runs :func:`paged_attention_reference` (the gather+dense path
-of ``transformer_lm_decode``) with the kernel's block-skipping folded into
-the mask.  A CUDA tensor the kernel does not take raises; nothing falls
-back.
+plain version, :func:`paged_attention_plain`, which gathers (and, for the
+int8 pool, dequantizes) the row's context and runs
+:func:`paged_attention_reference` (the gather+dense path of
+``transformer_lm_decode``) with the kernel's block skipping folded into the
+mask.  A CUDA tensor the kernel does not take raises; nothing falls back.
 
 Semantics shared by both: table entry 0 is the null block and is skipped,
 as is every logical block past the row's last valid query position
-``max_pos[b]``; a query attends to cache positions ``<=`` its own; scores
-and accumulation are f32; a row with no live block (``max_pos = -1``)
-comes out 0.  The int8-pool variant (``k_scale``/``v_scale``) comes with
-a later slice.
+``max_pos[b]`` — so block 0 and its scales are never read; a query attends
+to cache positions ``<=`` its own; scores and accumulation are f32; a row
+with no live block (``max_pos = -1``) comes out 0.
 """
 from __future__ import annotations
 
@@ -34,6 +34,7 @@ _NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES_Q = [ctypes.c_void_p] * 2 + _ARGTYPES
 _SMEM_LIMIT = 227 * 1024
 _MAX_D = 128
 
@@ -61,29 +62,39 @@ def paged_attention_reference(q, k_ctx, v_ctx, attn_mask, scale):
 
 
 def paged_attention_plain(q, k_pool, v_pool, block_tables, positions,
-                          max_pos, scale):
+                          max_pos, scale, k_scale=None, v_scale=None):
     """Plain PyTorch version of :func:`paged_attention`: gather every
-    table entry's block, mask the null and past-``max_pos`` blocks together
-    with the causal bound, attend densely, zero the rows with no live
-    block."""
+    table entry's block (int8 pool: ``pool.float() * scale`` per block and
+    head, as the reference's gather path dequantizes), zero the null and
+    past-``max_pos`` blocks and mask them together with the causal bound,
+    attend densely, zero the rows with no live block."""
     B, T, H, D = q.shape
     bs = k_pool.shape[1]
     W = block_tables.shape[1]
     tables = block_tables.long()
-    k_ctx = k_pool[tables].reshape(B, W * bs, H, D)
-    v_ctx = v_pool[tables].reshape(B, W * bs, H, D)
+    k_ctx, v_ctx = k_pool[tables], v_pool[tables]      # (B, W, bs, H, D)
+    if k_scale is not None:
+        k_ctx = k_ctx.float() * k_scale[tables][:, :, None, :, None]
+        v_ctx = v_ctx.float() * v_scale[tables][:, :, None, :, None]
     starts = torch.arange(W, device=q.device) * bs
     live = (tables != 0) & (starts[None, :] <= max_pos.long()[:, None])
+    # dead blocks are never read: whatever they hold (NaN included) is
+    # replaced before it can reach a masked product
+    zero = torch.zeros((), dtype=k_ctx.dtype, device=q.device)
+    k_ctx = torch.where(live[:, :, None, None, None], k_ctx, zero)
+    v_ctx = torch.where(live[:, :, None, None, None], v_ctx, zero)
     ctx_pos = torch.arange(W * bs, device=q.device)
     mask = (ctx_pos[None, None, :] <= positions.long()[:, :, None]) \
         & live.repeat_interleave(bs, dim=1)[:, None, :]
-    o = paged_attention_reference(q, k_ctx, v_ctx, mask, scale)
+    o = paged_attention_reference(q, k_ctx.reshape(B, W * bs, H, D),
+                                  v_ctx.reshape(B, W * bs, H, D), mask,
+                                  scale)
     return torch.where(live.any(dim=1)[:, None, None, None], o,
                        torch.zeros((), dtype=o.dtype, device=o.device))
 
 
 def paged_attention(q, k_pool, v_pool, block_tables, positions, max_pos,
-                    scale=None):
+                    scale=None, k_scale=None, v_scale=None):
     """Attention of ``q`` against one layer's paged KV pool.
 
     Parameters
@@ -98,18 +109,28 @@ def paged_attention(q, k_pool, v_pool, block_tables, positions, max_pos,
         inactive row, whose output is 0).
     scale : float, optional — softmax scale; default
         :func:`attention_scale` of D.
+    k_scale, v_scale : (num_blocks, H) float32, optional — per-(block,
+        head) dequantization scales of an int8 pool; given, the pools are
+        int8 and each tile is dequantized as ``int8 -> f32 * scale``.
 
-    Returns (B, T, H, D) in q's dtype.  CUDA tensors (contiguous; q and
-    pools float32 or bfloat16 alike; D <= 128; indices int32) launch the
-    CUDA kernel, counted in ``paged_attention.launches``; CPU tensors take
+    Returns (B, T, H, D) in q's dtype.  CUDA tensors (contiguous; q
+    float32 or bfloat16 with float pools of the same dtype, or int8 pools
+    with their scales; D <= 128; indices int32) launch the CUDA kernel,
+    counted in ``paged_attention.launches`` (float pool) or
+    ``paged_attention.launches_int8`` (int8 pool); CPU tensors take
     :func:`paged_attention_plain`.
     """
     B, T, H, D = q.shape
     if scale is None:
         scale = attention_scale(D)
+    quantized = k_scale is not None
+    if quantized != (v_scale is not None):
+        raise MXNetError("paged_attention: pass both k_scale and v_scale "
+                         "or neither")
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pool, v_pool, block_tables,
-                                     positions, max_pos, scale)
+                                     positions, max_pos, scale, k_scale,
+                                     v_scale)
     if q.device.type != "cuda":
         raise MXNetError(f"paged_attention: unsupported device {q.device}")
     if q.dtype not in _DTYPES:
@@ -117,13 +138,17 @@ def paged_attention(q, k_pool, v_pool, block_tables, positions, max_pos,
                          f"(float32, bfloat16)")
     nb, bs = k_pool.shape[0], k_pool.shape[1]
     W = block_tables.shape[1]
-    expect = (
-        ("k_pool", k_pool, (nb, bs, H, D), q.dtype),
-        ("v_pool", v_pool, (nb, bs, H, D), q.dtype),
+    pool_dtype = torch.int8 if quantized else q.dtype
+    expect = [
+        ("k_pool", k_pool, (nb, bs, H, D), pool_dtype),
+        ("v_pool", v_pool, (nb, bs, H, D), pool_dtype),
         ("block_tables", block_tables, (B, W), torch.int32),
         ("positions", positions, (B, T), torch.int32),
         ("max_pos", max_pos, (B,), torch.int32),
-    )
+    ]
+    if quantized:
+        expect += [("k_scale", k_scale, (nb, H), torch.float32),
+                   ("v_scale", v_scale, (nb, H), torch.float32)]
     for name, t, shape, dtype in expect:
         if t.device != q.device or t.dtype != dtype \
                 or tuple(t.shape) != shape or not t.is_contiguous():
@@ -135,6 +160,8 @@ def paged_attention(q, k_pool, v_pool, block_tables, positions, max_pos,
         raise MXNetError("paged_attention: q must be contiguous")
     if D > _MAX_D:
         raise MXNetError(f"paged_attention: head dim {D} > {_MAX_D}")
+    # both pool types are staged in shared memory as f32 tiles (the int8
+    # pool is dequantized while it is staged), so the sizes agree
     if T <= 4:   # decode kernel: a K/V tile per warp plus merge buffers
         smem = 4 * (4 * bs * (2 * D + 1) + 20 * D + 32)
     else:        # prefill kernel: one K/V tile plus 16 queries
@@ -146,15 +173,25 @@ def paged_attention(q, k_pool, v_pool, block_tables, positions, max_pos,
     out = torch.empty_like(q)
     if B == 0 or T == 0:
         return out
-    fn = _build.kernel_function("paged_attention", "tpumx_paged_attention",
-                                _ARGTYPES)
-    rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            block_tables.data_ptr(), positions.data_ptr(), max_pos.data_ptr(),
-            out.data_ptr(), B, T, H, D, bs, W, float(scale),
-            _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check_launch(rc, "paged_attention")
-    paged_attention.launches += 1
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    tail = (block_tables.data_ptr(), positions.data_ptr(),
+            max_pos.data_ptr(), out.data_ptr(), B, T, H, D, bs, W,
+            float(scale), _DTYPES[q.dtype], stream)
+    if quantized:
+        fn = _build.kernel_function("paged_attention",
+                                    "tpumx_paged_attention_q", _ARGTYPES_Q)
+        rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                k_scale.data_ptr(), v_scale.data_ptr(), *tail)
+        _build.check_launch(rc, "paged_attention (int8 pool)")
+        paged_attention.launches_int8 += 1
+    else:
+        fn = _build.kernel_function("paged_attention",
+                                    "tpumx_paged_attention", _ARGTYPES)
+        rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *tail)
+        _build.check_launch(rc, "paged_attention")
+        paged_attention.launches += 1
     return out
 
 
 paged_attention.launches = 0
+paged_attention.launches_int8 = 0

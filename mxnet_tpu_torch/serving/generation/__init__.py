@@ -5,8 +5,9 @@ memory model), the PyTorch counterpart of
 from .engine import (GenerationConfig, GenerationService, GenerationStepError,
                      GenerationStream)
 from .kv_cache import BlockAllocator, PagedKVCache, blocks_for
+from .prefix_cache import PrefixCacheIndex
 from .programs import GenerationPrograms
 
 __all__ = ["GenerationService", "GenerationConfig", "GenerationStream",
            "GenerationStepError", "PagedKVCache", "BlockAllocator",
-           "GenerationPrograms", "blocks_for"]
+           "GenerationPrograms", "PrefixCacheIndex", "blocks_for"]

@@ -2,11 +2,15 @@
 package's, plus the slice's guards.
 
 Both packages' ``GenerationService`` run the same parameters and the same
-explicit config (``preemption=False, prefix_cache=False`` — the JAX
-defaults are True and the port's slice does not serve them) on the CPU;
-greedy and sampled tokens must be identical.  A prompt past the smallest
-rung is prefilled in chunks; a prompt past the largest rung is refused by
-both at submit.
+config on the CPU; greedy and sampled tokens must be identical.  ``GEN``
+is the reserve-ahead setting (``preemption=False, prefix_cache=False``);
+``DEFAULTS`` keeps the reference's defaults (incremental allocation with
+preemption, the prefix cache) on a pool small enough that preemption
+fires, with prompts that share block-aligned prefixes, so the two engines
+must also agree on preemptions, prefix hits, cached tokens, copy-on-write
+copies and prefilled tokens; the int8 pool is served the same way.  A
+prompt past the smallest rung is prefilled in chunks; a prompt past the
+largest rung is refused by both at submit.
 """
 import ast
 import os
@@ -33,6 +37,9 @@ DIMS = dict(vocab=61, d_model=32, n_heads=4, n_layers=2, d_ff=64,
             max_len=64)
 GEN = dict(max_slots=3, block_size=4, num_blocks=32, seq_buckets=[8, 16],
            max_new_tokens=6, preemption=False, prefix_cache=False)
+# the reference's defaults for everything but sizes: 13 allocatable blocks
+DEFAULTS = dict(max_slots=3, block_size=4, num_blocks=14, seq_buckets=[8, 16],
+                max_new_tokens=6)
 
 
 @pytest.fixture(autouse=True)
@@ -335,8 +342,7 @@ def test_default_device_without_cuda_raises(params, monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(preemption=True), dict(prefix_cache=True), dict(speculative=True),
-    dict(multistep_k=4), dict(kv_dtype="int8"), dict(mp_devices=2),
+    dict(speculative=True), dict(multistep_k=4), dict(mp_devices=2),
     dict(amp_dtype="float16")])
 def test_unported_config_raises(kw):
     base = dict(GEN)
@@ -346,17 +352,265 @@ def test_unported_config_raises(kw):
         tg.GenerationConfig(**base)
 
 
-def test_reference_defaults_not_silently_changed():
-    # the reference defaults preemption and prefix_cache to True: the port
-    # refuses them instead of quietly serving something else
-    with pytest.raises(NotImplementedError, match="preemption"):
-        tg.GenerationConfig()
-    cfg = tg.GenerationConfig(preemption=False, prefix_cache=False)
-    ref = jg.GenerationConfig(preemption=False, prefix_cache=False)
-    for k in ("max_slots", "block_size", "num_blocks", "max_new_tokens",
-              "queue_bound", "backpressure", "chunked_prefill",
-              "admission_budget", "multistep_k", "speculative"):
+@pytest.mark.parametrize("kw", [
+    dict(preemption=True), dict(prefix_cache=True), dict(kv_dtype="int8")])
+def test_reference_features_construct_and_serve(params, kw):
+    """Configurations the port refused before this slice construct with
+    the reference's values and serve a greedy request like the oracle."""
+    _, pt = params
+    base = dict(GEN)
+    base.update(kw)
+    cfg = tg.GenerationConfig(**base)
+    assert getattr(cfg, next(iter(kw))) == next(iter(kw.values()))
+    svc = tg.GenerationService(pt, tt.TransformerConfig(**DIMS), cfg,
+                               device="cpu")
+    prompt = np.arange(9) % DIMS["vocab"]
+    try:
+        out = svc.generate(prompt, max_new_tokens=5, timeout=120)
+        st = svc.stats()
+    finally:
+        svc.stop()
+    assert st["kv_dtype"] == (kw.get("kv_dtype") or "float32")
+    assert st["preemption"] == cfg.preemption
+    assert (st["prefix_cache"] is None) == (not cfg.prefix_cache)
+    if kw.get("kv_dtype") is None:
+        assert out == _greedy_oracle(pt, prompt, 5)
+    else:
+        assert len(out) == 5 and all(0 <= t < DIMS["vocab"] for t in out)
+
+
+def test_config_validation_matches_reference(monkeypatch):
+    for bad in (dict(kv_dtype="bogus"), dict(watermark_high=0.5,
+                                             watermark_low=0.7),
+                dict(watermark_low=0.0), dict(prefix_cache_blocks=-1),
+                dict(multistep_k=0), dict(mp_devices=0)):
+        for pkg in (tg, jg):
+            with pytest.raises(ValueError):
+                pkg.GenerationConfig(**bad)
+    monkeypatch.setenv("TPUMX_GEN_WATERMARK_HIGH", "0.9")
+    monkeypatch.setenv("TPUMX_GEN_PREFIX_CACHE_BLOCKS", "7")
+    monkeypatch.setenv("TPUMX_GEN_KV_DTYPE", "int8")
+    for pkg in (tg, jg):
+        cfg = pkg.GenerationConfig()
+        assert (cfg.watermark_high, cfg.prefix_cache_blocks,
+                cfg.kv_dtype) == (0.9, 7, "int8")
+    monkeypatch.setenv("TPUMX_GEN_KV_DTYPE", "off")
+    assert tg.GenerationConfig().kv_dtype is None
+
+
+def test_reference_defaults_not_silently_changed(params):
+    """``tg.GenerationConfig()`` equals ``jg.GenerationConfig()`` on every
+    field the port has, and a service built with no config serves them:
+    incremental allocation with preemption and the prefix cache."""
+    cfg, ref = tg.GenerationConfig(), jg.GenerationConfig()
+    fields = sorted(vars(cfg))
+    assert {"preemption", "prefix_cache", "watermark_high", "watermark_low",
+            "prefix_cache_blocks", "kv_dtype"} <= set(fields)
+    for k in fields:
         assert getattr(cfg, k) == getattr(ref, k), k
+    assert cfg.preemption and cfg.prefix_cache and cfg.kv_dtype is None
+    _, pt = params
+    svc = tg.GenerationService(pt, tt.TransformerConfig(**DIMS),
+                               device="cpu")
+    try:
+        assert svc._config.preemption and svc._prefix is not None
+        assert svc._cache.allocator.watermark_high == cfg.watermark_high
+        assert len(svc.generate([1, 2, 3], max_new_tokens=3,
+                                timeout=120)) == 3
+    finally:
+        svc.stop()
+
+
+def _waves():
+    """Two waves over three 8-token (two-block) system prompts: wave 1 is
+    each with a suffix plus one system prompt alone (block-aligned), wave
+    2 five new suffixes and that block-aligned prompt once more (a full
+    hit); odd requests sample."""
+    rs = np.random.RandomState(5)
+    system = [rs.randint(0, DIMS["vocab"], 8) for _ in range(3)]
+    wave1 = [np.concatenate([system[i], rs.randint(0, DIMS["vocab"], n)])
+             for i, n in enumerate([3, 4, 5])] + [system[0].copy()]
+    wave2 = [np.concatenate([system[i % 3],
+                             rs.randint(0, DIMS["vocab"], 2 + i)])
+             for i in range(5)] + [system[0].copy()]
+
+    def kw(i):
+        return dict(temperature=0.8, top_k=10, seed=100 + i) if i % 2 else {}
+
+    return [[(p, kw(i)) for i, p in enumerate(wave1)],
+            [(p, kw(i + 10)) for i, p in enumerate(wave2)]]
+
+
+def _serve_waves(svc):
+    """Serve each wave after the previous one has finished."""
+    try:
+        svc.start()
+        outs = []
+        for wave in _waves():
+            hs = [svc.submit(p, **kw) for p, kw in wave]
+            outs += [h.result(timeout=300) for h in hs]
+        return outs, svc.stats()
+    finally:
+        svc.stop()
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_services_with_reference_defaults_agree(params, kv_dtype):
+    """Preemption and the prefix cache on (the defaults), a 13-block pool,
+    shared prefixes: identical greedy and sampled tokens, and identical
+    scheduling counts, each of them exercised."""
+    pj, pt = params
+    gen = dict(DEFAULTS, kv_dtype=kv_dtype)
+    want, sj = _serve_waves(jg.GenerationService(
+        pj, jt.TransformerConfig(**DIMS), jg.GenerationConfig(**gen),
+        start=False))
+    svc = tg.GenerationService(pt, tt.TransformerConfig(**DIMS),
+                               tg.GenerationConfig(**gen), start=False,
+                               device="cpu")
+    got, st = _serve_waves(svc)
+    assert got == want
+    assert all(len(t) == DEFAULTS["max_new_tokens"] for t in got)
+    for key in ("preempted", "prefix_hits", "prefix_misses", "cached_tokens",
+                "cow_copies", "prefill_tokens", "tokens", "finished"):
+        assert st["counts"][key] == sj["counts"][key], key
+        assert st["counts"][key] > 0, key
+    assert st["kv_dtype"] == (kv_dtype or "float32")
+    # finished requests left their blocks to the index; stop() released it
+    assert st["kv_blocks"]["used"] == st["prefix_cache"]["blocks"] > 0
+    assert svc._cache.allocator.num_used == 0
+
+
+def test_default_plans_and_signatures_match_reference():
+    """Under the defaults the chunk planner (fresh, re-prefill, cache-hit
+    suffix) and the warmup signature set equal the reference's."""
+    jsvc = jg.GenerationService({}, jt.TransformerConfig(**DIMS),
+                                jg.GenerationConfig(**DEFAULTS), start=False)
+    tsvc = tg.GenerationService({}, tt.TransformerConfig(**DIMS),
+                                tg.GenerationConfig(**DEFAULTS), start=False,
+                                device="cpu")
+    try:
+        for n in range(1, DIMS["max_len"]):
+            assert tsvc._chunk_plan(n, force_chunked=True) == \
+                jsvc._chunk_plan(n, force_chunked=True)
+            for start in range(4, n, 4):
+                assert tsvc._chunk_plan(n, start=start) == \
+                    jsvc._chunk_plan(n, start=start)
+        assert tsvc._prefill_signatures() == jsvc._prefill_signatures()
+    finally:
+        jsvc.stop()
+        tsvc.stop()
+
+
+def test_preempted_and_resumed_greedy_matches_oracle(params):
+    """Two requests on a pool too small for both worst cases: incremental
+    admission co-schedules them, growth preempts the newest, it resumes
+    by re-prefilling its context — and every token equals full-sequence
+    greedy decoding (as served unpressured)."""
+    _, pt = params
+    svc = _svc(pt, max_slots=2, num_blocks=8, preemption=True,
+               prefix_cache=False)
+    rs = np.random.RandomState(1)
+    prompts = [rs.randint(0, DIMS["vocab"], 20) for _ in range(2)]
+    try:
+        hs = [svc.submit(p, max_new_tokens=12) for p in prompts]
+        svc.start()
+        outs = [h.result(120) for h in hs]
+        stats = svc.stats()
+    finally:
+        svc.stop()
+    for p, got in zip(prompts, outs):
+        assert got == _greedy_oracle(pt, p, 12)
+    assert stats["counts"]["preempted"] >= 1
+    assert {0, 1} in [set(m) for _, m in svc.membership_history()]
+    assert hs[1]._req.n_preempted >= 1 and hs[0]._req.n_preempted == 0
+
+
+def test_victim_is_newest_lowest_priority(params):
+    _, pt = params
+    svc = _svc(pt, max_slots=2, num_blocks=32, preemption=True,
+               watermark_high=0.5, watermark_low=0.25)
+    svc.submit(np.arange(9), max_new_tokens=4)
+    svc.submit(np.arange(9), max_new_tokens=4)
+    alloc = svc._cache.allocator
+    with svc._lock:
+        admitted = svc._admit_locked()
+        assert len(admitted) == 2
+        # incremental admission: blocks for prompt + 1 positions only
+        assert len(admitted[0].blocks) == tg.blocks_for(10, 8)
+        admitted[0].blocks.extend(alloc.allocate(8))
+        admitted[1].blocks.extend(alloc.allocate(8))
+        assert alloc.above_high()
+        svc._watermark_preempt_locked()
+        assert admitted[1].state == "waiting"
+        assert admitted[0].state == "running"
+        assert svc._waiting[0] is admitted[1]
+    assert svc.stats()["counts"]["preempted"] == 1
+    svc.stop(drain=False)
+
+    vic = _svc(pt, max_slots=2, num_blocks=8, preemption=True)
+    rs = np.random.RandomState(2)
+    vic.submit(rs.randint(0, DIMS["vocab"], 20), max_new_tokens=12,
+               priority=0)
+    vic.submit(rs.randint(0, DIMS["vocab"], 20), max_new_tokens=12,
+               priority=5)
+    with vic._lock:
+        admitted = vic._admit_locked()
+        assert [r.priority for r in admitted] == [5, 0]
+        # the low class is the victim though the high one is newer
+        assert vic._slots[vic._pick_victim_locked()].priority == 0
+    vic.stop(drain=False)
+
+
+def test_allocator_watermarks_refcounts_and_cache_parity():
+    ja, ta = jg.BlockAllocator(9, 0.75, 0.5), tg.BlockAllocator(9, 0.75, 0.5)
+    script = [("a", 3), ("i", [1, 2]), ("d", [1]), ("a", 3), ("i", [4]),
+              ("d", [1, 2, 3]), ("a", 2), ("w", (0.9, 0.6)), ("d", [4])]
+    for op, arg in script:
+        outs = []
+        for al in (ta, ja):
+            if op == "a":
+                outs.append(al.allocate(arg))
+            elif op == "i":
+                outs.append(al.incref(arg))
+            elif op == "d":
+                outs.append(al.decref(arg))
+            else:
+                outs.append(al.set_watermarks(*arg))
+        assert outs[0] == outs[1], op
+        assert (ta.num_free, ta.num_shared, ta.above_high(), ta.above_low(),
+                ta.can_allocate(3), ta.occupancy()) == \
+            (ja.num_free, ja.num_shared, ja.above_high(), ja.above_low(),
+             ja.can_allocate(3), ja.occupancy())
+        assert [ta.refcount(b) for b in range(9)] == \
+            [ja.refcount(b) for b in range(9)]
+    for al in (ta, ja):
+        with pytest.raises(ValueError, match="incref of unallocated"):
+            al.incref([8])
+        with pytest.raises(ValueError, match="watermarks"):
+            al.set_watermarks(0.5, 0.6)
+    import jax.numpy as jnp
+    for shape in [(4, 8, 64, 16), (2, 4, 8, 8)]:
+        for tdt, jdt in [(torch.float32, jnp.float32),
+                         (torch.bfloat16, jnp.bfloat16)]:
+            for kv in (None, "int8"):
+                assert tg.PagedKVCache.bytes_per_block(
+                    *shape, dtype=tdt, kv_dtype=kv) == \
+                    jg.PagedKVCache.bytes_per_block(*shape, dtype=jdt,
+                                                    kv_dtype=kv)
+                assert tg.PagedKVCache.num_blocks_for_bytes(
+                    1 << 24, *shape, dtype=tdt, kv_dtype=kv) == \
+                    jg.PagedKVCache.num_blocks_for_bytes(
+                        1 << 24, *shape, dtype=jdt, kv_dtype=kv)
+    c = tg.PagedKVCache(2, 4, 8, 16, 8, device="cpu", kv_dtype="int8")
+    j = jg.PagedKVCache(2, 4, 8, 16, 8, kv_dtype="int8")
+    assert c.quantized and c.k.dtype == torch.int8 and c.shape == j.shape
+    assert tuple(c.k_scale.shape) == j.k_scale.shape == (2, 16, 4)
+    assert (c.k_scale == 1).all() and c.nbytes() == j.nbytes()
+    assert c.max_positions() == j.max_positions()
+    f = tg.PagedKVCache(2, 4, 8, 16, 8, device="cpu")
+    assert not f.quantized and f.k_scale is None and c.nbytes() < f.nbytes()
+    with pytest.raises(ValueError, match="kv_dtype"):
+        tg.PagedKVCache(2, 4, 8, 16, 8, device="cpu", kv_dtype="int4")
 
 
 def _imports(tree):

@@ -1,13 +1,17 @@
-"""PyTorch port, kernel 2: paged attention against the JAX package.
+"""PyTorch port: paged attention (float pool and int8 pool) against the
+JAX package.
 
 The port's ``paged_attention`` on CPU tensors runs its plain version
-(gather + dense attend with the kernel's block skipping in the mask); the
-JAX ``paged_attention`` runs its Pallas kernel through the interpreter
+(gather, dequantize for the int8 pool, dense attend with the kernel's
+block skipping in the mask); the JAX ``paged_attention`` runs its Pallas
+kernels (``_paged_kernel``, ``_paged_kernel_q``) through the interpreter
 off-TPU.  Same numpy inputs, f32.  Cases: T=1 decode and T=8 prefill
 chunks, ragged lengths, a null table entry inside a live range, null
 entries past a row's blocks, and an inactive row (max_pos = -1) that is 0
-in both.  rtol 1e-5 / atol 1e-6.  The CUDA kernel itself is held against
-the plain version on the card by chip_smoke.py.
+in both; for the int8 pool also per-(block, head) scales that vary, and
+block 0 with its scales poisoned with NaN, which neither version may
+read.  rtol 1e-5 / atol 1e-6.  The CUDA kernels themselves are held
+against the plain version on the card by chip_smoke.py.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -96,7 +100,66 @@ def test_paged_attention_matches_gather_reference(T):
                                atol=1e-6)
 
 
+def _int8_pool(seed):
+    """An int8 pool with varying per-(block, head) scales; block 0 (the
+    null block) holds garbage and NaN scales."""
+    rs = np.random.RandomState(seed)
+    kp = rs.randint(-127, 128, (NB, BS, H, D)).astype(np.int8)
+    vp = rs.randint(-127, 128, (NB, BS, H, D)).astype(np.int8)
+    ks = (rs.rand(NB, H) * 0.05 + 0.001).astype(np.float32)
+    vs = (rs.rand(NB, H) * 0.05 + 0.001).astype(np.float32)
+    ks[0] = vs[0] = np.nan
+    return kp, vp, ks, vs
+
+
+@pytest.mark.parametrize("T", [1, 8])
+def test_paged_attention_int8_matches_jax_kernel(T):
+    q, _, _, tables, pos, mp, lengths = _case(T, 200 + T)
+    kp, vp, ks, vs = _int8_pool(300 + T)
+    scale = tpa.attention_scale(D)
+    want = np.asarray(jpa.paged_attention(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(tables), jnp.asarray(pos), jnp.asarray(mp), scale=scale,
+        k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs)))
+    before = (tpa.paged_attention.launches,
+              tpa.paged_attention.launches_int8)
+    got = tpa.paged_attention(
+        torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
+        torch.from_numpy(tables), torch.from_numpy(pos),
+        torch.from_numpy(mp), k_scale=torch.from_numpy(ks),
+        v_scale=torch.from_numpy(vs)).numpy()
+    assert (tpa.paged_attention.launches,
+            tpa.paged_attention.launches_int8) == before
+    assert got.dtype == np.float32 and np.isfinite(got).all()
+    for b in range(2):
+        n = lengths[b]
+        np.testing.assert_allclose(got[b, :n], want[b, :n], rtol=1e-5,
+                                   atol=1e-6)
+    assert not got[2].any() and not want[2].any()
+
+
+@pytest.mark.parametrize("T", [1, 8])
+def test_paged_attention_int8_matches_dequantized_float(T):
+    """The int8 pool against the float pool holding its dequantized
+    values (what the reference's gather path attends to)."""
+    q, _, _, tables, pos, mp, lengths = _case(T, 400 + T)
+    kp, vp, ks, vs = _int8_pool(500 + T)
+    kf = (kp.astype(np.float32) * ks[:, None, :, None]).astype(np.float32)
+    vf = (vp.astype(np.float32) * vs[:, None, :, None]).astype(np.float32)
+    t = torch.from_numpy
+    got = tpa.paged_attention(t(q), t(kp), t(vp), t(tables), t(pos), t(mp),
+                              k_scale=t(ks), v_scale=t(vs)).numpy()
+    want = tpa.paged_attention(t(q), t(np.nan_to_num(kf)),
+                               t(np.nan_to_num(vf)), t(tables), t(pos),
+                               t(mp)).numpy()
+    for b in range(3):
+        n = lengths[b]
+        np.testing.assert_array_equal(got[b, :n], want[b, :n])
+
+
 def test_paged_attention_refuses_other_devices():
     q = torch.empty(1, 1, H, D, device="meta")
     with pytest.raises(MXNetError, match="unsupported device"):
         tpa.paged_attention(q, q, q, q, q, q)
+    with pytest.raises(MXNetError, match="both k_scale and v_scale"):
+        tpa.paged_attention(q, q, q, q, q, q, k_scale=q)
