@@ -10,46 +10,60 @@ toolkit (``nvcc``) and PyTorch built for CUDA.  Phases, one JSON line each:
 2. build    — compile every ``mxnet_tpu_torch/ops/csrc/*.cu`` (one nvcc
               each, in parallel) and report seconds and ptxas usage.
 3. kernels  — each CUDA kernel against its plain PyTorch version on the
-              card at the serving path's shapes (paged attention over the
-              float pool and over the int8 pool, q in float32 and
-              bfloat16), with the error, the kernel's time, the plain
-              version's, a library call's where one computes the same
-              function, and the least time the card could take (bytes or
-              operations over the H100's peak rates).
+              card at its path's shapes: LayerNorm (forward, and its
+              gradient — kernel forward plus autograd — at the training
+              rows), paged attention over the float pool and over the int8
+              pool (q in float32 and bfloat16), and the three flash
+              attention kernels (forward with lse, dQ, dK/dV; float32 and
+              bfloat16, causal and not, the training shape and a ragged T;
+              the backward kernels bitwise equal over two runs).  With the
+              error, the kernel's time, the plain version's, a library
+              call's where one computes the same function, and the least
+              time the card could take (bytes or operations over the H100's
+              peak rates).
 4. model    — the GPT-2-small-width LM (random weights from a seed): a
               prefill chunk plus T=1 decode steps through the paged KV
               cache and both kernels, against the full-sequence forward;
               the same through an int8 pool, the paged path (the int8
               kernel) against the dequantizing gather path.
-5. serving  — ``GenerationService`` on ``cuda`` serves 12 requests (8
+5. training — the reference trainer's LM step (B=8, T=1024, labels the
+              tokens rolled by one, lr 0.1, momentum 0.9) at the same width:
+              one float32 ``train_step`` with flash attention against one
+              with ``local_attention`` (loss and every gradient), then ten
+              chained bfloat16 steps through the flash kernels (losses
+              finite and falling, 12 launches of each flash kernel and 25
+              LayerNorms per step); step ms, tokens/s, peak memory.
+6. serving  — ``GenerationService`` on ``cuda`` serves 12 requests (8
               greedy, 4 sampled) through reserve-ahead admission, chunked
               prefill and continuous-batching decode; greedy tokens are
               checked teacher-forced against the full-sequence forward
               and against the same request served alone; both kernels
               must have launched on this path.
-6. serving_default — the same model under the reference's default
+7. serving_default — the same model under the reference's default
               ``GenerationConfig`` (incremental allocation with
-              preemption, the prefix cache) on a 64-block pool: two waves
+              preemption, the prefix cache) on a 52-block pool: two waves
               of requests sharing 256-token system prompts; greedy tokens
               checked teacher-forced; preemption, prefix hits and
               copy-on-write copies must all have happened.
-7. serving_int8 — the ``serving`` phase's requests with
+8. serving_int8 — the ``serving`` phase's requests with
               ``kv_dtype="int8"``: all complete, only the int8 kernel
               serves attention, and greedy tokens agree with the float
               pool's on >= 75% of positions.
 
-An optional comma-separated argument (``kernels``, ``model``, ``serving``,
-``serving_default``, ``serving_int8`` — which also runs ``serving``, its
-float baseline — and ``profile``, which is not in the default run: the
-serving window once more under ``torch.profiler``) runs only those phases
-after device and build.  Then the kernel table line, the ``nvidia-smi``
-line and, last, the result line ``{"ok": true, "device": {...}}``.  Any
-failure raises: the script exits non-zero and prints no result line.  It
-also exits non-zero without a CUDA device or without the rest of the
-repository beside it.
+An optional comma-separated argument (``kernels``, ``model``,
+``training``, ``serving``, ``serving_default``, ``serving_int8`` — which
+also runs ``serving``, its float baseline — and ``profile`` and
+``profile_training``, which are not in the default run: the serving
+window, or two bf16 training steps, once more under ``torch.profiler``)
+runs only those phases after device and build.  Then the kernel table line
+(when ``kernels`` and a path ran), the ``nvidia-smi`` line and, last, the
+result line ``{"ok": true, "device": {...}}``.  Any failure raises: the
+script exits non-zero and prints no result line.  It also exits non-zero
+without a CUDA device or without the rest of the repository beside it.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -69,6 +83,9 @@ TOL = {"float32": dict(rtol=1e-4, atol=1e-5),
 GPT2_SMALL = dict(vocab=50257, d_model=768, n_heads=12, n_layers=12,
                   d_ff=3072, max_len=1024)
 SEED = 0
+# flash attention shapes (B, T, H, D): the LM training step's, and a T
+# that is no multiple of the kernels' 64-row tiles
+FLASH_SHAPES = {"training": (8, 1024, 12, 64), "ragged": (2, 1000, 3, 64)}
 # serving_default's pool: small enough that its two waves preempt
 DEFAULT_POOL_BLOCKS = 52
 
@@ -336,10 +353,188 @@ def _paged_attention_cases(dev, int8: bool = False):
     return out
 
 
+def _layer_norm_backward_cases(dev):
+    """LayerNorm's gradient on the card at the training path's rows (B*T =
+    8192, C = 768): the kernel forward plus autograd through the plain
+    version, against autograd through the plain version alone."""
+    import torch
+
+    from mxnet_tpu_torch.ops.layer_norm import (layer_norm_fused,
+                                                layer_norm_reference)
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    M, C = 8 * 1024, GPT2_SMALL["d_model"]
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for gelu in (False, True):
+            x = (torch.randn(M, C, generator=g, device=dev) * 2.0 + 0.5
+                 ).to(dtype).requires_grad_()
+            gam = (1.0 + 0.1 * torch.randn(C, generator=g, device=dev)
+                   ).to(dtype).requires_grad_()
+            bet = (0.1 * torch.randn(C, generator=g, device=dev)
+                   ).to(dtype).requires_grad_()
+            dy = torch.randn(M, C, generator=g, device=dev).to(dtype)
+            n0 = layer_norm_fused.launches
+            out = layer_norm_fused(x, gam, bet, 1e-5, gelu)
+            launched = layer_norm_fused.launches - n0
+            has_grad_fn = out.grad_fn is not None
+            got = torch.autograd.grad(out, (x, gam, bet), dy)
+            want = torch.autograd.grad(
+                layer_norm_reference(x, gam, bet, 1e-5, gelu),
+                (x, gam, bet), dy)
+            torch.cuda.synchronize()
+            dname = str(dtype).split(".")[-1]
+            close = [_close(a, b, dname) for a, b in zip(got, want)]
+            rows.append({"M": M, "C": C, "dtype": dname, "gelu": gelu,
+                         "grad_fn": has_grad_fn, "launches": launched,
+                         "ok": has_grad_fn and launched == 1
+                         and all(c[0] for c in close),
+                         "bitwise_equal": all(bool(torch.equal(a, b))
+                                              for a, b in zip(got, want)),
+                         "max_abs_err": {n: c[1] for n, c in
+                                         zip(("dx", "dgamma", "dbeta"),
+                                             close)}})
+    return rows
+
+
+def _event_ms(fn, n: int = 10) -> float:
+    """Mean device time of ``fn`` over ``n`` calls between CUDA events,
+    after two warm-up calls (for work a CUDA graph cannot capture)."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(n):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n
+
+
+def _flash_work(B, T, H, D, item, causal):
+    """Bytes each flash kernel must move (inputs read once, outputs
+    written once; lse and delta are f32 rows) and the operations its live
+    (query, key) pairs need: 4*D per pair forward, 6*D for dQ, 8*D for
+    dK/dV."""
+    pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
+    n, rows = B * T * H * D * item, B * H * T * 4
+    return {"fwd": (4 * n + rows, 4 * D * pairs),
+            "dq": (5 * n + 2 * rows, 6 * D * pairs),
+            "dkv": (6 * n + 2 * rows, 8 * D * pairs)}
+
+
+def _flash_cases(dev):
+    """Kernels 6-8 against their plain versions on the card: the LM's
+    training shape (q, k, v strided views of one fused qkv product, as the
+    model passes them) and a ragged T, float32 and bfloat16, causal and
+    not.  The backward kernels and their plain versions take the same out,
+    lse and delta; each backward kernel runs twice and must give the same
+    bits.  Times at the training shape only."""
+    import torch
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops import flash_attention as fa
+
+    rows = []
+    for shape, (B, T, H, D) in FLASH_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                dname = str(dtype).split(".")[-1]
+                g = torch.Generator(device=dev).manual_seed(
+                    SEED + T + int(causal))
+                if shape == "training":
+                    qkv = torch.randn(B, T, 3 * H * D, generator=g,
+                                      device=dev).to(dtype)
+                    q, k, v = (t.reshape(B, T, H, D)
+                               for t in qkv.split(H * D, dim=-1))
+                else:
+                    q, k, v = (torch.randn(B, T, H, D, generator=g,
+                                           device=dev).to(dtype)
+                               for _ in range(3))
+                go = torch.randn(B, T, H, D, generator=g,
+                                 device=dev).to(dtype)
+                scale = 1.0 / np.sqrt(D)
+                out, lse = fa.flash_attention_forward(q, k, v, causal)
+                w_out, w_lse = fa.flash_attention_forward_reference(
+                    q, k, v, causal)
+                delta = fa.flash_delta(w_out, go)
+                bwd_args = (q, k, v, go, w_lse, delta, causal)
+                runs = [(fa.flash_attention_dq(*bwd_args),
+                         *fa.flash_attention_dkv(*bwd_args))
+                        for _ in range(2)]
+                want = (fa.flash_attention_dq_reference(*bwd_args, scale),
+                        *fa.flash_attention_dkv_reference(*bwd_args, scale))
+                torch.cuda.synchronize()
+                errs, ok = {}, True
+                for name, a, b, tol in (
+                        ("out", out, w_out, dname), ("lse", lse, w_lse,
+                                                     "float32"),
+                        ("dq", runs[0][0], want[0], dname),
+                        ("dk", runs[0][1], want[1], dname),
+                        ("dv", runs[0][2], want[2], dname)):
+                    good, err, _ = _close(a, b, tol)
+                    good = good and bool(torch.isfinite(a.float()).all())
+                    errs[name] = err
+                    ok = ok and good
+                bitwise = all(bool(torch.equal(a, b))
+                              for a, b in zip(runs[0], runs[1]))
+                row = {"shape": shape, "B": B, "T": T, "H": H, "D": D,
+                       "dtype": dname, "causal": causal,
+                       "ok": ok and bitwise, "bitwise_deterministic": bitwise,
+                       "max_abs_err": errs}
+                if shape == "training":
+                    row["ms"] = {
+                        "fwd": time_ms(lambda _: fa.flash_attention_forward(
+                            q, k, v, causal)[0], q),
+                        "dq": time_ms(lambda _: fa.flash_attention_dq(
+                            *bwd_args), q),
+                        "dkv": time_ms(lambda _: fa.flash_attention_dkv(
+                            *bwd_args)[0], q)}
+                    row["plain_ms"] = {
+                        "fwd": time_ms(
+                            lambda _: fa.flash_attention_forward_reference(
+                                q, k, v, causal)[0], q, iters=4, reps=5),
+                        "dq": time_ms(
+                            lambda _: fa.flash_attention_dq_reference(
+                                *bwd_args, scale), q, iters=4, reps=5),
+                        "dkv": time_ms(
+                            lambda _: fa.flash_attention_dkv_reference(
+                                *bwd_args, scale)[0], q, iters=4, reps=5)}
+                    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+                    sdpa_fwd = time_ms(
+                        lambda _: F.scaled_dot_product_attention(
+                            qt, kt, vt, is_causal=causal, scale=scale), q)
+                    lq, lk, lv = (t.detach().requires_grad_()
+                                  for t in (qt, kt, vt))
+                    gt = go.transpose(1, 2)
+
+                    def sdpa_step():
+                        o = F.scaled_dot_product_attention(
+                            lq, lk, lv, is_causal=causal, scale=scale)
+                        torch.autograd.grad(o, (lq, lk, lv), gt)
+
+                    both = _event_ms(sdpa_step)
+                    row["sdpa_ms"] = {"fwd": sdpa_fwd, "fwd_bwd": both,
+                                      "bwd": both - sdpa_fwd}
+                    row["bound_ms"], row["bound_by"] = {}, {}
+                    for kname, (nbytes, flops) in _flash_work(
+                            B, T, H, D, q.element_size(), causal).items():
+                        row["bound_ms"][kname], row["bound_by"][kname] = \
+                            bound_ms(nbytes, flops, dname)
+                rows.append(row)
+    return rows
+
+
 def phase_kernels(dev):
     rows = {"layer_norm": _layer_norm_cases(dev),
+            "layer_norm_backward": _layer_norm_backward_cases(dev),
             "paged_attention": _paged_attention_cases(dev),
-            "paged_attention_int8": _paged_attention_cases(dev, int8=True)}
+            "paged_attention_int8": _paged_attention_cases(dev, int8=True),
+            "flash_attention": _flash_cases(dev)}
     emit({"phase": "kernels", "tolerance": TOL, **rows})
     bad = [r for rs in rows.values() for r in rs if not r["ok"]]
     if bad:
@@ -578,21 +773,29 @@ def _serve(svc, prompts):
 
 
 def _reset_launches():
+    from mxnet_tpu_torch.ops import flash_attention as fa
     from mxnet_tpu_torch.ops.layer_norm import layer_norm_fused
     from mxnet_tpu_torch.ops.paged_attention import paged_attention
 
     layer_norm_fused.launches = 0
     paged_attention.launches = 0
     paged_attention.launches_int8 = 0
+    fa.flash_attention_forward.launches = 0
+    fa.flash_attention_dq.launches = 0
+    fa.flash_attention_dkv.launches = 0
 
 
 def _read_launches():
+    from mxnet_tpu_torch.ops import flash_attention as fa
     from mxnet_tpu_torch.ops.layer_norm import layer_norm_fused
     from mxnet_tpu_torch.ops.paged_attention import paged_attention
 
     return {"layer_norm": layer_norm_fused.launches,
             "paged_attention": paged_attention.launches,
-            "paged_attention_int8": paged_attention.launches_int8}
+            "paged_attention_int8": paged_attention.launches_int8,
+            "flash_attention_fwd": fa.flash_attention_forward.launches,
+            "flash_attention_dq": fa.flash_attention_dq.launches,
+            "flash_attention_dkv": fa.flash_attention_dkv.launches}
 
 
 def _greedy_check(dev, cfg, params, prompts, outs):
@@ -741,7 +944,7 @@ def _default_traffic(cfg):
 
 def phase_serving_default(dev, cfg, params):
     """``GenerationService`` with the reference's default preemption and
-    prefix cache (f32 pool, a 64-block pool so that preemption fires),
+    prefix cache (f32 pool, a 52-block pool so that preemption fires),
     the serving phase's block size, rungs and max_new_tokens."""
     import torch
 
@@ -809,25 +1012,154 @@ def phase_serving_default(dev, cfg, params):
     return res
 
 
-def phase_profile(dev, cfg, params):
-    """Optional (not in the default run): the serving window once more
-    under ``torch.profiler`` — device time by kernel name and the share of
-    the window with no kernel running.  The profiler slows the host, so
-    this window's wall time is not the serving phase's."""
+def _grad_rel_errors(m_a, m_b, m0, momentum):
+    """Per-parameter normwise error ||a - b|| / ||b|| of the gradients read
+    back from two steps' momenta: ``g = m_after - momentum * m_before``."""
+    out = {}
+    for k in m_b:
+        a = m_a[k] - momentum * m0[k]
+        b = m_b[k] - momentum * m0[k]
+        out[k] = ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+    return out
+
+
+def phase_training(dev, cfg, params):
+    """The LM training step of the reference's trainer
+    (``benchmark/python/transformer/lm_bench.py``: B=8, T=1024, labels
+    ``np.roll(tokens, -1, 1)``, lr 0.1, momentum 0.9) at GPT-2-small width.
+
+    f32 check: one ``train_step`` with ``flash_attention(causal=True)``
+    against one with ``local_attention(causal=True)`` from the same params
+    and zero momenta — loss within 1e-5 relative, every parameter's
+    gradient within 1e-4 normwise.  Then the main path, lm_bench's flash
+    leg: ten chained bf16 steps (``compute_dtype=torch.bfloat16``) on the
+    same batch, counted from 0 — every loss finite, the last below the
+    first, the first within 2e-2 of the f32 loss, and per step 12 launches
+    of each flash kernel, 25 LayerNorms and no paged attention."""
+    import functools
+
+    import torch
+
+    from mxnet_tpu_torch.ops.flash_attention import flash_attention
+    from mxnet_tpu_torch.parallel.ring_attention import local_attention
+    from mxnet_tpu_torch.parallel.transformer import train_step
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise SystemExit("TF32 is on: the f32 comparison needs full f32")
+    B, T, lr, momentum = 8, 1024, 0.1, 0.9
+    rs = np.random.RandomState(SEED)
+    tokens_np = rs.randint(0, cfg.vocab, (B, T))
+    tokens = torch.as_tensor(tokens_np, device=dev)
+    labels = torch.as_tensor(np.roll(tokens_np, -1, 1), device=dev)
+    positions = torch.arange(T, device=dev)
+    zeros = {k: torch.zeros_like(v) for k, v in params.items()}
+    flash = functools.partial(flash_attention, causal=True)
+    local = functools.partial(local_attention, causal=True)
+
+    def timed_step(attention, p, m, dtype=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = train_step(p, m, tokens, labels, positions, cfg, lr=lr,
+                         momentum=momentum, attention=attention,
+                         compute_dtype=dtype)
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    n = cfg.n_layers
+    per_step = {"flash_attention_fwd": n, "flash_attention_dq": n,
+                "flash_attention_dkv": n, "layer_norm": 2 * n + 1,
+                "paged_attention": 0, "paged_attention_int8": 0}
+    # f32: flash against local attention
+    f32 = {}
+    for name, att in (("flash", flash), ("local", local)):
+        _reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        (loss, _, mom), first_ms = timed_step(att, params, zeros)
+        launches = _read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        _, again_ms = timed_step(att, params, zeros)
+        f32[name] = {"loss": loss.item(), "momenta": mom,
+                     "step_ms": again_ms, "first_step_ms": first_ms,
+                     "tokens_per_s": B * T / (again_ms / 1e3),
+                     "peak_bytes": peak, "launches": launches}
+    rel = _grad_rel_errors(f32["flash"]["momenta"], f32["local"]["momenta"],
+                           zeros, momentum)
+    loss_rel = abs(f32["flash"]["loss"] - f32["local"]["loss"]) \
+        / abs(f32["local"]["loss"])
+    worst = max(rel, key=rel.get)
+    for v in f32.values():
+        del v["momenta"]
+    # the main path: lm_bench's bf16 flash leg, ten chained steps
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    p, m, losses, step_ms = params, zeros, [], []
+    for _ in range(10):
+        (loss, p, m), ms = timed_step(flash, p, m, torch.bfloat16)
+        losses.append(loss)
+        step_ms.append(ms)
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [x.item() for x in losses]
+    del p, m
+    steady = float(np.median(step_ms[1:]))
+    res = {"phase": "training", "config": dataclasses.asdict(cfg),
+           "B": B, "T": T,
+           "lr": lr, "momentum": momentum,
+           "f32": {"flash": f32["flash"], "local": f32["local"],
+                   "loss_rel_err": loss_rel,
+                   "grad_rel_err_max": rel[worst], "grad_rel_err_worst": worst,
+                   "grad_rel_err": rel,
+                   "tolerance": {"loss_rel": 1e-5, "grad_rel": 1e-4}},
+           "bf16": {"losses": losses, "step_ms": step_ms,
+                    "steady_step_ms": steady,
+                    "tokens_per_s": B * T / (steady / 1e3),
+                    "peak_bytes": peak, "launches": launches,
+                    "first_loss_rel_to_f32":
+                    abs(losses[0] - f32["flash"]["loss"])
+                    / abs(f32["flash"]["loss"])},
+           "launches": launches}
+    emit(res)
+    bad = []
+    if loss_rel > 1e-5:
+        bad.append(f"f32 flash loss differs from local by {loss_rel:.3g}")
+    if rel[worst] > 1e-4:
+        bad.append(f"gradient of {worst} differs by {rel[worst]:.3g}")
+    if f32["flash"]["launches"] != per_step:
+        bad.append(f"f32 flash step launches {f32['flash']['launches']}")
+    if f32["local"]["launches"] != dict(
+            per_step, flash_attention_fwd=0, flash_attention_dq=0,
+            flash_attention_dkv=0):
+        bad.append(f"f32 local step launches {f32['local']['launches']}")
+    if launches != {k: 10 * v for k, v in per_step.items()}:
+        bad.append(f"bf16 steps launched {launches}, not 10 x {per_step}")
+    if not all(np.isfinite(losses)):
+        bad.append(f"non-finite bf16 loss: {losses}")
+    elif not losses[-1] < losses[0]:
+        bad.append(f"bf16 loss did not fall at lr {lr}, momentum "
+                   f"{momentum}: {losses}")
+    if res["bf16"]["first_loss_rel_to_f32"] > 2e-2:
+        bad.append(f"bf16 first loss {losses[0]} vs f32 "
+                   f"{f32['flash']['loss']}")
+    if bad:
+        raise SystemExit("training phase failed: " + "; ".join(bad))
+    return res
+
+
+def _profiled(fn):
+    """Run ``fn`` under ``torch.profiler``: wall time, device busy time
+    (the union of kernel intervals), the idle share, and device time by
+    kernel name.  The profiler slows the host, so the wall time is not an
+    unprofiled run's."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    svc, prompts = _service(dev, cfg, params)
-    try:
-        svc.warmup()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            _serve(svc, prompts)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-    finally:
-        svc.stop()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
@@ -842,18 +1174,67 @@ def phase_profile(dev, cfg, params):
         agg[0] += 1
         agg[1] += e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    emit({"phase": "profile", "wall_s": wall, "kernels": len(kernels),
-          "device_busy_s": busy_us / 1e6,
-          "idle_share": 1.0 - busy_us / 1e6 / wall,
-          "top": [{"name": n[:80], "count": c, "ms": us / 1e3}
-                  for n, (c, us) in top]})
+    return {"wall_s": wall, "kernels": len(kernels),
+            "device_busy_s": busy_us / 1e6,
+            "idle_share": 1.0 - busy_us / 1e6 / wall,
+            "top": [{"name": n[:80], "count": c, "ms": us / 1e3}
+                    for n, (c, us) in top]}
 
 
-def _kernel_table(kern, served):
-    """One row per CUDA kernel: its decode-shape (f32) times and bound
-    from the kernels phase, the largest error over all its cases, and its
-    launches on the serving paths run (each counted from 0 just before
-    its window)."""
+def phase_profile(dev, cfg, params):
+    """Optional (not in the default run): the serving window once more
+    under ``torch.profiler`` — device time by kernel name and the share of
+    the window with no kernel running."""
+    svc, prompts = _service(dev, cfg, params)
+    try:
+        svc.warmup()
+        res = _profiled(lambda: _serve(svc, prompts))
+    finally:
+        svc.stop()
+    emit({"phase": "profile", **res})
+
+
+def phase_profile_training(dev, cfg, params):
+    """Optional (not in the default run): two chained bf16 training steps
+    of the ``training`` phase's main path under ``torch.profiler``, after
+    one unprofiled warm-up step."""
+    import functools
+
+    import torch
+
+    from mxnet_tpu_torch.ops.flash_attention import flash_attention
+    from mxnet_tpu_torch.parallel.transformer import train_step
+
+    B, T = 8, 1024
+    tokens_np = np.random.RandomState(SEED).randint(0, cfg.vocab, (B, T))
+    tokens = torch.as_tensor(tokens_np, device=dev)
+    labels = torch.as_tensor(np.roll(tokens_np, -1, 1), device=dev)
+    positions = torch.arange(T, device=dev)
+    state = [params, {k: torch.zeros_like(v) for k, v in params.items()}]
+
+    def steps(n):
+        for _ in range(n):
+            _, state[0], state[1] = train_step(
+                state[0], state[1], tokens, labels, positions, cfg,
+                attention=functools.partial(flash_attention, causal=True),
+                compute_dtype=torch.bfloat16)
+
+    steps(1)
+    torch.cuda.synchronize()
+    emit({"phase": "profile_training", "steps": 2,
+          **_profiled(lambda: steps(2))})
+
+
+def _kernel_table(kern, runs):
+    """One row per CUDA kernel: its times and bound from the kernels phase
+    at the main path's shape (LayerNorm and paged attention: the serving
+    decode shape, f32; flash attention: the training shape, bf16, causal —
+    the bf16 recipe's), the largest error over all its cases, and its
+    launches on each main path run (each counted from 0 just before its
+    window)."""
+    flash = next(c for c in kern["flash_attention"]
+                 if c["shape"] == "training" and c["dtype"] == "bfloat16"
+                 and c["causal"])
     pick = {"layer_norm": lambda r: r["M"] == 8 and not r["gelu"]
             and r["dtype"] == "float32",
             "paged_attention": lambda r: r["kind"] == "decode"
@@ -866,16 +1247,39 @@ def _kernel_table(kern, served):
                                 "mxnet_tpu/ops/paged_attention.py:71"),
             "paged_attention_int8": (
                 "mxnet_tpu_torch/ops/csrc/paged_attention.cu",
-                "mxnet_tpu/ops/paged_attention.py:121")}
+                "mxnet_tpu/ops/paged_attention.py:121"),
+            "flash_attention_fwd": (
+                "mxnet_tpu_torch/ops/csrc/flash_attention.cu",
+                "mxnet_tpu/ops/flash_attention.py:88"),
+            "flash_attention_dq": (
+                "mxnet_tpu_torch/ops/csrc/flash_attention.cu",
+                "mxnet_tpu/ops/flash_attention.py:207"),
+            "flash_attention_dkv": (
+                "mxnet_tpu_torch/ops/csrc/flash_attention.cu",
+                "mxnet_tpu/ops/flash_attention.py:242")}
     rows = []
     for name, (src, rep) in meta.items():
-        r = next(c for c in kern[name] if pick[name](c))
-        by_phase = {ph: res["launches"][name] for ph, res in served.items()}
+        if name.startswith("flash"):
+            part = name.rsplit("_", 1)[1]
+            outs = {"fwd": ("out", "lse"), "dq": ("dq",),
+                    "dkv": ("dk", "dv")}[part]
+            r = {"ms": flash["ms"][part], "plain_ms": flash["plain_ms"][part],
+                 "bound_ms": flash["bound_ms"][part],
+                 "bound_by": flash["bound_by"][part],
+                 # one library call computes the forward; none computes
+                 # dQ or dK/dV alone (SDPA's backward is in the kernels
+                 # phase's sdpa_ms)
+                 "library_ms": flash["sdpa_ms"]["fwd"] if part == "fwd"
+                 else None}
+            err = max(c["max_abs_err"][o] for c in kern["flash_attention"]
+                      for o in outs)
+        else:
+            r = next(c for c in kern[name] if pick[name](c))
+            err = max(c["max_abs_err"] for c in kern[name])
+        by_phase = {ph: res["launches"][name] for ph, res in runs.items()}
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "launches": sum(by_phase.values()),
-                     "launches_by_phase": by_phase,
-                     "max_abs_err": max(c["max_abs_err"]
-                                        for c in kern[name]),
+                     "launches_by_phase": by_phase, "max_abs_err": err,
                      "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"]})
@@ -898,32 +1302,37 @@ def main(argv) -> int:
               file=sys.stderr)
         return 2
     phases = set(argv[1].split(",")) if len(argv) > 1 else {
-        "kernels", "model", "serving", "serving_default", "serving_int8"}
+        "kernels", "model", "training", "serving", "serving_default",
+        "serving_int8"}
     if "serving_int8" in phases:
         phases.add("serving")   # its float baseline
     t_start = time.perf_counter()
     dev, smi = phase_device()
     phase_build()
     kern = phase_kernels(dev) if "kernels" in phases else None
-    served = {}
-    if phases & {"model", "serving", "serving_default", "serving_int8",
-                 "profile"}:
+    runs = {}
+    if phases & {"model", "training", "serving", "serving_default",
+                 "serving_int8", "profile", "profile_training"}:
         cfg, params = _model(dev)
         if "model" in phases:
             phase_model(dev, cfg, params)
+        if "training" in phases:
+            runs["training"] = phase_training(dev, cfg, params)
         if "serving" in phases:
-            served["serving"] = phase_serving(dev, cfg, params)
+            runs["serving"] = phase_serving(dev, cfg, params)
         if "serving_default" in phases:
-            served["serving_default"] = phase_serving_default(dev, cfg,
+            runs["serving_default"] = phase_serving_default(dev, cfg,
                                                               params)
         if "serving_int8" in phases:
-            served["serving_int8"] = phase_serving(
+            runs["serving_int8"] = phase_serving(
                 dev, cfg, params, kv_dtype="int8",
-                baseline=served["serving"])
+                baseline=runs["serving"])
         if "profile" in phases:
             phase_profile(dev, cfg, params)
-    if kern is not None and served:
-        emit({"kernels": _kernel_table(kern, served)})
+        if "profile_training" in phases:
+            phase_profile_training(dev, cfg, params)
+    if kern is not None and runs:
+        emit({"kernels": _kernel_table(kern, runs)})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

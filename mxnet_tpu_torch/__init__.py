@@ -7,10 +7,11 @@ by hand for Hopper (``ops/csrc/*.cu``, built at first use), each with a
 plain PyTorch version that CPU tensors take.  The package imports torch and
 numpy, never jax and nothing of ``mxnet_tpu``.
 
-Ported so far (the serving slice): the decoder-only transformer LM and the
-continuous-batching generation engine over a paged KV cache, with the
-fused LayerNorm and paged-attention kernels.  Entry points run on
-``cuda`` unless the caller passes ``device="cpu"``.
+Ported so far: the decoder-only transformer LM, the continuous-batching
+generation engine over a paged KV cache (fused LayerNorm and paged
+attention kernels), and the LM's single-device training step with flash
+attention (forward, dQ and dK/dV kernels).  Entry points run on ``cuda``
+unless the caller passes ``device="cpu"``.
 """
 from . import base, context, ops, parallel, serving
 from .base import MXNetError

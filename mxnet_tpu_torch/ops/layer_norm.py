@@ -1,4 +1,4 @@
-"""Fused LayerNorm(+GELU) over the last axis — kernel 1 of the serving slice.
+"""Fused LayerNorm(+GELU) over the last axis.
 
 PyTorch counterpart of ``mxnet_tpu/ops/pallas_kernels.py``
 ``layer_norm_fused`` / ``_ln_reference`` (the ``_ln_kernel`` Pallas
@@ -10,8 +10,15 @@ fallback: a CUDA tensor the kernel does not take raises.
 Both compute the statistics in f32 in the pivot-recentred one-pass form of
 the TPU kernel (one read gives sum and sum of squares of ``x - x[..., 0]``),
 and the optional GELU epilogue is the tanh approximation (``jax.nn.gelu``'s
-default).  The CUDA path is forward-only; the training backward comes with
-the transformer-training slice.
+default).
+
+The gradient is the reference's: ``_ln_fused_bwd`` there is ``jax.vjp`` of
+the plain ``_ln_reference``, so here a ``torch.autograd.Function`` runs the
+CUDA kernel forward and, in its backward, differentiates
+:func:`layer_norm_reference` recomputed from the saved ``x, gamma, beta``
+with autograd.  There is no backward kernel, as the reference has none.
+The Function is taken only when grad mode is on and an input requires
+grad, so inference calls launch the kernel alone.
 """
 from __future__ import annotations
 
@@ -37,7 +44,9 @@ def layer_norm_reference(x, gamma, beta, eps: float = 1e-5,
     f32 pivot one-pass statistics, f32 affine and GELU, cast back to
     ``x``'s dtype."""
     xf = x.float()
-    xc = xf - xf[..., :1]
+    # the pivot is a constant for the gradient (stop_gradient in the
+    # reference), so the vjp takes no path through it
+    xc = xf - xf[..., :1].detach()
     mean_c = xc.mean(dim=-1, keepdim=True)
     var = ((xc * xc).mean(dim=-1, keepdim=True)
            - mean_c * mean_c).clamp_min(0.0)
@@ -48,10 +57,44 @@ def layer_norm_reference(x, gamma, beta, eps: float = 1e-5,
     return out.to(x.dtype)
 
 
+def _launch(x, gamma, beta, eps: float, gelu: bool):
+    out = torch.empty_like(x)
+    c = x.shape[-1]
+    rows = x.numel() // c if c else 0
+    if rows == 0:
+        return out
+    fn = _build.kernel_function("layer_norm", "tpumx_layer_norm", _ARGTYPES)
+    rc = fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
+            rows, c, float(eps), int(bool(gelu)), _DTYPES[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check_launch(rc, "layer_norm_fused")
+    layer_norm_fused.launches += 1
+    return out
+
+
+class _LayerNormFn(torch.autograd.Function):
+    """Kernel forward; backward = vjp of :func:`layer_norm_reference`."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, gelu):
+        ctx.save_for_backward(x, gamma, beta)
+        ctx.eps, ctx.gelu = eps, gelu
+        return _launch(x, gamma, beta, eps, gelu)
+
+    @staticmethod
+    def backward(ctx, g):
+        leaves = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = layer_norm_reference(*leaves, ctx.eps, ctx.gelu)
+        dx, dgamma, dbeta = torch.autograd.grad(out, leaves, g)
+        return dx, dgamma, dbeta, None, None
+
+
 def layer_norm_fused(x, gamma, beta, eps: float = 1e-5, gelu: bool = False):
     """LayerNorm over the LAST axis of ``x`` (any rank) with ``(C,)``
     ``gamma``/``beta`` in ``x``'s dtype; ``gelu=True`` applies the tanh-GELU
-    epilogue in the same pass.  Returns a new tensor in ``x``'s dtype.
+    epilogue in the same pass.  Returns a new tensor in ``x``'s dtype,
+    differentiable in ``x``, ``gamma`` and ``beta``.
 
     CUDA tensors (contiguous, float32 or bfloat16) go through the CUDA
     kernel, counted in ``layer_norm_fused.launches``; CPU tensors through
@@ -73,17 +116,10 @@ def layer_norm_fused(x, gamma, beta, eps: float = 1e-5, gelu: bool = False):
                 f"{t.dtype} on {t.device}")
     if not x.is_contiguous():
         raise MXNetError("layer_norm_fused: x must be contiguous")
-    out = torch.empty_like(x)
-    rows = x.numel() // c if c else 0
-    if rows == 0:
-        return out
-    fn = _build.kernel_function("layer_norm", "tpumx_layer_norm", _ARGTYPES)
-    rc = fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
-            rows, c, float(eps), int(bool(gelu)), _DTYPES[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check_launch(rc, "layer_norm_fused")
-    layer_norm_fused.launches += 1
-    return out
+    if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad
+                                    or beta.requires_grad):
+        return _LayerNormFn.apply(x, gamma, beta, eps, gelu)
+    return _launch(x, gamma, beta, eps, gelu)
 
 
 layer_norm_fused.launches = 0

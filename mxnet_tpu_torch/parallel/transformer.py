@@ -1,9 +1,10 @@
 """Decoder-only Transformer LM of the port.
 
-PyTorch counterpart of ``mxnet_tpu/parallel/transformer.py`` for the
-serving slice: the config, the initializer, the full-sequence forward
-(:func:`transformer_lm_apply`, the generation oracle) and the cache-aware
-model step (:func:`transformer_lm_decode`) over a paged KV pool.
+PyTorch counterpart of ``mxnet_tpu/parallel/transformer.py`` on one
+device: the config, the initializer, the full-sequence forward
+(:func:`transformer_lm_apply`, the generation oracle), the cache-aware
+model step (:func:`transformer_lm_decode`) over a paged KV pool, and the
+training loss and SGD-momentum step (:func:`lm_loss`, :func:`train_step`).
 
 Parameters are a flat dict of tensors with the JAX package's keys and
 layouts (``x @ W``, ``d_model``-major, tied input/output embeddings), so
@@ -13,9 +14,13 @@ byte and both packages compute the same function from the same bytes.
 Kernels on this path: every LayerNorm is ``ops.layer_norm.layer_norm_fused``
 (2 per block plus the final one) and the paged attention of
 :func:`transformer_lm_decode` is ``ops.paged_attention.paged_attention``
-(one per block; its int8-pool variant when the pool is quantized).  On
-CUDA tensors both launch their hand-written kernels; on CPU tensors they
-take their plain versions.  The int8 pool's quantizing scatter
+(one per block; its int8-pool variant when the pool is quantized).
+Training with ``attention=ops.flash_attention.flash_attention`` (causal)
+runs the flash forward kernel once per block and its dQ and dK/dV kernels
+once per block in the backward; LayerNorm's backward is autograd through
+its plain version, as in the reference.  On CUDA tensors the wrappers
+launch their hand-written kernels; on CPU tensors they take their plain
+versions.  The int8 pool's quantizing scatter
 (:func:`_scatter_kv_quantized`) is plain torch ops, as it is plain jnp in
 the reference.
 
@@ -41,7 +46,8 @@ from ..ops.paged_attention import (attention_scale, paged_attention,
 from .ring_attention import local_attention
 
 __all__ = ["TransformerConfig", "transformer_lm_init", "params_from_jax",
-           "transformer_lm_apply", "transformer_lm_decode"]
+           "transformer_lm_apply", "transformer_lm_decode", "lm_loss",
+           "train_step"]
 
 Params = Dict[str, torch.Tensor]
 
@@ -309,3 +315,44 @@ def transformer_lm_decode(params: Params, tokens, positions, lengths,
     if quantized:
         return logits.float(), k_pool, v_pool, k_scale, v_scale
     return logits.float(), k_pool, v_pool
+
+
+def lm_loss(params: Params, tokens, labels, positions,
+            cfg: TransformerConfig, attention=None, mask=None,
+            compute_dtype=None):
+    """Mean next-token cross-entropy; ``mask`` (B, T) optionally excludes
+    positions (e.g. padding) from the mean.  ``compute_dtype`` (e.g.
+    ``torch.bfloat16``) casts every parameter for the forward; the f32
+    master weights stay outside and receive the gradient through the cast.
+    Log-softmax is taken in f32."""
+    dev = params["tok_emb"].device
+    if compute_dtype is not None:
+        params = {k: v.to(compute_dtype) for k, v in params.items()}
+    logits = transformer_lm_apply(params, torch.as_tensor(tokens, device=dev),
+                                  torch.as_tensor(positions, device=dev),
+                                  cfg, attention)
+    logp = F.log_softmax(logits.float(), dim=-1)
+    labels = torch.as_tensor(labels, device=dev).long()
+    nll = -logp.gather(-1, labels[..., None])[..., 0]
+    if mask is None:
+        return nll.mean()
+    mask = torch.as_tensor(mask, device=dev).to(nll.dtype)
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def train_step(params: Params, momenta: Params, tokens, labels, positions,
+               cfg: TransformerConfig, lr=0.1, momentum=0.9, attention=None,
+               compute_dtype=None):
+    """Single-device SGD-momentum step: ``m = momentum * m + g``, ``p = p -
+    lr * m`` for every parameter, with ``g`` the gradient of
+    :func:`lm_loss`.  Returns ``(loss, params, momenta)``: a detached f32
+    scalar and NEW dicts; the inputs are left as they were."""
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    loss = lm_loss(leaves, tokens, labels, positions, cfg,
+                   attention=attention, compute_dtype=compute_dtype)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    with torch.no_grad():
+        new_m = {k: momentum * momenta[k] + g
+                 for k, g in zip(leaves, grads)}
+        new_p = {k: params[k] - lr * new_m[k] for k in leaves}
+    return loss.detach(), new_p, new_m

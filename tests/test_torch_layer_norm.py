@@ -1,12 +1,16 @@
-"""PyTorch port, kernel 1: fused LayerNorm(+GELU) against the JAX package.
+"""PyTorch port, kernel 5: fused LayerNorm(+GELU) against the JAX package.
 
 The port's ``layer_norm_fused`` on CPU tensors runs its plain version;
 the JAX ``layer_norm_fused`` runs its Pallas kernel through the
 interpreter off-TPU (M=16) or its jnp reference (odd M=7).  Same numpy
 inputs, f32, rtol 1e-5 / atol 1e-6 (the two sum in different orders).
-The CUDA kernel itself is held against the plain version on the card by
+The gradient: the port's vjp against the JAX custom vjp (the vjp of its
+``_ln_reference``), and the port's autograd Function, whose backward is
+autograd through the plain version, against that plain version.  The
+CUDA kernel itself is held against the plain version on the card by
 chip_smoke.py.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,6 +18,7 @@ import torch
 
 from mxnet_tpu.ops import pallas_kernels as pk
 from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.ops import layer_norm as tln
 from mxnet_tpu_torch.ops.layer_norm import (layer_norm_fused,
                                             layer_norm_reference)
 
@@ -73,6 +78,41 @@ def test_layer_norm_any_rank_and_bf16():
                                atol=1e-2)
 
 
+@pytest.mark.parametrize("gelu", [False, True])
+def test_layer_norm_vjp_matches_jax(monkeypatch, gelu):
+    monkeypatch.setenv("TPUMX_PALLAS", "1")
+    x, g, b = _inputs(16, 40 + int(gelu))
+    dy = np.random.RandomState(41).randn(16, C).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: pk.layer_norm_fused(*a, 1e-5, gelu),
+                     jnp.asarray(x), jnp.asarray(g), jnp.asarray(b))
+    want = vjp(jnp.asarray(dy))
+    leaves = [torch.from_numpy(t).requires_grad_() for t in (x, g, b)]
+    out = layer_norm_fused(*leaves, 1e-5, gelu)
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(dy))
+    for a, w, name in zip(got, want, ("dx", "dgamma", "dbeta")):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-6, err_msg=name)
+
+
+@pytest.mark.parametrize("gelu", [False, True])
+def test_layer_norm_function_backward_is_reference_vjp(monkeypatch, gelu):
+    """The Function the CUDA path runs: its backward recomputes the plain
+    version from the saved inputs and differentiates it (its forward is
+    the kernel, stood in for here by the plain version)."""
+    monkeypatch.setattr(tln, "_launch", layer_norm_reference)
+    x, g, b = _inputs(12, 50 + int(gelu))
+    dy = torch.from_numpy(np.random.RandomState(51).randn(3, 4, C)
+                          .astype(np.float32))
+    leaves = [torch.from_numpy(t).requires_grad_()
+              for t in (x.reshape(3, 4, C), g, b)]
+    out = tln._LayerNormFn.apply(*leaves, 1e-5, gelu)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, leaves, dy)
+    want = torch.autograd.grad(layer_norm_reference(*leaves, 1e-5, gelu),
+                               leaves, dy)
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
+
+
 def test_kernel_build_failure_raises(monkeypatch, tmp_path):
     """Without nvcc the first use of a kernel raises; nothing falls back."""
     from mxnet_tpu_torch.ops import _build
@@ -82,7 +122,8 @@ def test_kernel_build_failure_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(MXNetError, match="nvcc not found"):
         _build.kernel_function("layer_norm", "tpumx_layer_norm", [])
-    assert sorted(_build._sources()) == ["layer_norm", "paged_attention"]
+    assert sorted(_build._sources()) == ["flash_attention", "layer_norm",
+                                         "paged_attention"]
 
 
 def test_layer_norm_refuses_other_devices():
