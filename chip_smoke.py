@@ -10,7 +10,9 @@ toolkit (``nvcc``) and PyTorch built for CUDA.  Phases, one JSON line each:
 2. build    — compile every ``mxnet_tpu_torch/ops/csrc/*.cu`` (one nvcc
               each, in parallel) and report seconds and ptxas usage.
 3. kernels  — each CUDA kernel against its plain PyTorch version on the
-              card at its path's shapes: LayerNorm (forward, and its
+              card at its path's shapes: BatchNorm stats and normalize
+              (ResNet-50's shapes, f32 and bf16, bitwise repeatable; and
+              BatchNorm's gradient through them), LayerNorm (forward, and its
               gradient — kernel forward plus autograd — at the training
               rows), paged attention over the float pool and over the int8
               pool (q in float32 and bfloat16), and the three flash
@@ -49,12 +51,19 @@ toolkit (``nvcc``) and PyTorch built for CUDA.  Phases, one JSON line each:
               ``kv_dtype="int8"``: all complete, only the int8 kernel
               serves attention, and greedy tokens agree with the float
               pool's on >= 75% of positions.
+9. resnet_training — ``bench.py``'s flagship step: Gluon ``resnet50_v1``
+              channels-last at 224x224 (random weights from a seed); an
+              f32 step at B=32 with the BatchNorm kernels against one
+              with the plain BatchNorm, then ten bf16 steps at B=128 (53
+              launches of each BatchNorm kernel a step); images/s, peak
+              memory.
 
 An optional comma-separated argument (``kernels``, ``model``,
 ``training``, ``serving``, ``serving_default``, ``serving_int8`` — which
-also runs ``serving``, its float baseline — and ``profile`` and
-``profile_training``, which are not in the default run: the serving
-window, or two bf16 training steps, once more under ``torch.profiler``)
+also runs ``serving``, its float baseline — ``resnet_training``, and
+``profile``, ``profile_training`` and ``profile_resnet``, which are not in
+the default run: the serving window, or two bf16 LM or ResNet training
+steps, once more under ``torch.profiler``)
 runs only those phases after device and build.  Then the kernel table line
 (when ``kernels`` and a path ran), the ``nvidia-smi`` line and, last, the
 result line ``{"ok": true, "device": {...}}``.  Any failure raises: the
@@ -64,6 +73,7 @@ without a CUDA device or without the rest of the repository beside it.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -78,7 +88,13 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 
 # kernel vs plain version on the same card
 TOL = {"float32": dict(rtol=1e-4, atol=1e-5),
-       "bfloat16": dict(rtol=2e-2, atol=1e-3)}
+       "bfloat16": dict(rtol=2e-2, atol=1e-3),
+       # BatchNorm kernels: f32 statistics and f32 out; bf16 out within one
+       # bf16 ulp beyond this
+       "batch_norm": dict(rtol=1e-5, atol=1e-5)}
+# BatchNorm's gradient through the kernel forward against the plain
+# forward's, normwise (bf16: the two outputs may differ by one bf16 ulp)
+BN_GRAD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 
 GPT2_SMALL = dict(vocab=50257, d_model=768, n_heads=12, n_layers=12,
                   d_ff=3072, max_len=1024)
@@ -86,6 +102,21 @@ SEED = 0
 # flash attention shapes (B, T, H, D): the LM training step's, and a T
 # that is no multiple of the kernels' 64-row tiles
 FLASH_SHAPES = {"training": (8, 1024, 12, 64), "ragged": (2, 1000, 3, 64)}
+# ResNet-50's BatchNorm inputs (B, H, W, C) at B = 128, 224x224: the stem,
+# stages 1, 2 and 4; and an odd M = B*H*W
+BN_SHAPES = ((128, 112, 112, 64), (128, 56, 56, 256), (128, 28, 28, 512),
+             (128, 7, 7, 2048), (1, 1, 12345, 320))
+# resnet_training: bench.py's flagship step (resnet50_v1, 1000 classes,
+# channels-last 224x224x3, SGD lr 0.1 momentum 0.9) and its 53 BatchNorms
+# (stem 1, 16 bottleneck units x 3, 4 projections)
+RESNET_CLASSES, RESNET_HW, RESNET_BNS = 1000, 224, 53
+RESNET_BATCH, RESNET_F32_BATCH = 128, 32
+RESNET_LR, RESNET_MOMENTUM = 0.1, 0.9
+# the port's CUDA kernel functions, as the profiler names them
+PORT_KERNELS = ("bn_stats_partial", "bn_stats_final", "bn_normalize",
+                "layer_norm_kernel", "flash_fwd_kernel", "flash_dq_kernel",
+                "flash_dkv_kernel", "paged_attention_split_kernel",
+                "paged_attention_tile_kernel")
 # serving_default's pool: small enough that its two waves preempt
 DEFAULT_POOL_BLOCKS = 52
 
@@ -529,8 +560,151 @@ def _flash_cases(dev):
     return rows
 
 
+def _bf16_ulps(a, b, tol) -> float:
+    """Largest |a - b| beyond the f32 tolerance ``tol`` that the two sides
+    may differ by before rounding, in units of b's bf16 ulp (2^(e-7) for
+    |b| in [2^e, 2^(e+1))): <= 1 means the two agree to one bf16 rounding."""
+    import torch
+
+    a, b = a.float(), b.float()
+    e = torch.floor(torch.log2(b.abs().clamp_min(2.0 ** -126)))
+    beyond = ((a - b).abs() - tol["atol"] - tol["rtol"] * b.abs())
+    return (beyond.clamp_min(0.0) / torch.exp2(e - 7)).max().item()
+
+
+def _rotating(xs):
+    """A call argument that cycles through ``xs`` (copies of one input,
+    more bytes than the 50 MB L2 together), so chained timed calls read
+    device memory as the training step does, not L2."""
+    it = itertools.cycle(xs)
+    return lambda: next(it)
+
+
+def _batch_norm_cases(dev):
+    """Kernels 3-4 against their plain versions on the card at ResNet-50's
+    BatchNorm shapes at B = 128 (the stem, stages 1, 2 and 4) and an odd
+    M, f32 and bf16: ``bn_train_fused`` (stats, then normalize) against
+    ``bn_train_reference`` — mean and var rtol 1e-5 / atol 1e-5, out the
+    same in f32 and, in bf16, within one bf16 ulp beyond that f32
+    tolerance (the kernel's ``x * scale + shift`` and the plain
+    ``(x - mean) * scale + beta`` round differently in f32 before the
+    cast) — and bitwise equal over two runs.  Times of each kernel alone
+    (and of the pair) against its plain version and one PyTorch call:
+    ``torch.var_mean`` for the stats, ``torch.addcmul`` for normalize,
+    ``F.batch_norm`` on the ``channels_last`` tensor for the pair."""
+    import torch
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops import batch_norm as bn
+
+    rows = []
+    for (B, H, W, C), dtype in itertools.product(
+            BN_SHAPES, (torch.float32, torch.bfloat16)):
+        M = B * H * W
+        dname = str(dtype).split(".")[-1]
+        g = torch.Generator(device=dev).manual_seed(SEED + C)
+        x = (torch.randn(M, C, generator=g, device=dev) * 2.0 + 0.5
+             ).to(dtype)
+        gam = 1.0 + 0.1 * torch.randn(C, generator=g, device=dev)
+        bet = 0.1 * torch.randn(C, generator=g, device=dev)
+        runs = [bn.bn_train_fused(x, gam, bet, 1e-5) for _ in range(2)]
+        want = bn.bn_train_reference(x, gam, bet, 1e-5)
+        torch.cuda.synchronize()
+        errs, ok = {}, True
+        for name, a, b in zip(("out", "mean", "var"), runs[0], want):
+            good, errs[name], _ = _close(a, b, "batch_norm")
+            if name == "out" and dtype == torch.bfloat16:
+                errs["out_bf16_ulps"] = _bf16_ulps(a, b, TOL["batch_norm"])
+                good = errs["out_bf16_ulps"] <= 1.0
+            ok = ok and good and bool(torch.isfinite(a).all())
+        bitwise = all(bool(torch.equal(a, b))
+                      for a, b in zip(runs[0], runs[1]))
+        _, mean, var = want
+        scale = gam * torch.rsqrt(var + 1e-5)
+        shift = bet - mean * scale
+        item = x.element_size()
+        copies = max(1, -(-120_000_000 // (M * C * item)))
+        xs = [x] + [x.clone() for _ in range(copies - 1)]
+        nxt = _rotating(xs)
+        nxt4 = _rotating([t.view(B, H, W, C).permute(0, 3, 1, 2)
+                          for t in xs])
+        ms = {"stats": time_ms(lambda _: bn.bn_stats(nxt())[0], x),
+              "normalize": time_ms(lambda _: bn.bn_normalize(
+                  nxt(), scale, shift), x),
+              "pair": time_ms(lambda _: bn.bn_train_fused(
+                  nxt(), gam, bet, 1e-5)[0], x)}
+        plain = {"stats": time_ms(lambda _: bn.bn_stats_reference(
+                     nxt())[0], x),
+                 "normalize": time_ms(lambda _: bn.bn_normalize_reference(
+                     nxt(), scale, shift), x),
+                 "pair": time_ms(lambda _: bn.bn_train_reference(
+                     nxt(), gam, bet, 1e-5)[0], x)}
+        lib = {"stats": time_ms(lambda _: torch.var_mean(
+                   nxt(), dim=0, unbiased=False)[0], x),
+               "normalize": time_ms(lambda _: torch.addcmul(
+                   shift, nxt(), scale), x),
+               "pair": time_ms(lambda _: F.batch_norm(
+                   nxt4(), None, None, gam, bet, True, 0.1, 1e-5), x)}
+        work = {"stats": (M * C * item + 2 * C * 4, 3 * M * C),
+                "normalize": (2 * M * C * item + 2 * C * 4, 2 * M * C)}
+        # the pair reads x once and writes out once at the least
+        work["pair"] = (2 * M * C * item + 4 * C * 4, 5 * M * C)
+        bounds = {k: bound_ms(nb, fl, "float32") for k, (nb, fl)
+                  in work.items()}
+        rows.append({"shape": [B, H, W, C], "M": M, "C": C, "dtype": dname,
+                     "ok": ok and bitwise,
+                     "bitwise_deterministic": bitwise, "max_abs_err": errs,
+                     "l2_copies": copies, "ms": ms, "plain_ms": plain,
+                     "library_ms": lib,
+                     "bound_ms": {k: v[0] for k, v in bounds.items()},
+                     "bound_by": {k: v[1] for k, v in bounds.items()}})
+        del x, xs, runs, want, nxt, nxt4
+    return rows
+
+
+def _batch_norm_backward_cases(dev):
+    """BatchNorm's gradient on the card at ResNet-50 stage-1 rows (B = 32,
+    56x56, C = 256): the kernel forward plus autograd through the plain
+    version (``_BatchNormFn``) against autograd through the plain version
+    alone, for dx, dgamma and dbeta, normwise."""
+    import torch
+
+    from mxnet_tpu_torch.ops import batch_norm as bn
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    shape = (32, 56, 56, 256)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.randn(*shape, generator=g, device=dev) * 2.0 + 0.5
+             ).to(dtype).requires_grad_()
+        gam = (1.0 + 0.1 * torch.randn(shape[-1], generator=g, device=dev)
+               ).requires_grad_()
+        bet = (0.1 * torch.randn(shape[-1], generator=g, device=dev)
+               ).requires_grad_()
+        dy = torch.randn(*shape, generator=g, device=dev).to(dtype)
+        n0 = bn.bn_stats.launches
+        out = bn.bn_train_fused(x, gam, bet, 1e-5)[0]
+        launched = bn.bn_stats.launches - n0
+        got = torch.autograd.grad(out, (x, gam, bet), dy)
+        want = torch.autograd.grad(bn.bn_train_reference(x, gam, bet, 1e-5)[0],
+                                   (x, gam, bet), dy)
+        torch.cuda.synchronize()
+        rel = {n: ((a.float() - b.float()).norm() / b.float().norm()).item()
+               for n, a, b in zip(("dx", "dgamma", "dbeta"), got, want)}
+        dname = str(dtype).split(".")[-1]
+        rows.append({"shape": list(shape), "dtype": dname,
+                     "grad_fn": out.grad_fn is not None, "launches": launched,
+                     "grad_rel_err": rel,
+                     "ok": out.grad_fn is not None and launched == 1
+                     and max(rel.values()) <= BN_GRAD_TOL[dname]})
+        del x, dy, out, got, want
+    return rows
+
+
 def phase_kernels(dev):
-    rows = {"layer_norm": _layer_norm_cases(dev),
+    rows = {"batch_norm": _batch_norm_cases(dev),
+            "batch_norm_backward": _batch_norm_backward_cases(dev),
+            "layer_norm": _layer_norm_cases(dev),
             "layer_norm_backward": _layer_norm_backward_cases(dev),
             "paged_attention": _paged_attention_cases(dev),
             "paged_attention_int8": _paged_attention_cases(dev, int8=True),
@@ -773,10 +947,13 @@ def _serve(svc, prompts):
 
 
 def _reset_launches():
+    from mxnet_tpu_torch.ops import batch_norm as bn
     from mxnet_tpu_torch.ops import flash_attention as fa
     from mxnet_tpu_torch.ops.layer_norm import layer_norm_fused
     from mxnet_tpu_torch.ops.paged_attention import paged_attention
 
+    bn.bn_stats.launches = 0
+    bn.bn_normalize.launches = 0
     layer_norm_fused.launches = 0
     paged_attention.launches = 0
     paged_attention.launches_int8 = 0
@@ -786,11 +963,14 @@ def _reset_launches():
 
 
 def _read_launches():
+    from mxnet_tpu_torch.ops import batch_norm as bn
     from mxnet_tpu_torch.ops import flash_attention as fa
     from mxnet_tpu_torch.ops.layer_norm import layer_norm_fused
     from mxnet_tpu_torch.ops.paged_attention import paged_attention
 
-    return {"layer_norm": layer_norm_fused.launches,
+    return {"bn_stats": bn.bn_stats.launches,
+            "bn_normalize": bn.bn_normalize.launches,
+            "layer_norm": layer_norm_fused.launches,
             "paged_attention": paged_attention.launches,
             "paged_attention_int8": paged_attention.launches_int8,
             "flash_attention_fwd": fa.flash_attention_forward.launches,
@@ -1069,7 +1249,8 @@ def phase_training(dev, cfg, params):
     n = cfg.n_layers
     per_step = {"flash_attention_fwd": n, "flash_attention_dq": n,
                 "flash_attention_dkv": n, "layer_norm": 2 * n + 1,
-                "paged_attention": 0, "paged_attention_int8": 0}
+                "paged_attention": 0, "paged_attention_int8": 0,
+                "bn_stats": 0, "bn_normalize": 0}
     # f32: flash against local attention
     f32 = {}
     for name, att in (("flash", flash), ("local", local)):
@@ -1148,9 +1329,9 @@ def phase_training(dev, cfg, params):
 
 def _profiled(fn):
     """Run ``fn`` under ``torch.profiler``: wall time, device busy time
-    (the union of kernel intervals), the idle share, and device time by
-    kernel name.  The profiler slows the host, so the wall time is not an
-    unprofiled run's."""
+    (the union of kernel intervals), the idle share, device time by kernel
+    name, and by autograd backward node.  The profiler slows the host, so
+    the wall time is not an unprofiled run's."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1174,11 +1355,31 @@ def _profiled(fn):
         agg[0] += 1
         agg[1] += e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    # the port's own kernels, by kernel function
+    ours = {}
+    for n, (c, us) in by_name.items():
+        for k in PORT_KERNELS:
+            if k in n:
+                ours[k] = ours.get(k, 0.0) + us / 1e3
+    # device time under each autograd backward node, inclusive of the
+    # kernels its ops launch (a node whose backward runs autograd itself,
+    # as the BatchNorm and LayerNorm Functions' do, includes the nodes it
+    # evaluates, so the times nest and do not add up)
+    nodes = {}
+    for e in prof.key_averages():
+        if e.key.startswith("autograd::engine::evaluate_function: "):
+            us = getattr(e, "device_time_total", None)
+            if us is None:
+                us = e.cuda_time_total
+            nodes[e.key.split(": ", 1)[1]] = us / 1e3
     return {"wall_s": wall, "kernels": len(kernels),
             "device_busy_s": busy_us / 1e6,
             "idle_share": 1.0 - busy_us / 1e6 / wall,
             "top": [{"name": n[:80], "count": c, "ms": us / 1e3}
-                    for n, (c, us) in top]}
+                    for n, (c, us) in top],
+            "port_kernels_ms": ours,
+            "backward_nodes_ms": dict(sorted(nodes.items(),
+                                             key=lambda kv: -kv[1])[:10])}
 
 
 def phase_profile(dev, cfg, params):
@@ -1225,23 +1426,301 @@ def phase_profile_training(dev, cfg, params):
           **_profiled(lambda: steps(2))})
 
 
+# -- phase 9 ------------------------------------------------------------------------
+def _resnet(dev):
+    """``resnet50_v1(classes=1000, layout="NHWC")``, Gluon's default
+    initializer drawing from seed 0, shapes resolved by one eager forward;
+    with ``block_train_fn``'s function and initial tensors."""
+    import torch
+
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.parallel.data_parallel import block_train_fn
+
+    net = resnet50_v1(classes=RESNET_CLASSES, layout="NHWC")
+    net.initialize(ctx=dev,
+                   generator=torch.Generator(device=dev).manual_seed(SEED))
+    with torch.no_grad():
+        net(torch.zeros(1, RESNET_HW, RESNET_HW, 3, device=dev))
+    return net, *block_train_fn(net, is_train=True)
+
+
+def _resnet_step(apply_fn, params, momenta, aux, x, y, dtype=None):
+    """``bench.py``'s ``make_step`` over ``block_train_fn``: params, aux
+    and input cast to ``dtype`` inside the loss (None: f32), f32 logits,
+    ``log_softmax`` NLL mean, ``m = 0.9 m + g``, ``p = p - 0.1 m``.  Returns
+    new dicts (the new running statistics in aux's dtype) and the
+    gradients; the inputs are untouched."""
+    import torch
+
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    p, a, xc = leaves, aux, x
+    if dtype is not None:
+        p = {k: v.to(dtype) for k, v in leaves.items()}
+        a = {k: v.to(dtype) for k, v in aux.items()}
+        xc = x.to(dtype)
+    out, new_aux = apply_fn(p, a, xc)
+    logp = torch.log_softmax(out.float(), dim=-1)
+    loss = -logp.gather(1, y[:, None]).mean()
+    grads = dict(zip(leaves, torch.autograd.grad(loss, list(
+        leaves.values()))))
+    with torch.no_grad():
+        momenta = {k: RESNET_MOMENTUM * m + grads[k].to(m.dtype)
+                   for k, m in momenta.items()}
+        params = {k: v - RESNET_LR * momenta[k] for k, v in params.items()}
+        new_aux = {k: v.detach().to(aux[k].dtype) for k, v in new_aux.items()}
+    return loss.detach(), params, momenta, new_aux, grads
+
+
+def _resnet_batch(dev, B):
+    """B random NHWC images and labels, from seed 1."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    x = torch.randn(B, RESNET_HW, RESNET_HW, 3, generator=g, device=dev)
+    y = torch.randint(0, RESNET_CLASSES, (B,), generator=g, device=dev)
+    return x, y
+
+
+def phase_resnet_training(dev):
+    """The flagship's training step (``bench.py`` ``main``: Gluon
+    ``resnet50_v1``, channels-last, bf16 compute, SGD with momentum 0.9 at
+    lr 0.1) at 224x224x3, random weights and images from seed 0.
+
+    f32 check, cuDNN deterministic: one step at B = 32 with the BatchNorm
+    kernels against the same step with every BatchNorm through
+    ``bn_train_reference`` — loss within 1e-5 relative, the new running
+    statistics rtol 1e-5 / atol 1e-6.  The gradients: this randomly
+    initialised 53-BatchNorm net amplifies f32 rounding (moving the images
+    by ~2^-22 relative moves its gradients by ~2% normwise), so they are
+    held against that measured floor — the plain step on the moved images
+    — all together within 3x the floor, each within max(1e-4, 10x its
+    own); a conv bias feeding a BatchNorm has an analytically zero
+    gradient, held below 1e-6 of the largest gradient's norm on both
+    sides.  (BatchNorm's own gradient, kernel forward against plain, is
+    held to 1e-5 in the kernels phase.)  Then the main path: ten chained
+    bf16 steps at B = 128 on one batch, counted from 0 — losses finite,
+    the first two updates each lowering the loss, the first loss within
+    2e-2 of the f32 loss on that batch, and per step 53 launches of each
+    BatchNorm kernel and none of any other kernel; images/s (median of
+    steps 2-10, host wall ending in a sync) and peak memory; the same ten
+    steps with the plain BatchNorm, for the loss trajectory."""
+    import torch
+
+    from mxnet_tpu_torch.ops import batch_norm as bn
+    from mxnet_tpu_torch.ops import nn as ops_nn
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise SystemExit("TF32 is on: the f32 comparison needs full f32")
+    net, apply_fn, params, aux = _resnet(dev)
+    zeros = {k: torch.zeros_like(v) for k, v in params.items()}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    def step_with(bn_fn, x, y, dtype=None, p=params, m=zeros, a=aux):
+        """One timed step with every BatchNorm through ``bn_fn``, counted
+        from 0; (loss, params, momenta, aux, grads), its launches, ms and
+        peak bytes."""
+        ops_nn.bn_train_fused = bn_fn
+        try:
+            _reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            res, ms = timed(lambda: _resnet_step(apply_fn, p, m, a, x, y,
+                                                 dtype))
+            return res, _read_launches(), ms, \
+                torch.cuda.max_memory_allocated()
+        finally:
+            ops_nn.bn_train_fused = bn.bn_train_fused
+
+    # f32, cuDNN deterministic (the same conv algorithms throughout): the
+    # step with the kernels, with the plain BatchNorm, and with the plain
+    # BatchNorm on the images moved by ~one f32 rounding — the network's
+    # own noise floor, against which the kernels' gradients are held
+    x32, y32 = _resnet_batch(dev, RESNET_F32_BATCH)
+    g1 = torch.Generator(device=dev).manual_seed(SEED + 3)
+    x32p = x32 + x32 * 2.0 ** -22 * torch.empty_like(x32).uniform_(
+        -1.0, 1.0, generator=g1)
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        step_with(bn.bn_train_fused, x32, y32)   # warm-up
+        f32 = {name: step_with(fn, x, y32) for name, fn, x in (
+            ("kernels", bn.bn_train_fused, x32),
+            ("plain", bn.bn_train_reference, x32),
+            ("floor", bn.bn_train_reference, x32p))}
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = det
+    (lk, _, _, ak, gk), launches_k, ms_k, peak_k = f32["kernels"]
+    (lp, _, _, ap, gp), launches_p, ms_p, peak_p = f32["plain"]
+    gf = f32["floor"][0][4]
+    top = max(v.norm().item() for v in gp.values())
+    zero_grads = sorted(k for k, v in gp.items() if v.norm() < 1e-6 * top)
+    zero_ok = all(gk[k].norm() < 1e-6 * top for k in zero_grads) and all(
+        k.endswith("bias") and "conv2d" in k for k in zero_grads)
+
+    def rel(a, keys):
+        return (torch.cat([(a[k] - gp[k]).flatten() for k in keys]).norm()
+                / torch.cat([gp[k].flatten() for k in keys]).norm()).item()
+
+    live = [k for k in gp if k not in zero_grads]
+    grad_rel = {k: rel(gk, [k]) for k in live}
+    floor_rel = {k: rel(gf, [k]) for k in live}
+    glob, glob_floor = rel(gk, live), rel(gf, live)
+    over = sorted(k for k in live if grad_rel[k] > max(
+        1e-4, 10 * floor_rel[k]))
+    worst = max(grad_rel, key=grad_rel.get)
+    aux_err = max(((ak[k] - ap[k]).abs() - 1e-5 * ap[k].abs()).max().item()
+                  for k in ap)
+    loss_rel = abs(lk.item() - lp.item()) / abs(lp.item())
+    f32 = {"B": RESNET_F32_BATCH,
+           "kernels": {"loss": lk.item(), "step_ms": ms_k,
+                       "peak_bytes": peak_k, "launches": launches_k},
+           "plain": {"loss": lp.item(), "step_ms": ms_p,
+                     "peak_bytes": peak_p, "launches": launches_p},
+           "floor_loss": f32["floor"][0][0].item(),
+           "loss_rel_err": loss_rel,
+           "grad_rel_err_global": glob, "grad_rel_err_floor_global":
+           glob_floor, "grad_rel_err_max": grad_rel[worst],
+           "grad_rel_err_worst": worst,
+           "grad_rel_err_floor_of_worst": floor_rel[worst],
+           "grads_beyond_floor": over, "zero_grads": zero_grads,
+           "zero_grads_ok": zero_ok,
+           "running_stats_err_beyond_rtol": aux_err,
+           "tolerance": {"loss_rel": 1e-5, "grad_global":
+                         "3 x floor", "grad_each": "max(1e-4, 10 x floor)",
+                         "running_stats": {"rtol": 1e-5, "atol": 1e-6}}}
+    del gk, gp, gf, ak, ap, x32, y32, x32p
+
+    # the f32 loss on the bf16 steps' batch (forward only)
+    B = RESNET_BATCH
+    x, y = _resnet_batch(dev, B)
+    with torch.no_grad():
+        out, _ = apply_fn(params, aux, x)
+        loss128 = -torch.log_softmax(out.float(), -1).gather(
+            1, y[:, None]).mean().item()
+    del out
+    # the main path: ten chained bf16 steps
+    p, m, a, losses, step_ms = params, zeros, aux, [], []
+    launches, peak = {}, 0
+    for _ in range(10):
+        (loss, p, m, a, _), n, ms, pk = step_with(
+            bn.bn_train_fused, x, y, torch.bfloat16, p, m, a)
+        losses.append(loss)
+        step_ms.append(ms)
+        launches = {k: launches.get(k, 0) + v for k, v in n.items()}
+        peak = max(peak, pk)
+    losses = [v.item() for v in losses]
+    # the same ten steps with the plain BatchNorm, for the trajectory
+    p, m, a, plain_losses = params, zeros, aux, []
+    for _ in range(10):
+        (loss, p, m, a, _), _, _, _ = step_with(
+            bn.bn_train_reference, x, y, torch.bfloat16, p, m, a)
+        plain_losses.append(loss.item())
+    del p, m, a
+    steady = float(np.median(step_ms[1:]))
+    per_step = {k: 0 for k in launches}
+    per_step.update(bn_stats=RESNET_BNS, bn_normalize=RESNET_BNS)
+    res = {"phase": "resnet_training",
+           "config": {"model": "resnet50_v1", "classes": RESNET_CLASSES,
+                      "layout": "NHWC", "image": [RESNET_HW, RESNET_HW, 3],
+                      "parameters": sum(v.numel() for v in params.values()),
+                      "batch_norms": RESNET_BNS},
+           "lr": RESNET_LR, "momentum": RESNET_MOMENTUM,
+           "f32": f32,
+           "bf16": {"B": B, "losses": losses, "step_ms": step_ms,
+                    "steady_step_ms": steady,
+                    "images_per_s": B / (steady / 1e3), "peak_bytes": peak,
+                    "f32_loss_same_batch": loss128,
+                    "first_loss_rel_to_f32":
+                    abs(losses[0] - loss128) / abs(loss128),
+                    "plain_batch_norm_losses": plain_losses},
+           "launches": launches}
+    emit(res)
+    bad = []
+    if loss_rel > 1e-5:
+        bad.append(f"f32 loss with the kernels differs by {loss_rel:.3g}")
+    if glob > 3 * glob_floor:
+        bad.append(f"gradients differ by {glob:.3g} normwise, over 3 x the "
+                   f"noise floor {glob_floor:.3g}")
+    if over:
+        bad.append(f"gradients beyond max(1e-4, 10 x their floor): {over}")
+    if not zero_ok:
+        bad.append(f"gradients expected zero are not: {zero_grads}")
+    if aux_err > 1e-6:
+        bad.append(f"running statistics differ by {aux_err:.3g} beyond "
+                   f"rtol 1e-5")
+    if launches_k != per_step:
+        bad.append(f"f32 kernel step launches {launches_k}")
+    if launches_p != {k: 0 for k in launches}:
+        bad.append(f"f32 plain step launches {launches_p}")
+    if launches != {k: 10 * v for k, v in per_step.items()}:
+        bad.append(f"bf16 steps launched {launches}, not 10 x {per_step}")
+    if not all(np.isfinite(losses + plain_losses)):
+        bad.append(f"non-finite bf16 loss: {losses}, {plain_losses}")
+    elif not losses[2] < losses[1] < losses[0]:
+        bad.append(f"bf16 loss did not fall over the first two updates: "
+                   f"{losses}")
+    if res["bf16"]["first_loss_rel_to_f32"] > 2e-2:
+        bad.append(f"bf16 first loss {losses[0]} vs f32 {loss128}")
+    if bad:
+        raise SystemExit("resnet_training phase failed: " + "; ".join(bad))
+    return res
+
+
+def phase_profile_resnet(dev):
+    """Optional (not in the default run): two chained bf16 ResNet-50
+    training steps of the ``resnet_training`` phase's main path under
+    ``torch.profiler``, after one unprofiled warm-up step."""
+    import torch
+
+    _, apply_fn, params, aux = _resnet(dev)
+    x, y = _resnet_batch(dev, RESNET_BATCH)
+    state = [params, {k: torch.zeros_like(v) for k, v in params.items()},
+             aux]
+
+    def steps(n):
+        for _ in range(n):
+            _, state[0], state[1], state[2], _ = _resnet_step(
+                apply_fn, *state, x, y, torch.bfloat16)
+
+    steps(1)
+    torch.cuda.synchronize()
+    emit({"phase": "profile_resnet", "steps": 2, "B": RESNET_BATCH,
+          **_profiled(lambda: steps(2))})
+
+
 def _kernel_table(kern, runs):
     """One row per CUDA kernel: its times and bound from the kernels phase
     at the main path's shape (LayerNorm and paged attention: the serving
     decode shape, f32; flash attention: the training shape, bf16, causal —
-    the bf16 recipe's), the largest error over all its cases, and its
+    the bf16 recipe's; BatchNorm: ResNet-50's stage-1 expansion input,
+    (128, 56, 56, 256) bf16), the largest error over all its cases, and its
     launches on each main path run (each counted from 0 just before its
     window)."""
     flash = next(c for c in kern["flash_attention"]
                  if c["shape"] == "training" and c["dtype"] == "bfloat16"
                  and c["causal"])
+    bnorm = next(c for c in kern["batch_norm"]
+                 if c["shape"] == [128, 56, 56, 256]
+                 and c["dtype"] == "bfloat16")
     pick = {"layer_norm": lambda r: r["M"] == 8 and not r["gelu"]
             and r["dtype"] == "float32",
             "paged_attention": lambda r: r["kind"] == "decode"
             and r["dtype"] == "float32",
             "paged_attention_int8": lambda r: r["kind"] == "decode"
             and r["dtype"] == "float32"}
-    meta = {"layer_norm": ("mxnet_tpu_torch/ops/csrc/layer_norm.cu",
+    meta = {"bn_stats": ("mxnet_tpu_torch/ops/csrc/batch_norm.cu",
+                         "mxnet_tpu/ops/pallas_kernels.py:190"),
+            "bn_normalize": ("mxnet_tpu_torch/ops/csrc/batch_norm.cu",
+                             "mxnet_tpu/ops/pallas_kernels.py:222"),
+            "layer_norm": ("mxnet_tpu_torch/ops/csrc/layer_norm.cu",
                            "mxnet_tpu/ops/pallas_kernels.py:325"),
             "paged_attention": ("mxnet_tpu_torch/ops/csrc/paged_attention.cu",
                                 "mxnet_tpu/ops/paged_attention.py:71"),
@@ -1259,7 +1738,14 @@ def _kernel_table(kern, runs):
                 "mxnet_tpu/ops/flash_attention.py:242")}
     rows = []
     for name, (src, rep) in meta.items():
-        if name.startswith("flash"):
+        if name.startswith("bn_"):
+            part = name[3:]
+            r = {k: bnorm[k][part] for k in ("ms", "plain_ms", "library_ms",
+                                             "bound_ms", "bound_by")}
+            outs = ("mean", "var") if part == "stats" else ("out",)
+            err = max(c["max_abs_err"][o] for c in kern["batch_norm"]
+                      for o in outs)
+        elif name.startswith("flash"):
             part = name.rsplit("_", 1)[1]
             outs = {"fwd": ("out", "lse"), "dq": ("dq",),
                     "dkv": ("dk", "dv")}[part]
@@ -1303,7 +1789,7 @@ def main(argv) -> int:
         return 2
     phases = set(argv[1].split(",")) if len(argv) > 1 else {
         "kernels", "model", "training", "serving", "serving_default",
-        "serving_int8"}
+        "serving_int8", "resnet_training"}
     if "serving_int8" in phases:
         phases.add("serving")   # its float baseline
     t_start = time.perf_counter()
@@ -1331,6 +1817,11 @@ def main(argv) -> int:
             phase_profile(dev, cfg, params)
         if "profile_training" in phases:
             phase_profile_training(dev, cfg, params)
+        del params
+    if "resnet_training" in phases:
+        runs["resnet_training"] = phase_resnet_training(dev)
+    if "profile_resnet" in phases:
+        phase_profile_resnet(dev)
     if kern is not None and runs:
         emit({"kernels": _kernel_table(kern, runs)})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

@@ -9,15 +9,21 @@ numpy, never jax and nothing of ``mxnet_tpu``.
 
 Ported so far: the decoder-only transformer LM, the continuous-batching
 generation engine over a paged KV cache (fused LayerNorm and paged
-attention kernels), and the LM's single-device training step with flash
-attention (forward, dQ and dK/dV kernels).  Entry points run on ``cuda``
-unless the caller passes ``device="cpu"``.
+attention kernels), the LM's single-device training step with flash
+attention (forward, dQ and dK/dV kernels), and Gluon with the model zoo's
+ResNets, trained channels-last through the BatchNorm stats and normalize
+kernels.  Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``.
 """
-from . import base, context, ops, parallel, serving
+from . import (autograd, base, context, gluon, initializer, ndarray, ops,
+               parallel, serving)
+from . import initializer as init
+from . import ndarray as nd
 from .base import MXNetError
 from .context import resolve_device
 
 __version__ = "0.1.0"
 
-__all__ = ["MXNetError", "resolve_device", "base", "context", "ops",
+__all__ = ["MXNetError", "resolve_device", "autograd", "base", "context",
+           "gluon", "init", "initializer", "nd", "ndarray", "ops",
            "parallel", "serving"]

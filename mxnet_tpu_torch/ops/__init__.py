@@ -1,6 +1,9 @@
-"""Operators of the port: the hand-written CUDA kernels (built from
-``csrc/`` at first use) with their plain PyTorch versions, and the
-token-sampling functions of the generation engine."""
-from . import flash_attention, layer_norm, paged_attention, sampling
+"""Operators of the port: the op registry with the ops Gluon's blocks call
+(``nn``, ``tensor``), the hand-written CUDA kernels (built from ``csrc/``
+at first use) with their plain PyTorch versions, and the token-sampling
+functions of the generation engine."""
+from . import (batch_norm, flash_attention, layer_norm, nn, paged_attention,
+               registry, sampling, tensor)
 
-__all__ = ["flash_attention", "layer_norm", "paged_attention", "sampling"]
+__all__ = ["batch_norm", "flash_attention", "layer_norm", "nn",
+           "paged_attention", "registry", "sampling", "tensor"]

@@ -635,7 +635,10 @@ def test_port_never_imports_jax_or_reference():
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "mxnet_tpu"), (path, mod)
     code = ("import sys, mxnet_tpu_torch, mxnet_tpu_torch.serving.generation,"
-            " mxnet_tpu_torch.ops.flash_attention;"
+            " mxnet_tpu_torch.ops.flash_attention,"
+            " mxnet_tpu_torch.ops.batch_norm,"
+            " mxnet_tpu_torch.gluon.model_zoo.vision,"
+            " mxnet_tpu_torch.parallel.data_parallel;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')];"
             "print(bad); sys.exit(1 if bad else 0)")
