@@ -10,7 +10,10 @@ toolkit (``nvcc``) and PyTorch built for CUDA.  Phases, one JSON line each:
 2. build    — compile every ``mxnet_tpu_torch/ops/csrc/*.cu`` (one nvcc
               each, in parallel) and report seconds and ptxas usage.
 3. kernels  — each CUDA kernel against its plain PyTorch version on the
-              card at its path's shapes: BatchNorm stats and normalize
+              card at its path's shapes: 2-bit pack and unpack (ResNet-50's
+              193 gradient shapes and edge sizes, thresholds 0.5, 0 and
+              1e9, bit for bit; timed at the largest gradient and summed
+              over one step's), BatchNorm stats and normalize
               (ResNet-50's shapes, f32 and bf16, bitwise repeatable; and
               BatchNorm's gradient through them), LayerNorm (forward, and its
               gradient — kernel forward plus autograd — at the training
@@ -57,10 +60,25 @@ toolkit (``nvcc``) and PyTorch built for CUDA.  Phases, one JSON line each:
               with the plain BatchNorm, then ten bf16 steps at B=128 (53
               launches of each BatchNorm kernel a step); images/s, peak
               memory.
+10. resnet_compressed — the same net through the port's mesh-less
+              ``DataParallelTrainer`` (Gluon ``SoftmaxCrossEntropyLoss``,
+              bf16 compute, lr 0.1, momentum 0.9) at B=128: ten steps
+              without compression and ten with ``{"type": "2bit",
+              "threshold": 0.5}``, twice each in turns (one pack and one
+              unpack launch per trainable parameter a step, 53 of each
+              BatchNorm kernel); step ms, images/s, peak memory of each,
+              and the compression alone between syncs.  Checks: the f32
+              trainer loss against resnet_training's step, and a step at
+              threshold 1e9 that leaves every parameter unchanged and the
+              gradients in the residuals.
+
+Every ResNet phase also requires that the BatchNorm op copied no
+non-contiguous input (``batch_norm.noncontiguous_copies`` stays 0).
 
 An optional comma-separated argument (``kernels``, ``model``,
 ``training``, ``serving``, ``serving_default``, ``serving_int8`` — which
-also runs ``serving``, its float baseline — ``resnet_training``, and
+also runs ``serving``, its float baseline — ``resnet_training``,
+``resnet_compressed``, and
 ``profile``, ``profile_training`` and ``profile_resnet``, which are not in
 the default run: the serving window, or two bf16 LM or ResNet training
 steps, once more under ``torch.profiler``)
@@ -113,12 +131,20 @@ RESNET_CLASSES, RESNET_HW, RESNET_BNS = 1000, 224, 53
 RESNET_BATCH, RESNET_F32_BATCH = 128, 32
 RESNET_LR, RESNET_MOMENTUM = 0.1, 0.9
 # the port's CUDA kernel functions, as the profiler names them
-PORT_KERNELS = ("bn_stats_partial", "bn_stats_final", "bn_normalize",
+PORT_KERNELS = ("twobit_pack_kernel", "twobit_unpack_kernel",
+                "bn_stats_partial", "bn_stats_final", "bn_normalize",
                 "layer_norm_kernel", "flash_fwd_kernel", "flash_dq_kernel",
                 "flash_dkv_kernel", "paged_attention_split_kernel",
                 "paged_attention_tile_kernel")
 # serving_default's pool: small enough that its two waves preempt
 DEFAULT_POOL_BLOCKS = 52
+# 2-bit compression: the reference's documented default threshold; the
+# pack/unpack edge sizes (one element, a 2048-element row less and more
+# one, the TPU kernel's 64-row block, one element past it — padded to 128
+# rows — and 65 rows); chained steps of each resnet_compressed trainer
+TWOBIT_THRESHOLD = 0.5
+TWOBIT_EDGES = (1, 2047, 2049, 64 * 2048, 64 * 2048 + 1, 65 * 2048)
+COMPRESSED_STEPS = 10
 
 
 def emit(obj) -> None:
@@ -701,8 +727,141 @@ def _batch_norm_backward_cases(dev):
     return rows
 
 
+def _twobit_inputs(dev, shape, t, gen):
+    """A gradient (N(0, 0.6^2)) and residual (N(0, 0.2^2)) of ``shape``
+    whose first elements are exactly +t, -t, 0 and +t with residual 0."""
+    import torch
+
+    grad = torch.randn(shape, generator=gen, device=dev) * 0.6
+    res = torch.randn(shape, generator=gen, device=dev) * 0.2
+    k = min(4, grad.numel())
+    grad.view(-1)[:k] = torch.tensor([t, -t, 0.0, t], device=dev)[:k]
+    res.view(-1)[:k] = 0.0
+    return grad, res
+
+
+def _twobit_case(dev, shape, t, gen):
+    """Pack and unpack (f32 and bf16 out) against their plain versions at
+    one shape and threshold: packed words (shape and bits), new residual
+    and unpacked values, each bitwise equal."""
+    import torch
+
+    from mxnet_tpu_torch.ops import twobit as tb
+
+    grad, res = _twobit_inputs(dev, shape, t, gen)
+    packed, newres = tb.twobit_pack(grad, res, t)
+    want_p, want_r = tb.twobit_pack_reference(grad, res, t)
+    ok = {"packed": tuple(packed.shape) == tuple(want_p.shape)
+          and torch.equal(packed.view(torch.int32),
+                          want_p.view(torch.int32)),
+          "residual": torch.equal(newres.view(torch.int32),
+                                  want_r.view(torch.int32))}
+    err = (newres - want_r).abs().max().item()
+    for dtype, ints in ((torch.float32, torch.int32),
+                        (torch.bfloat16, torch.int16)):
+        out = tb.twobit_unpack(packed, shape, t, dtype)
+        want = tb.twobit_unpack_reference(want_p, shape, t, dtype)
+        ok["unpack_" + str(dtype).split(".")[-1]] = torch.equal(
+            out.view(ints), want.view(ints))
+        err = max(err, (out.float() - want.float()).abs().max().item())
+    return ok, err
+
+
+def _twobit_cases(dev):
+    """Kernels 1-2 against their plain versions on the card, bit for bit
+    (zero tolerance): every one of ResNet-50's 193 trainable parameter
+    shapes (the gradients of a compressed step) at the threshold 0.5; the
+    edge sizes of TWOBIT_EDGES at thresholds 0.5, 0 (padded words 0b11)
+    and 1e9; each input with elements exactly at +-t.  Times (CUDA graph
+    of chained calls, inputs rotating past the 50 MB L2) at the largest
+    shape and summed over the 193 shapes of a step, against the plain
+    versions and the byte bound: pack reads grad and residual and writes
+    the residual (12 bytes an element) and the words (512 bytes a row);
+    unpack reads the words and writes 4 bytes an element.  No single
+    PyTorch call packs or unpacks, so there is no library time."""
+    import math
+
+    import torch
+
+    from mxnet_tpu_torch.ops import twobit as tb
+
+    _, _, params, _ = _resnet(dev)
+    shapes = [tuple(v.shape) for v in params.values()]
+    del params
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    cases = [(s, TWOBIT_THRESHOLD) for s in shapes] + [
+        ((n,), t) for n in TWOBIT_EDGES for t in (TWOBIT_THRESHOLD, 0.0, 1e9)]
+    bad, err = [], 0.0
+    for shape, t in cases:
+        ok, e = _twobit_case(dev, shape, t, gen)
+        err = max(err, e)
+        if not all(ok.values()):
+            bad.append({"shape": list(shape), "threshold": t, **ok})
+    torch.cuda.synchronize()
+
+    def work(n):
+        words = tb.packed_rows(n) * tb.WORDS_PER_ROW
+        return {"pack": (12 * n + 4 * words, 5 * n),
+                "unpack": (4 * words + 4 * n, n)}
+
+    t = TWOBIT_THRESHOLD
+    big = max(shapes, key=math.prod)
+    n = math.prod(big)
+    copies = max(1, -(-120_000_000 // (8 * n)))
+    pairs = [_twobit_inputs(dev, big, t, gen) for _ in range(copies)]
+    words = [tb.twobit_pack(g, r, t)[0] for g, r in pairs]
+    nxt, nxt_w = _rotating(pairs), _rotating(words)
+    ms = {"pack": time_ms(lambda _: tb.twobit_pack(*nxt(), t)[1], pairs[0][0]),
+          "unpack": time_ms(lambda _: tb.twobit_unpack(nxt_w(), big, t),
+                            pairs[0][0])}
+    plain = {"pack": time_ms(lambda _: tb.twobit_pack_reference(
+                 *nxt(), t)[1], pairs[0][0]),
+             "unpack": time_ms(lambda _: tb.twobit_unpack_reference(
+                 nxt_w(), big, t), pairs[0][0])}
+    bounds = {k: bound_ms(*v, "float32") for k, v in work(n).items()}
+    del pairs, words, nxt, nxt_w
+    # one step's worth: every gradient of the net once (313.6 MB for pack)
+    step = [_twobit_inputs(dev, s, t, gen) for s in shapes]
+    step_words = [tb.twobit_pack(g, r, t)[0] for g, r in step]
+
+    def all_of(fn, args):
+        def run(_):
+            for a in args:
+                out = fn(*a)
+            return out
+        return run
+
+    pack_args = [(g, r, t) for g, r in step]
+    unpack_args = [(w, s, t) for w, s in zip(step_words, shapes)]
+    step_ms = {"pack": time_ms(all_of(lambda *a: tb.twobit_pack(*a)[1],
+                                      pack_args), None, iters=5),
+               "unpack": time_ms(all_of(tb.twobit_unpack, unpack_args),
+                                 None, iters=5)}
+    step_plain = {"pack": time_ms(all_of(
+                      lambda *a: tb.twobit_pack_reference(*a)[1], pack_args),
+                      None, iters=5),
+                  "unpack": time_ms(all_of(tb.twobit_unpack_reference,
+                                           unpack_args), None, iters=5)}
+    total = {k: [sum(work(math.prod(s))[k][i] for s in shapes)
+                 for i in (0, 1)] for k in ("pack", "unpack")}
+    step_bounds = {k: bound_ms(*v, "float32") for k, v in total.items()}
+    del step, step_words, pack_args, unpack_args
+    return [{"kernel": k, "ok": not bad, "cases": len(cases),
+             "mismatches": bad, "max_abs_err": err,
+             "tolerance": "bitwise",
+             "largest_shape": list(big), "ms": ms[k], "plain_ms": plain[k],
+             "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+             "library_ms": None, "step_tensors": len(shapes),
+             "step_elements": sum(math.prod(s) for s in shapes),
+             "step_bytes": total[k][0], "step_ms": step_ms[k],
+             "step_plain_ms": step_plain[k],
+             "step_bound_ms": step_bounds[k][0]}
+            for k in ("pack", "unpack")]
+
+
 def phase_kernels(dev):
-    rows = {"batch_norm": _batch_norm_cases(dev),
+    rows = {"twobit": _twobit_cases(dev),
+            "batch_norm": _batch_norm_cases(dev),
             "batch_norm_backward": _batch_norm_backward_cases(dev),
             "layer_norm": _layer_norm_cases(dev),
             "layer_norm_backward": _layer_norm_backward_cases(dev),
@@ -949,9 +1108,14 @@ def _serve(svc, prompts):
 def _reset_launches():
     from mxnet_tpu_torch.ops import batch_norm as bn
     from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.ops import nn as ops_nn
+    from mxnet_tpu_torch.ops import twobit as tb
     from mxnet_tpu_torch.ops.layer_norm import layer_norm_fused
     from mxnet_tpu_torch.ops.paged_attention import paged_attention
 
+    tb.twobit_pack.launches = 0
+    tb.twobit_unpack.launches = 0
+    ops_nn.batch_norm.noncontiguous_copies = 0
     bn.bn_stats.launches = 0
     bn.bn_normalize.launches = 0
     layer_norm_fused.launches = 0
@@ -963,12 +1127,21 @@ def _reset_launches():
 
 
 def _read_launches():
+    """Each kernel's launches since :func:`_reset_launches`, and the copies
+    the BatchNorm op made of non-contiguous channels-last input (a layout
+    slip: 0 on every ResNet path)."""
     from mxnet_tpu_torch.ops import batch_norm as bn
     from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.ops import nn as ops_nn
+    from mxnet_tpu_torch.ops import twobit as tb
     from mxnet_tpu_torch.ops.layer_norm import layer_norm_fused
     from mxnet_tpu_torch.ops.paged_attention import paged_attention
 
-    return {"bn_stats": bn.bn_stats.launches,
+    return {"twobit_pack": tb.twobit_pack.launches,
+            "twobit_unpack": tb.twobit_unpack.launches,
+            "bn_noncontiguous_copies":
+            ops_nn.batch_norm.noncontiguous_copies,
+            "bn_stats": bn.bn_stats.launches,
             "bn_normalize": bn.bn_normalize.launches,
             "layer_norm": layer_norm_fused.launches,
             "paged_attention": paged_attention.launches,
@@ -1250,7 +1423,8 @@ def phase_training(dev, cfg, params):
     per_step = {"flash_attention_fwd": n, "flash_attention_dq": n,
                 "flash_attention_dkv": n, "layer_norm": 2 * n + 1,
                 "paged_attention": 0, "paged_attention_int8": 0,
-                "bn_stats": 0, "bn_normalize": 0}
+                "bn_stats": 0, "bn_normalize": 0, "twobit_pack": 0,
+                "twobit_unpack": 0, "bn_noncontiguous_copies": 0}
     # f32: flash against local attention
     f32 = {}
     for name, att in (("flash", flash), ("local", local)):
@@ -1674,6 +1848,161 @@ def phase_resnet_training(dev):
     return res
 
 
+def _trainer(net, **kw):
+    """The port's ``DataParallelTrainer`` over ``net`` with Gluon's
+    ``SoftmaxCrossEntropyLoss`` and bench.py's SGD (lr 0.1, momentum
+    0.9)."""
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.parallel import DataParallelTrainer
+
+    return DataParallelTrainer(net, gloss.SoftmaxCrossEntropyLoss(),
+                               lr=RESNET_LR, momentum=RESNET_MOMENTUM, **kw)
+
+
+def phase_resnet_compressed(dev):
+    """2-bit gradient compression on the flagship: ``resnet50_v1``
+    channels-last at 224x224 (random weights from a seed) trained through
+    the port's mesh-less ``DataParallelTrainer`` with Gluon's
+    ``SoftmaxCrossEntropyLoss``, bf16 compute, SGD lr 0.1 momentum 0.9.
+
+    Checks first.  f32 at B = 32: the uncompressed trainer's first loss
+    against ``_resnet_step``'s (the resnet_training phase's step) within
+    1e-5 relative.  bf16 at B = 32, cuDNN deterministic: one compressed
+    step at threshold 1e9 (every code 0) leaves every parameter
+    unchanged and the residuals equal to the step's f32 gradients.  Then
+    the main path: COMPRESSED_STEPS chained bf16 steps at B = 128 on one
+    batch without compression and with ``{"type": "2bit", "threshold":
+    0.5}``, twice each in turns (A B B A), each step counted from 0 —
+    losses finite; per step 53 launches of each BatchNorm kernel, no
+    BatchNorm input copy, and with compression one pack and one unpack
+    launch per trainable parameter (none without); step ms (median and
+    quartiles of steps 2 on of both runs), images/s and peak memory of
+    each, and the compression alone between syncs (``compress_ms``)."""
+    import torch
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise SystemExit("TF32 is on: the f32 comparison needs full f32")
+    net, apply_fn, params, aux = _resnet(dev)
+    n_params = len(params)
+    bad = []
+    # f32: the trainer's loss against _resnet_step's
+    x, y = _resnet_batch(dev, RESNET_F32_BATCH)
+    zeros = {k: torch.zeros_like(v) for k, v in params.items()}
+    want_loss = _resnet_step(apply_fn, params, zeros, aux, x, y)[0].item()
+    got = _trainer(net).step(x, y).item()
+    f32_rel = abs(got - want_loss) / abs(want_loss)
+    del zeros
+    # threshold 1e9: nothing reaches the update, everything the residual
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        tr = _trainer(net, compute_dtype=torch.bfloat16,
+                      compression_params={"type": "2bit",
+                                          "threshold": 1e9})
+        # the gradients the step will take, from the same parameters
+        _, grads, _ = tr._loss_and_grads(x, y)
+        before = dict(tr.params)
+        tr.step(x, y)
+        torch.cuda.synchronize()
+        unchanged = [k for k in before if torch.equal(before[k],
+                                                      tr.params[k])]
+        carried = [k for k in grads if torch.equal(tr.residuals[k][0],
+                                                   grads[k].float())]
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = det
+    blocked = {"params_unchanged": len(unchanged),
+               "residuals_equal_grads": len(carried), "of": n_params}
+    del tr, grads, before, x, y
+    # the main path, without and with compression, in turns (A B B A) so
+    # that drift of the host clock falls on both alike
+    B = RESNET_BATCH
+    x, y = _resnet_batch(dev, B)
+    comp2 = {"type": "2bit", "threshold": TWOBIT_THRESHOLD}
+    runs, total = {}, {}
+    for name, comp in (("uncompressed", None), ("2bit", comp2),
+                       ("2bit", comp2), ("uncompressed", None)):
+        tr = _trainer(net, compute_dtype=torch.bfloat16,
+                      compression_params=comp)
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms, per_step = [], [], []
+        for _ in range(COMPRESSED_STEPS):
+            torch.cuda.synchronize()
+            _reset_launches()
+            t0 = time.perf_counter()
+            losses.append(tr.step(x, y))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            per_step.append(_read_launches())
+        peak = torch.cuda.max_memory_allocated()
+        losses = [v.item() for v in losses]
+        want = {k: 0 for k in per_step[0]}
+        want.update(bn_stats=RESNET_BNS, bn_normalize=RESNET_BNS)
+        if comp is not None:
+            want.update(twobit_pack=n_params, twobit_unpack=n_params)
+        run = runs.setdefault(name, {"losses": losses, "step_ms": [],
+                                     "peak_bytes": 0,
+                                     "launches_per_step": per_step[0],
+                                     "expected_per_step": want})
+        run["step_ms"].append(step_ms)
+        run["peak_bytes"] = max(run["peak_bytes"], peak)
+        if comp is not None and "compress_ms" not in run:
+            # the compression alone, between syncs: the 386 launches and
+            # their host work on an idle queue
+            run["residual_max_abs"] = max(v.abs().max().item()
+                                          for v in tr.residuals.values())
+            _, grads, _ = tr._loss_and_grads(x, y)
+            times = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tr._compress(grads)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            run["compress_ms"] = float(np.median(times))
+            del grads
+        for n in per_step:
+            total = {k: total.get(k, 0) + v for k, v in n.items()}
+        off = [n for n in per_step if n != want]
+        if off:
+            bad.append(f"{len(off)} {name} steps launched other counts than "
+                       f"{want}, the first {off[0]}")
+        if not all(np.isfinite(losses)):
+            bad.append(f"non-finite {name} loss: {losses}")
+        del tr
+    for run in runs.values():
+        steady = [t for ms in run["step_ms"] for t in ms[1:]]
+        run["steady_step_ms"] = float(np.median(steady))
+        run["steady_step_ms_quartiles"] = [float(q) for q in np.percentile(
+            steady, [25, 75])]
+        run["images_per_s"] = B / (run["steady_step_ms"] / 1e3)
+    res = {"phase": "resnet_compressed",
+           "config": {"model": "resnet50_v1", "classes": RESNET_CLASSES,
+                      "layout": "NHWC", "image": [RESNET_HW, RESNET_HW, 3],
+                      "B": B, "compute_dtype": "bfloat16",
+                      "trainable_parameters": n_params,
+                      "elements": sum(v.numel() for v in params.values()),
+                      "threshold": TWOBIT_THRESHOLD},
+           "lr": RESNET_LR, "momentum": RESNET_MOMENTUM,
+           "f32_loss": {"trainer": got, "resnet_step": want_loss,
+                        "rel_err": f32_rel, "tolerance": 1e-5},
+           "threshold_1e9": blocked, **runs,
+           "compression_overhead_ms":
+           runs["2bit"]["steady_step_ms"]
+           - runs["uncompressed"]["steady_step_ms"],
+           "launches": total}
+    emit(res)
+    if f32_rel > 1e-5:
+        bad.append(f"f32 trainer loss {got} vs _resnet_step {want_loss}")
+    if len(unchanged) != n_params or len(carried) != n_params:
+        bad.append(f"threshold 1e9 step: {blocked}")
+    if bad:
+        raise SystemExit("resnet_compressed phase failed: " + "; ".join(bad))
+    return res
+
+
 def phase_profile_resnet(dev):
     """Optional (not in the default run): two chained bf16 ResNet-50
     training steps of the ``resnet_training`` phase's main path under
@@ -1698,7 +2027,9 @@ def phase_profile_resnet(dev):
 
 def _kernel_table(kern, runs):
     """One row per CUDA kernel: its times and bound from the kernels phase
-    at the main path's shape (LayerNorm and paged attention: the serving
+    at the main path's shape (2-bit pack and unpack: the largest of
+    ResNet-50's gradients, 2,359,296 elements, with the sum over one
+    step's 193 gradients beside it; LayerNorm and paged attention: the serving
     decode shape, f32; flash attention: the training shape, bf16, causal —
     the bf16 recipe's; BatchNorm: ResNet-50's stage-1 expansion input,
     (128, 56, 56, 256) bf16), the largest error over all its cases, and its
@@ -1716,7 +2047,11 @@ def _kernel_table(kern, runs):
             and r["dtype"] == "float32",
             "paged_attention_int8": lambda r: r["kind"] == "decode"
             and r["dtype"] == "float32"}
-    meta = {"bn_stats": ("mxnet_tpu_torch/ops/csrc/batch_norm.cu",
+    meta = {"twobit_pack": ("mxnet_tpu_torch/ops/csrc/twobit.cu",
+                            "mxnet_tpu/ops/pallas_kernels.py:41"),
+            "twobit_unpack": ("mxnet_tpu_torch/ops/csrc/twobit.cu",
+                              "mxnet_tpu/ops/pallas_kernels.py:59"),
+            "bn_stats": ("mxnet_tpu_torch/ops/csrc/batch_norm.cu",
                          "mxnet_tpu/ops/pallas_kernels.py:190"),
             "bn_normalize": ("mxnet_tpu_torch/ops/csrc/batch_norm.cu",
                              "mxnet_tpu/ops/pallas_kernels.py:222"),
@@ -1738,7 +2073,13 @@ def _kernel_table(kern, runs):
                 "mxnet_tpu/ops/flash_attention.py:242")}
     rows = []
     for name, (src, rep) in meta.items():
-        if name.startswith("bn_"):
+        extra = {}
+        if name.startswith("twobit"):
+            r = next(c for c in kern["twobit"] if c["kernel"] == name[7:])
+            err = r["max_abs_err"]
+            extra = {k: r[k] for k in ("largest_shape", "step_ms",
+                                       "step_plain_ms", "step_bound_ms")}
+        elif name.startswith("bn_"):
             part = name[3:]
             r = {k: bnorm[k][part] for k in ("ms", "plain_ms", "library_ms",
                                              "bound_ms", "bound_by")}
@@ -1768,7 +2109,7 @@ def _kernel_table(kern, runs):
                      "launches_by_phase": by_phase, "max_abs_err": err,
                      "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                     "library_ms": r["library_ms"]})
+                     "library_ms": r["library_ms"], **extra})
     return rows
 
 
@@ -1789,7 +2130,7 @@ def main(argv) -> int:
         return 2
     phases = set(argv[1].split(",")) if len(argv) > 1 else {
         "kernels", "model", "training", "serving", "serving_default",
-        "serving_int8", "resnet_training"}
+        "serving_int8", "resnet_training", "resnet_compressed"}
     if "serving_int8" in phases:
         phases.add("serving")   # its float baseline
     t_start = time.perf_counter()
@@ -1820,6 +2161,8 @@ def main(argv) -> int:
         del params
     if "resnet_training" in phases:
         runs["resnet_training"] = phase_resnet_training(dev)
+    if "resnet_compressed" in phases:
+        runs["resnet_compressed"] = phase_resnet_compressed(dev)
     if "profile_resnet" in phases:
         phase_profile_resnet(dev)
     if kern is not None and runs:

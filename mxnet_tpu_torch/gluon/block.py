@@ -186,7 +186,7 @@ class HybridBlock(Block):
         raise DeferredInitializationError(
             f"{self.name}: cannot infer shape for {param.name}")
 
-    def forward(self, x, *args):
+    def forward(self, x, *args, **kwargs):
         params = {}
         for name, p in self._reg_params.items():
             try:
@@ -194,7 +194,7 @@ class HybridBlock(Block):
             except DeferredInitializationError:
                 self._infer_param_shapes((x,) + args)
                 params[name] = p.data()
-        return self.hybrid_forward(_F, x, *args, **params)
+        return self.hybrid_forward(_F, x, *args, **kwargs, **params)
 
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError

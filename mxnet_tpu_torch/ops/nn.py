@@ -1,5 +1,6 @@
-"""Neural-net ops the ResNet family needs: FullyConnected, Convolution,
-Pooling, BatchNorm, Activation.
+"""Neural-net ops the ResNet family and the Gluon losses need:
+FullyConnected, Convolution, Pooling, BatchNorm, Activation, softmax and
+log_softmax.
 
 PyTorch counterpart of ``mxnet_tpu/ops/nn.py`` (only these ops so far).
 Layouts follow the reference: channels-first ``NCHW`` data with ``OIHW``
@@ -13,6 +14,11 @@ kernel).
 
 BatchNorm in training mode over channels-last data always goes through
 :func:`ops.batch_norm.bn_train_fused` (the CUDA kernels on a CUDA tensor).
+That function takes contiguous input only; a channels-last view that is
+not contiguous (a transposed NCHW tensor, say) is copied first, as the
+reference computes it too, and the copy is counted in
+``batch_norm.noncontiguous_copies`` so that a layout slip on a hot path
+shows.
 The reference's ``MXTPU_BN_PALLAS`` gate and its ``C % 128`` and
 ``M % 8`` conditions are TPU lane and tiling rules and are not carried
 over.  Channels-first training and inference-mode BatchNorm stay plain
@@ -28,7 +34,7 @@ from .batch_norm import bn_train_fused
 from .registry import register
 
 __all__ = ["fully_connected", "is_channels_last", "convolution", "pooling",
-           "batch_norm", "activation"]
+           "batch_norm", "activation", "softmax", "log_softmax"]
 
 
 def _pair(v, n=2):
@@ -149,6 +155,9 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     g = torch.ones_like(gamma) if fix_gamma else gamma
     if _training and not use_global_stats:
         if ax == data.ndim - 1:
+            if not data.is_contiguous():
+                data = data.contiguous()
+                batch_norm.noncontiguous_copies += 1
             out, mean, var = bn_train_fused(data, g, beta, float(eps))
             if output_mean_var:
                 return out, mean, var
@@ -180,6 +189,9 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     return out
 
 
+batch_norm.noncontiguous_copies = 0
+
+
 # ---------------------------------------------------------------------------
 # Activation (src/operator/nn/activation.cc)
 # ---------------------------------------------------------------------------
@@ -197,3 +209,19 @@ def activation(data, act_type="relu"):
     if act_type == "softsign":
         return F.softsign(data)
     raise ValueError(f"unknown act_type {act_type}")
+
+
+# ---------------------------------------------------------------------------
+# Softmax family (softmax.cc)
+# ---------------------------------------------------------------------------
+
+@register("softmax")
+def softmax(data, axis=-1, temperature=None):
+    x = data if temperature in (None, 1.0) else data / temperature
+    return torch.softmax(x, dim=int(axis))
+
+
+@register("log_softmax")
+def log_softmax(data, axis=-1, temperature=None):
+    x = data if temperature in (None, 1.0) else data / temperature
+    return torch.log_softmax(x, dim=int(axis))

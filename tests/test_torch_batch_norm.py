@@ -160,6 +160,41 @@ def test_ops_batch_norm_channels_last_matches_jax(monkeypatch, c, fix_gamma):
                                    **F32_TOL)
 
 
+@pytest.mark.parametrize("c", [64, 128])
+def test_ops_batch_norm_transposed_view_matches_jax(monkeypatch, c):
+    """NCHW data viewed channels-last, ``F.transpose(x, axes=(0, 2, 3,
+    1))``, through both packages' ``BatchNorm`` op with ``axis=3``.  The
+    port's transpose is a view, not contiguous, so the op copies it (one
+    count in ``batch_norm.noncontiguous_copies``) and gives the
+    reference's result (the reference's kernels at C = 128, its jnp path
+    at C = 64); the contiguous input makes no copy."""
+    from mxnet_tpu.ops import tensor as jtensor
+    from mxnet_tpu_torch import ndarray as tnd
+
+    monkeypatch.setenv("MXTPU_BN_PALLAS", "1")
+    monkeypatch.setattr(tnn.batch_norm, "noncontiguous_copies", 0)
+    xl, g, b = _inputs((2, 4, 4, c), 70 + c)
+    x = np.ascontiguousarray(xl.transpose(0, 3, 1, 2))   # NCHW
+    rm = np.zeros(c, np.float32)
+    rv = np.ones(c, np.float32)
+    kw = dict(eps=EPS, fix_gamma=False, output_mean_var=True, axis=3)
+    want = jnn.batch_norm(jtensor.transpose(jnp.asarray(x), axes=(0, 2, 3, 1)),
+                          *(jnp.asarray(a) for a in (g, b, rm, rv)),
+                          _training=True, **kw)
+    view = tnd.transpose(torch.from_numpy(x), axes=(0, 2, 3, 1))
+    assert not view.is_contiguous()
+    got = tnd.BatchNorm(view, *(torch.from_numpy(a) for a in (g, b, rm, rv)),
+                        _training=True, **kw)
+    assert tnn.batch_norm.noncontiguous_copies == 1
+    for name, t, j in zip(("out", "mean", "var"), got, want):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), err_msg=name,
+                                   **F32_TOL)
+    tnd.BatchNorm(torch.from_numpy(xl), *(torch.from_numpy(a)
+                                          for a in (g, b, rm, rv)),
+                  _training=True, **kw)
+    assert tnn.batch_norm.noncontiguous_copies == 1
+
+
 @pytest.mark.parametrize("training", [True, False])
 def test_ops_batch_norm_channels_first_matches_jax(training):
     """NCHW training (the plain pivot path) and inference (running

@@ -16,6 +16,7 @@ import ast
 import os
 import subprocess
 import sys
+import threading
 
 import jax
 import numpy as np
@@ -441,13 +442,23 @@ def _waves():
             [(p, kw(i + 10)) for i, p in enumerate(wave2)]]
 
 
-def _serve_waves(svc):
-    """Serve each wave after the previous one has finished."""
+def _serve_waves(svc, monkeypatch):
+    """Serve each wave after the previous one has finished.  A wave
+    arrives all at once: the engine loop admits nothing (its
+    ``_admit_locked``, gated on the instance, returns no request) until
+    every request of the wave is queued, so which requests share an
+    admission does not depend on thread timing."""
+    queued = threading.Event()
+    admit = svc._admit_locked
+    monkeypatch.setattr(svc, "_admit_locked",
+                        lambda: admit() if queued.is_set() else [])
     try:
         svc.start()
         outs = []
         for wave in _waves():
+            queued.clear()
             hs = [svc.submit(p, **kw) for p, kw in wave]
+            queued.set()
             outs += [h.result(timeout=300) for h in hs]
         return outs, svc.stats()
     finally:
@@ -455,19 +466,21 @@ def _serve_waves(svc):
 
 
 @pytest.mark.parametrize("kv_dtype", [None, "int8"])
-def test_services_with_reference_defaults_agree(params, kv_dtype):
+def test_services_with_reference_defaults_agree(params, kv_dtype,
+                                                monkeypatch):
     """Preemption and the prefix cache on (the defaults), a 13-block pool,
-    shared prefixes: identical greedy and sampled tokens, and identical
-    scheduling counts, each of them exercised."""
+    shared prefixes, each wave admitted once it is wholly queued:
+    identical greedy and sampled tokens, and identical scheduling counts,
+    each of them exercised."""
     pj, pt = params
     gen = dict(DEFAULTS, kv_dtype=kv_dtype)
     want, sj = _serve_waves(jg.GenerationService(
         pj, jt.TransformerConfig(**DIMS), jg.GenerationConfig(**gen),
-        start=False))
+        start=False), monkeypatch)
     svc = tg.GenerationService(pt, tt.TransformerConfig(**DIMS),
                                tg.GenerationConfig(**gen), start=False,
                                device="cpu")
-    got, st = _serve_waves(svc)
+    got, st = _serve_waves(svc, monkeypatch)
     assert got == want
     assert all(len(t) == DEFAULTS["max_new_tokens"] for t in got)
     for key in ("preempted", "prefix_hits", "prefix_misses", "cached_tokens",
@@ -638,7 +651,9 @@ def test_port_never_imports_jax_or_reference():
             " mxnet_tpu_torch.ops.flash_attention,"
             " mxnet_tpu_torch.ops.batch_norm,"
             " mxnet_tpu_torch.gluon.model_zoo.vision,"
-            " mxnet_tpu_torch.parallel.data_parallel;"
+            " mxnet_tpu_torch.parallel.data_parallel,"
+            " mxnet_tpu_torch.parallel.compression,"
+            " mxnet_tpu_torch.ops.twobit, mxnet_tpu_torch.gluon.loss;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')];"
             "print(bad); sys.exit(1 if bad else 0)")

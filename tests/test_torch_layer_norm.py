@@ -123,7 +123,8 @@ def test_kernel_build_failure_raises(monkeypatch, tmp_path):
     with pytest.raises(MXNetError, match="nvcc not found"):
         _build.kernel_function("layer_norm", "tpumx_layer_norm", [])
     assert sorted(_build._sources()) == ["batch_norm", "flash_attention",
-                                         "layer_norm", "paged_attention"]
+                                         "layer_norm", "paged_attention",
+                                         "twobit"]
 
 
 def test_layer_norm_refuses_other_devices():
