@@ -8,7 +8,9 @@ toolkit (``nvcc``) and PyTorch built for CUDA.  Phases, one JSON line each:
 
 1. device   — the card (``nvidia-smi`` name and power limit); TF32 off.
 2. build    — compile every ``mxnet_tpu_torch/ops/csrc/*.cu`` (one nvcc
-              each, in parallel) and report seconds and ptxas usage.
+              each, in parallel) and report seconds and each kernel
+              function's registers and spills (ptxas); the bf16 flash
+              kernels at D=64 must not spill.
 3. kernels  — each CUDA kernel against its plain PyTorch version on the
               card at its path's shapes: 2-bit pack and unpack (ResNet-50's
               193 gradient shapes and edge sizes, thresholds 0.5, 0 and
@@ -20,8 +22,10 @@ toolkit (``nvcc``) and PyTorch built for CUDA.  Phases, one JSON line each:
               rows), paged attention over the float pool and over the int8
               pool (q in float32 and bfloat16), and the three flash
               attention kernels (forward with lse, dQ, dK/dV; float32 and
-              bfloat16, causal and not, the training shape and a ragged T;
-              the backward kernels bitwise equal over two runs).  With the
+              bfloat16, causal and not, the training shape, a ragged T and
+              D = 16, 32 and 128; the backward kernels bitwise equal over
+              two runs; bf16 launching the tensor-core forward and dK/dV
+              and f32 the CUDA-core ones, by kernel name).  With the
               error, the kernel's time, the plain version's, a library
               call's where one computes the same function, and the least
               time the card could take (bytes or operations over the H100's
@@ -117,9 +121,19 @@ BN_GRAD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 GPT2_SMALL = dict(vocab=50257, d_model=768, n_heads=12, n_layers=12,
                   d_ff=3072, max_len=1024)
 SEED = 0
-# flash attention shapes (B, T, H, D): the LM training step's, and a T
-# that is no multiple of the kernels' 64-row tiles
-FLASH_SHAPES = {"training": (8, 1024, 12, 64), "ragged": (2, 1000, 3, 64)}
+# flash attention shapes (B, T, H, D): the LM training step's, a T that is
+# no multiple of the kernels' 64-row tiles, and the other head dims (every
+# instantiation of each kernel, float32 and bfloat16)
+FLASH_SHAPES = {"training": (8, 1024, 12, 64), "ragged": (2, 1000, 3, 64),
+                "d16": (2, 200, 2, 16), "d32": (2, 200, 2, 32),
+                "d128": (2, 200, 2, 128)}
+# the flash kernel functions each dtype must launch (bf16: the tensor-core
+# forward and dK/dV; f32: the CUDA-core ones; dQ is the CUDA-core kernel
+# for both)
+FLASH_ROUTES = {"bfloat16": ("flash_fwd_tc_kernel", "flash_dq_kernel",
+                             "flash_dkv_tc_kernel"),
+                "float32": ("flash_fwd_kernel", "flash_dq_kernel",
+                            "flash_dkv_kernel")}
 # ResNet-50's BatchNorm inputs (B, H, W, C) at B = 128, 224x224: the stem,
 # stages 1, 2 and 4; and an odd M = B*H*W
 BN_SHAPES = ((128, 112, 112, 64), (128, 56, 56, 256), (128, 28, 28, 512),
@@ -134,7 +148,8 @@ RESNET_LR, RESNET_MOMENTUM = 0.1, 0.9
 PORT_KERNELS = ("twobit_pack_kernel", "twobit_unpack_kernel",
                 "bn_stats_partial", "bn_stats_final", "bn_normalize",
                 "layer_norm_kernel", "flash_fwd_kernel", "flash_dq_kernel",
-                "flash_dkv_kernel", "paged_attention_split_kernel",
+                "flash_dkv_kernel", "flash_fwd_tc_kernel",
+                "flash_dkv_tc_kernel", "paged_attention_split_kernel",
                 "paged_attention_tile_kernel")
 # serving_default's pool: small enough that its two waves preempt
 DEFAULT_POOL_BLOCKS = 52
@@ -220,17 +235,48 @@ def phase_device():
 
 
 # -- phase 2 ------------------------------------------------------------------------
+def _ptxas_functions(report: str):
+    """Registers, spill bytes and shared memory of each kernel function in
+    one source's ``-Xptxas -v`` report, by mangled name."""
+    import re
+
+    funcs, cur = {}, None
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            cur = funcs.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            cur["static_smem"] = int(sm.group(1)) if sm else 0
+    return funcs
+
+
 def phase_build():
+    """Build every kernel source; the bf16 tensor-core flash kernels at
+    D = 64 (the LM's) must not spill registers."""
     from mxnet_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     info = _build.build_all()
+    funcs = {n: _ptxas_functions(v["ptxas"]) for n, v in info.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "kernels": {n: {"seconds": v["seconds"],
-                          "ptxas": [ln.strip() for ln in
-                                    v["ptxas"].splitlines()
-                                    if "registers" in ln]}
+          "kernels": {n: {"seconds": v["seconds"], "functions": funcs[n]}
                       for n, v in info.items()}})
+    if info["flash_attention"]["ptxas"]:   # empty when loaded from disk
+        lm = {f: r for f, r in funcs["flash_attention"].items()
+              if "_tc_kernelILi64E" in f}
+        if len(lm) != 2 or any(r.get("spill_stores", 1) or
+                               r.get("spill_loads", 1) for r in lm.values()):
+            raise SystemExit(f"bf16 flash kernels at D=64 spill: {lm}")
 
 
 # -- phase 3 ------------------------------------------------------------------------
@@ -487,8 +533,9 @@ def _flash_work(B, T, H, D, item, causal):
 def _flash_cases(dev):
     """Kernels 6-8 against their plain versions on the card: the LM's
     training shape (q, k, v strided views of one fused qkv product, as the
-    model passes them) and a ragged T, float32 and bfloat16, causal and
-    not.  The backward kernels and their plain versions take the same out,
+    model passes them), a ragged T and the head dims 16, 32 and 128
+    (``FLASH_SHAPES``), float32 and bfloat16, causal and not.  The
+    backward kernels and their plain versions take the same out,
     lse and delta; each backward kernel runs twice and must give the same
     bits.  Times at the training shape only."""
     import torch
@@ -583,6 +630,49 @@ def _flash_cases(dev):
                         row["bound_ms"][kname], row["bound_by"][kname] = \
                             bound_ms(nbytes, flops, dname)
                 rows.append(row)
+    return rows
+
+
+def _flash_routes(dev):
+    """Which kernel functions the three flash wrappers launch for each
+    dtype (``torch.profiler`` over two calls of each at a small shape):
+    bf16 must take the tensor-core forward and dK/dV, f32 the CUDA-core
+    ones (``FLASH_ROUTES``), and nothing else."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mxnet_tpu_torch.ops import flash_attention as fa
+
+    # a process's first profiler session can miss its first kernels
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.ones(1, device=dev).add_(1)
+        torch.cuda.synchronize()
+    rows = []
+    for dname, want in FLASH_ROUTES.items():
+        dtype = getattr(torch, dname)
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        q, k, v, go = (torch.randn(2, 128, 2, 64, generator=g,
+                                   device=dev).to(dtype) for _ in range(4))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                out, lse = fa.flash_attention_forward(q, k, v, True)
+                delta = fa.flash_delta(out, go)
+                fa.flash_attention_dq(q, k, v, go, lse, delta, True)
+                fa.flash_attention_dkv(q, k, v, go, lse, delta, True)
+            torch.cuda.synchronize()
+        names = sorted({e.name for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and "flash_" in e.name})
+        # each wanted function ran (demangled "name<" or mangled "nameI"),
+        # and no other flash kernel function
+        ran = [w for w in want
+               if any(re.search(rf"(?<![A-Za-z_]){w}[<I]", n)
+                      for n in names)]
+        rows.append({"dtype": dname, "kernels": names,
+                     "ok": ran == list(want) and len(names) == len(want)})
     return rows
 
 
@@ -867,7 +957,8 @@ def phase_kernels(dev):
             "layer_norm_backward": _layer_norm_backward_cases(dev),
             "paged_attention": _paged_attention_cases(dev),
             "paged_attention_int8": _paged_attention_cases(dev, int8=True),
-            "flash_attention": _flash_cases(dev)}
+            "flash_attention": _flash_cases(dev),
+            "flash_routes": _flash_routes(dev)}
     emit({"phase": "kernels", "tolerance": TOL, **rows})
     bad = [r for rs in rows.values() for r in rs if not r["ok"]]
     if bad:
@@ -1572,7 +1663,8 @@ def phase_profile(dev, cfg, params):
 def phase_profile_training(dev, cfg, params):
     """Optional (not in the default run): two chained bf16 training steps
     of the ``training`` phase's main path under ``torch.profiler``, after
-    one unprofiled warm-up step."""
+    one unprofiled warm-up step; the flash kernels that ran must be the
+    bf16 ones (``FLASH_ROUTES``)."""
     import functools
 
     import torch
@@ -1596,8 +1688,13 @@ def phase_profile_training(dev, cfg, params):
 
     steps(1)
     torch.cuda.synchronize()
-    emit({"phase": "profile_training", "steps": 2,
-          **_profiled(lambda: steps(2))})
+    res = _profiled(lambda: steps(2))
+    emit({"phase": "profile_training", "steps": 2, **res})
+    # the bf16 window's flash kernels are the routed ones, by name
+    ran = {k for k in res["port_kernels_ms"] if k.startswith("flash_")}
+    if ran != set(FLASH_ROUTES["bfloat16"]):
+        raise SystemExit(f"bf16 training ran flash kernels {sorted(ran)}, "
+                         f"not {FLASH_ROUTES['bfloat16']}")
 
 
 # -- phase 9 ------------------------------------------------------------------------

@@ -6,41 +6,79 @@
 // (tpumx_flash_dkv), the attention of the transformer LM's training step
 // when `flash_attention(causal=True)` is its `attention=` callable.
 //
-// What bounds them on an H100: operations.  At the LM's training shape
-// (B*H = 96 heads, T = 1024, D = 64, causal) the forward needs 4*D
-// flops per live (query, key) pair (12.9 GFLOP), dQ 6*D (19.3) and dK/dV
-// 8*D (25.8), against 50-75 MB of q, k, v, g and outputs: ~200 flops per
-// byte in f32, far above the card's balance point for CUDA-core f32.
+// Two designs sit behind the three entries, chosen by dtype:
 //
-// Design (simple and right first).  The TPU grid's sequential innermost axis
-// (k tiles for the forward and dQ, q tiles for dK/dV), which carries the
-// running sums in VMEM scratch, becomes a loop inside one thread block.  A
-// block of 256 threads owns one 64-row tile of one (batch, head) and walks
-// the 64-row tiles of the other side, staged in shared memory as f32 (bf16
-// inputs are widened as they are staged); q is multiplied by `scale` in f32
-// while staged, as the reference does.  Thread (ty, tx) of the 16 x 16
-// grid holds rows ty + 16*i (i < 4) of its tile against columns tx + 16*j
-// of the other, so each score row lives in 16 lanes of one warp and its max
-// and sum are 4-step shuffles; the same thread owns the same rows of the
-// accumulators, so the online-softmax rescale needs no exchange.  Shared
-// rows are padded to D+1 floats, which makes the strided column reads
-// conflict-free.  Ragged T is masked in the kernel (rows past T load as 0,
-// keys past T get probability 0), never padded in memory; with `causal`,
-// tiles strictly above the diagonal are skipped.
+//   dtype     forward               dQ                dK/dV
+//   bfloat16  flash_fwd_tc_kernel   flash_dq_kernel   flash_dkv_tc_kernel
+//   float32   flash_fwd_kernel      flash_dq_kernel   flash_dkv_kernel
 //
-// The backward keeps the reference's split into two passes: dQ (one block
-// per q tile) and dK/dV (one block per k tile).  Every output element has
-// one writer, so there are no atomics and the gradients are bitwise
-// deterministic from run to run.  All arithmetic is f32 on CUDA cores
-// (`fmaf`); tensor cores (mma.sync / wgmma with TMA) are later work.
+// What bounds them on an H100.  At the LM's training shape (B*H = 96
+// heads, T = 1024, D = 64, causal) the forward needs 4*D flops per live
+// (query, key) pair (12.9 GFLOP), dQ 6*D (19.3) and dK/dV 8*D (25.8),
+// against 50-75 MB of q, k, v, g and outputs.  In bf16 on the tensor cores
+// (989 TFLOP/s, 3.35 TB/s) the forward is bound by bytes: 50 MB is 0.0151
+// ms against 0.013 ms of products (and 50.4 M exps, ~0.013 ms on the
+// SFUs); dK/dV is bound by operations, 0.0261 ms.  In f32 on CUDA cores
+// (67 TFLOP/s) all three are bound by operations, 0.19-0.39 ms.
+//
+// bf16: the tensor-core design (flash_*_tc_kernel), FlashAttention-2 on
+// mma.sync.m16n8k16 (bf16 in, f32 accumulate), written in inline PTX.
+// Four warps own 64 rows of one (batch, head), 16 a warp.  Tiles of the
+// other side stream from device memory by 16-byte cp.async copies through
+// a 2-stage ring in shared memory, the next tile's copy in flight while
+// this one computes; rows are padded by 16 bytes so that ldmatrix reads
+// them without bank conflicts.  Every product's A operand is in registers
+// (q, or k and v, loaded once by ldmatrix; p and ds built from the f32
+// accumulators, whose m16n8 layout of two adjacent n-tiles is the k16 A
+// layout); B operands come by ldmatrix, `.trans` where the contraction runs
+// over keys or queries.  The scores are products of bf16 inputs, exact in
+// f32, scaled by `scale` in f32 after the product.  p and ds, the A
+// operands of the second products (P V, P^T g, dS^T q), are each split into
+// a bf16 high part and a bf16 low part (hi = bf16(x), lo = bf16(x - hi))
+// and multiplied twice, since one bf16 rounding of them does not hold the
+// causal rows to a bf16 tolerance; those sums stay f32.  The softmax runs
+// in base 2 (scores prescaled by log2 e; exp2f), and lse is written in
+// natural log.  Masks apply only on tiles that cross the diagonal or the
+// ragged end.  Outputs go through shared memory, so their stores are 16
+// bytes and coalesced.  dK/dV works key-major (S^T = K Q^T, dP^T = V g^T),
+// so k and v stay A operands; at D = 128 it keeps k and v in shared memory
+// and takes 32-query tiles, so that its two f32 accumulators (dK, dV: 128
+// registers a thread) do not spill.
+//
+// f32: the CUDA-core design.  f32 has no tensor-core path that keeps full
+// f32 products (TF32 rounds the inputs to 10 bits, and the port keeps TF32
+// off), so f32 runs on CUDA cores.  The TPU grid's sequential innermost
+// axis (k tiles for the forward and dQ, q tiles for dK/dV), which carries
+// the running sums in VMEM scratch, becomes a loop inside one block of 256
+// threads that owns one 64-row tile of one (batch, head) and walks the
+// 64-row tiles of the other side, staged in shared memory as f32; q is
+// multiplied by `scale` in f32 while staged, as the reference does.  Thread
+// (ty, tx) of the 16 x 16 grid holds rows ty + 16*i (i < 4) of its tile
+// against columns tx + 16*j of the other, so each score row lives in 16
+// lanes of one warp and its max and sum are 4-step shuffles.  Shared rows
+// are padded to D+1 floats.  All its arithmetic is f32 on CUDA cores
+// (`fmaf`).  dQ keeps this design for both dtypes (bf16 inputs are widened
+// as they are staged).
+//
+// Both designs mask ragged T in the kernel (rows past T load as 0 and are
+// not written, keys past T get probability 0), never pad in memory, and
+// skip causal tiles strictly above the diagonal.  The backward keeps the
+// reference's split into two passes: dQ (one block per q tile) and dK/dV
+// (one block per k tile).  Every output element has one writer, so there
+// are no atomics and the gradients are bitwise deterministic from run to
+// run.
 //
 // Layouts: q, k and v are (B, T, H, D) with D contiguous and the element
 // strides of B, T and H given (the LM passes strided views of its fused
 // qkv product, so nothing is copied); g, out, dq, dk and dv are contiguous
 // (B, T, H, D); lse and delta are contiguous (B, H, T) float32.  D is 16,
-// 32, 64 or 128.
+// 32, 64 or 128.  The bf16 kernels copy 16-byte chunks, so their q, k, v
+// and g start on 16 bytes and the B, T and H strides are multiples of 8
+// (the wrapper copies inputs that are not).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -427,6 +465,541 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---- bf16 on the tensor cores: building blocks ----------------------------
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcThreads = 128;  // four warps, 16 rows of the block's tile each
+constexpr int kTcPad = 8;        // bf16 of padding after each shared row
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 (or 4) bytes from device to shared memory, asynchronously; zeros when
+// !valid (src then points at a valid row and is not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8x8 bf16 matrices from shared memory; lane i gives the address of
+// row i % 8 of matrix i / 8.  `_t` delivers each matrix transposed.
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// d += a (16x16, row) * b (16x8, col): bf16 in, f32 accumulate.  Lane l
+// (g = l / 4, t = l % 4) holds d[0..1] at row g, columns 2t and 2t+1, and
+// d[2..3] at row g+8; a[0..3] at (g, 2t), (g+8, 2t), (g, 2t+8), (g+8, 2t+8)
+// (pairs of columns); b0 at rows 2t, 2t+1 of column g, b1 at rows 2t+8, 2t+9.
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats x0, x1 as a pair of bf16 pairs, hi = bf16(x) and lo =
+// bf16(x - hi) (round to nearest; x0 in the low halves): hi + lo carries
+// 16 of x's 24 bits
+__device__ __forceinline__ void split_bf16(unsigned& hi, unsigned& lo,
+                                           float x0, float x1) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const unsigned*>(&h);
+  lo = *reinterpret_cast<const unsigned*>(&l);
+}
+
+// The A operand of one k16 step, split into hi and lo parts, from the f32
+// accumulators of the two adjacent n-tiles c0 (columns 0-7) and c1 (8-15)
+// of a 16x16 product.  One bf16 rounding of p or ds takes the causal
+// rows' outputs past a bf16 tolerance (rtol 2e-2, atol 1e-3) against f32
+// arithmetic on the same inputs: early rows mix few keys with weights near
+// 1, so 2^-9 of a weight is not averaged away.  Two products, hi and lo,
+// keep 16 bits.
+__device__ __forceinline__ void acc_to_a2(unsigned (&hi)[4],
+                                          unsigned (&lo)[4],
+                                          const float (&c0)[4],
+                                          const float (&c1)[4]) {
+  split_bf16(hi[0], lo[0], c0[0], c0[1]);
+  split_bf16(hi[1], lo[1], c0[2], c0[3]);
+  split_bf16(hi[2], lo[2], c1[0], c1[1]);
+  split_bf16(hi[3], lo[3], c1[2], c1[3]);
+}
+
+// d += (hi + lo) b: the two products of a split A operand
+__device__ __forceinline__ void mma_bf16x2(float (&d)[4],
+                                           const unsigned (&hi)[4],
+                                           const unsigned (&lo)[4],
+                                           unsigned b0, unsigned b1) {
+  mma_bf16(d, lo, b0, b1);
+  mma_bf16(d, hi, b0, b1);
+}
+
+// Per-lane ldmatrix offsets inside a 16x16 block of a row-major shared
+// tile (ld elements between rows):
+//  - a: the A operand (rows are the product's rows): row l & 15, column
+//    8 * (l >> 4) gives a[0..3];
+//  - b_n: the B operand from a tile stored [n][k] (keys by d, for q k^T):
+//    row (l & 7) + 8 * (l >> 4), column 8 * ((l >> 3) & 1) gives b0, b1 of
+//    n-tile 0 in r[0..1] and of n-tile 1 in r[2..3];
+//  - b_t: the B operand from a tile stored [k][n] (keys by d, for p v),
+//    with `.trans`: row (l & 7) + 8 * ((l >> 3) & 1), column 8 * (l >> 4),
+//    the same register order.
+struct Lanes {
+  int a, b_n, b_t;
+  __device__ __forceinline__ Lanes(int lane, int ld)
+      : a((lane & 15) * ld + (lane >> 4) * 8),
+        b_n(((lane & 7) + (lane >> 4) * 8) * ld + ((lane >> 3) & 1) * 8),
+        b_t(((lane & 7) + ((lane >> 3) & 1) * 8) * ld + (lane >> 4) * 8) {}
+};
+
+// rows row0 .. row0+R-1 of one head (src points at its row 0, `ld` elements
+// between rows) into dst (R, D + kTcPad) by 16-byte cp.async; rows past T
+// are zeros
+template <int R, int D>
+__device__ __forceinline__ void copy_rows(bf16* dst, const bf16* src,
+                                          long long ld, int row0, int Tn) {
+  constexpr int kChunks = D / 8;
+  for (int c = threadIdx.x; c < R * kChunks; c += kTcThreads) {
+    const int r = c / kChunks, ch = c % kChunks, row = row0 + r;
+    const bool ok = row < Tn;
+    cp_async16(dst + r * (D + kTcPad) + ch * 8,
+               src + static_cast<long long>(ok ? row : 0) * ld + ch * 8, ok);
+  }
+}
+
+// the same for R f32 values (lse or delta of R rows), 4 bytes each
+template <int R>
+__device__ __forceinline__ void copy_vals(float* dst, const float* src,
+                                          int row0, int Tn) {
+  for (int i = threadIdx.x; i < R; i += kTcThreads) {
+    const int row = row0 + i;
+    const bool ok = row < Tn;
+    cp_async4(dst + i, src + (ok ? row : 0), ok);
+  }
+}
+
+// one warp's 16 rows of an f32 accumulator tile (16, D), times mul0 (rows
+// g) and mul1 (rows g+8), to bf16 rows row0.. of a (B, T, H, D) output
+// (dst at row 0 of the head, `ld` elements between rows) through the warp's
+// 16 rows of shared memory (`stage`), with 16-byte coalesced stores; rows
+// past T are not written
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* __restrict__ dst,
+                                           long long ld, int row0, int Tn,
+                                           bf16* stage,
+                                           const float (&c)[D / 8][4],
+                                           float mul0, float mul1, int lane) {
+  constexpr int LDS = D + kTcPad, kChunks = D / 8;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    *reinterpret_cast<__nv_bfloat162*>(stage + g * LDS + n * 8 + 2 * t) =
+        __floats2bfloat162_rn(c[n][0] * mul0, c[n][1] * mul0);
+    *reinterpret_cast<__nv_bfloat162*>(stage + (g + 8) * LDS + n * 8 +
+                                       2 * t) =
+        __floats2bfloat162_rn(c[n][2] * mul1, c[n][3] * mul1);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = lane; i < 16 * kChunks; i += 32) {
+    const int r = i / kChunks, ch = i % kChunks, row = row0 + r;
+    if (row < Tn)
+      *reinterpret_cast<uint4*>(dst + static_cast<long long>(row) * ld +
+                                ch * 8) =
+          *reinterpret_cast<const uint4*>(stage + r * LDS + ch * 8);
+  }
+}
+
+// ---- kernel 6 on the tensor cores: bf16 forward ---------------------------
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, long long sb, long long st,
+                    long long sh, bf16* __restrict__ out,
+                    float* __restrict__ lse, int Tn, int H, float scale,
+                    int causal) {
+  constexpr int LDS = D + kTcPad, KD = D / 16, ND = D / 8, NS = kTile / 8;
+  constexpr int kTileElems = kTile * LDS;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(tc_smem);
+  bf16* Ks = Qs + kTileElems;      // two stages
+  bf16* Vs = Ks + 2 * kTileElems;  // two stages
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const Lanes at(lane, LDS);
+  // the longest causal rows first: they finish last otherwise
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
+  const int r0 = q0 + warp * 16;  // this warp's first row
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const long long base = b * sb + h * sh;
+  const int nk = k_tiles(q0, Tn, causal);
+
+  copy_rows<kTile, D>(Qs, q + base, st, q0, Tn);
+  copy_rows<kTile, D>(Ks, k + base, st, 0, Tn);
+  copy_rows<kTile, D>(Vs, v + base, st, 0, Tn);
+  cp_async_commit();
+
+  unsigned qf[KD][4];
+  float o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  // running max (base-2 units) of rows g and g+8, and this lane's part of
+  // their running sums (the quad's parts are added at the end)
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+  const float sl2 = scale * kLog2e;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * kTile;
+    if (kt + 1 < nk) {  // the next tile's copy overlaps this tile's math
+      const int nxt = ((kt + 1) & 1) * kTileElems;
+      copy_rows<kTile, D>(Ks + nxt, k + base, st, k0 + kTile, Tn);
+      copy_rows<kTile, D>(Vs + nxt, v + base, st, k0 + kTile, Tn);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (kt == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)
+        ldsm_x4(qf[kk], Qs + warp * 16 * LDS + at.a + kk * 16);
+    }
+    const bf16* Kt = Ks + (kt & 1) * kTileElems;
+    const bf16* Vt = Vs + (kt & 1) * kTileElems;
+
+    // S = Q K^T: 16 rows x 64 keys a warp
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+      for (int n2 = 0; n2 < NS / 2; ++n2) {
+        unsigned bk[4];
+        ldsm_x4(bk, Kt + n2 * 16 * LDS + at.b_n + kk * 16);
+        mma_bf16(s[2 * n2], qf[kk], bk[0], bk[1]);
+        mma_bf16(s[2 * n2 + 1], qf[kk], bk[2], bk[3]);
+      }
+
+    // scale (into base-2 units), mask, online softmax
+    const bool edge = k0 + kTile > Tn || (causal && k0 + kTile - 1 > r0);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * sl2;
+        if (edge) {
+          const int kpos = k0 + n * 8 + 2 * t + (e & 1);
+          const int qpos = r0 + g + (e >> 1) * 8;
+          if (kpos >= Tn || (causal && kpos > qpos)) x = kNeg;
+        }
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = exp2f(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[n][e] - m[e >> 1]);
+        s[n][e] = p;
+        l[e >> 1] += p;
+      }
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+
+    // O += P V, P split into bf16 hi and lo in registers as the A operand
+#pragma unroll
+    for (int kk = 0; kk < NS / 2; ++kk) {
+      unsigned ph[4], pl[4];
+      acc_to_a2(ph, pl, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int dn = 0; dn < KD; ++dn) {
+        unsigned bv[4];
+        ldsm_x4_t(bv, Vt + kk * 16 * LDS + at.b_t + dn * 16);
+        mma_bf16x2(o[2 * dn], ph, pl, bv[0], bv[1]);
+        mma_bf16x2(o[2 * dn + 1], ph, pl, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();  // this stage's readers are done before it refills
+  }
+
+  float lm[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    lm[r] = fmaxf(l[r], 1e-30f);
+  }
+  // out through this warp's own 16 rows of Qs (read only by this warp)
+  store_rows<D>(out + (static_cast<long long>(b) * Tn * H + h) * D,
+                static_cast<long long>(H) * D, r0, Tn, Qs + warp * 16 * LDS,
+                o, 1.f / lm[0], 1.f / lm[1], lane);
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + g + 8 * r;
+      if (row < Tn)
+        lse[static_cast<long long>(bh) * Tn + row] =
+            m[r] * kLn2 + logf(lm[r]);
+    }
+  }
+}
+
+// ---- kernel 8 on the tensor cores: bf16 dK and dV -------------------------
+// Query rows per tile, and whether k and v live in registers (D <= 64) or
+// are read from shared memory at every product (D = 128, so that the dK
+// and dV accumulators keep the registers).
+template <int D> struct DkvTc {
+  static constexpr int kRows = D <= 64 ? 64 : 32;
+  static constexpr bool kKvInRegs = D <= 64;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+flash_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, long long sb, long long st,
+                    long long sh, const bf16* __restrict__ g,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dk,
+                    bf16* __restrict__ dv, int Tn, int H, float scale,
+                    int causal) {
+  constexpr int BQ = DkvTc<D>::kRows;
+  constexpr bool kRegs = DkvTc<D>::kKvInRegs;
+  constexpr int LDS = D + kTcPad, KD = D / 16, ND = D / 8, NQ = BQ / 8;
+  constexpr int kQElems = BQ * LDS;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(tc_smem);
+  bf16* Vs = Ks + kTile * LDS;
+  bf16* Qs = Vs + kTile * LDS;  // two stages
+  bf16* Gs = Qs + 2 * kQElems;  // two stages
+  float* Ls = reinterpret_cast<float*>(Gs + 2 * kQElems);  // two stages
+  float* Ds = Ls + 2 * BQ;                                 // two stages
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gi = lane >> 2, t = lane & 3;
+  const Lanes at(lane, LDS);
+  // causal: the first k tiles see the most query tiles, and launch first
+  const int k0 = blockIdx.x * kTile;
+  const int kr0 = k0 + warp * 16;  // this warp's first key
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const long long base = b * sb + h * sh;
+  const long long gld = static_cast<long long>(H) * D;
+  const long long gbase = static_cast<long long>(b) * Tn * gld +
+                          static_cast<long long>(h) * D;
+  const float* lse_bh = lse + static_cast<long long>(bh) * Tn;
+  const float* del_bh = delta + static_cast<long long>(bh) * Tn;
+  // causal: query rows before this key tile see none of it
+  const int qs = causal ? k0 : 0;
+
+  copy_rows<kTile, D>(Ks, k + base, st, k0, Tn);
+  copy_rows<kTile, D>(Vs, v + base, st, k0, Tn);
+  copy_rows<BQ, D>(Qs, q + base, st, qs, Tn);
+  copy_rows<BQ, D>(Gs, g + gbase, gld, qs, Tn);
+  copy_vals<BQ>(Ls, lse_bh, qs, Tn);
+  copy_vals<BQ>(Ds, del_bh, qs, Tn);
+  cp_async_commit();
+
+  unsigned kf[kRegs ? KD : 1][4], vf[kRegs ? KD : 1][4];
+  float dka[ND][4], dva[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+  const float sl2 = scale * kLog2e;
+  const bf16* Kw = Ks + warp * 16 * LDS + at.a;
+  const bf16* Vw = Vs + warp * 16 * LDS + at.a;
+
+  int it = 0;
+  for (int q0 = qs; q0 < Tn; q0 += BQ, ++it) {
+    if (q0 + BQ < Tn) {  // the next tile's copy overlaps this tile's math
+      const int nxt = (it + 1) & 1;
+      copy_rows<BQ, D>(Qs + nxt * kQElems, q + base, st, q0 + BQ, Tn);
+      copy_rows<BQ, D>(Gs + nxt * kQElems, g + gbase, gld, q0 + BQ, Tn);
+      copy_vals<BQ>(Ls + nxt * BQ, lse_bh, q0 + BQ, Tn);
+      copy_vals<BQ>(Ds + nxt * BQ, del_bh, q0 + BQ, Tn);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if constexpr (kRegs) {
+      if (it == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk) {
+          ldsm_x4(kf[kk], Kw + kk * 16);
+          ldsm_x4(vf[kk], Vw + kk * 16);
+        }
+      }
+    }
+    const bf16* Qt = Qs + (it & 1) * kQElems;
+    const bf16* Gt = Gs + (it & 1) * kQElems;
+    const float* Lt = Ls + (it & 1) * BQ;
+    const float* Dt = Ds + (it & 1) * BQ;
+
+    // S^T = K Q^T: 16 keys x BQ queries a warp
+    float sT[NQ][4];
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sT[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      unsigned a[4];
+      if constexpr (kRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = kf[kk][e];
+      } else {
+        ldsm_x4(a, Kw + kk * 16);
+      }
+#pragma unroll
+      for (int n2 = 0; n2 < NQ / 2; ++n2) {
+        unsigned bq[4];
+        ldsm_x4(bq, Qt + n2 * 16 * LDS + at.b_n + kk * 16);
+        mma_bf16(sT[2 * n2], a, bq[0], bq[1]);
+        mma_bf16(sT[2 * n2 + 1], a, bq[2], bq[3]);
+      }
+    }
+
+    // P^T = exp(scale * S^T - lse[q]), 0 where masked
+    const bool edge =
+        q0 + BQ > Tn || k0 + kTile > Tn || (causal && q0 < k0 + kTile - 1);
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = n * 8 + 2 * t + (e & 1);
+        float p = exp2f(fmaf(sT[n][e], sl2, -Lt[qi] * kLog2e));
+        if (edge) {
+          const int kpos = kr0 + gi + (e >> 1) * 8, qpos = q0 + qi;
+          if (kpos >= Tn || qpos >= Tn || (causal && kpos > qpos)) p = 0.f;
+        }
+        sT[n][e] = p;
+      }
+
+    // dV += P^T g, P^T split (g by ldmatrix.trans: the contraction runs
+    // over queries)
+#pragma unroll
+    for (int kq = 0; kq < NQ / 2; ++kq) {
+      unsigned ph[4], pl[4];
+      acc_to_a2(ph, pl, sT[2 * kq], sT[2 * kq + 1]);
+#pragma unroll
+      for (int dn = 0; dn < KD; ++dn) {
+        unsigned bg[4];
+        ldsm_x4_t(bg, Gt + kq * 16 * LDS + at.b_t + dn * 16);
+        mma_bf16x2(dva[2 * dn], ph, pl, bg[0], bg[1]);
+        mma_bf16x2(dva[2 * dn + 1], ph, pl, bg[2], bg[3]);
+      }
+    }
+
+    // dP^T = V g^T, then dS^T = P^T (dP^T - delta[q]) in its place
+    float dsT[NQ][4];
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dsT[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      unsigned a[4];
+      if constexpr (kRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = vf[kk][e];
+      } else {
+        ldsm_x4(a, Vw + kk * 16);
+      }
+#pragma unroll
+      for (int n2 = 0; n2 < NQ / 2; ++n2) {
+        unsigned bg[4];
+        ldsm_x4(bg, Gt + n2 * 16 * LDS + at.b_n + kk * 16);
+        mma_bf16(dsT[2 * n2], a, bg[0], bg[1]);
+        mma_bf16(dsT[2 * n2 + 1], a, bg[2], bg[3]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dsT[n][e] = sT[n][e] * (dsT[n][e] - Dt[n * 8 + 2 * t + (e & 1)]);
+
+    // dK += dS^T Q, dS^T split (q by ldmatrix.trans); `scale` once at the
+    // end
+#pragma unroll
+    for (int kq = 0; kq < NQ / 2; ++kq) {
+      unsigned dh[4], dl[4];
+      acc_to_a2(dh, dl, dsT[2 * kq], dsT[2 * kq + 1]);
+#pragma unroll
+      for (int dn = 0; dn < KD; ++dn) {
+        unsigned bq[4];
+        ldsm_x4_t(bq, Qt + kq * 16 * LDS + at.b_t + dn * 16);
+        mma_bf16x2(dka[2 * dn], dh, dl, bq[0], bq[1]);
+        mma_bf16x2(dka[2 * dn + 1], dh, dl, bq[2], bq[3]);
+      }
+    }
+    __syncthreads();  // this stage's readers are done before it refills
+  }
+
+  // dK and dV through this warp's own 16 rows of Ks and Vs (read only by
+  // this warp)
+  store_rows<D>(dk + gbase, gld, kr0, Tn, Ks + warp * 16 * LDS, dka, scale,
+                scale, lane);
+  store_rows<D>(dv + gbase, gld, kr0, Tn, Vs + warp * 16 * LDS, dva, 1.f,
+                1.f, lane);
+}
+
 // dynamic shared memory in bytes of each kernel
 template <int D> constexpr size_t fwd_smem() {
   return sizeof(float) * (3 * kTile * (D + 1) + kTile * kPad);
@@ -437,6 +1010,14 @@ template <int D> constexpr size_t dq_smem() {
 template <int D> constexpr size_t dkv_smem() {
   return sizeof(float) *
          (4 * kTile * (D + 1) + 2 * kTile * kPad + 2 * kTile);
+}
+template <int D> constexpr size_t fwd_tc_smem() {
+  return sizeof(bf16) * 5 * kTile * (D + kTcPad);
+}
+template <int D> constexpr size_t dkv_tc_smem() {
+  constexpr int BQ = DkvTc<D>::kRows;
+  return sizeof(bf16) * (2 * kTile + 4 * BQ) * (D + kTcPad) +
+         sizeof(float) * 4 * BQ;
 }
 
 // above 48 KB a kernel must opt in to its dynamic shared memory, once
@@ -460,18 +1041,54 @@ struct Shape {
   }
 };
 
+template <int D>
+int fwd_tc(const void* q, const void* k, const void* v, long long sb,
+           long long st, long long sh, void* out, void* lse, const Shape& s) {
+  static bool done = false;
+  auto kernel = flash_fwd_tc_kernel<D>;
+  cudaError_t err = opt_in(kernel, fwd_tc_smem<D>(), &done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<s.grid(), kTcThreads, fwd_tc_smem<D>(), s.stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), sb, st, sh, static_cast<bf16*>(out),
+      static_cast<float*>(lse), s.Tn, s.H, s.scale, s.causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int dkv_tc(const void* q, const void* k, const void* v, long long sb,
+           long long st, long long sh, const void* g, const void* lse,
+           const void* delta, void* dk_out, void* dv_out, const Shape& s) {
+  static bool done = false;
+  auto kernel = flash_dkv_tc_kernel<D>;
+  cudaError_t err = opt_in(kernel, dkv_tc_smem<D>(), &done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<s.grid(), kTcThreads, dkv_tc_smem<D>(), s.stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), sb, st, sh, static_cast<const bf16*>(g),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dk_out), static_cast<bf16*>(dv_out), s.Tn, s.H,
+      s.scale, s.causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 takes the tensor-core forward and dK/dV, f32 the CUDA-core ones
 template <typename T, int D>
 int fwd(const void* q, const void* k, const void* v, long long sb,
         long long st, long long sh, void* out, void* lse, const Shape& s) {
-  static bool done = false;
-  auto kernel = flash_fwd_kernel<T, D>;
-  cudaError_t err = opt_in(kernel, fwd_smem<D>(), &done);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<s.grid(), kThreads, fwd_smem<D>(), s.stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), sb, st, sh, static_cast<T*>(out),
-      static_cast<float*>(lse), s.Tn, s.H, s.scale, s.causal);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (std::is_same_v<T, bf16>) {
+    return fwd_tc<D>(q, k, v, sb, st, sh, out, lse, s);
+  } else {
+    static bool done = false;
+    auto kernel = flash_fwd_kernel<T, D>;
+    cudaError_t err = opt_in(kernel, fwd_smem<D>(), &done);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<s.grid(), kThreads, fwd_smem<D>(), s.stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), sb, st, sh, static_cast<T*>(out),
+        static_cast<float*>(lse), s.Tn, s.H, s.scale, s.causal);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 template <typename T, int D>
@@ -494,17 +1111,21 @@ template <typename T, int D>
 int dkv(const void* q, const void* k, const void* v, long long sb,
         long long st, long long sh, const void* g, const void* lse,
         const void* delta, void* dk_out, void* dv_out, const Shape& s) {
-  static bool done = false;
-  auto kernel = flash_dkv_kernel<T, D>;
-  cudaError_t err = opt_in(kernel, dkv_smem<D>(), &done);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<s.grid(), kThreads, dkv_smem<D>(), s.stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), sb, st, sh, static_cast<const T*>(g),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk_out), static_cast<T*>(dv_out), s.Tn, s.H, s.scale,
-      s.causal);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (std::is_same_v<T, bf16>) {
+    return dkv_tc<D>(q, k, v, sb, st, sh, g, lse, delta, dk_out, dv_out, s);
+  } else {
+    static bool done = false;
+    auto kernel = flash_dkv_kernel<T, D>;
+    cudaError_t err = opt_in(kernel, dkv_smem<D>(), &done);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<s.grid(), kThreads, dkv_smem<D>(), s.stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), sb, st, sh, static_cast<const T*>(g),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<T*>(dk_out), static_cast<T*>(dv_out), s.Tn, s.H,
+        s.scale, s.causal);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 // one instantiation per (dtype, head dim); dtype 0 = float32, 1 = bfloat16

@@ -5,7 +5,11 @@ PyTorch counterpart of ``mxnet_tpu/ops/flash_attention.py``: the
 ``_dkv_kernel`` Pallas kernels behind ``flash_attention``.  For CUDA tensors
 each of the three wrappers below launches its hand-written CUDA kernel
 (``csrc/flash_attention.cu``); for CPU tensors it takes its plain version.
-A CUDA tensor a kernel does not take raises; nothing falls back.
+A CUDA tensor a kernel does not take raises; nothing falls back.  The
+dtype picks the design: bfloat16 runs the forward and dK/dV on the tensor
+cores (``mma.sync`` with bf16 operands and f32 sums, tiles brought in by
+``cp.async``), float32 runs them on CUDA cores in f32; dQ runs on CUDA
+cores for both.
 
 :func:`flash_attention` is a ``torch.autograd.Function``: its forward
 launches the forward kernel and saves ``q, k, v, out, lse``; its backward
@@ -16,9 +20,14 @@ Semantics shared by kernels and plain versions, as in the reference: q is
 scaled in f32 before the product, scores and accumulation are f32, a
 masked score is ``-1e30`` (probability 0), ``out = acc / max(l, 1e-30)``
 in the input dtype, ``lse = m + log(max(l, 1e-30))`` in f32, and the
-gradients come back in their inputs' dtypes.  The reference's
-``select_flash_blocks`` and ``TPUMX_FLASH_BLOCK_Q/K`` size tiles for TPU
-VMEM and are not carried over: the CUDA kernels tile by 64 rows.
+gradients come back in their inputs' dtypes.  The bf16 tensor-core
+kernels round at two more places, as every tensor-core flash kernel does:
+``scale`` multiplies the f32 product of the bf16 q and k (not q before the
+product), and p (and ds) are rounded to bf16 before they multiply v, g and
+q.  The reference's ``select_flash_blocks`` and ``TPUMX_FLASH_BLOCK_Q/K``
+size tiles for TPU VMEM and are not carried over: every CUDA kernel owns
+64 rows of one head; the bf16 dK/dV walks query tiles of 64 rows (32 at
+D = 128), the others 64.
 """
 from __future__ import annotations
 
@@ -148,9 +157,17 @@ def _check_qkv(q, k, v, what: str):
     if q.shape[-1] not in _HEAD_DIMS:
         raise MXNetError(f"{what}: head dim {q.shape[-1]} not supported "
                          f"{_HEAD_DIMS}")
-    if not (q.stride() == k.stride() == v.stride() and q.stride(-1) == 1):
+    if not (q.stride() == k.stride() == v.stride() and q.stride(-1) == 1
+            and all(_aligned(t) for t in (q, k, v))):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     return q, k, v
+
+
+def _aligned(t) -> bool:
+    """The bf16 kernels copy rows in 16-byte chunks: a bf16 tensor must
+    start on 16 bytes with its B, T and H strides multiples of 8."""
+    return t.dtype != torch.bfloat16 or (
+        t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3]))
 
 
 def _check(name: str, t, shape, dtype, device, what: str):
@@ -236,6 +253,8 @@ def flash_attention_dkv(q, k, v, g, lse, delta, causal: bool = False,
         return flash_attention_dkv_reference(q, k, v, g, lse, delta, causal,
                                              scale)
     q, k, v = _check_bwd(q, k, v, g, lse, delta, "flash_attention dkv")
+    if not _aligned(g):
+        g = g.clone()
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if dk.numel() == 0:
@@ -292,7 +311,7 @@ def flash_attention(q, k, v, causal: bool = False, scale=None,
     transformer LM.  Returns (B, T, H, D) in q's dtype.
 
     ``block_q``/``block_k`` are accepted for the reference's signature and
-    change nothing: the tiles are the CUDA kernels' own (64 rows)."""
+    change nothing: the tiles are the CUDA kernels' own."""
     del block_q, block_k
     return _FlashAttention.apply(q, k, v, bool(causal),
                                  _scale(q.shape[-1], scale))

@@ -165,6 +165,87 @@ def test_bf16_runs_and_approximates(pallas):
                                    atol=2e-2)
 
 
+# the bf16 tensor-core kernels' rounding, held to chip_smoke.py's bf16
+# tolerance for a kernel against its plain version
+TC_TOL = dict(rtol=2e-2, atol=1e-3)
+TC_CASES = [(1, 256, 2, 64, True), (1, 256, 2, 64, False),
+            (1, 200, 2, 32, True), (1, 200, 2, 32, False)]
+
+
+def _bf16_operand(x, split):
+    """x as a bf16 tensor-core operand, in f32: bf16(x), or with ``split``
+    the kernels' hi + lo pair (hi = bf16(x), lo = bf16(x - hi))."""
+    hi = x.bfloat16().float()
+    return hi + (x - hi).bfloat16().float() if split else hi
+
+
+def _tc_emulation(q, k, v, g, causal, split=True):
+    """Where the bf16 tensor-core forward and dK/dV kernels round, in torch
+    ops on bf16 (B, T, H, D) inputs: scores are the f32 product of the bf16
+    q and k (exact products, f32 sums) times ``scale`` after it; p (and ds)
+    become bf16 operands (split into hi and lo, as the kernels do, unless
+    ``split`` is False) before they multiply v, g and q, whose sums stay
+    f32; dk takes ``scale`` once at the end.  Returns bf16 (out, dk, dv),
+    delta taken from the bf16 out as the backward does."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    if causal:
+        pos = torch.arange(q.shape[1])
+        s = torch.where(pos[None, :] <= pos[:, None], s, -1e30)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    den = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    acc = torch.einsum("bhqk,bkhd->bqhd", _bf16_operand(p, split), vf)
+    out = (acc / den.permute(0, 2, 1, 3)).bfloat16()
+    lse = m + torch.log(den)
+    p = torch.exp(s - lse)
+    delta = (gf * out.float()).sum(-1).transpose(1, 2)[..., None]
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    ds = p * (dp - delta)
+    dv = torch.einsum("bhqk,bqhd->bkhd", _bf16_operand(p, split), gf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", _bf16_operand(ds, split),
+                      qf) * scale
+    return out, dk.bfloat16(), dv.bfloat16()
+
+
+def _tc_case(B, T, H, D, causal, split):
+    """(emulated (out, dk, dv), the JAX Pallas kernels' (out, dk, dv)) on
+    the same bf16 inputs."""
+    q, k, v, g = _inputs(B, T, H, D, seed=13 * T + D + int(causal), n=4)
+    jb = [jnp.asarray(x, dtype=jnp.bfloat16) for x in (q, k, v)]
+    out_j, vjp = jax.vjp(
+        lambda a, b, c: jfa.flash_attention(a, b, c, causal=causal), *jb)
+    _, dk_j, dv_j = vjp(jnp.asarray(g, dtype=jnp.bfloat16))
+    tb = [torch.from_numpy(x).bfloat16() for x in (q, k, v, g)]
+    want = [np.asarray(x, np.float32) for x in (out_j, dk_j, dv_j)]
+    return _tc_emulation(*tb, causal, split=split), want
+
+
+@pytest.mark.parametrize("B,T,H,D,causal", TC_CASES)
+def test_tc_rounding_budget_against_jax_pallas(pallas, B, T, H, D, causal):
+    """The tensor-core kernels' roundings (p and ds as split bf16 A
+    operands, scale after the product) stay inside chip_smoke.py's bf16
+    tolerance against the JAX Pallas kernels (interpreted) on the same bf16
+    inputs, for out, dK and dV."""
+    got, want = _tc_case(B, T, H, D, causal, split=True)
+    for a, b, name in zip(got, want, ("out", "dk", "dv")):
+        assert a.dtype == torch.bfloat16
+        np.testing.assert_allclose(a.float().numpy(), b, **TC_TOL,
+                                   err_msg=name)
+
+
+def test_tc_single_bf16_rounding_exceeds_budget(pallas):
+    """Why the kernels split p and ds: rounded once to bf16, a causal
+    case's outputs leave that tolerance (early rows mix few keys with
+    weights near 1)."""
+    got, want = _tc_case(*TC_CASES[0], split=False)
+    over = [np.max(np.abs(a.float().numpy() - b)
+                   / (TC_TOL["atol"] + TC_TOL["rtol"] * np.abs(b)))
+            for a, b in zip(got, want)]
+    assert max(over) > 1.5, over
+
+
 def test_block_sizes_and_layouts_leave_result_unchanged():
     """block_q/block_k change nothing; strided views (the LM's split qkv
     product) and a non-contiguous output gradient give the same bits as

@@ -639,7 +639,8 @@ def test_port_never_imports_jax_or_reference():
     pkg = os.path.join(REPO, "mxnet_tpu_torch")
     files = [os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs
              if f.endswith(".py")]
-    files.append(os.path.join(REPO, "chip_smoke.py"))
+    files += [os.path.join(REPO, f) for f in ("chip_smoke.py",
+                                              "chip_flash_sweep.py")]
     assert len(files) > 10
     for path in files:
         with open(path) as f:
