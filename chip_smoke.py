@@ -9,8 +9,8 @@ toolkit (``nvcc``) and PyTorch built for CUDA.  Phases, one JSON line each:
 1. device   — the card (``nvidia-smi`` name and power limit); TF32 off.
 2. build    — compile every ``mxnet_tpu_torch/ops/csrc/*.cu`` (one nvcc
               each, in parallel) and report seconds and each kernel
-              function's registers and spills (ptxas); the bf16 flash
-              kernels at D=64 must not spill.
+              function's registers and spills (ptxas); no bf16
+              tensor-core flash kernel may spill, at any head dim.
 3. kernels  — each CUDA kernel against its plain PyTorch version on the
               card at its path's shapes: 2-bit pack and unpack (ResNet-50's
               193 gradient shapes and edge sizes, thresholds 0.5, 0 and
@@ -24,8 +24,8 @@ toolkit (``nvcc``) and PyTorch built for CUDA.  Phases, one JSON line each:
               attention kernels (forward with lse, dQ, dK/dV; float32 and
               bfloat16, causal and not, the training shape, a ragged T and
               D = 16, 32 and 128; the backward kernels bitwise equal over
-              two runs; bf16 launching the tensor-core forward and dK/dV
-              and f32 the CUDA-core ones, by kernel name).  With the
+              two runs; bf16 launching the three tensor-core kernels
+              and f32 the three CUDA-core ones, by kernel name).  With the
               error, the kernel's time, the plain version's, a library
               call's where one computes the same function, and the least
               time the card could take (bytes or operations over the H100's
@@ -128,9 +128,8 @@ FLASH_SHAPES = {"training": (8, 1024, 12, 64), "ragged": (2, 1000, 3, 64),
                 "d16": (2, 200, 2, 16), "d32": (2, 200, 2, 32),
                 "d128": (2, 200, 2, 128)}
 # the flash kernel functions each dtype must launch (bf16: the tensor-core
-# forward and dK/dV; f32: the CUDA-core ones; dQ is the CUDA-core kernel
-# for both)
-FLASH_ROUTES = {"bfloat16": ("flash_fwd_tc_kernel", "flash_dq_kernel",
+# forward, dQ and dK/dV; f32: the CUDA-core ones)
+FLASH_ROUTES = {"bfloat16": ("flash_fwd_tc_kernel", "flash_dq_tc_kernel",
                              "flash_dkv_tc_kernel"),
                 "float32": ("flash_fwd_kernel", "flash_dq_kernel",
                             "flash_dkv_kernel")}
@@ -149,7 +148,8 @@ PORT_KERNELS = ("twobit_pack_kernel", "twobit_unpack_kernel",
                 "bn_stats_partial", "bn_stats_final", "bn_normalize",
                 "layer_norm_kernel", "flash_fwd_kernel", "flash_dq_kernel",
                 "flash_dkv_kernel", "flash_fwd_tc_kernel",
-                "flash_dkv_tc_kernel", "paged_attention_split_kernel",
+                "flash_dq_tc_kernel", "flash_dkv_tc_kernel",
+                "paged_attention_split_kernel",
                 "paged_attention_tile_kernel")
 # serving_default's pool: small enough that its two waves preempt
 DEFAULT_POOL_BLOCKS = 52
@@ -261,8 +261,8 @@ def _ptxas_functions(report: str):
 
 
 def phase_build():
-    """Build every kernel source; the bf16 tensor-core flash kernels at
-    D = 64 (the LM's) must not spill registers."""
+    """Build every kernel source; no bf16 tensor-core flash kernel (three
+    functions at four head dims) may spill registers."""
     from mxnet_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -272,11 +272,11 @@ def phase_build():
           "kernels": {n: {"seconds": v["seconds"], "functions": funcs[n]}
                       for n, v in info.items()}})
     if info["flash_attention"]["ptxas"]:   # empty when loaded from disk
-        lm = {f: r for f, r in funcs["flash_attention"].items()
-              if "_tc_kernelILi64E" in f}
-        if len(lm) != 2 or any(r.get("spill_stores", 1) or
-                               r.get("spill_loads", 1) for r in lm.values()):
-            raise SystemExit(f"bf16 flash kernels at D=64 spill: {lm}")
+        tc = {f: r for f, r in funcs["flash_attention"].items()
+              if "_tc_kernelILi" in f}
+        if len(tc) != 12 or any(r.get("spill_stores", 1) or
+                                r.get("spill_loads", 1) for r in tc.values()):
+            raise SystemExit(f"bf16 tensor-core flash kernels spill: {tc}")
 
 
 # -- phase 3 ------------------------------------------------------------------------
@@ -636,8 +636,9 @@ def _flash_cases(dev):
 def _flash_routes(dev):
     """Which kernel functions the three flash wrappers launch for each
     dtype (``torch.profiler`` over two calls of each at a small shape):
-    bf16 must take the tensor-core forward and dK/dV, f32 the CUDA-core
-    ones (``FLASH_ROUTES``), and nothing else."""
+    bf16 must take the three tensor-core kernels, f32 the three CUDA-core
+    ones (``FLASH_ROUTES``), and no other flash kernel (bf16 no
+    ``flash_dq_kernel``, f32 no ``_tc_kernel``)."""
     import re
 
     import torch
@@ -668,11 +669,14 @@ def _flash_routes(dev):
                         and "flash_" in e.name})
         # each wanted function ran (demangled "name<" or mangled "nameI"),
         # and no other flash kernel function
-        ran = [w for w in want
-               if any(re.search(rf"(?<![A-Za-z_]){w}[<I]", n)
-                      for n in names)]
-        rows.append({"dtype": dname, "kernels": names,
-                     "ok": ran == list(want) and len(names) == len(want)})
+        def routed(w, n):
+            return re.search(rf"(?<![A-Za-z_]){w}[<I]", n) is not None
+
+        ran = [w for w in want if any(routed(w, n) for n in names)]
+        other = [n for n in names if not any(routed(w, n) for w in want)]
+        rows.append({"dtype": dname, "kernels": names, "other": other,
+                     "ok": ran == list(want) and not other
+                     and len(names) == len(want)})
     return rows
 
 
@@ -2197,6 +2201,8 @@ def _kernel_table(kern, runs):
                  else None}
             err = max(c["max_abs_err"][o] for c in kern["flash_attention"]
                       for o in outs)
+            i = ("fwd", "dq", "dkv").index(part)
+            extra = {"functions": {d: f[i] for d, f in FLASH_ROUTES.items()}}
         else:
             r = next(c for c in kern[name] if pick[name](c))
             err = max(c["max_abs_err"] for c in kern[name])

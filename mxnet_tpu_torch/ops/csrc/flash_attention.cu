@@ -8,9 +8,9 @@
 //
 // Two designs sit behind the three entries, chosen by dtype:
 //
-//   dtype     forward               dQ                dK/dV
-//   bfloat16  flash_fwd_tc_kernel   flash_dq_kernel   flash_dkv_tc_kernel
-//   float32   flash_fwd_kernel      flash_dq_kernel   flash_dkv_kernel
+//   dtype     forward               dQ                   dK/dV
+//   bfloat16  flash_fwd_tc_kernel   flash_dq_tc_kernel   flash_dkv_tc_kernel
+//   float32   flash_fwd_kernel      flash_dq_kernel      flash_dkv_kernel
 //
 // What bounds them on an H100.  At the LM's training shape (B*H = 96
 // heads, T = 1024, D = 64, causal) the forward needs 4*D flops per live
@@ -18,8 +18,9 @@
 // against 50-75 MB of q, k, v, g and outputs.  In bf16 on the tensor cores
 // (989 TFLOP/s, 3.35 TB/s) the forward is bound by bytes: 50 MB is 0.0151
 // ms against 0.013 ms of products (and 50.4 M exps, ~0.013 ms on the
-// SFUs); dK/dV is bound by operations, 0.0261 ms.  In f32 on CUDA cores
-// (67 TFLOP/s) all three are bound by operations, 0.19-0.39 ms.
+// SFUs); dQ and dK/dV are bound by operations, 0.0196 and 0.0261 ms.  In
+// f32 on CUDA cores (67 TFLOP/s) all three are bound by operations,
+// 0.19-0.39 ms.
 //
 // bf16: the tensor-core design (flash_*_tc_kernel), FlashAttention-2 on
 // mma.sync.m16n8k16 (bf16 in, f32 accumulate), written in inline PTX.
@@ -27,23 +28,33 @@
 // other side stream from device memory by 16-byte cp.async copies through
 // a 2-stage ring in shared memory, the next tile's copy in flight while
 // this one computes; rows are padded by 16 bytes so that ldmatrix reads
-// them without bank conflicts.  Every product's A operand is in registers
-// (q, or k and v, loaded once by ldmatrix; p and ds built from the f32
-// accumulators, whose m16n8 layout of two adjacent n-tiles is the k16 A
+// them without bank conflicts.  A operands are in registers (the forward's
+// q, or dK/dV's k and v, loaded once by ldmatrix at D <= 64; p and ds built
+// from the f32 accumulators, whose m16n8 layout of two adjacent n-tiles is the k16 A
 // layout); B operands come by ldmatrix, `.trans` where the contraction runs
 // over keys or queries.  The scores are products of bf16 inputs, exact in
 // f32, scaled by `scale` in f32 after the product.  p and ds, the A
-// operands of the second products (P V, P^T g, dS^T q), are each split into
-// a bf16 high part and a bf16 low part (hi = bf16(x), lo = bf16(x - hi))
-// and multiplied twice, since one bf16 rounding of them does not hold the
-// causal rows to a bf16 tolerance; those sums stay f32.  The softmax runs
-// in base 2 (scores prescaled by log2 e; exp2f), and lse is written in
-// natural log.  Masks apply only on tiles that cross the diagonal or the
-// ragged end.  Outputs go through shared memory, so their stores are 16
-// bytes and coalesced.  dK/dV works key-major (S^T = K Q^T, dP^T = V g^T),
-// so k and v stay A operands; at D = 128 it keeps k and v in shared memory
-// and takes 32-query tiles, so that its two f32 accumulators (dK, dV: 128
-// registers a thread) do not spill.
+// operands of the second products (P V, P^T g, dS^T q, dS K), are each
+// split into a bf16 high part and a bf16 low part (hi = bf16(x), lo =
+// bf16(x - hi)) and multiplied twice, since one bf16 rounding of them does
+// not hold the causal rows to a bf16 tolerance; those sums stay f32.  The
+// softmax runs in base 2 (scores prescaled by log2 e; exp2f), and lse is
+// written in natural log.  Masks apply only on tiles that cross the
+// diagonal or the ragged end.  Outputs go through shared memory, so their
+// stores are 16 bytes and coalesced.
+//
+// dQ (19.3 GFLOP at the LM shape, operation-bound at 0.0196 ms) works
+// query-major: per 64-key tile, S = Q K^T and dP = g V^T with q and g as A
+// operands, dS = P (dP - delta) in dP's registers, then dQ += dS K with k
+// by ldmatrix.trans.  Only its third product is split, it has no online
+// rescale, and `scale` multiplies dQ once at the store.  It reads q and g
+// from shared memory at every product, so that its dQ accumulator (64
+// registers a thread at D = 128) and the S and dP tiles do not spill;
+// holding them in registers instead was no faster at D = 64 or 128.
+// dK/dV works key-major (S^T = K Q^T, dP^T = V g^T), so k and v stay A
+// operands; at D = 128 it keeps k and v in shared memory and takes
+// 32-query tiles, so that its two f32 accumulators (dK, dV: 128 registers
+// a thread) do not spill.
 //
 // f32: the CUDA-core design.  f32 has no tensor-core path that keeps full
 // f32 products (TF32 rounds the inputs to 10 bits, and the port keeps TF32
@@ -57,8 +68,7 @@
 // against columns tx + 16*j of the other, so each score row lives in 16
 // lanes of one warp and its max and sum are 4-step shuffles.  Shared rows
 // are padded to D+1 floats.  All its arithmetic is f32 on CUDA cores
-// (`fmaf`).  dQ keeps this design for both dtypes (bf16 inputs are widened
-// as they are staged).
+// (`fmaf`).
 //
 // Both designs mask ragged T in the kernel (rows past T load as 0 and are
 // not written, keys past T get probability 0), never pad in memory, and
@@ -1000,6 +1010,141 @@ flash_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 1.f, lane);
 }
 
+// ---- kernel 7 on the tensor cores: bf16 dQ --------------------------------
+// q and g A-fragments are read from shared memory at every product, so that
+// the dQ accumulator and the S and dP tiles keep the registers at every D.
+// At D = 32 ptxas's own register target (96) spills; asking for 4 blocks an
+// SM raises it to 128.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, D == 32 ? 4 : 0)
+flash_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, long long sb, long long st,
+                   long long sh, const bf16* __restrict__ g,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, bf16* __restrict__ dq,
+                   int Tn, int H, float scale, int causal) {
+  constexpr int BK = kTile;
+  constexpr int LDS = D + kTcPad, KD = D / 16, ND = D / 8, NS = BK / 8;
+  constexpr int kKElems = BK * LDS;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(tc_smem);
+  bf16* Gs = Qs + kTile * LDS;
+  bf16* Ks = Gs + kTile * LDS;  // two stages
+  bf16* Vs = Ks + 2 * kKElems;  // two stages
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gi = lane >> 2, t = lane & 3;
+  const Lanes at(lane, LDS);
+  // the longest causal rows first: they finish last otherwise
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
+  const int r0 = q0 + warp * 16;  // this warp's first row
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const long long base = b * sb + h * sh;
+  const long long gld = static_cast<long long>(H) * D;
+  const long long gbase = static_cast<long long>(b) * Tn * gld +
+                          static_cast<long long>(h) * D;
+  // causal: keys past this tile's last row see none of it
+  const int nk = ((causal ? min(Tn, q0 + kTile) : Tn) + BK - 1) / BK;
+
+  copy_rows<kTile, D>(Qs, q + base, st, q0, Tn);
+  copy_rows<kTile, D>(Gs, g + gbase, gld, q0, Tn);
+  copy_rows<BK, D>(Ks, k + base, st, 0, Tn);
+  copy_rows<BK, D>(Vs, v + base, st, 0, Tn);
+  cp_async_commit();
+
+  // lse (in base-2 units) and delta of rows gi and gi+8
+  float lse2[2], del[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + gi + 8 * r;
+    const long long i = static_cast<long long>(bh) * Tn + row;
+    lse2[r] = row < Tn ? lse[i] * kLog2e : 0.f;
+    del[r] = row < Tn ? delta[i] : 0.f;
+  }
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const float sl2 = scale * kLog2e;
+  const bf16* Qw = Qs + warp * 16 * LDS + at.a;
+  const bf16* Gw = Gs + warp * 16 * LDS + at.a;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * BK;
+    if (kt + 1 < nk) {  // the next tile's copy overlaps this tile's math
+      const int nxt = ((kt + 1) & 1) * kKElems;
+      copy_rows<BK, D>(Ks + nxt, k + base, st, k0 + BK, Tn);
+      copy_rows<BK, D>(Vs + nxt, v + base, st, k0 + BK, Tn);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* Kt = Ks + (kt & 1) * kKElems;
+    const bf16* Vt = Vs + (kt & 1) * kKElems;
+
+    // S = Q K^T and dP = g V^T: 16 rows x BK keys a warp
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      unsigned aq[4], ag[4];
+      ldsm_x4(aq, Qw + kk * 16);
+      ldsm_x4(ag, Gw + kk * 16);
+#pragma unroll
+      for (int n2 = 0; n2 < NS / 2; ++n2) {
+        unsigned bk[4], bv[4];
+        ldsm_x4(bk, Kt + n2 * 16 * LDS + at.b_n + kk * 16);
+        ldsm_x4(bv, Vt + n2 * 16 * LDS + at.b_n + kk * 16);
+        mma_bf16(s[2 * n2], aq, bk[0], bk[1]);
+        mma_bf16(s[2 * n2 + 1], aq, bk[2], bk[3]);
+        mma_bf16(dp[2 * n2], ag, bv[0], bv[1]);
+        mma_bf16(dp[2 * n2 + 1], ag, bv[2], bv[3]);
+      }
+    }
+
+    // P = exp(scale * S - lse), 0 where masked; dS = P (dP - delta) in
+    // dP's place
+    const bool edge = k0 + BK > Tn || (causal && k0 + BK - 1 > r0);
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(s[n][e], sl2, -lse2[e >> 1]));
+        if (edge) {
+          const int kpos = k0 + n * 8 + 2 * t + (e & 1);
+          const int qpos = r0 + gi + (e >> 1) * 8;
+          if (kpos >= Tn || (causal && kpos > qpos)) p = 0.f;
+        }
+        dp[n][e] = p * (dp[n][e] - del[e >> 1]);
+      }
+
+    // dQ += dS K, dS split (k by ldmatrix.trans: the sum runs over keys);
+    // `scale` once at the store
+#pragma unroll
+    for (int kk = 0; kk < NS / 2; ++kk) {
+      unsigned dh[4], dl[4];
+      acc_to_a2(dh, dl, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int dn = 0; dn < KD; ++dn) {
+        unsigned bk[4];
+        ldsm_x4_t(bk, Kt + kk * 16 * LDS + at.b_t + dn * 16);
+        mma_bf16x2(acc[2 * dn], dh, dl, bk[0], bk[1]);
+        mma_bf16x2(acc[2 * dn + 1], dh, dl, bk[2], bk[3]);
+      }
+    }
+    __syncthreads();  // this stage's readers are done before it refills
+  }
+
+  // dq through this warp's own 16 rows of Qs (read only by this warp)
+  store_rows<D>(dq + gbase, gld, r0, Tn, Qs + warp * 16 * LDS, acc, scale,
+                scale, lane);
+}
+
 // dynamic shared memory in bytes of each kernel
 template <int D> constexpr size_t fwd_smem() {
   return sizeof(float) * (3 * kTile * (D + 1) + kTile * kPad);
@@ -1013,6 +1158,9 @@ template <int D> constexpr size_t dkv_smem() {
 }
 template <int D> constexpr size_t fwd_tc_smem() {
   return sizeof(bf16) * 5 * kTile * (D + kTcPad);
+}
+template <int D> constexpr size_t dq_tc_smem() {
+  return sizeof(bf16) * 6 * kTile * (D + kTcPad);
 }
 template <int D> constexpr size_t dkv_tc_smem() {
   constexpr int BQ = DkvTc<D>::kRows;
@@ -1056,6 +1204,22 @@ int fwd_tc(const void* q, const void* k, const void* v, long long sb,
 }
 
 template <int D>
+int dq_tc(const void* q, const void* k, const void* v, long long sb,
+          long long st, long long sh, const void* g, const void* lse,
+          const void* delta, void* dq_out, const Shape& s) {
+  static bool done = false;
+  auto kernel = flash_dq_tc_kernel<D>;
+  cudaError_t err = opt_in(kernel, dq_tc_smem<D>(), &done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<s.grid(), kTcThreads, dq_tc_smem<D>(), s.stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), sb, st, sh, static_cast<const bf16*>(g),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dq_out), s.Tn, s.H, s.scale, s.causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
 int dkv_tc(const void* q, const void* k, const void* v, long long sb,
            long long st, long long sh, const void* g, const void* lse,
            const void* delta, void* dk_out, void* dv_out, const Shape& s) {
@@ -1072,7 +1236,7 @@ int dkv_tc(const void* q, const void* k, const void* v, long long sb,
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 takes the tensor-core forward and dK/dV, f32 the CUDA-core ones
+// bf16 takes the tensor-core kernels, f32 the CUDA-core ones
 template <typename T, int D>
 int fwd(const void* q, const void* k, const void* v, long long sb,
         long long st, long long sh, void* out, void* lse, const Shape& s) {
@@ -1095,16 +1259,20 @@ template <typename T, int D>
 int dq(const void* q, const void* k, const void* v, long long sb,
        long long st, long long sh, const void* g, const void* lse,
        const void* delta, void* dq_out, const Shape& s) {
-  static bool done = false;
-  auto kernel = flash_dq_kernel<T, D>;
-  cudaError_t err = opt_in(kernel, dq_smem<D>(), &done);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<s.grid(), kThreads, dq_smem<D>(), s.stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), sb, st, sh, static_cast<const T*>(g),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq_out), s.Tn, s.H, s.scale, s.causal);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (std::is_same_v<T, bf16>) {
+    return dq_tc<D>(q, k, v, sb, st, sh, g, lse, delta, dq_out, s);
+  } else {
+    static bool done = false;
+    auto kernel = flash_dq_kernel<T, D>;
+    cudaError_t err = opt_in(kernel, dq_smem<D>(), &done);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<s.grid(), kThreads, dq_smem<D>(), s.stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), sb, st, sh, static_cast<const T*>(g),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<T*>(dq_out), s.Tn, s.H, s.scale, s.causal);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 template <typename T, int D>

@@ -6,10 +6,9 @@ PyTorch counterpart of ``mxnet_tpu/ops/flash_attention.py``: the
 each of the three wrappers below launches its hand-written CUDA kernel
 (``csrc/flash_attention.cu``); for CPU tensors it takes its plain version.
 A CUDA tensor a kernel does not take raises; nothing falls back.  The
-dtype picks the design: bfloat16 runs the forward and dK/dV on the tensor
-cores (``mma.sync`` with bf16 operands and f32 sums, tiles brought in by
-``cp.async``), float32 runs them on CUDA cores in f32; dQ runs on CUDA
-cores for both.
+dtype picks the design: bfloat16 runs all three on the tensor cores
+(``mma.sync`` with bf16 operands and f32 sums, tiles brought in by
+``cp.async``), float32 runs them on CUDA cores in f32.
 
 :func:`flash_attention` is a ``torch.autograd.Function``: its forward
 launches the forward kernel and saves ``q, k, v, out, lse``; its backward
@@ -23,11 +22,12 @@ in the input dtype, ``lse = m + log(max(l, 1e-30))`` in f32, and the
 gradients come back in their inputs' dtypes.  The bf16 tensor-core
 kernels round at two more places, as every tensor-core flash kernel does:
 ``scale`` multiplies the f32 product of the bf16 q and k (not q before the
-product), and p (and ds) are rounded to bf16 before they multiply v, g and
-q.  The reference's ``select_flash_blocks`` and ``TPUMX_FLASH_BLOCK_Q/K``
-size tiles for TPU VMEM and are not carried over: every CUDA kernel owns
-64 rows of one head; the bf16 dK/dV walks query tiles of 64 rows (32 at
-D = 128), the others 64.
+product), and p and ds are split into a bf16 high and a bf16 low part
+before they multiply v, g, q and k (two products, f32 sums).  The
+reference's ``select_flash_blocks`` and ``TPUMX_FLASH_BLOCK_Q/K`` size
+tiles for TPU VMEM and are not carried over: every CUDA kernel owns 64
+rows of one head; the bf16 dK/dV walks query tiles of 64 rows (32 at
+D = 128), the others walk 64-row tiles.
 """
 from __future__ import annotations
 
@@ -229,6 +229,8 @@ def flash_attention_dq(q, k, v, g, lse, delta, causal: bool = False,
         return flash_attention_dq_reference(q, k, v, g, lse, delta, causal,
                                             scale)
     q, k, v = _check_bwd(q, k, v, g, lse, delta, "flash_attention dq")
+    if not _aligned(g):
+        g = g.clone()
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if dq.numel() == 0:
         return dq
