@@ -20,7 +20,12 @@ toolkit (``nvcc``) and PyTorch built for CUDA.  Phases, one JSON line each:
               BatchNorm's gradient through them), LayerNorm (forward, and its
               gradient — kernel forward plus autograd — at the training
               rows), paged attention over the float pool and over the int8
-              pool (q in float32 and bfloat16), and the three flash
+              pool (q in float32 and bfloat16; decode at block sizes 32
+              and 16, one 1,000-position row, three queries a row, head
+              dims 128 and 40, and T=512 prefill chunks; bitwise
+              repeatable; timed over table sets that cycle past the L2;
+              decode launching the split and merge kernels and prefill
+              the tile kernel, by kernel name), and the three flash
               attention kernels (forward with lse, dQ, dK/dV; float32 and
               bfloat16, causal and not, the training shape, a ragged T and
               D = 16, 32 and 128; the backward kernels bitwise equal over
@@ -149,8 +154,8 @@ PORT_KERNELS = ("twobit_pack_kernel", "twobit_unpack_kernel",
                 "layer_norm_kernel", "flash_fwd_kernel", "flash_dq_kernel",
                 "flash_dkv_kernel", "flash_fwd_tc_kernel",
                 "flash_dq_tc_kernel", "flash_dkv_tc_kernel",
-                "paged_attention_split_kernel",
-                "paged_attention_tile_kernel")
+                "paged_decode_split_kernel", "paged_decode_merge_kernel",
+                "paged_prefill_tile_kernel")
 # serving_default's pool: small enough that its two waves preempt
 DEFAULT_POOL_BLOCKS = 52
 # 2-bit compression: the reference's documented default threshold; the
@@ -260,9 +265,32 @@ def _ptxas_functions(report: str):
     return funcs
 
 
+# paged-attention kernel functions (by mangled-name fragment: kernel, q's
+# type, the pool's type, queries a block) that ptxas lets spill, with the
+# most bytes each may; every other paged function, the main path's f32 and
+# int8 decode (one query) and every prefill tile, must not spill
+PAGED_SPILLS_ALLOWED = {
+    "paged_decode_split_kernelI13__nv_bfloat16S1_Li1E": 8,
+    "paged_decode_split_kernelI13__nv_bfloat16S1_Li4E": 16,
+    "paged_decode_split_kernelIffLi4E": 12,
+}
+
+
+def _spills(rows: dict, allowed: dict) -> dict:
+    """The functions of ``rows`` that spill more than ``allowed`` lets
+    them (keyed by a fragment of the mangled name; 0 if none matches)."""
+    bad = {}
+    for f, r in rows.items():
+        cap = next((n for k, n in allowed.items() if k in f), 0)
+        if max(r.get("spill_stores", 1), r.get("spill_loads", 1)) > cap:
+            bad[f] = r
+    return bad
+
+
 def phase_build():
     """Build every kernel source; no bf16 tensor-core flash kernel (three
-    functions at four head dims) may spill registers."""
+    functions at four head dims) may spill registers, and no paged-attention
+    function (22) beyond ``PAGED_SPILLS_ALLOWED``."""
     from mxnet_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -274,9 +302,14 @@ def phase_build():
     if info["flash_attention"]["ptxas"]:   # empty when loaded from disk
         tc = {f: r for f, r in funcs["flash_attention"].items()
               if "_tc_kernelILi" in f}
-        if len(tc) != 12 or any(r.get("spill_stores", 1) or
-                                r.get("spill_loads", 1) for r in tc.values()):
+        if len(tc) != 12 or _spills(tc, {}):
             raise SystemExit(f"bf16 tensor-core flash kernels spill: {tc}")
+    if info["paged_attention"]["ptxas"]:
+        paged = funcs["paged_attention"]
+        bad = _spills(paged, PAGED_SPILLS_ALLOWED)
+        if len(paged) != 22 or bad:
+            raise SystemExit(f"paged attention kernels spill: {bad} "
+                             f"({len(paged)} functions)")
 
 
 # -- phase 3 ------------------------------------------------------------------------
@@ -321,31 +354,11 @@ def _layer_norm_cases(dev):
     return rows
 
 
-def _paged_case(dev, dtype, B, T, lengths, start, table_rows, nb=512,
-                bs=32):
-    """Inputs for one paged-attention call: row b's queries sit at
-    positions start[b] .. start[b]+T-1, of which lengths[b] are valid."""
-    import torch
-
-    H, D = GPT2_SMALL["n_heads"], GPT2_SMALL["d_model"] // \
-        GPT2_SMALL["n_heads"]
-    g = torch.Generator(device=dev).manual_seed(SEED + B * 1000 + T)
-    q = torch.randn(B, T, H, D, generator=g, device=dev).to(dtype)
-    k_pool = torch.randn(nb, bs, H, D, generator=g, device=dev).to(dtype)
-    v_pool = torch.randn(nb, bs, H, D, generator=g, device=dev).to(dtype)
-    tables = torch.tensor(table_rows, dtype=torch.int32, device=dev)
-    pos = (torch.tensor(start, device=dev)[:, None]
-           + torch.arange(T, device=dev)[None, :]).to(torch.int32)
-    lens = torch.tensor(lengths, device=dev)
-    valid = torch.arange(T, device=dev)[None, :] < lens[:, None]
-    max_pos = torch.where(valid, pos, -1).amax(dim=1).to(torch.int32)
-    return q, k_pool, v_pool, tables, pos.contiguous(), max_pos, bs
-
-
 def _paged_bytes_flops(q, k_pool, tables, pos, max_pos, bs):
-    """Bytes the call must move (live K/V blocks once — with their two f32
-    scales per head for an int8 pool — q, out, indices) and the f32
-    operations its unmasked (query, key) pairs need."""
+    """Bytes the call must move (q and out; the indices; the rows of live
+    K/V blocks up to the row's last query position, once, with their two
+    f32 scales per block and head for an int8 pool) and the f32 operations
+    its unmasked (query, key) pairs need."""
     import torch
 
     B, T, H, D = q.shape
@@ -360,38 +373,66 @@ def _paged_bytes_flops(q, k_pool, tables, pos, max_pos, bs):
     pairs = 0
     for b in range(B):
         live = [w for w in range(W) if tab[b, w] != 0 and w * bs <= mp[b]]
-        nbytes += len(live) * (2 * bs * H * D * kv_item + scale_bytes)
         ctx = np.concatenate([np.arange(w * bs, (w + 1) * bs)
                               for w in live]) if live else np.zeros(0)
+        nbytes += len(live) * scale_bytes + int(
+            (ctx <= ps[b].max()).sum()) * 2 * H * D * kv_item
         for t in range(T):
             pairs += int((ctx <= ps[b, t]).sum())
     return nbytes, 4.0 * D * H * pairs
 
 
+# paged attention: each case's K/V pool holds enough disjoint table sets
+# that one cycle of timed calls reads more than the 50 MB L2
+PAGED_ROTATE_BYTES = 64e6
+# the paged kernel functions each route must launch
+PAGED_ROUTES = {"decode": ("paged_decode_split_kernel",
+                           "paged_decode_merge_kernel"),
+                "prefill": ("paged_prefill_tile_kernel",)}
+
+
 def _paged_cases():
-    """The paged-attention call shapes of the serving path, W=32 blocks of
-    32 (1024 positions): (kind, B, T, lengths, starts, table rows)."""
-    W = 32
-    rs = np.random.RandomState(SEED)
-    perm = (rs.permutation(511) + 1).tolist()   # physical blocks 1..511
-    # decode: 8 slots with ragged contexts, one inactive (max_pos = -1),
-    # null entries past each row's blocks and one null entry mid-table
+    """The paged-attention call shapes of the serving path and its edges:
+    (name, B, T, W, bs, H, D, starts, lengths, table template).  Row b's
+    queries sit at positions starts[b] .. starts[b]+T-1, of which
+    lengths[b] are valid; the template marks the table entries that hold a
+    block (each timed set gets its own physical blocks)."""
+    def decode(ctx, W, bs, T=1):
+        tmpl = np.zeros((len(ctx), W), np.int32)
+        for b, n in enumerate(ctx):
+            if n:
+                tmpl[b, :-(-(n + 1) // bs)] = 1
+        starts = [max(0, n - T + 1) for n in ctx]
+        lengths = [T if n else 0 for n in ctx]
+        return starts, lengths, tmpl
+
+    # the serving decode step: 8 slots with ragged contexts, one inactive
+    # (max_pos = -1), null entries past each row's blocks and one null
+    # entry inside a live range (row 7, logical block 10)
     ctx = [1000, 37, 300, 0, 511, 64, 129, 800]
-    tables, starts, lengths = [], [], []
-    for b, n in enumerate(ctx):
-        row = [0] * W
-        if n:
-            nblk = -(-(n + 1) // 32)
-            row[:nblk] = [perm.pop() for _ in range(nblk)]
-        tables.append(row)
-        starts.append(n)
-        lengths.append(1 if n else 0)
-    tables[7][10] = 0   # a null block inside a live range is skipped
-    cases = [("decode", 8, 1, lengths, starts, tables)]
+    cases = []
+    for name, W, bs, H, D in (("decode", 32, 32, 12, 64),
+                              ("decode_bs16", 64, 16, 12, 64),
+                              ("decode_d128", 32, 32, 6, 128),
+                              ("decode_d40", 32, 32, 4, 40)):
+        st, ln, tmpl = decode(ctx, W, bs)
+        tmpl[7, 320 // bs] = 0
+        cases.append((name, 8, 1, W, bs, H, D, st, ln, tmpl))
+    # split-K's own case: one 1,000-position row
+    st, ln, tmpl = decode([1000], 32, 32)
+    cases.append(("decode_long", 1, 1, 32, 32, 12, 64, st, ln, tmpl))
+    # three queries a row (the multi-query decode kernel), one row with two
+    # valid
+    st, ln, tmpl = decode(ctx, 32, 32, T=3)
+    ln[2] = 2
+    cases.append(("decode_t3", 8, 3, 32, 32, 12, 64, st, ln, tmpl))
     # prefill: one 512-query chunk at offset 256 (a chunked prompt), 400
     # valid queries, so blocks past the last valid position are skipped
-    row = [perm.pop() for _ in range(W)]
-    cases.append(("prefill", 1, 512, [400], [256], [row]))
+    for name, W, bs, H, D in (("prefill", 32, 32, 12, 64),
+                              ("prefill_bs16", 64, 16, 12, 64),
+                              ("prefill_d40", 32, 32, 4, 40)):
+        cases.append((name, 1, 512, W, bs, H, D, [256], [400],
+                      np.ones((1, W), np.int32)))
     return cases
 
 
@@ -411,49 +452,133 @@ def _int8_pools(dev, nb, bs, H, D, seed):
     return kp, vp, ks, vs
 
 
+def _paged_inputs(dev, dtype, int8, case, rotate=True):
+    """One case's inputs: q, the pools (block 0 poisoned with NaN: NaN
+    scales for int8, NaN values for a float pool), the table sets (with
+    ``rotate``, enough that one cycle reads more than PAGED_ROTATE_BYTES,
+    at most 256; else one), positions and max_pos."""
+    import torch
+
+    name, B, T, W, bs, H, D, starts, lengths, tmpl = case
+    pos = (torch.tensor(starts, device=dev)[:, None]
+           + torch.arange(T, device=dev)[None, :]).to(torch.int32)
+    valid = torch.arange(T, device=dev)[None, :] < torch.tensor(
+        lengths, device=dev)[:, None]
+    max_pos = torch.where(valid, pos, -1).amax(dim=1).to(torch.int32)
+    n_live = int(tmpl.sum())
+    q0 = torch.zeros(B, T, H, D, device=dev, dtype=dtype)
+    probe = torch.zeros(2, bs, H, D, device=dev,
+                        dtype=torch.int8 if int8 else dtype)
+    tab0 = torch.tensor(tmpl, dtype=torch.int32, device=dev)
+    per_set, _ = _paged_bytes_flops(q0, probe, tab0, pos, max_pos, bs)
+    n_sets = min(256, max(2, int(np.ceil(PAGED_ROTATE_BYTES / per_set)))) \
+        if rotate else 1
+    nb = 1 + n_sets * n_live
+    rs = np.random.RandomState(SEED + T + W + D)
+    phys = (rs.permutation(nb - 1) + 1).reshape(n_sets, n_live)
+    tables = []
+    for i in range(n_sets):
+        t = np.zeros((B, W), np.int32)
+        t[tmpl != 0] = phys[i]
+        tables.append(torch.tensor(t, device=dev))
+    g = torch.Generator(device=dev).manual_seed(SEED + B * 1000 + T)
+    q = torch.randn(B, T, H, D, generator=g, device=dev).to(dtype)
+    ks = vs = None
+    if int8:
+        kp, vp, ks, vs = _int8_pools(dev, nb, bs, H, D, SEED + B + T)
+    else:
+        kp = torch.randn(nb, bs, H, D, generator=g, device=dev).to(dtype)
+        vp = torch.randn(nb, bs, H, D, generator=g, device=dev).to(dtype)
+        kp[0] = vp[0] = float("nan")
+    return q, kp, vp, ks, vs, tables, pos.contiguous(), max_pos
+
+
 def _paged_attention_cases(dev, int8: bool = False):
+    """Kernels 9 (float pool) and 10 (int8 pool) against their plain
+    version on the card, every case of ``_paged_cases`` with q float32 and
+    bfloat16: outputs at ``TOL``, inactive rows exactly 0, two runs equal
+    bit for bit; times of kernel and plain version over table sets that
+    cycle past the L2 (one CUDA graph of one call per set)."""
     import torch
 
     from mxnet_tpu_torch.ops.paged_attention import (attention_scale,
                                                      paged_attention,
                                                      paged_attention_plain)
 
-    W = 32
     out = []
-    for kind, B, T, lens, st, tab in _paged_cases():
+    for case in _paged_cases():
+        name, B, T, W, bs, H, D = case[:7]
         for dtype in (torch.float32, torch.bfloat16):
-            q, kp, vp, tables_t, pos, mp, bs = _paged_case(
-                dev, dtype, B, T, lens, st, tab)
-            ks = vs = None
-            if int8:
-                kp, vp, ks, vs = _int8_pools(dev, kp.shape[0], bs,
-                                             q.shape[2], q.shape[3],
-                                             SEED + B + T)
-            scale = attention_scale(q.shape[-1])
-            got = paged_attention(q, kp, vp, tables_t, pos, mp,
+            q, kp, vp, ks, vs, tables, pos, mp = _paged_inputs(
+                dev, dtype, int8, case)
+            scale = attention_scale(D)
+            got = paged_attention(q, kp, vp, tables[0], pos, mp,
                                   k_scale=ks, v_scale=vs)
-            want = paged_attention_plain(q, kp, vp, tables_t, pos, mp,
+            again = paged_attention(q, kp, vp, tables[0], pos, mp,
+                                    k_scale=ks, v_scale=vs)
+            want = paged_attention_plain(q, kp, vp, tables[0], pos, mp,
                                          scale, ks, vs)
             torch.cuda.synchronize()
             dname = str(dtype).split(".")[-1]
             ok, err, rel = _close(got, want, dname)
             ok = ok and bool(torch.isfinite(got).all())
+            bitwise = bool(torch.equal(got, again))
             zero_rows = [b for b in range(B) if int(mp[b]) < 0]
             zeros_ok = all(bool((got[b] == 0).all()) for b in zero_rows)
+            nxt = _rotating(tables)
+            n = max(20, len(tables))
             ms = time_ms(lambda t: paged_attention(
-                t, kp, vp, tables_t, pos, mp, k_scale=ks, v_scale=vs), q)
+                t, kp, vp, nxt(), pos, mp, k_scale=ks, v_scale=vs), q,
+                iters=n)
+            nxt = _rotating(tables)
             plain = time_ms(lambda t: paged_attention_plain(
-                t, kp, vp, tables_t, pos, mp, scale, ks, vs), q)
-            nbytes, flops = _paged_bytes_flops(q, kp, tables_t, pos, mp, bs)
+                t, kp, vp, nxt(), pos, mp, scale, ks, vs), q, iters=n,
+                reps=5)
+            nbytes, flops = _paged_bytes_flops(q, kp, tables[0], pos, mp,
+                                               bs)
             bms, by = bound_ms(nbytes, flops, dname)
-            out.append({"kind": kind, "B": B, "T": T, "W": W, "bs": bs,
+            out.append({"case": name, "kind": name.split("_")[0], "B": B,
+                        "T": T, "W": W, "bs": bs, "H": H, "D": D,
                         "dtype": dname, "kv": "int8" if int8 else dname,
-                        "ok": ok and zeros_ok,
+                        "ok": ok and zeros_ok and bitwise,
                         "inactive_rows_zero": zeros_ok,
-                        "max_abs_err": err, "max_rel_err": rel, "ms": ms,
-                        "plain_ms": plain, "library_ms": None,
-                        "bound_ms": bms, "bound_by": by})
+                        "bitwise_deterministic": bitwise,
+                        "table_sets": len(tables), "max_abs_err": err,
+                        "max_rel_err": rel, "ms": ms, "plain_ms": plain,
+                        "library_ms": None, "bound_ms": bms, "bound_by": by,
+                        "bytes": nbytes})
+            del q, kp, vp, ks, vs, tables
     return out
+
+
+def _paged_routes(dev):
+    """Which kernel functions ``paged_attention`` launches (torch.profiler
+    over two calls of each route and pool at a small shape): decode must
+    run the split and merge kernels, prefill the tile kernel
+    (``PAGED_ROUTES``), and no other paged kernel function runs."""
+    import torch
+
+    from mxnet_tpu_torch.ops.paged_attention import paged_attention
+
+    rows = []
+    for route, T in (("decode", 1), ("prefill", 64)):
+        for int8 in (False, True):
+            case = (route, 2, T, 8, 32, 2, 64, [100, 37], [T, T],
+                    np.ones((2, 8), np.int32))
+            q, kp, vp, ks, vs, tables, pos, mp = _paged_inputs(
+                dev, torch.float32, int8, case, rotate=False)
+
+            def calls():
+                for _ in range(2):
+                    paged_attention(q, kp, vp, tables[0], pos, mp,
+                                    k_scale=ks, v_scale=vs)
+
+            names, sessions = _launched(calls, "paged_")
+            ok, other = _routed(names, PAGED_ROUTES[route])
+            rows.append({"route": route, "kv": "int8" if int8 else "float32",
+                         "kernels": names, "other": other,
+                         "profiler_sessions": sessions, "ok": ok})
+    return rows
 
 
 def _layer_norm_backward_cases(dev):
@@ -633,50 +758,72 @@ def _flash_cases(dev):
     return rows
 
 
+def _launched(fn, family):
+    """The names of the CUDA kernel functions containing ``family`` that
+    ``fn`` launches (``torch.profiler``), and the sessions it took.  A
+    session that records none of them runs again, up to three sessions: a
+    process's profiler sessions can come back without kernels the program
+    launched, and an empty list says nothing about which kernel ran."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    names = []
+    for sessions in range(1, 4):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = sorted({e.name for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and family in e.name})
+        if names:
+            break
+    return names, sessions
+
+
+def _routed(names, want):
+    """Whether the kernel functions ``names`` are exactly ``want``, each
+    run (demangled "name<" or mangled "nameI") and no other; and the
+    others."""
+    import re
+
+    def hit(w, n):
+        return re.search(rf"(?<![A-Za-z_]){w}[<I]", n) is not None
+
+    ran = [w for w in want if any(hit(w, n) for n in names)]
+    other = [n for n in names if not any(hit(w, n) for w in want)]
+    return ran == list(want) and not other and len(names) == len(want), \
+        other
+
+
 def _flash_routes(dev):
     """Which kernel functions the three flash wrappers launch for each
     dtype (``torch.profiler`` over two calls of each at a small shape):
     bf16 must take the three tensor-core kernels, f32 the three CUDA-core
     ones (``FLASH_ROUTES``), and no other flash kernel (bf16 no
     ``flash_dq_kernel``, f32 no ``_tc_kernel``)."""
-    import re
-
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from mxnet_tpu_torch.ops import flash_attention as fa
 
-    # a process's first profiler session can miss its first kernels
-    with profile(activities=[ProfilerActivity.CUDA]):
-        torch.ones(1, device=dev).add_(1)
-        torch.cuda.synchronize()
     rows = []
     for dname, want in FLASH_ROUTES.items():
         dtype = getattr(torch, dname)
         g = torch.Generator(device=dev).manual_seed(SEED)
         q, k, v, go = (torch.randn(2, 128, 2, 64, generator=g,
                                    device=dev).to(dtype) for _ in range(4))
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+        def calls():
             for _ in range(2):
                 out, lse = fa.flash_attention_forward(q, k, v, True)
                 delta = fa.flash_delta(out, go)
                 fa.flash_attention_dq(q, k, v, go, lse, delta, True)
                 fa.flash_attention_dkv(q, k, v, go, lse, delta, True)
-            torch.cuda.synchronize()
-        names = sorted({e.name for e in prof.events()
-                        if e.device_type == torch.autograd.DeviceType.CUDA
-                        and "flash_" in e.name})
-        # each wanted function ran (demangled "name<" or mangled "nameI"),
-        # and no other flash kernel function
-        def routed(w, n):
-            return re.search(rf"(?<![A-Za-z_]){w}[<I]", n) is not None
 
-        ran = [w for w in want if any(routed(w, n) for n in names)]
-        other = [n for n in names if not any(routed(w, n) for w in want)]
+        names, sessions = _launched(calls, "flash_")
+        ok, other = _routed(names, want)
         rows.append({"dtype": dname, "kernels": names, "other": other,
-                     "ok": ran == list(want) and not other
-                     and len(names) == len(want)})
+                     "profiler_sessions": sessions, "ok": ok})
     return rows
 
 
@@ -961,6 +1108,7 @@ def phase_kernels(dev):
             "layer_norm_backward": _layer_norm_backward_cases(dev),
             "paged_attention": _paged_attention_cases(dev),
             "paged_attention_int8": _paged_attention_cases(dev, int8=True),
+            "paged_routes": _paged_routes(dev),
             "flash_attention": _flash_cases(dev),
             "flash_routes": _flash_routes(dev)}
     emit({"phase": "kernels", "tolerance": TOL, **rows})
@@ -1085,7 +1233,7 @@ def _step_times(dev, cfg, params):
     decode step through an int8 pool, with its two int8-specific parts
     alone: the 2 x n_layers quantizing scatters and the n_layers int8
     paged-attention kernel calls (the float pool's n_layers kernel calls
-    beside them)."""
+    beside them), as host wall time and as device time."""
     import torch
 
     from mxnet_tpu_torch.ops.paged_attention import (attention_scale,
@@ -1154,20 +1302,27 @@ def _step_times(dev, cfg, params):
     q = torch.randn(B, 1, cfg.n_heads, cfg.d_head, device=dev)
     scale = attention_scale(cfg.d_head)
 
-    def attend(quantized):
+    def attend(quantized, x=q):
         for i in range(cfg.n_layers):
             if quantized:
-                paged_attention(q, kq[i], vq[i], t_tab, pos, max_pos, scale,
-                                ksq[i], vsq[i])
+                y = paged_attention(x, kq[i], vq[i], t_tab, pos, max_pos,
+                                    scale, ksq[i], vsq[i])
             else:
-                paged_attention(q, k_pool[i], v_pool[i], t_tab, pos,
-                                max_pos, scale)
+                y = paged_attention(x, k_pool[i], v_pool[i], t_tab, pos,
+                                    max_pos, scale)
+        return y
 
+    # the n_layers calls' device time: a CUDA graph of them, the next
+    # step's queries the last call's output
     return {"decode_b8_w16": decode, "sample_b8": sample,
             "prefill_t512": prefill, "decode_int8_b8_w16": decode_q,
             "int8_scatters_b8": median_ms(scatters),
             "int8_attention_b8": median_ms(lambda: attend(True)),
-            "float_attention_b8": median_ms(lambda: attend(False))}
+            "float_attention_b8": median_ms(lambda: attend(False)),
+            "int8_attention_b8_device": time_ms(
+                lambda x: attend(True, x), q, iters=5),
+            "float_attention_b8_device": time_ms(
+                lambda x: attend(False, x), q, iters=5)}
 
 
 # -- phase 5 ------------------------------------------------------------------------
@@ -2131,7 +2286,8 @@ def _kernel_table(kern, runs):
     at the main path's shape (2-bit pack and unpack: the largest of
     ResNet-50's gradients, 2,359,296 elements, with the sum over one
     step's 193 gradients beside it; LayerNorm and paged attention: the serving
-    decode shape, f32; flash attention: the training shape, bf16, causal —
+    decode shape, f32, with paged attention's T=512 prefill chunk and its
+    kernel functions beside it; flash attention: the training shape, bf16, causal —
     the bf16 recipe's; BatchNorm: ResNet-50's stage-1 expansion input,
     (128, 56, 56, 256) bf16), the largest error over all its cases, and its
     launches on each main path run (each counted from 0 just before its
@@ -2144,9 +2300,9 @@ def _kernel_table(kern, runs):
                  and c["dtype"] == "bfloat16")
     pick = {"layer_norm": lambda r: r["M"] == 8 and not r["gelu"]
             and r["dtype"] == "float32",
-            "paged_attention": lambda r: r["kind"] == "decode"
+            "paged_attention": lambda r: r["case"] == "decode"
             and r["dtype"] == "float32",
-            "paged_attention_int8": lambda r: r["kind"] == "decode"
+            "paged_attention_int8": lambda r: r["case"] == "decode"
             and r["dtype"] == "float32"}
     meta = {"twobit_pack": ("mxnet_tpu_torch/ops/csrc/twobit.cu",
                             "mxnet_tpu/ops/pallas_kernels.py:41"),
@@ -2206,6 +2362,14 @@ def _kernel_table(kern, runs):
         else:
             r = next(c for c in kern[name] if pick[name](c))
             err = max(c["max_abs_err"] for c in kern[name])
+            if name.startswith("paged"):
+                # the decode call's numbers above; the T=512 prefill
+                # chunk's beside them
+                pre = next(c for c in kern[name] if c["case"] == "prefill"
+                           and c["dtype"] == "float32")
+                extra = {"functions": PAGED_ROUTES,
+                         **{"prefill_" + k: pre[k] for k in (
+                             "ms", "plain_ms", "bound_ms", "bound_by")}}
         by_phase = {ph: res["launches"][name] for ph, res in runs.items()}
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "launches": sum(by_phase.values()),

@@ -3,13 +3,32 @@
 PyTorch counterpart of ``mxnet_tpu/ops/paged_attention.py``: the
 ``_paged_kernel`` (float pool) and ``_paged_kernel_q`` (int8 pool with
 per-(block, head) f32 scales) Pallas kernels.  :func:`paged_attention`
-walks each row's block table inside the hand-written CUDA kernel
+walks each row's block table inside the hand-written CUDA kernels of
 ``csrc/paged_attention.cu`` for CUDA tensors; for CPU tensors it takes the
 plain version, :func:`paged_attention_plain`, which gathers (and, for the
-int8 pool, dequantizes) the row's context and runs
+int8 pool, dequantizes) the row's context, widens it to f32 and runs
 :func:`paged_attention_reference` (the gather+dense path of
-``transformer_lm_decode``) with the kernel's block skipping folded into the
-mask.  A CUDA tensor the kernel does not take raises; nothing falls back.
+``transformer_lm_decode``) with the kernel's block skipping folded into
+the mask; on the f32 context the probabilities stay f32, as the TPU
+kernels keep them.
+A CUDA tensor the kernels do not take raises; nothing falls back.
+
+Two routes, by the number of queries T (the ``.cu`` header has the
+designs):
+
+- decode (T <= 4): split-K flash-decoding.  The context is cut into spans
+  of 128 positions (whole pool blocks); ``paged_decode_split_kernel``
+  attends each span in a block of its own and writes an f32 partial
+  ``(m, l, acc)`` to a workspace this wrapper allocates per call (torch's
+  caching allocator, so the call stays capturable in a CUDA graph);
+  ``paged_decode_merge_kernel`` combines a row's spans in span order, so
+  the output repeats bit for bit.
+- prefill (T > 4): ``paged_prefill_tile_kernel``, one block per 64-query
+  tile, 64-key tiles assembled from the table through a cp.async ring.
+
+Both keep the pool's dtype in shared memory.  The int8 pool's scales are
+applied in the math, once a key: the score is ``k_scale * (q . k_int8)``
+and the value sum takes ``(p * v_scale) * v_int8``.
 
 Semantics shared by both: table entry 0 is the null block and is skipped,
 as is every logical block past the row's last valid query position
@@ -32,11 +51,19 @@ __all__ = ["paged_attention", "paged_attention_reference",
 
 _NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 _ARGTYPES_Q = [ctypes.c_void_p] * 2 + _ARGTYPES
-_SMEM_LIMIT = 227 * 1024
 _MAX_D = 128
+# positions a decode block attends (the .cu file's kSpan), in whole pool
+# blocks: the split kernel's grid and the workspace follow from it
+_SPAN = 128
+
+
+def decode_splits(W: int, block_size: int) -> int:
+    """Spans the decode route cuts a table of ``W`` blocks into."""
+    per = max(1, _SPAN // block_size)
+    return -(-W // per)
 
 
 def attention_scale(d_head: int) -> float:
@@ -67,15 +94,20 @@ def paged_attention_plain(q, k_pool, v_pool, block_tables, positions,
     table entry's block (int8 pool: ``pool.float() * scale`` per block and
     head, as the reference's gather path dequantizes), zero the null and
     past-``max_pos`` blocks and mask them together with the causal bound,
-    attend densely, zero the rows with no live block."""
+    attend densely with :func:`paged_attention_reference`, zero the rows
+    with no live block.  The context is widened to f32 first, exactly: the
+    TPU kernels multiply f32 probabilities by f32-widened values, where
+    the reference given a bf16 context rounds the probabilities to bf16
+    (for f32 and int8 pools the widening changes nothing)."""
     B, T, H, D = q.shape
     bs = k_pool.shape[1]
     W = block_tables.shape[1]
     tables = block_tables.long()
-    k_ctx, v_ctx = k_pool[tables], v_pool[tables]      # (B, W, bs, H, D)
+    # (B, W, bs, H, D)
+    k_ctx, v_ctx = k_pool[tables].float(), v_pool[tables].float()
     if k_scale is not None:
-        k_ctx = k_ctx.float() * k_scale[tables][:, :, None, :, None]
-        v_ctx = v_ctx.float() * v_scale[tables][:, :, None, :, None]
+        k_ctx = k_ctx * k_scale[tables][:, :, None, :, None]
+        v_ctx = v_ctx * v_scale[tables][:, :, None, :, None]
     starts = torch.arange(W, device=q.device) * bs
     live = (tables != 0) & (starts[None, :] <= max_pos.long()[:, None])
     # dead blocks are never read: whatever they hold (NaN included) is
@@ -111,12 +143,13 @@ def paged_attention(q, k_pool, v_pool, block_tables, positions, max_pos,
         :func:`attention_scale` of D.
     k_scale, v_scale : (num_blocks, H) float32, optional — per-(block,
         head) dequantization scales of an int8 pool; given, the pools are
-        int8 and each tile is dequantized as ``int8 -> f32 * scale``.
+        int8 and the scales multiply each key's score and probability.
 
     Returns (B, T, H, D) in q's dtype.  CUDA tensors (contiguous; q
     float32 or bfloat16 with float pools of the same dtype, or int8 pools
-    with their scales; D <= 128; indices int32) launch the CUDA kernel,
-    counted in ``paged_attention.launches`` (float pool) or
+    with their scales; D <= 128; indices int32) launch the CUDA kernels
+    (decode: split and merge; prefill: the tile kernel), each call counted
+    once in ``paged_attention.launches`` (float pool) or
     ``paged_attention.launches_int8`` (int8 pool); CPU tensors take
     :func:`paged_attention_plain`.
     """
@@ -160,23 +193,17 @@ def paged_attention(q, k_pool, v_pool, block_tables, positions, max_pos,
         raise MXNetError("paged_attention: q must be contiguous")
     if D > _MAX_D:
         raise MXNetError(f"paged_attention: head dim {D} > {_MAX_D}")
-    # both pool types are staged in shared memory as f32 tiles (the int8
-    # pool is dequantized while it is staged), so the sizes agree
-    if T <= 4:   # decode kernel: a K/V tile per warp plus merge buffers
-        smem = 4 * (4 * bs * (2 * D + 1) + 20 * D + 32)
-    else:        # prefill kernel: one K/V tile plus 16 queries
-        smem = 4 * (bs * (2 * D + 1) + 16 * D)
-    if smem > _SMEM_LIMIT:
-        raise MXNetError(
-            f"paged_attention: block_size {bs} x head dim {D} needs {smem} "
-            f"bytes of shared memory (limit {_SMEM_LIMIT})")
     out = torch.empty_like(q)
     if B == 0 or T == 0:
         return out
+    splits = decode_splits(W, bs)
+    ws = (torch.empty(B * H * splits * T * (D + 2), dtype=torch.float32,
+                      device=q.device) if T <= 4 else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     tail = (block_tables.data_ptr(), positions.data_ptr(),
-            max_pos.data_ptr(), out.data_ptr(), B, T, H, D, bs, W,
-            float(scale), _DTYPES[q.dtype], stream)
+            max_pos.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), B, T, H, D, bs, W,
+            splits, float(scale), _DTYPES[q.dtype], stream)
     if quantized:
         fn = _build.kernel_function("paged_attention",
                                     "tpumx_paged_attention_q", _ARGTYPES_Q)
