@@ -9,8 +9,9 @@ toolkit (``nvcc``) and PyTorch built for CUDA.  Phases, one JSON line each:
 1. device   — the card (``nvidia-smi`` name and power limit); TF32 off.
 2. build    — compile every ``mxnet_tpu_torch/ops/csrc/*.cu`` (one nvcc
               each, in parallel) and report seconds and each kernel
-              function's registers and spills (ptxas); no bf16
-              tensor-core flash kernel may spill, at any head dim.
+              function's registers and spills (ptxas); no tensor-core
+              flash kernel (bf16, and the f32 3xTF32 dQ and dK/dV) may
+              spill, at any head dim.
 3. kernels  — each CUDA kernel against its plain PyTorch version on the
               card at its path's shapes: 2-bit pack and unpack (ResNet-50's
               193 gradient shapes and edge sizes, thresholds 0.5, 0 and
@@ -30,7 +31,9 @@ toolkit (``nvcc``) and PyTorch built for CUDA.  Phases, one JSON line each:
               bfloat16, causal and not, the training shape, a ragged T and
               D = 16, 32 and 128; the backward kernels bitwise equal over
               two runs; bf16 launching the three tensor-core kernels
-              and f32 the three CUDA-core ones, by kernel name).  With the
+              and f32 the CUDA-core forward and the 3xTF32 dQ and dK/dV,
+              by kernel name; a NaN in q and in g NaN exactly where the
+              plain versions' are).  With the
               error, the kernel's time, the plain version's, a library
               call's where one computes the same function, and the least
               time the card could take (bytes or operations over the H100's
@@ -43,7 +46,8 @@ toolkit (``nvcc``) and PyTorch built for CUDA.  Phases, one JSON line each:
 5. training — the reference trainer's LM step (B=8, T=1024, labels the
               tokens rolled by one, lr 0.1, momentum 0.9) at the same width:
               one float32 ``train_step`` with flash attention against one
-              with ``local_attention`` (loss and every gradient), then ten
+              with ``local_attention`` (loss and every gradient; wall and
+              device time of each), then ten
               chained bfloat16 steps through the flash kernels (losses
               finite and falling, 12 launches of each flash kernel and 25
               LayerNorms per step); step ms, tokens/s, peak memory.
@@ -109,9 +113,13 @@ import time
 import numpy as np
 
 # H100 SXM peak rates (NVIDIA data sheet, dense): device memory bandwidth,
-# f32 outside the tensor cores, bf16 on the tensor cores
+# f32 outside the tensor cores, bf16 and TF32 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
+# f32 accuracy on the tensor cores takes three TF32 products (3xTF32), so
+# the least time for f32 products is the faster of the two routes
+PEAK_FLOPS["float32_3xtf32"] = max(PEAK_FLOPS["float32"],
+                                   PEAK_FLOPS["tf32"] / 3)
 
 # kernel vs plain version on the same card
 TOL = {"float32": dict(rtol=1e-4, atol=1e-5),
@@ -133,11 +141,12 @@ FLASH_SHAPES = {"training": (8, 1024, 12, 64), "ragged": (2, 1000, 3, 64),
                 "d16": (2, 200, 2, 16), "d32": (2, 200, 2, 32),
                 "d128": (2, 200, 2, 128)}
 # the flash kernel functions each dtype must launch (bf16: the tensor-core
-# forward, dQ and dK/dV; f32: the CUDA-core ones)
+# forward, dQ and dK/dV; f32: the CUDA-core forward and the 3xTF32 dQ and
+# dK/dV)
 FLASH_ROUTES = {"bfloat16": ("flash_fwd_tc_kernel", "flash_dq_tc_kernel",
                              "flash_dkv_tc_kernel"),
-                "float32": ("flash_fwd_kernel", "flash_dq_kernel",
-                            "flash_dkv_kernel")}
+                "float32": ("flash_fwd_kernel", "flash_dq_tf32_kernel",
+                            "flash_dkv_tf32_kernel")}
 # ResNet-50's BatchNorm inputs (B, H, W, C) at B = 128, 224x224: the stem,
 # stages 1, 2 and 4; and an odd M = B*H*W
 BN_SHAPES = ((128, 112, 112, 64), (128, 56, 56, 256), (128, 28, 28, 512),
@@ -151,9 +160,10 @@ RESNET_LR, RESNET_MOMENTUM = 0.1, 0.9
 # the port's CUDA kernel functions, as the profiler names them
 PORT_KERNELS = ("twobit_pack_kernel", "twobit_unpack_kernel",
                 "bn_stats_partial", "bn_stats_final", "bn_normalize",
-                "layer_norm_kernel", "flash_fwd_kernel", "flash_dq_kernel",
-                "flash_dkv_kernel", "flash_fwd_tc_kernel",
-                "flash_dq_tc_kernel", "flash_dkv_tc_kernel",
+                "layer_norm_kernel", "flash_fwd_kernel",
+                "flash_dq_tf32_kernel", "flash_dkv_tf32_kernel",
+                "flash_fwd_tc_kernel", "flash_dq_tc_kernel",
+                "flash_dkv_tc_kernel",
                 "paged_decode_split_kernel", "paged_decode_merge_kernel",
                 "paged_prefill_tile_kernel")
 # serving_default's pool: small enough that its two waves preempt
@@ -288,9 +298,10 @@ def _spills(rows: dict, allowed: dict) -> dict:
 
 
 def phase_build():
-    """Build every kernel source; no bf16 tensor-core flash kernel (three
-    functions at four head dims) may spill registers, and no paged-attention
-    function (22) beyond ``PAGED_SPILLS_ALLOWED``."""
+    """Build every kernel source; no tensor-core flash kernel (the three
+    bf16 and the two f32 3xTF32 functions at four head dims) may spill
+    registers, and no paged-attention function (22) beyond
+    ``PAGED_SPILLS_ALLOWED``."""
     from mxnet_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -301,9 +312,9 @@ def phase_build():
                       for n, v in info.items()}})
     if info["flash_attention"]["ptxas"]:   # empty when loaded from disk
         tc = {f: r for f, r in funcs["flash_attention"].items()
-              if "_tc_kernelILi" in f}
-        if len(tc) != 12 or _spills(tc, {}):
-            raise SystemExit(f"bf16 tensor-core flash kernels spill: {tc}")
+              if "_tc_kernelILi" in f or "_tf32_kernelILi" in f}
+        if len(tc) != 20 or _spills(tc, {}):
+            raise SystemExit(f"tensor-core flash kernels spill: {tc}")
     if info["paged_attention"]["ptxas"]:
         paged = funcs["paged_attention"]
         bad = _spills(paged, PAGED_SPILLS_ALLOWED)
@@ -750,11 +761,62 @@ def _flash_cases(dev):
                     row["sdpa_ms"] = {"fwd": sdpa_fwd, "fwd_bwd": both,
                                       "bwd": both - sdpa_fwd}
                     row["bound_ms"], row["bound_by"] = {}, {}
+                    rate = "float32_3xtf32" if dname == "float32" \
+                        else dname
                     for kname, (nbytes, flops) in _flash_work(
                             B, T, H, D, q.element_size(), causal).items():
                         row["bound_ms"][kname], row["bound_by"][kname] = \
-                            bound_ms(nbytes, flops, dname)
+                            bound_ms(nbytes, flops, rate)
                 rows.append(row)
+    return rows
+
+
+def _flash_nan_cases(dev):
+    """A NaN reaches each flash kernel's outputs as it reaches its plain
+    version's: the card's own NaN (0x7fffffff, what q * scale gives for a
+    NaN q) in q at one (batch, row, head) and in g at another, float32 and
+    bfloat16, D = 64 and 128, T = 200, not causal (the plain version also
+    puts NaN in the masked probabilities of a NaN row, which the kernels
+    set to 0).  out, lse, dq, dk and dv must be NaN exactly where the
+    plain versions' are, and agree with them elsewhere."""
+    import torch
+
+    from mxnet_tpu_torch.ops import flash_attention as fa
+
+    nan = torch.tensor([0x7FFFFFFF], dtype=torch.int32).view(torch.float32)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for D in (64, 128):
+            dname = str(dtype).split(".")[-1]
+            g = torch.Generator(device=dev).manual_seed(SEED + D)
+            q, k, v, go = (torch.randn(2, 200, 2, D, generator=g, device=dev)
+                           for _ in range(4))
+            q[0, 5, 0, 3:4] = nan  # a bit copy: the pattern stays
+            go[1, 40, 1, D - 1:] = nan
+            q, k, v, go = (t.to(dtype) for t in (q, k, v, go))
+            out, lse = fa.flash_attention_forward(q, k, v, False)
+            w_out, w_lse = fa.flash_attention_forward_reference(q, k, v,
+                                                                False)
+            args = (q, k, v, go, w_lse, fa.flash_delta(w_out, go), False)
+            scale = 1.0 / np.sqrt(D)
+            got = (out, lse, fa.flash_attention_dq(*args),
+                   *fa.flash_attention_dkv(*args))
+            want = (w_out, w_lse,
+                    fa.flash_attention_dq_reference(*args, scale),
+                    *fa.flash_attention_dkv_reference(*args, scale))
+            torch.cuda.synchronize()
+            ok, counts = True, {}
+            for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), got,
+                                  want):
+                a, b = a.float(), b.float()
+                na, nb = torch.isnan(a), torch.isnan(b)
+                counts[name] = [int(na.sum()), int(nb.sum())]
+                close, _, _ = _close(a.masked_fill(nb, 0), b.masked_fill(
+                    nb, 0), "float32" if name == "lse" else dname)
+                ok = ok and bool(nb.any()) and bool(torch.equal(na, nb)) \
+                    and close
+            rows.append({"dtype": dname, "D": D, "nan_counts": counts,
+                         "ok": ok})
     return rows
 
 
@@ -799,9 +861,9 @@ def _routed(names, want):
 def _flash_routes(dev):
     """Which kernel functions the three flash wrappers launch for each
     dtype (``torch.profiler`` over two calls of each at a small shape):
-    bf16 must take the three tensor-core kernels, f32 the three CUDA-core
-    ones (``FLASH_ROUTES``), and no other flash kernel (bf16 no
-    ``flash_dq_kernel``, f32 no ``_tc_kernel``)."""
+    bf16 must take the three tensor-core kernels, f32 the CUDA-core
+    forward and the 3xTF32 dQ and dK/dV (``FLASH_ROUTES``), and no other
+    flash kernel (bf16 no ``_tf32_kernel``, f32 no ``_tc_kernel``)."""
     import torch
 
     from mxnet_tpu_torch.ops import flash_attention as fa
@@ -1110,6 +1172,7 @@ def phase_kernels(dev):
             "paged_attention_int8": _paged_attention_cases(dev, int8=True),
             "paged_routes": _paged_routes(dev),
             "flash_attention": _flash_cases(dev),
+            "flash_nan": _flash_nan_cases(dev),
             "flash_routes": _flash_routes(dev)}
     emit({"phase": "kernels", "tolerance": TOL, **rows})
     bad = [r for rs in rows.values() for r in rs if not r["ok"]]
@@ -1634,7 +1697,9 @@ def phase_training(dev, cfg, params):
     f32 check: one ``train_step`` with ``flash_attention(causal=True)``
     against one with ``local_attention(causal=True)`` from the same params
     and zero momenta — loss within 1e-5 relative, every parameter's
-    gradient within 1e-4 normwise.  Then the main path, lm_bench's flash
+    gradient within 1e-4 normwise; each step's wall time (a second step)
+    and device time (a third, under ``torch.profiler``: the union of its
+    kernels' intervals).  Then the main path, lm_bench's flash
     leg: ten chained bf16 steps (``compute_dtype=torch.bfloat16``) on the
     same batch, counted from 0 — every loss finite, the last below the
     first, the first within 2e-2 of the f32 loss, and per step 12 launches
@@ -1685,7 +1750,10 @@ def phase_training(dev, cfg, params):
         peak = torch.cuda.max_memory_allocated()
         _, again_ms = timed_step(att, params, zeros)
         f32[name] = {"loss": loss.item(), "momenta": mom,
-                     "step_ms": again_ms, "first_step_ms": first_ms,
+                     "step_ms": again_ms,
+                     "device_ms": _device_ms(
+                         lambda: timed_step(att, params, zeros)),
+                     "first_step_ms": first_ms,
                      "tokens_per_s": B * T / (again_ms / 1e3),
                      "peak_bytes": peak, "launches": launches}
     rel = _grad_rel_errors(f32["flash"]["momenta"], f32["local"]["momenta"],
@@ -1804,6 +1872,17 @@ def _profiled(fn):
             "port_kernels_ms": ours,
             "backward_nodes_ms": dict(sorted(nodes.items(),
                                              key=lambda kv: -kv[1])[:10])}
+
+
+def _device_ms(fn):
+    """Device time of ``fn`` in ms, the union of its kernels' intervals
+    (``_profiled``), or None when three profiler sessions record no kernel
+    (a session can come back empty; see ``_launched``)."""
+    for _ in range(3):
+        res = _profiled(fn)
+        if res["kernels"]:
+            return res["device_busy_s"] * 1e3
+    return None
 
 
 def phase_profile(dev, cfg, params):
@@ -2291,10 +2370,13 @@ def _kernel_table(kern, runs):
     the bf16 recipe's; BatchNorm: ResNet-50's stage-1 expansion input,
     (128, 56, 56, 256) bf16), the largest error over all its cases, and its
     launches on each main path run (each counted from 0 just before its
-    window)."""
-    flash = next(c for c in kern["flash_attention"]
-                 if c["shape"] == "training" and c["dtype"] == "bfloat16"
-                 and c["causal"])
+    window).  The flash rows also carry, under ``float32``, the f32 route's
+    numbers at the training shape (causal) and its launches in the
+    training phase's f32 flash step."""
+    flash, flash32 = (next(c for c in kern["flash_attention"]
+                           if c["shape"] == "training" and c["dtype"] == d
+                           and c["causal"])
+                      for d in ("bfloat16", "float32"))
     bnorm = next(c for c in kern["batch_norm"]
                  if c["shape"] == [128, 56, 56, 256]
                  and c["dtype"] == "bfloat16")
@@ -2359,6 +2441,14 @@ def _kernel_table(kern, runs):
                       for o in outs)
             i = ("fwd", "dq", "dkv").index(part)
             extra = {"functions": {d: f[i] for d, f in FLASH_ROUTES.items()}}
+            f32_step = runs.get("training", {}).get("f32", {}).get("flash")
+            extra["float32"] = {
+                **{k: flash32[k][part] for k in ("ms", "plain_ms",
+                                                 "bound_ms", "bound_by")},
+                "library_ms": flash32["sdpa_ms"]["fwd"] if part == "fwd"
+                else None,
+                "launches": f32_step["launches"][name] if f32_step
+                else None}
         else:
             r = next(c for c in kern[name] if pick[name](c))
             err = max(c["max_abs_err"] for c in kern[name])

@@ -6,11 +6,11 @@
 // (tpumx_flash_dkv), the attention of the transformer LM's training step
 // when `flash_attention(causal=True)` is its `attention=` callable.
 //
-// Two designs sit behind the three entries, chosen by dtype:
+// Three designs sit behind the three entries, chosen by dtype:
 //
-//   dtype     forward               dQ                   dK/dV
-//   bfloat16  flash_fwd_tc_kernel   flash_dq_tc_kernel   flash_dkv_tc_kernel
-//   float32   flash_fwd_kernel      flash_dq_kernel      flash_dkv_kernel
+//   dtype     forward               dQ                     dK/dV
+//   bfloat16  flash_fwd_tc_kernel   flash_dq_tc_kernel     flash_dkv_tc_kernel
+//   float32   flash_fwd_kernel      flash_dq_tf32_kernel   flash_dkv_tf32_kernel
 //
 // What bounds them on an H100.  At the LM's training shape (B*H = 96
 // heads, T = 1024, D = 64, causal) the forward needs 4*D flops per live
@@ -19,8 +19,9 @@
 // (989 TFLOP/s, 3.35 TB/s) the forward is bound by bytes: 50 MB is 0.0151
 // ms against 0.013 ms of products (and 50.4 M exps, ~0.013 ms on the
 // SFUs); dQ and dK/dV are bound by operations, 0.0196 and 0.0261 ms.  In
-// f32 on CUDA cores (67 TFLOP/s) all three are bound by operations,
-// 0.19-0.39 ms.
+// f32 all three are bound by operations: f32 accuracy on the tensor cores
+// takes three TF32 products (495 / 3 = 165 TFLOP/s, against 67 on the
+// CUDA cores), 0.078, 0.117 and 0.156 ms.
 //
 // bf16: the tensor-core design (flash_*_tc_kernel), FlashAttention-2 on
 // mma.sync.m16n8k16 (bf16 in, f32 accumulate), written in inline PTX.
@@ -56,23 +57,47 @@
 // 32-query tiles, so that its two f32 accumulators (dK, dV: 128 registers
 // a thread) do not spill.
 //
-// f32: the CUDA-core design.  f32 has no tensor-core path that keeps full
-// f32 products (TF32 rounds the inputs to 10 bits, and the port keeps TF32
-// off), so f32 runs on CUDA cores.  The TPU grid's sequential innermost
-// axis (k tiles for the forward and dQ, q tiles for dK/dV), which carries
-// the running sums in VMEM scratch, becomes a loop inside one block of 256
-// threads that owns one 64-row tile of one (batch, head) and walks the
-// 64-row tiles of the other side, staged in shared memory as f32; q is
-// multiplied by `scale` in f32 while staged, as the reference does.  Thread
-// (ty, tx) of the 16 x 16 grid holds rows ty + 16*i (i < 4) of its tile
-// against columns tx + 16*j of the other, so each score row lives in 16
-// lanes of one warp and its max and sum are 4-step shuffles.  Shared rows
-// are padded to D+1 floats.  All its arithmetic is f32 on CUDA cores
-// (`fmaf`).
+// f32 backward: the 3xTF32 design (flash_*_tf32_kernel), the bf16 dQ and
+// dK/dV kernels' skeleton (four warps of 16 rows, the other side's tiles
+// through a 2-stage cp.async ring, masks on edge tiles only, outputs
+// through shared memory) on mma.sync.m16n8k8 with TF32 operands.  One
+// TF32 rounding keeps 11 of f32's 24 bits (relative error 2^-11), which
+// misses an f32 tolerance (rtol 1e-4), and an error in s moves p by the
+// same relative amount; so every operand of every product, the score
+// products too, is split, x = big + small with big = tf32(x) rounded to
+// nearest with ties away from zero and small = x - big truncated to TF32
+// (split_tf32), and each product is big*big + big*small + small*big with
+// f32 sums (a product of two TF32 values is exact in f32; the dropped
+// small*small is ~2^-22 relative, small's truncation at most 2^-21).  q is multiplied by `scale` in f32 before it is split,
+// as the reference scales it.  Tiles are staged as f32 rows of D + 4
+// floats and split as each fragment is read (32-bit shared loads:
+// ldmatrix moves 16-bit elements), so shared memory holds one copy of each
+// tile; p and ds are split from their accumulators in registers.  An
+// accumulator's columns 2t and 2t+1 become the A operand's contraction
+// indices t and t+4 (acc_to_a), so a B operand read across rows (k in dS
+// K, g in P^T g, q in dS^T q) takes rows 2t and 2t+1 in that order; with
+// rows of D + 4 floats that read and the row-wise one both hit 32
+// distinct banks, so q and g (dK/dV) and k (dQ), read both ways, need no
+// swizzle.  The split, three instructions an element, and not the
+// tensor cores, bounds these kernels: the other side's tiles are 16 or
+// 32 rows and the register budget is set for three blocks an SM (DqTf32,
+// DkvTf32), so that enough warps hide its latency.  The softmax runs in
+// base 2 as above, on scores of the scaled q.
 //
-// Both designs mask ragged T in the kernel (rows past T load as 0 and are
-// not written, keys past T get probability 0), never pad in memory, and
-// skip causal tiles strictly above the diagonal.  The backward keeps the
+// The f32 forward is the CUDA-core design.  The TPU grid's sequential
+// innermost axis (k tiles), which carries the running sums in VMEM
+// scratch, becomes a loop inside one block of 256 threads that owns one
+// 64-row q tile of one (batch, head) and walks the 64-row k tiles, staged
+// in shared memory as f32; q is multiplied by `scale` in f32 while staged,
+// as the reference does.  Thread (ty, tx) of the 16 x 16 grid holds rows
+// ty + 16*i (i < 4) of its tile against columns tx + 16*j of the other, so
+// each score row lives in 16 lanes of one warp and its max and sum are
+// 4-step shuffles.  Shared rows are padded to D+1 floats.  All its
+// arithmetic is f32 on CUDA cores (`fmaf`).
+//
+// Every design masks ragged T in the kernel (rows past T load as 0 and are
+// not written, keys past T get probability 0), never pads in memory, and
+// skips causal tiles strictly above the diagonal.  The backward keeps the
 // reference's split into two passes: dQ (one block per q tile) and dK/dV
 // (one block per k tile).  Every output element has one writer, so there
 // are no atomics and the gradients are bitwise deterministic from run to
@@ -82,9 +107,9 @@
 // strides of B, T and H given (the LM passes strided views of its fused
 // qkv product, so nothing is copied); g, out, dq, dk and dv are contiguous
 // (B, T, H, D); lse and delta are contiguous (B, H, T) float32.  D is 16,
-// 32, 64 or 128.  The bf16 kernels copy 16-byte chunks, so their q, k, v
-// and g start on 16 bytes and the B, T and H strides are multiples of 8
-// (the wrapper copies inputs that are not).
+// 32, 64 or 128.  The tensor-core kernels copy 16-byte chunks, so their q,
+// k, v and g start on 16 bytes and the B, T and H strides are multiples
+// of 16 bytes (the wrapper copies inputs that are not).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -97,17 +122,10 @@ constexpr int kThreads = 256;
 constexpr int kPad = kTile + 1;  // row stride of the (64, 64) score tiles
 constexpr float kNeg = -1e30f;   // the reference's _NEG
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
+// max(l, 1e-30) as the reference takes it: a NaN sum stays NaN (fmaxf
+// would give 1e-30), so a NaN row's lse is NaN as the reference's is
+__device__ __forceinline__ float max_sum(float l) {
+  return l < 1e-30f ? 1e-30f : l;
 }
 
 // sum / max over the 16 lanes that hold one score row
@@ -125,16 +143,16 @@ __device__ __forceinline__ float row_sum(float v) {
 }
 
 // rows row0 .. row0+63 of one head (src points at its row 0, `ld` elements
-// between rows) into dst (64, D+1) as f32 times `mul`; rows past T are 0
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
+// between rows) into dst (64, D+1) times `mul`; rows past T are 0
+template <int D>
+__device__ __forceinline__ void stage(float* dst,
+                                      const float* __restrict__ src,
                                       long long ld, int row0, int Tn,
                                       float mul) {
   for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
     const int r = e / D, d = e % D, row = row0 + r;
     dst[r * (D + 1) + d] =
-        row < Tn ? to_f32(src[static_cast<long long>(row) * ld + d]) * mul
-                 : 0.f;
+        row < Tn ? src[static_cast<long long>(row) * ld + d] * mul : 0.f;
   }
 }
 
@@ -145,11 +163,12 @@ __device__ __forceinline__ int k_tiles(int q0, int Tn, int causal) {
 }
 
 // ---- kernel 6: forward ----------------------------------------------------
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, long long sb, long long st,
-                 long long sh, T* __restrict__ out, float* __restrict__ lse,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, long long sb, long long st,
+                 long long sh, float* __restrict__ out,
+                 float* __restrict__ lse,
                  int Tn, int H, float scale, int causal) {
   constexpr int LD = D + 1, NJ = D / 16;
   extern __shared__ float smem[];
@@ -162,7 +181,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const long long base = b * sb + h * sh;
-  stage<T, D>(Qs, q + base, st, q0, Tn, scale);
+  stage<D>(Qs, q + base, st, q0, Tn, scale);
 
   float m[4], l[4], acc[4][NJ];
 #pragma unroll
@@ -176,8 +195,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the last tile's readers are done
-    stage<T, D>(Ks, k + base, st, k0, Tn, 1.f);
-    stage<T, D>(Vs, v + base, st, k0, Tn, 1.f);
+    stage<D>(Ks, k + base, st, k0, Tn, 1.f);
+    stage<D>(Vs, v + base, st, k0, Tn, 1.f);
     __syncthreads();
     float s[4][4];
 #pragma unroll
@@ -239,239 +258,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= Tn) continue;
-    const float lm = fmaxf(l[i], 1e-30f);
-    T* orow = out + ((static_cast<long long>(b) * Tn + row) * H + h) * D;
+    const float lm = max_sum(l[i]);
+    float* orow = out + ((static_cast<long long>(b) * Tn + row) * H + h) * D;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      orow[tx + 16 * j] = from_f32<T>(acc[i][j] / lm);
+    for (int j = 0; j < NJ; ++j) orow[tx + 16 * j] = acc[i][j] / lm;
     if (tx == 0) lse[static_cast<long long>(bh) * Tn + row] = m[i] + logf(lm);
-  }
-}
-
-// ---- kernel 7: dQ ---------------------------------------------------------
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, long long sb, long long st,
-                long long sh, const T* __restrict__ g,
-                const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dq, int Tn,
-                int H, float scale, int causal) {
-  constexpr int LD = D + 1, NJ = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Gs = Qs + kTile * LD;
-  float* Ks = Gs + kTile * LD;
-  float* Vs = Ks + kTile * LD;
-  float* DSs = Vs + kTile * LD;  // (64, kPad) p * (dp - delta)
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const long long base = b * sb + h * sh;
-  const long long gbase = static_cast<long long>(b) * Tn * H * D +
-                          static_cast<long long>(h) * D;
-  stage<T, D>(Qs, q + base, st, q0, Tn, scale);
-  stage<T, D>(Gs, g + gbase, static_cast<long long>(H) * D, q0, Tn, 1.f);
-  float lse_r[4], del_r[4], acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    const long long at = static_cast<long long>(bh) * Tn + row;
-    lse_r[i] = row < Tn ? lse[at] : 0.f;
-    del_r[i] = row < Tn ? delta[at] : 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  }
-  const int nk = k_tiles(q0, Tn, causal);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    stage<T, D>(Ks, k + base, st, k0, Tn, 1.f);
-    stage<T, D>(Vs, v + base, st, k0, Tn, 1.f);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float a[4], gg[4], kk[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = Qs[(ty + 16 * i) * LD + d];
-        gg[i] = Gs[(ty + 16 * i) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kk[j] = Ks[(tx + 16 * j) * LD + d];
-        vv[j] = Vs[(tx + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i], kk[j], s[i][j]);
-          dp[i][j] = fmaf(gg[i], vv[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        const bool ok = kpos < Tn && (!causal || kpos <= qpos);
-        const float p = expf((ok ? s[i][j] : kNeg) - lse_r[i]);
-        DSs[(ty + 16 * i) * kPad + tx + 16 * j] = p * (dp[i][j] - del_r[i]);
-      }
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int c = 0; c < kTile; ++c) {
-      float ds[4], kk[NJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = DSs[(ty + 16 * i) * kPad + c];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) kk[j] = Ks[c * LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(ds[i], kk[j], acc[i][j]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= Tn) continue;
-    T* orow = dq + gbase + static_cast<long long>(row) * H * D;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      orow[tx + 16 * j] = from_f32<T>(acc[i][j] * scale);
-  }
-}
-
-// ---- kernel 8: dK and dV --------------------------------------------------
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, long long sb, long long st,
-                 long long sh, const T* __restrict__ g,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ delta, T* __restrict__ dk,
-                 T* __restrict__ dv, int Tn, int H, float scale, int causal) {
-  constexpr int LD = D + 1, NJ = D / 16;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + kTile * LD;
-  float* Qs = Vs + kTile * LD;
-  float* Gs = Qs + kTile * LD;
-  float* Pt = Gs + kTile * LD;  // (64 keys, kPad) probabilities, transposed
-  float* DSt = Pt + kTile * kPad;
-  float* lse_s = DSt + kTile * kPad;
-  float* del_s = lse_s + kTile;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  // causal: the first k tiles see the most query tiles, and launch first
-  const int k0 = blockIdx.x * kTile;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const long long base = b * sb + h * sh;
-  const long long gbase = static_cast<long long>(b) * Tn * H * D +
-                          static_cast<long long>(h) * D;
-  stage<T, D>(Ks, k + base, st, k0, Tn, 1.f);
-  stage<T, D>(Vs, v + base, st, k0, Tn, 1.f);
-  float dk_acc[4][NJ], dv_acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-  const int nq = (Tn + kTile - 1) / kTile;
-  // causal: query tiles strictly above this key tile's diagonal see none
-  // of it (tiles are square, so that is every tile before blockIdx.x)
-  for (int qt = causal ? blockIdx.x : 0; qt < nq; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();
-    stage<T, D>(Qs, q + base, st, q0, Tn, scale);
-    stage<T, D>(Gs, g + gbase, static_cast<long long>(H) * D, q0, Tn, 1.f);
-    if (threadIdx.x < kTile) {
-      const int row = q0 + threadIdx.x;
-      const long long at = static_cast<long long>(bh) * Tn + row;
-      lse_s[threadIdx.x] = row < Tn ? lse[at] : 0.f;
-      del_s[threadIdx.x] = row < Tn ? delta[at] : 0.f;
-    }
-    __syncthreads();
-    // transposed tiles: thread rows are keys, thread columns queries
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float kk[4], vv[4], a[4], gg[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kk[i] = Ks[(ty + 16 * i) * LD + d];
-        vv[i] = Vs[(ty + 16 * i) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        a[j] = Qs[(tx + 16 * j) * LD + d];
-        gg[j] = Gs[(tx + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[j], kk[i], s[i][j]);
-          dp[i][j] = fmaf(gg[j], vv[i], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kpos = k0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = tx + 16 * j, qpos = q0 + r;
-        const bool ok =
-            kpos < Tn && qpos < Tn && (!causal || kpos <= qpos);
-        const float p = expf((ok ? s[i][j] : kNeg) - lse_s[r]);
-        Pt[(ty + 16 * i) * kPad + r] = p;
-        DSt[(ty + 16 * i) * kPad + r] = p * (dp[i][j] - del_s[r]);
-      }
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int r = 0; r < kTile; ++r) {
-      float p[4], ds[4], gg[NJ], a[NJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        p[i] = Pt[(ty + 16 * i) * kPad + r];
-        ds[i] = DSt[(ty + 16 * i) * kPad + r];
-      }
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        gg[j] = Gs[r * LD + tx + 16 * j];
-        a[j] = Qs[r * LD + tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          dv_acc[i][j] = fmaf(p[i], gg[j], dv_acc[i][j]);
-          dk_acc[i][j] = fmaf(ds[i], a[j], dk_acc[i][j]);
-        }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + ty + 16 * i;
-    if (row >= Tn) continue;
-    const long long at = gbase + static_cast<long long>(row) * H * D;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      dk[at + tx + 16 * j] = from_f32<T>(dk_acc[i][j]);
-      dv[at + tx + 16 * j] = from_f32<T>(dv_acc[i][j]);
-    }
   }
 }
 
@@ -597,18 +388,25 @@ struct Lanes {
         b_t(((lane & 7) + ((lane >> 3) & 1) * 8) * ld + (lane >> 4) * 8) {}
 };
 
+// Shared rows of the tensor-core kernels hold D elements and 16 bytes of
+// padding: kTcPad bf16 or kF32Pad floats.
+constexpr int kF32Pad = 4;
+template <typename T> constexpr int kRowPad = 16 / sizeof(T);
+static_assert(kRowPad<bf16> == kTcPad && kRowPad<float> == kF32Pad);
+
 // rows row0 .. row0+R-1 of one head (src points at its row 0, `ld` elements
-// between rows) into dst (R, D + kTcPad) by 16-byte cp.async; rows past T
-// are zeros
-template <int R, int D>
-__device__ __forceinline__ void copy_rows(bf16* dst, const bf16* src,
-                                          long long ld, int row0, int Tn) {
-  constexpr int kChunks = D / 8;
+// between rows) into dst (R, D + kRowPad<T>) by 16-byte cp.async; rows past
+// T are zeros
+template <int R, int D, typename T>
+__device__ __forceinline__ void copy_rows(T* dst, const T* src, long long ld,
+                                          int row0, int Tn) {
+  constexpr int kPer = kRowPad<T>, kChunks = D / kPer;
   for (int c = threadIdx.x; c < R * kChunks; c += kTcThreads) {
     const int r = c / kChunks, ch = c % kChunks, row = row0 + r;
     const bool ok = row < Tn;
-    cp_async16(dst + r * (D + kTcPad) + ch * 8,
-               src + static_cast<long long>(ok ? row : 0) * ld + ch * 8, ok);
+    cp_async16(dst + r * (D + kPer) + ch * kPer,
+               src + static_cast<long long>(ok ? row : 0) * ld + ch * kPer,
+               ok);
   }
 }
 
@@ -623,26 +421,30 @@ __device__ __forceinline__ void copy_vals(float* dst, const float* src,
   }
 }
 
+__device__ __forceinline__ void put2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void put2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
 // one warp's 16 rows of an f32 accumulator tile (16, D), times mul0 (rows
-// g) and mul1 (rows g+8), to bf16 rows row0.. of a (B, T, H, D) output
+// g) and mul1 (rows g+8), to rows row0.. of a (B, T, H, D) output of type T
 // (dst at row 0 of the head, `ld` elements between rows) through the warp's
 // 16 rows of shared memory (`stage`), with 16-byte coalesced stores; rows
 // past T are not written
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* __restrict__ dst,
-                                           long long ld, int row0, int Tn,
-                                           bf16* stage,
+template <int D, typename T>
+__device__ __forceinline__ void store_rows(T* __restrict__ dst, long long ld,
+                                           int row0, int Tn, T* stage,
                                            const float (&c)[D / 8][4],
                                            float mul0, float mul1, int lane) {
-  constexpr int LDS = D + kTcPad, kChunks = D / 8;
+  constexpr int kPer = kRowPad<T>, LDS = D + kPer, kChunks = D / kPer;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
-    *reinterpret_cast<__nv_bfloat162*>(stage + g * LDS + n * 8 + 2 * t) =
-        __floats2bfloat162_rn(c[n][0] * mul0, c[n][1] * mul0);
-    *reinterpret_cast<__nv_bfloat162*>(stage + (g + 8) * LDS + n * 8 +
-                                       2 * t) =
-        __floats2bfloat162_rn(c[n][2] * mul1, c[n][3] * mul1);
+    put2(stage + g * LDS + n * 8 + 2 * t, c[n][0] * mul0, c[n][1] * mul0);
+    put2(stage + (g + 8) * LDS + n * 8 + 2 * t, c[n][2] * mul1,
+         c[n][3] * mul1);
   }
   __syncwarp();
 #pragma unroll
@@ -650,8 +452,8 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ dst,
     const int r = i / kChunks, ch = i % kChunks, row = row0 + r;
     if (row < Tn)
       *reinterpret_cast<uint4*>(dst + static_cast<long long>(row) * ld +
-                                ch * 8) =
-          *reinterpret_cast<const uint4*>(stage + r * LDS + ch * 8);
+                                ch * kPer) =
+          *reinterpret_cast<const uint4*>(stage + r * LDS + ch * kPer);
   }
 }
 
@@ -793,7 +595,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    lm[r] = fmaxf(l[r], 1e-30f);
+    lm[r] = max_sum(l[r]);
   }
   // out through this warp's own 16 rows of Qs (read only by this warp)
   store_rows<D>(out + (static_cast<long long>(b) * Tn * H + h) * D,
@@ -1145,16 +947,426 @@ flash_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 scale, lane);
 }
 
+// ---- f32 on the tensor cores: 3xTF32 building blocks ---------------------
+// x as a split TF32 pair for the tensor cores, which read only the top 19
+// bits of a .tf32 operand:
+//  - big = tf32(x), rounded to nearest with ties away from zero as
+//    cvt.rna.tf32.f32 rounds: the f32 pattern plus half a TF32 ulp
+//    (0x1000); masking its low 13 bits gives its value;
+//  - small = x - big, exact in f32 (at most 13 significant bits), passed
+//    whole: the tensor cores truncate it to TF32, an error of at most
+//    2^-10 of small, 2^-21 of x.
+// Three instructions an element.  A NaN stays NaN: the carry into a NaN's
+// all-ones exponent may turn big into +-0 (the card's NaN, 0x7fffffff,
+// reads as -0), but small = x - big is then NaN and is not rounded, and
+// every product takes big*small and small*big (mma_3xtf32), so the NaN
+// reaches each sum it is in.  An infinity gives a NaN small, as
+// cvt.rna.tf32.f32 would.
+__device__ __forceinline__ void split_tf32(unsigned& big, unsigned& small,
+                                           float x) {
+  big = __float_as_uint(x) + 0x1000u;
+  small = __float_as_uint(x - __uint_as_float(big & 0xffffe000u));
+}
+
+// d += a (16x8, row) * b (8x8, col): tf32 in, f32 accumulate.  Lane l
+// (g = l / 4, t = l % 4) holds a[0..3] at (g, t), (g+8, t), (g, t+4),
+// (g+8, t+4), b0 at (k = t, n = g) and b1 at (t+4, g); d as in mma_bf16.
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the A and B operands of one k8 step, each element split
+struct FragA {
+  unsigned big[4], small[4];
+};
+struct FragB {
+  unsigned big[2], small[2];
+};
+
+// d += a b at about f32 accuracy: big*big + big*small + small*big, the
+// small terms first; small*small (~2^-22 relative) is dropped
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const FragA& a,
+                                           const FragB& b) {
+  mma_tf32(d, a.big, b.small[0], b.small[1]);
+  mma_tf32(d, a.small, b.big[0], b.big[1]);
+  mma_tf32(d, a.big, b.big[0], b.big[1]);
+}
+
+// p[0] * mul from shared memory, split
+__device__ __forceinline__ void lds_split(unsigned& big, unsigned& small,
+                                          const float* p, float mul) {
+  split_tf32(big, small, *p * mul);
+}
+
+// Per-lane offsets inside a row-major shared f32 tile (ld floats between
+// rows):
+//  - d: the direct read, row g and column t: A from a tile stored [m][k]
+//    (rows g and g+8, columns t and t+4) and B from one stored [n][k] (row
+//    g, columns t and t+4);
+//  - tr: B from a tile stored [k][n], column g, with the contraction index
+//    permuted inside each k8 step as acc_to_a orders an accumulator's
+//    columns: k = t at row 2t, k = t+4 at row 2t+1.
+// With ld = D + 4 both reads hit 32 distinct banks at every D.
+struct LanesF32 {
+  int d, tr;
+  __device__ __forceinline__ LanesF32(int lane, int ld)
+      : d((lane >> 2) * ld + (lane & 3)),
+        tr(2 * (lane & 3) * ld + (lane >> 2)) {}
+};
+
+// A of one k8 step, p at (row 0, column k0) of the tile plus LanesF32::d
+template <int LD>
+__device__ __forceinline__ void lds_a(FragA& f, const float* p, float mul) {
+  lds_split(f.big[0], f.small[0], p, mul);
+  lds_split(f.big[1], f.small[1], p + 8 * LD, mul);
+  lds_split(f.big[2], f.small[2], p + 4, mul);
+  lds_split(f.big[3], f.small[3], p + 8 * LD + 4, mul);
+}
+// B from a tile stored [n][k], p at (n0, k0) plus LanesF32::d
+__device__ __forceinline__ void lds_b(FragB& f, const float* p, float mul) {
+  lds_split(f.big[0], f.small[0], p, mul);
+  lds_split(f.big[1], f.small[1], p + 4, mul);
+}
+// B from a tile stored [k][n], p at (k0, n0) plus LanesF32::tr
+template <int LD>
+__device__ __forceinline__ void lds_bt(FragB& f, const float* p, float mul) {
+  lds_split(f.big[0], f.small[0], p, mul);
+  lds_split(f.big[1], f.small[1], p + LD, mul);
+}
+
+// The A operand of one k8 step, split in registers, from the f32
+// accumulator c of one 8-column n-tile (columns 2t and 2t+1 of rows g and
+// g+8): column 2t becomes k = t and 2t+1 becomes k = t+4, so the B operand
+// must be read in that order (lds_bt).
+__device__ __forceinline__ void acc_to_a(FragA& f, const float (&c)[4]) {
+  split_tf32(f.big[0], f.small[0], c[0]);
+  split_tf32(f.big[1], f.small[1], c[2]);
+  split_tf32(f.big[2], f.small[2], c[1]);
+  split_tf32(f.big[3], f.small[3], c[3]);
+}
+
+// Tiling of the f32 kernels: a block owns 64 rows, 16 a warp, and the
+// other side streams in tiles of kOther rows.  Splitting, not the tensor
+// cores, bounds these kernels, and its chains of dependent instructions
+// need warps to hide their latency: kBlocks (0: ptxas's own target) asks
+// ptxas for registers that let that many blocks share an SM.  At D <= 64
+// three blocks; dK/dV there takes 16-query tiles, with which its two
+// accumulators (dK, dV) and the S^T and dS^T tiles fit under that cap.  At
+// D = 128 the accumulators need more registers: 16-row tiles and no cap.
+template <int D> struct DqTf32 {
+  static constexpr int kOther = D <= 64 ? 32 : 16, kBlocks = D <= 64 ? 3 : 0;
+};
+template <int D> struct DkvTf32 {
+  static constexpr int kOther = 16, kBlocks = D <= 64 ? 3 : 0;
+};
+
+// ---- kernel 7, f32 on the tensor cores: 3xTF32 dQ -------------------------
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, DqTf32<D>::kBlocks)
+flash_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, long long sb, long long st,
+                     long long sh, const float* __restrict__ g,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dq,
+                     int Tn, int H, float scale, int causal) {
+  constexpr int BK = DqTf32<D>::kOther;
+  constexpr int LD = D + kF32Pad, KD = D / 8, ND = D / 8, NS = BK / 8;
+  constexpr int kKElems = BK * LD;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  float* Qs = reinterpret_cast<float*>(tc_smem);
+  float* Gs = Qs + kTile * LD;
+  float* Ks = Gs + kTile * LD;  // two stages
+  float* Vs = Ks + 2 * kKElems;  // two stages
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gi = lane >> 2, t = lane & 3;
+  const LanesF32 at(lane, LD);
+  // the longest causal rows first: they finish last otherwise
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
+  const int r0 = q0 + warp * 16;  // this warp's first row
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const long long base = b * sb + h * sh;
+  const long long gld = static_cast<long long>(H) * D;
+  const long long gbase = static_cast<long long>(b) * Tn * gld +
+                          static_cast<long long>(h) * D;
+  // causal: keys past this tile's last row see none of it
+  const int nk = ((causal ? min(Tn, q0 + kTile) : Tn) + BK - 1) / BK;
+
+  copy_rows<kTile, D>(Qs, q + base, st, q0, Tn);
+  copy_rows<kTile, D>(Gs, g + gbase, gld, q0, Tn);
+  copy_rows<BK, D>(Ks, k + base, st, 0, Tn);
+  copy_rows<BK, D>(Vs, v + base, st, 0, Tn);
+  cp_async_commit();
+
+  // lse (in base-2 units) and delta of rows gi and gi+8
+  float lse2[2], del[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + gi + 8 * r;
+    const long long i = static_cast<long long>(bh) * Tn + row;
+    lse2[r] = row < Tn ? lse[i] * kLog2e : 0.f;
+    del[r] = row < Tn ? delta[i] : 0.f;
+  }
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const float* Qw = Qs + warp * 16 * LD + at.d;
+  const float* Gw = Gs + warp * 16 * LD + at.d;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * BK;
+    if (kt + 1 < nk) {  // the next tile's copy overlaps this tile's math
+      const int nxt = ((kt + 1) & 1) * kKElems;
+      copy_rows<BK, D>(Ks + nxt, k + base, st, k0 + BK, Tn);
+      copy_rows<BK, D>(Vs + nxt, v + base, st, k0 + BK, Tn);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* Kt = Ks + (kt & 1) * kKElems;
+    const float* Vt = Vs + (kt & 1) * kKElems;
+
+    // causal: keys past this warp's last row are all masked
+    if (!causal || k0 < r0 + 16) {
+      // S = (scale q) K^T and dP = g V^T: 16 rows x BK keys a warp
+      float s[NS][4], dp[NS][4];
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        FragA aq, ag;
+        lds_a<LD>(aq, Qw + kk * 8, scale);
+        lds_a<LD>(ag, Gw + kk * 8, 1.f);
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          FragB bk, bv;
+          lds_b(bk, Kt + n * 8 * LD + at.d + kk * 8, 1.f);
+          lds_b(bv, Vt + n * 8 * LD + at.d + kk * 8, 1.f);
+          mma_3xtf32(s[n], aq, bk);
+          mma_3xtf32(dp[n], ag, bv);
+        }
+      }
+
+      // P = exp(S - lse), 0 where masked; dS = P (dP - delta) in dP's
+      // place
+      const bool edge = k0 + BK > Tn || (causal && k0 + BK - 1 > r0);
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(fmaf(s[n][e], kLog2e, -lse2[e >> 1]));
+          if (edge) {
+            const int kpos = k0 + n * 8 + 2 * t + (e & 1);
+            const int qpos = r0 + gi + (e >> 1) * 8;
+            if (kpos >= Tn || (causal && kpos > qpos)) p = 0.f;
+          }
+          dp[n][e] = p * (dp[n][e] - del[e >> 1]);
+        }
+
+      // dQ += dS K (k read across rows: the sum runs over keys); `scale`
+      // once at the store
+#pragma unroll
+      for (int kk = 0; kk < NS; ++kk) {
+        FragA ad;
+        acc_to_a(ad, dp[kk]);
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+          FragB bk;
+          lds_bt<LD>(bk, Kt + kk * 8 * LD + n * 8 + at.tr, 1.f);
+          mma_3xtf32(acc[n], ad, bk);
+        }
+      }
+    }
+    __syncthreads();  // this stage's readers are done before it refills
+  }
+
+  // dq through this warp's own 16 rows of Qs (read only by this warp)
+  store_rows<D>(dq + gbase, gld, r0, Tn, Qs + warp * 16 * LD, acc, scale,
+                scale, lane);
+}
+
+// ---- kernel 8, f32 on the tensor cores: 3xTF32 dK and dV ------------------
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, DkvTf32<D>::kBlocks)
+flash_dkv_tf32_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v, long long sb, long long st,
+                      long long sh, const float* __restrict__ g,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      float* __restrict__ dk, float* __restrict__ dv, int Tn,
+                      int H, float scale, int causal) {
+  constexpr int BQ = DkvTf32<D>::kOther;
+  constexpr int LD = D + kF32Pad, KD = D / 8, ND = D / 8, NQ = BQ / 8;
+  constexpr int kQElems = BQ * LD;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  float* Ks = reinterpret_cast<float*>(tc_smem);
+  float* Vs = Ks + kTile * LD;
+  float* Qs = Vs + kTile * LD;   // two stages
+  float* Gs = Qs + 2 * kQElems;  // two stages
+  float* Ls = Gs + 2 * kQElems;  // two stages
+  float* Ds = Ls + 2 * BQ;       // two stages
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gi = lane >> 2, t = lane & 3;
+  const LanesF32 at(lane, LD);
+  // causal: the first k tiles see the most query tiles, and launch first
+  const int k0 = blockIdx.x * kTile;
+  const int kr0 = k0 + warp * 16;  // this warp's first key
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const long long base = b * sb + h * sh;
+  const long long gld = static_cast<long long>(H) * D;
+  const long long gbase = static_cast<long long>(b) * Tn * gld +
+                          static_cast<long long>(h) * D;
+  const float* lse_bh = lse + static_cast<long long>(bh) * Tn;
+  const float* del_bh = delta + static_cast<long long>(bh) * Tn;
+  // causal: query rows before this key tile see none of it
+  const int qs = causal ? k0 : 0;
+
+  copy_rows<kTile, D>(Ks, k + base, st, k0, Tn);
+  copy_rows<kTile, D>(Vs, v + base, st, k0, Tn);
+  copy_rows<BQ, D>(Qs, q + base, st, qs, Tn);
+  copy_rows<BQ, D>(Gs, g + gbase, gld, qs, Tn);
+  copy_vals<BQ>(Ls, lse_bh, qs, Tn);
+  copy_vals<BQ>(Ds, del_bh, qs, Tn);
+  cp_async_commit();
+
+  float dka[ND][4], dva[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+  const float* Kw = Ks + warp * 16 * LD + at.d;
+  const float* Vw = Vs + warp * 16 * LD + at.d;
+
+  int it = 0;
+  for (int q0 = qs; q0 < Tn; q0 += BQ, ++it) {
+    if (q0 + BQ < Tn) {  // the next tile's copy overlaps this tile's math
+      const int nxt = (it + 1) & 1;
+      copy_rows<BQ, D>(Qs + nxt * kQElems, q + base, st, q0 + BQ, Tn);
+      copy_rows<BQ, D>(Gs + nxt * kQElems, g + gbase, gld, q0 + BQ, Tn);
+      copy_vals<BQ>(Ls + nxt * BQ, lse_bh, q0 + BQ, Tn);
+      copy_vals<BQ>(Ds + nxt * BQ, del_bh, q0 + BQ, Tn);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* Qt = Qs + (it & 1) * kQElems;
+    const float* Gt = Gs + (it & 1) * kQElems;
+    const float* Lt = Ls + (it & 1) * BQ;
+    const float* Dt = Ds + (it & 1) * BQ;
+
+    // causal: queries before this warp's first key are all masked
+    if (!causal || q0 + BQ > kr0) {
+      // S^T = K (scale q)^T: 16 keys x BQ queries a warp
+      float sT[NQ][4];
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sT[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        FragA ak;
+        lds_a<LD>(ak, Kw + kk * 8, 1.f);
+#pragma unroll
+        for (int n = 0; n < NQ; ++n) {
+          FragB bq;
+          lds_b(bq, Qt + n * 8 * LD + at.d + kk * 8, scale);
+          mma_3xtf32(sT[n], ak, bq);
+        }
+      }
+
+      // P^T = exp(S^T - lse[q]), 0 where masked
+      const bool edge = q0 + BQ > Tn || kr0 + 16 > Tn ||
+                        (causal && q0 < kr0 + 15);
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = n * 8 + 2 * t + (e & 1);
+          float p = exp2f(fmaf(sT[n][e], kLog2e, -Lt[qi] * kLog2e));
+          if (edge) {
+            const int kpos = kr0 + gi + (e >> 1) * 8, qpos = q0 + qi;
+            if (kpos >= Tn || qpos >= Tn || (causal && kpos > qpos)) p = 0.f;
+          }
+          sT[n][e] = p;
+        }
+
+      // dV += P^T g (g read across rows: the sum runs over queries)
+#pragma unroll
+      for (int kq = 0; kq < NQ; ++kq) {
+        FragA ap;
+        acc_to_a(ap, sT[kq]);
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+          FragB bg;
+          lds_bt<LD>(bg, Gt + kq * 8 * LD + n * 8 + at.tr, 1.f);
+          mma_3xtf32(dva[n], ap, bg);
+        }
+      }
+
+      // dP^T = V g^T, then dS^T = P^T (dP^T - delta[q]) in its place
+      float dsT[NQ][4];
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dsT[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        FragA av;
+        lds_a<LD>(av, Vw + kk * 8, 1.f);
+#pragma unroll
+        for (int n = 0; n < NQ; ++n) {
+          FragB bg;
+          lds_b(bg, Gt + n * 8 * LD + at.d + kk * 8, 1.f);
+          mma_3xtf32(dsT[n], av, bg);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dsT[n][e] = sT[n][e] * (dsT[n][e] - Dt[n * 8 + 2 * t + (e & 1)]);
+
+      // dK += dS^T (scale q) (q read across rows)
+#pragma unroll
+      for (int kq = 0; kq < NQ; ++kq) {
+        FragA ad;
+        acc_to_a(ad, dsT[kq]);
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+          FragB bq;
+          lds_bt<LD>(bq, Qt + kq * 8 * LD + n * 8 + at.tr, scale);
+          mma_3xtf32(dka[n], ad, bq);
+        }
+      }
+    }
+    __syncthreads();  // this stage's readers are done before it refills
+  }
+
+  // dK and dV through this warp's own 16 rows of Ks and Vs (read only by
+  // this warp)
+  store_rows<D>(dk + gbase, gld, kr0, Tn, Ks + warp * 16 * LD, dka, 1.f, 1.f,
+                lane);
+  store_rows<D>(dv + gbase, gld, kr0, Tn, Vs + warp * 16 * LD, dva, 1.f, 1.f,
+                lane);
+}
+
 // dynamic shared memory in bytes of each kernel
 template <int D> constexpr size_t fwd_smem() {
   return sizeof(float) * (3 * kTile * (D + 1) + kTile * kPad);
-}
-template <int D> constexpr size_t dq_smem() {
-  return sizeof(float) * (4 * kTile * (D + 1) + kTile * kPad);
-}
-template <int D> constexpr size_t dkv_smem() {
-  return sizeof(float) *
-         (4 * kTile * (D + 1) + 2 * kTile * kPad + 2 * kTile);
 }
 template <int D> constexpr size_t fwd_tc_smem() {
   return sizeof(bf16) * 5 * kTile * (D + kTcPad);
@@ -1166,6 +1378,13 @@ template <int D> constexpr size_t dkv_tc_smem() {
   constexpr int BQ = DkvTc<D>::kRows;
   return sizeof(bf16) * (2 * kTile + 4 * BQ) * (D + kTcPad) +
          sizeof(float) * 4 * BQ;
+}
+template <int D> constexpr size_t dq_tf32_smem() {
+  return sizeof(float) * (2 * kTile + 4 * DqTf32<D>::kOther) * (D + kF32Pad);
+}
+template <int D> constexpr size_t dkv_tf32_smem() {
+  constexpr int BQ = DkvTf32<D>::kOther;
+  return sizeof(float) * ((2 * kTile + 4 * BQ) * (D + kF32Pad) + 4 * BQ);
 }
 
 // above 48 KB a kernel must opt in to its dynamic shared memory, once
@@ -1203,40 +1422,8 @@ int fwd_tc(const void* q, const void* k, const void* v, long long sb,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int dq_tc(const void* q, const void* k, const void* v, long long sb,
-          long long st, long long sh, const void* g, const void* lse,
-          const void* delta, void* dq_out, const Shape& s) {
-  static bool done = false;
-  auto kernel = flash_dq_tc_kernel<D>;
-  cudaError_t err = opt_in(kernel, dq_tc_smem<D>(), &done);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<s.grid(), kTcThreads, dq_tc_smem<D>(), s.stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), sb, st, sh, static_cast<const bf16*>(g),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq_out), s.Tn, s.H, s.scale, s.causal);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int D>
-int dkv_tc(const void* q, const void* k, const void* v, long long sb,
-           long long st, long long sh, const void* g, const void* lse,
-           const void* delta, void* dk_out, void* dv_out, const Shape& s) {
-  static bool done = false;
-  auto kernel = flash_dkv_tc_kernel<D>;
-  cudaError_t err = opt_in(kernel, dkv_tc_smem<D>(), &done);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<s.grid(), kTcThreads, dkv_tc_smem<D>(), s.stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), sb, st, sh, static_cast<const bf16*>(g),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk_out), static_cast<bf16*>(dv_out), s.Tn, s.H,
-      s.scale, s.causal);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// bf16 takes the tensor-core kernels, f32 the CUDA-core ones
+// bf16 takes the tensor-core kernels; f32 takes the CUDA-core forward and
+// the 3xTF32 dQ and dK/dV
 template <typename T, int D>
 int fwd(const void* q, const void* k, const void* v, long long sb,
         long long st, long long sh, void* out, void* lse, const Shape& s) {
@@ -1244,12 +1431,12 @@ int fwd(const void* q, const void* k, const void* v, long long sb,
     return fwd_tc<D>(q, k, v, sb, st, sh, out, lse, s);
   } else {
     static bool done = false;
-    auto kernel = flash_fwd_kernel<T, D>;
+    auto kernel = flash_fwd_kernel<D>;
     cudaError_t err = opt_in(kernel, fwd_smem<D>(), &done);
     if (err != cudaSuccess) return static_cast<int>(err);
     kernel<<<s.grid(), kThreads, fwd_smem<D>(), s.stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), sb, st, sh, static_cast<T*>(out),
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), sb, st, sh, static_cast<float*>(out),
         static_cast<float*>(lse), s.Tn, s.H, s.scale, s.causal);
     return static_cast<int>(cudaGetLastError());
   }
@@ -1259,41 +1446,47 @@ template <typename T, int D>
 int dq(const void* q, const void* k, const void* v, long long sb,
        long long st, long long sh, const void* g, const void* lse,
        const void* delta, void* dq_out, const Shape& s) {
-  if constexpr (std::is_same_v<T, bf16>) {
-    return dq_tc<D>(q, k, v, sb, st, sh, g, lse, delta, dq_out, s);
-  } else {
-    static bool done = false;
-    auto kernel = flash_dq_kernel<T, D>;
-    cudaError_t err = opt_in(kernel, dq_smem<D>(), &done);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<s.grid(), kThreads, dq_smem<D>(), s.stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), sb, st, sh, static_cast<const T*>(g),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<T*>(dq_out), s.Tn, s.H, s.scale, s.causal);
-    return static_cast<int>(cudaGetLastError());
-  }
+  constexpr bool kBf16 = std::is_same_v<T, bf16>;
+  static bool done = false;
+  auto kernel = [] {
+    if constexpr (kBf16)
+      return flash_dq_tc_kernel<D>;
+    else
+      return flash_dq_tf32_kernel<D>;
+  }();
+  constexpr size_t smem = kBf16 ? dq_tc_smem<D>() : dq_tf32_smem<D>();
+  cudaError_t err = opt_in(kernel, smem, &done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<s.grid(), kTcThreads, smem, s.stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), sb, st, sh, static_cast<const T*>(g),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dq_out), s.Tn, s.H, s.scale, s.causal);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int D>
 int dkv(const void* q, const void* k, const void* v, long long sb,
         long long st, long long sh, const void* g, const void* lse,
         const void* delta, void* dk_out, void* dv_out, const Shape& s) {
-  if constexpr (std::is_same_v<T, bf16>) {
-    return dkv_tc<D>(q, k, v, sb, st, sh, g, lse, delta, dk_out, dv_out, s);
-  } else {
-    static bool done = false;
-    auto kernel = flash_dkv_kernel<T, D>;
-    cudaError_t err = opt_in(kernel, dkv_smem<D>(), &done);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<s.grid(), kThreads, dkv_smem<D>(), s.stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), sb, st, sh, static_cast<const T*>(g),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<T*>(dk_out), static_cast<T*>(dv_out), s.Tn, s.H,
-        s.scale, s.causal);
-    return static_cast<int>(cudaGetLastError());
-  }
+  constexpr bool kBf16 = std::is_same_v<T, bf16>;
+  static bool done = false;
+  auto kernel = [] {
+    if constexpr (kBf16)
+      return flash_dkv_tc_kernel<D>;
+    else
+      return flash_dkv_tf32_kernel<D>;
+  }();
+  constexpr size_t smem = kBf16 ? dkv_tc_smem<D>() : dkv_tf32_smem<D>();
+  cudaError_t err = opt_in(kernel, smem, &done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<s.grid(), kTcThreads, smem, s.stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), sb, st, sh, static_cast<const T*>(g),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dk_out), static_cast<T*>(dv_out), s.Tn, s.H, s.scale,
+      s.causal);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // one instantiation per (dtype, head dim); dtype 0 = float32, 1 = bfloat16

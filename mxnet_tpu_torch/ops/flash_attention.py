@@ -8,7 +8,11 @@ each of the three wrappers below launches its hand-written CUDA kernel
 A CUDA tensor a kernel does not take raises; nothing falls back.  The
 dtype picks the design: bfloat16 runs all three on the tensor cores
 (``mma.sync`` with bf16 operands and f32 sums, tiles brought in by
-``cp.async``), float32 runs them on CUDA cores in f32.
+``cp.async``); float32 runs the forward on CUDA cores in f32 and dQ and
+dK/dV on the tensor cores in 3xTF32 (``flash_dq_tf32_kernel``,
+``flash_dkv_tf32_kernel``: every operand split into two TF32 parts and
+each product taken as three TF32 products with f32 sums, about f32's
+accuracy; no global TF32 setting is read or changed).
 
 :func:`flash_attention` is a ``torch.autograd.Function``: its forward
 launches the forward kernel and saves ``q, k, v, out, lse``; its backward
@@ -23,11 +27,17 @@ gradients come back in their inputs' dtypes.  The bf16 tensor-core
 kernels round at two more places, as every tensor-core flash kernel does:
 ``scale`` multiplies the f32 product of the bf16 q and k (not q before the
 product), and p and ds are split into a bf16 high and a bf16 low part
-before they multiply v, g, q and k (two products, f32 sums).  The
-reference's ``select_flash_blocks`` and ``TPUMX_FLASH_BLOCK_Q/K`` size
-tiles for TPU VMEM and are not carried over: every CUDA kernel owns 64
-rows of one head; the bf16 dK/dV walks query tiles of 64 rows (32 at
-D = 128), the others walk 64-row tiles.
+before they multiply v, g, q and k (two products, f32 sums).  The f32
+dQ and dK/dV kernels keep q scaled before its product and split every
+operand, the scaled q, k, v, g, p and ds, into a TF32 pair big + small
+(``big = tf32(x)`` rounded to nearest, ties away from zero; ``small = x -
+big`` truncated to TF32), taking ``big*big + big*small + small*big``; a
+NaN operand keeps small NaN, so it reaches every sum it is in.  The reference's
+``select_flash_blocks`` and ``TPUMX_FLASH_BLOCK_Q/K`` size tiles for TPU
+VMEM and are not carried over: every CUDA kernel owns 64 rows of one
+head and walks tiles of the other side: 64 rows, except the bf16 dK/dV at
+D = 128 (32), the f32 dQ (32 keys; 16 at D = 128) and the f32 dK/dV (16
+queries).
 """
 from __future__ import annotations
 
@@ -139,10 +149,12 @@ def _device_ok(t, what: str) -> bool:
     return True
 
 
-def _check_qkv(q, k, v, what: str):
+def _check_qkv(q, k, v, what: str, chunks: bool = True):
     """Checks q, k, v for the kernels and returns them with one shared
     stride set: views that share their strides (the LM's split qkv
-    product) pass as they are, others are made contiguous."""
+    product) pass as they are, others are made contiguous.  ``chunks``:
+    the kernel copies 16-byte chunks (every kernel but the f32 forward),
+    so views that are not :func:`_aligned` are made contiguous too."""
     if q.dim() != 4:
         raise MXNetError(f"{what}: q must be (B, T, H, D), got "
                          f"{tuple(q.shape)}")
@@ -158,16 +170,17 @@ def _check_qkv(q, k, v, what: str):
         raise MXNetError(f"{what}: head dim {q.shape[-1]} not supported "
                          f"{_HEAD_DIMS}")
     if not (q.stride() == k.stride() == v.stride() and q.stride(-1) == 1
-            and all(_aligned(t) for t in (q, k, v))):
+            and (not chunks or all(_aligned(t) for t in (q, k, v)))):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     return q, k, v
 
 
 def _aligned(t) -> bool:
-    """The bf16 kernels copy rows in 16-byte chunks: a bf16 tensor must
-    start on 16 bytes with its B, T and H strides multiples of 8."""
-    return t.dtype != torch.bfloat16 or (
-        t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3]))
+    """The tensor-core kernels copy rows in 16-byte chunks: a tensor must
+    start on 16 bytes with its B, T and H strides multiples of 16 bytes."""
+    per = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and all(s % per == 0
+                                          for s in t.stride()[:3])
 
 
 def _check(name: str, t, shape, dtype, device, what: str):
@@ -194,7 +207,8 @@ def flash_attention_forward(q, k, v, causal: bool = False, scale=None):
     scale = _scale(q.shape[-1], scale)
     if not _device_ok(q, "flash_attention"):
         return flash_attention_forward_reference(q, k, v, causal, scale)
-    q, k, v = _check_qkv(q, k, v, "flash_attention")
+    q, k, v = _check_qkv(q, k, v, "flash_attention",
+                         chunks=q.dtype == torch.bfloat16)
     B, T, H, D = q.shape
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)

@@ -7,7 +7,10 @@ with ``TPUMX_PALLAS=1`` so that its backward is the dQ and dK/dV kernels.
 Same numpy inputs.  Outputs and lse at f32 rtol 1e-5 / atol 2e-5,
 gradients at rtol 1e-4 / atol 5e-5 (``tests/test_flash_attention.py``'s
 tolerances against its dense oracle).  The CUDA kernels themselves are
-held against the plain versions on the card by chip_smoke.py.
+held against the plain versions on the card by chip_smoke.py; here torch
+emulations of where the tensor-core kernels round (bf16 operands, and the
+f32 backward's 3xTF32 split) are held against the JAX Pallas kernels at
+chip_smoke.py's tolerance of each dtype.
 """
 import math
 
@@ -265,6 +268,169 @@ def test_tc_single_bf16_rounding_of_ds_fails_dq(pallas, B, T, H, D, causal):
     assert _over_budget(got[1], want[1]) > 1.0
 
 
+# the f32 3xTF32 kernels' rounding, held to chip_smoke.py's f32 tolerance
+# for a kernel against its plain version; T = 72, 200 and 130 are ragged
+F32_TOL = dict(rtol=1e-4, atol=1e-5)
+TF32_CASES = [(b, t, h, d, c) for b, t, h, d in (
+    (2, 72, 2, 16), (1, 200, 2, 32), (1, 256, 2, 64), (1, 200, 3, 64),
+    (1, 130, 2, 128)) for c in (True, False)]
+
+
+def _tf32(x):
+    """x rounded to TF32 as the kernels round big: the f32 pattern plus
+    half a TF32 ulp, its low 13 bits dropped (to nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32`` rounds a finite x)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_read(x):
+    """x as the tensor cores read a .tf32 operand: its top 19 bits."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x):
+    """The kernels' split: big = tf32(x) and small = x - big (exact in
+    f32), each as the tensor cores read it."""
+    big = _tf32(x)
+    return big, _tf32_read(x - big)
+
+
+def _mm_3xtf32(eq, a, b):
+    """``einsum(eq, a, b)`` as the f32 kernels take it: each operand split
+    (:func:`_split`) and big*big + big*small + small*big summed in f32
+    (each product of two TF32 values is exact)."""
+    (ab, a_s), (bb, b_s) = _split(a), _split(b)
+    return (torch.einsum(eq, ab, b_s) + torch.einsum(eq, a_s, bb)
+            + torch.einsum(eq, ab, bb))
+
+
+def _mm_tf32(eq, a, b):
+    """The same with one TF32 rounding of each operand and one product."""
+    return torch.einsum(eq, _tf32(a), _tf32(b))
+
+
+def _tf32_emulation(q, k, v, g, causal, mm):
+    """The f32 dQ and dK/dV kernels' products in torch ops on f32 (B, T,
+    H, D) inputs, from the plain forward's out and lse: q scaled in f32
+    before its products, every product through ``mm``, p = exp(s - lse)
+    (0 where masked), ds = p (dp - delta), scale once on dq.  Returns
+    (dq, dk, dv)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    out, lse = tfa.flash_attention_forward_reference(q, k, v, causal)
+    delta = tfa.flash_delta(out, g)
+    qs = q * scale
+    s = mm("bqhd,bkhd->bhqk", qs, k)
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        pos = torch.arange(q.shape[1])
+        p = torch.where(pos[None, :] <= pos[:, None], p, 0.0)
+    ds = p * (mm("bqhd,bkhd->bhqk", g, v) - delta[..., None])
+    dq = mm("bhqk,bkhd->bqhd", ds, k) * scale
+    dv = mm("bhqk,bqhd->bkhd", p, g)
+    dk = mm("bhqk,bqhd->bkhd", ds, qs)
+    return dq, dk, dv
+
+
+def _tf32_case(B, T, H, D, causal, mm):
+    """(emulated (dq, dk, dv), the JAX Pallas backward's) on the same f32
+    inputs."""
+    q, k, v, g = _inputs(B, T, H, D, seed=17 * T + D + int(causal), n=4)
+    _, vjp = jax.vjp(
+        lambda a, b, c: jfa.flash_attention(a, b, c, causal=causal),
+        *map(jnp.asarray, (q, k, v)))
+    want = [np.asarray(x) for x in vjp(jnp.asarray(g))]
+    got = _tf32_emulation(*map(torch.from_numpy, (q, k, v, g)), causal, mm)
+    return got, want
+
+
+def _over_f32_budget(a, b):
+    """The largest |a - b| as a multiple of F32_TOL at b (> 1 fails)."""
+    return np.max(np.abs(a.numpy() - b)
+                  / (F32_TOL["atol"] + F32_TOL["rtol"] * np.abs(b)))
+
+
+def test_tf32_rounds_to_nearest_ties_away():
+    """The emulation's rounding keeps 10 mantissa bits, rounds half an
+    ulp away from zero and carries into the exponent."""
+    ulp = 2.0 ** -10
+    x = torch.tensor([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2 ** -23,
+                      2 - ulp / 2, 3.0, 0.0], dtype=torch.float32)
+    want = [1 + ulp, -(1 + ulp), 1.0, 2.0, 3.0, 0.0]
+    assert _tf32(x).tolist() == want
+
+
+def _f32_bits(*patterns):
+    return torch.tensor(patterns, dtype=torch.int64).to(
+        torch.int32).view(torch.float32)
+
+
+def test_tf32_split_is_close_and_keeps_nan():
+    """big + small, as the tensor cores read them, is within 2^-21 of x.
+    Half an ulp added to the card's NaN (0x7fffffff) carries into the
+    sign and its big reads as -0, so small carries every NaN (and the NaN
+    that an infinity's split gives) into the products."""
+    x = torch.from_numpy((np.random.default_rng(3).standard_normal(4096)
+                          * 10.0 ** np.arange(-4, 4).repeat(512)).astype(
+                              np.float32))
+    big, small = _split(x)
+    err = ((big.double() + small.double()) - x.double()).abs()
+    assert bool((err <= 2.0 ** -21 * x.double().abs()).all())
+    special = _f32_bits(0x7FFFFFFF, 0xFFFFFFFF, 0x7FC00000, 0xFFC00000,
+                        0x7F800000, 0xFF800000)
+    assert torch.isnan(_split(special)[1]).all()
+    assert torch.isnan(_mm_3xtf32("i,i->i", special,
+                                  torch.ones(6))).all()
+
+
+@pytest.mark.parametrize("D", (16, 64))
+def test_3xtf32_nan_reaches_the_gradients_as_in_plain_version(D):
+    """A NaN in q (the card's own pattern, 0x7fffffff, which q * scale
+    gives for a NaN q) and one in g make dq, dk and dv NaN exactly where
+    the plain versions' are, through the 3xTF32 split; the rest agrees
+    within the f32 tolerance.  Not causal: the plain version also puts
+    NaN in masked probabilities of a NaN row, which the kernels set to 0."""
+    B, T, H = 2, 72, 2
+    q, k, v, g = map(torch.from_numpy, _inputs(B, T, H, D, seed=D, n=4))
+    nan = _f32_bits(0x7FFFFFFF)[0]
+    q[0, 5, 0, 3] = nan
+    g[1, 40, 1, D - 1] = nan
+    got = _tf32_emulation(q, k, v, g, False, _mm_3xtf32)
+    scale = 1.0 / math.sqrt(D)
+    out, lse = tfa.flash_attention_forward_reference(q, k, v, False)
+    args = (q, k, v, g, lse, tfa.flash_delta(out, g), False, scale)
+    want = (tfa.flash_attention_dq_reference(*args),
+            *tfa.flash_attention_dkv_reference(*args))
+    for a, b, name in zip(got, want, ("dq", "dk", "dv")):
+        nan_b = torch.isnan(b)
+        assert nan_b.any() and not nan_b.all(), name
+        assert torch.equal(torch.isnan(a), nan_b), name
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **F32_TOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("B,T,H,D,causal", TF32_CASES)
+def test_3xtf32_rounding_budget_against_jax_pallas(pallas, B, T, H, D,
+                                                   causal):
+    """The f32 tensor-core kernels' roundings (every operand of every
+    product split into two TF32 parts, three products) stay inside
+    chip_smoke.py's f32 tolerance against the JAX Pallas backward
+    (interpreted) on the same f32 inputs, for dQ, dK and dV."""
+    got, want = _tf32_case(B, T, H, D, causal, _mm_3xtf32)
+    for a, b, name in zip(got, want, ("dq", "dk", "dv")):
+        assert a.dtype == torch.float32 and a.shape == (B, T, H, D)
+        np.testing.assert_allclose(a.numpy(), b, **F32_TOL, err_msg=name)
+
+
+def test_single_tf32_rounding_exceeds_f32_budget(pallas):
+    """Why the f32 kernels split every operand: one TF32 rounding (11
+    significant bits) and one product put dQ, dK and dV well outside the
+    f32 tolerance."""
+    got, want = _tf32_case(*TF32_CASES[4], _mm_tf32)
+    over = [_over_f32_budget(a, b) for a, b in zip(got, want)]
+    assert min(over) > 10.0, over
+
+
 def test_block_sizes_and_layouts_leave_result_unchanged():
     """block_q/block_k change nothing; strided views (the LM's split qkv
     product) and a non-contiguous output gradient give the same bits as
@@ -301,6 +467,14 @@ def test_kernel_argument_checks():
     assert (q2.data_ptr(), k2.data_ptr()) == (q.data_ptr(), k.data_ptr())
     q3, _, v3 = tfa._check_qkv(q.contiguous(), k, v, "t")
     assert q3.is_contiguous() and v3.is_contiguous()
+    # 4 bytes off 16 and a row stride of 97 floats: copied for the kernels
+    # that copy 16-byte chunks, passed as it is to the f32 forward
+    odd = torch.zeros(B, T, 3 * H * D + 1)[..., 1:]
+    q4, k4, v4 = (t.reshape(B, T, H, D) for t in odd.split(H * D, dim=-1))
+    assert tfa._check_qkv(q4, k4, v4, "t")[0].is_contiguous()
+    kept = tfa._check_qkv(q4, k4, v4, "t", chunks=False)
+    assert [t.data_ptr() for t in kept] == [
+        t.data_ptr() for t in (q4, k4, v4)]
     bad_d = torch.zeros(B, T, H, 24)
     with pytest.raises(MXNetError, match="head dim"):
         tfa._check_qkv(bad_d, bad_d, bad_d, "t")
