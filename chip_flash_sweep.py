@@ -13,7 +13,7 @@ not, at chip_smoke.py's tolerance of each dtype) and timed at the
 training shape (B=8, T=1024, H=12, D=64, causal; CUDA graph of chained
 calls) and at D = 128 (B=8, T=1024, H=6), in turns with the unedited
 source first and last: the bf16 forward, dQ and dK/dV and bf16 dQ at
-D = 128; the f32 dQ and dK/dV at both shapes.  Variants:
+D = 128; the f32 forward, dQ and dK/dV at both shapes.  Variants:
 
 - ``base``: the source as it is;
 - ``no_split``: bf16 p and ds rounded once to bf16 (one product, not hi +
@@ -28,10 +28,15 @@ D = 128; the f32 dQ and dK/dV at both shapes.  Variants:
 - ``dkv_kv_smem``: bf16 dK/dV reading k and v from shared memory at every
   product instead of holding them in registers;
 - ``dkv_q32_kv_smem``: both;
-- ``f32_split_staged``: the f32 3xTF32 dQ and dK/dV splitting each tile
-  once, after it lands in shared memory, into big parts (in place) and
-  small parts (a mirror in the second half of twice the shared memory),
-  instead of splitting at every fragment read;
+- ``f32_fwd_k32``: the f32 forward with 32-key tiles at D <= 64 (the
+  source takes 64);
+- ``f32_fwd_q_regs``: the f32 forward at D <= 64 splitting its scaled q
+  once into registers (at the first key tile) instead of at every
+  fragment read;
+- ``f32_split_staged``: the f32 3xTF32 kernels (forward, dQ and dK/dV)
+  splitting each tile once, after it lands in shared memory, into big
+  parts (in place) and small parts (a mirror in the second half of twice
+  the shared memory), instead of splitting at every fragment read;
 - ``f32_single_tf32``: the f32 products taken as one TF32 product (big *
   big) instead of three; expected to fail the f32 tolerance, it prices
   the split;
@@ -66,9 +71,8 @@ import sys
 SRC = "mxnet_tpu_torch/ops/csrc/flash_attention.cu"
 OUT_DIR = os.path.join("build", "flash_sweep")
 _BOUNDS = "__global__ void __launch_bounds__(kTcThreads)\n"
-# a flash kernel function in ptxas's report: its name, the element type of
-# the CUDA-core templates (f or 13__nv_bfloat16) and D
-_FUNC = re.compile(r"flash_(\w+?)_kernelI(f|13__nv_bfloat16)?Li(\d+)E")
+# a flash kernel function in ptxas's report: its name and D
+_FUNC = re.compile(r"flash_(\w+?)_kernelILi(\d+)E")
 
 # f32_split_staged: tiles split once in shared memory
 _STAGED_SPLIT = r'''
@@ -122,9 +126,16 @@ def _staged(src):
   split_tf32(big, small, *p * mul);
 }
 ''', _STAGED_SPLIT)
-    for head in ("(2 * kTile + 4 * DqTf32", "((2 * kTile + 4 * BQ)"):
+    for head in ("(kTile + 4 * FwdTf32", "(2 * kTile + 4 * DqTf32",
+                 "((2 * kTile + 4 * BQ)"):
         s = _edit(s, "  return sizeof(float) * " + head,
                   "  return 2 * sizeof(float) * " + head)
+    s = _edit(s, "    const float* Vt = Vs + (kt & 1) * kKvElems;\n",
+              "    const float* Vt = Vs + (kt & 1) * kKvElems;\n"
+              "    if (kt == 0) split_tile<kTile, D>(Qs, scale);\n"
+              "    split_tile<BK, D>(Ks + (kt & 1) * kKvElems, 1.f);\n"
+              "    split_tile<BK, D>(Vs + (kt & 1) * kKvElems, 1.f);\n"
+              "    __syncthreads();\n")
     s = _edit(s, "    const float* Vt = Vs + (kt & 1) * kKElems;\n",
               "    const float* Vt = Vs + (kt & 1) * kKElems;\n"
               "    if (kt == 0) {\n"
@@ -173,6 +184,22 @@ def _variants(src, baseline=None):
             "      }\n"
             "      const unsigned(&aq)[4] = qf[kk];\n"
             "      const unsigned(&ag)[4] = gf[kk];\n"),
+        "f32_fwd_k32": lambda s: _edit(
+            s, "struct FwdTf32 {\n  static constexpr int kOther = D <= 64 ? 64",
+            "struct FwdTf32 {\n  static constexpr int kOther = D <= 64 ? 32"),
+        "f32_fwd_q_regs": lambda s: _edit(
+            _edit(s, "  const float* Qw = Qs + warp * 16 * LD + at.d;\n\n",
+                  "  const float* Qw = Qs + warp * 16 * LD + at.d;\n"
+                  "  FragA qf[D <= 64 ? KD : 1];\n\n"),
+            "        FragA aq;\n"
+            "        lds_a<LD>(aq, Qw + kk * 8, scale);\n",
+            "        FragA aq;\n"
+            "        if constexpr (D <= 64) {\n"
+            "          if (kt == 0) lds_a<LD>(qf[kk], Qw + kk * 8, scale);\n"
+            "          aq = qf[kk];\n"
+            "        } else {\n"
+            "          lds_a<LD>(aq, Qw + kk * 8, scale);\n"
+            "        }\n"),
         "f32_split_staged": _staged,
         "f32_single_tf32": lambda s: _edit(
             s, "  mma_tf32(d, a.big, b.small[0], b.small[1]);\n"
@@ -195,16 +222,15 @@ def _variants(src, baseline=None):
 
 def _registers(report):
     """ptxas's numbers for each flash kernel function at D = 64 and 128,
-    keyed ``name<D>`` (``name<float,D>`` for the typed templates)."""
+    keyed ``name<D>``."""
     import chip_smoke as cs
 
     regs = {}
     for f, r in cs._ptxas_functions(report).items():
         m = _FUNC.search(f)
-        if m and m.group(3) in ("64", "128"):
-            name, ty, d = m.groups()
-            ty = {"f": "float,", "13__nv_bfloat16": "bf16,"}.get(ty, "")
-            regs[f"{name}<{ty}{d}>"] = r
+        if m and m.group(2) in ("64", "128"):
+            name, d = m.groups()
+            regs[f"{name}<{d}>"] = r
     return regs
 
 
@@ -283,18 +309,20 @@ def main(argv) -> int:
                 (*(t.to(dtype) for t in s), c) for s in small
                 for c in (True, False)],
             "fwd": (q, k, v), "bwd": backward_args(q, k, v, x, True)[1],
-            "bwd128": backward_args(*w, True)[1]}
+            "fwd128": tuple(w[:3]), "bwd128": backward_args(*w, True)[1]}
 
     def timed(dname, what, x0):
-        args = sets[dname]["bwd128" if what.endswith("d128") else "bwd"]
+        wide = "128" if what.endswith("d128") else ""
+        args = sets[dname]["bwd" + wide]
         fn = {"fwd": lambda _: fa.flash_attention_forward(
-                  *sets[dname]["fwd"], True)[0],
+                  *sets[dname]["fwd" + wide], True)[0],
               "dq": lambda _: fa.flash_attention_dq(*args),
               "dkv": lambda _: fa.flash_attention_dkv(*args)[0]}
         return cs.time_ms(fn[what.split("_")[0]], x0)
 
     timings = {"bfloat16": ("fwd", "dq", "dkv", "dq_d128"),
-               "float32": ("dq", "dkv", "dq_d128", "dkv_d128")}
+               "float32": ("fwd", "dq", "dkv", "fwd_d128", "dq_d128",
+                           "dkv_d128")}
     for name in [*variants, "base"]:
         _build._libs["flash_attention"] = libs[name]
         row = {"variant": name, "ok": {}, "ms": {}}

@@ -10,8 +10,8 @@ toolkit (``nvcc``) and PyTorch built for CUDA.  Phases, one JSON line each:
 2. build    — compile every ``mxnet_tpu_torch/ops/csrc/*.cu`` (one nvcc
               each, in parallel) and report seconds and each kernel
               function's registers and spills (ptxas); no tensor-core
-              flash kernel (bf16, and the f32 3xTF32 dQ and dK/dV) may
-              spill, at any head dim.
+              flash kernel (bf16, and the f32 3xTF32 forward, dQ and
+              dK/dV) may spill, at any head dim.
 3. kernels  — each CUDA kernel against its plain PyTorch version on the
               card at its path's shapes: 2-bit pack and unpack (ResNet-50's
               193 gradient shapes and edge sizes, thresholds 0.5, 0 and
@@ -31,9 +31,9 @@ toolkit (``nvcc``) and PyTorch built for CUDA.  Phases, one JSON line each:
               bfloat16, causal and not, the training shape, a ragged T and
               D = 16, 32 and 128; the backward kernels bitwise equal over
               two runs; bf16 launching the three tensor-core kernels
-              and f32 the CUDA-core forward and the 3xTF32 dQ and dK/dV,
-              by kernel name; a NaN in q and in g NaN exactly where the
-              plain versions' are).  With the
+              and f32 the three 3xTF32 kernels, by kernel name; a NaN in
+              q and in g, causal and not, NaN where the plain versions'
+              are, by the rule in ``_flash_nan_cases``).  With the
               error, the kernel's time, the plain version's, a library
               call's where one computes the same function, and the least
               time the card could take (bytes or operations over the H100's
@@ -141,11 +141,10 @@ FLASH_SHAPES = {"training": (8, 1024, 12, 64), "ragged": (2, 1000, 3, 64),
                 "d16": (2, 200, 2, 16), "d32": (2, 200, 2, 32),
                 "d128": (2, 200, 2, 128)}
 # the flash kernel functions each dtype must launch (bf16: the tensor-core
-# forward, dQ and dK/dV; f32: the CUDA-core forward and the 3xTF32 dQ and
-# dK/dV)
+# forward, dQ and dK/dV; f32: the 3xTF32 forward, dQ and dK/dV)
 FLASH_ROUTES = {"bfloat16": ("flash_fwd_tc_kernel", "flash_dq_tc_kernel",
                              "flash_dkv_tc_kernel"),
-                "float32": ("flash_fwd_kernel", "flash_dq_tf32_kernel",
+                "float32": ("flash_fwd_tf32_kernel", "flash_dq_tf32_kernel",
                             "flash_dkv_tf32_kernel")}
 # ResNet-50's BatchNorm inputs (B, H, W, C) at B = 128, 224x224: the stem,
 # stages 1, 2 and 4; and an odd M = B*H*W
@@ -160,7 +159,7 @@ RESNET_LR, RESNET_MOMENTUM = 0.1, 0.9
 # the port's CUDA kernel functions, as the profiler names them
 PORT_KERNELS = ("twobit_pack_kernel", "twobit_unpack_kernel",
                 "bn_stats_partial", "bn_stats_final", "bn_normalize",
-                "layer_norm_kernel", "flash_fwd_kernel",
+                "layer_norm_kernel", "flash_fwd_tf32_kernel",
                 "flash_dq_tf32_kernel", "flash_dkv_tf32_kernel",
                 "flash_fwd_tc_kernel", "flash_dq_tc_kernel",
                 "flash_dkv_tc_kernel",
@@ -299,8 +298,8 @@ def _spills(rows: dict, allowed: dict) -> dict:
 
 def phase_build():
     """Build every kernel source; no tensor-core flash kernel (the three
-    bf16 and the two f32 3xTF32 functions at four head dims) may spill
-    registers, and no paged-attention function (22) beyond
+    bf16 and the three f32 3xTF32 functions at four head dims: 24) may
+    spill registers, and no paged-attention function (22) beyond
     ``PAGED_SPILLS_ALLOWED``."""
     from mxnet_tpu_torch.ops import _build
 
@@ -313,7 +312,7 @@ def phase_build():
     if info["flash_attention"]["ptxas"]:   # empty when loaded from disk
         tc = {f: r for f, r in funcs["flash_attention"].items()
               if "_tc_kernelILi" in f or "_tf32_kernelILi" in f}
-        if len(tc) != 20 or _spills(tc, {}):
+        if len(tc) != 24 or _spills(tc, {}):
             raise SystemExit(f"tensor-core flash kernels spill: {tc}")
     if info["paged_attention"]["ptxas"]:
         paged = funcs["paged_attention"]
@@ -775,48 +774,67 @@ def _flash_nan_cases(dev):
     """A NaN reaches each flash kernel's outputs as it reaches its plain
     version's: the card's own NaN (0x7fffffff, what q * scale gives for a
     NaN q) in q at one (batch, row, head) and in g at another, float32 and
-    bfloat16, D = 64 and 128, T = 200, not causal (the plain version also
-    puts NaN in the masked probabilities of a NaN row, which the kernels
-    set to 0).  out, lse, dq, dk and dv must be NaN exactly where the
-    plain versions' are, and agree with them elsewhere."""
+    bfloat16, D = 64 and 128, T = 200, causal and not.  out, lse and dq
+    must be NaN exactly where the plain versions' are, and so must dk and
+    dv without the mask.  Under it the plain version puts a NaN row's NaN
+    into every key's dk and dv (exp(-1e30 - NaN) and 0 * NaN are NaN at
+    masked positions) and a tiled kernel only into the keys of the tiles
+    that are live for that row's tile; so there, for any tile size, dk
+    and dv must be (a) NaN wherever the plain version is NaN at a key j <=
+    r, the keys that the NaN row r attends to, and (b) NaN nowhere the
+    plain version is not.  Where the plain version is not NaN, kernel and
+    plain version agree within the dtype's tolerance."""
     import torch
 
     from mxnet_tpu_torch.ops import flash_attention as fa
 
     nan = torch.tensor([0x7FFFFFFF], dtype=torch.int32).view(torch.float32)
+    B, T, H = 2, 200, 2
+    # each (batch, head)'s NaN row (q's at (0, 5, 0), g's at (1, 40, 1)),
+    # -1 where none; the keys j <= it in dk and dv's layout
+    nan_row = torch.full((B, 1, H, 1), -1, device=dev)
+    nan_row[0, 0, 0, 0], nan_row[1, 0, 1, 0] = 5, 40
+    attended = torch.arange(T, device=dev).view(1, T, 1, 1) <= nan_row
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         for D in (64, 128):
-            dname = str(dtype).split(".")[-1]
-            g = torch.Generator(device=dev).manual_seed(SEED + D)
-            q, k, v, go = (torch.randn(2, 200, 2, D, generator=g, device=dev)
-                           for _ in range(4))
-            q[0, 5, 0, 3:4] = nan  # a bit copy: the pattern stays
-            go[1, 40, 1, D - 1:] = nan
-            q, k, v, go = (t.to(dtype) for t in (q, k, v, go))
-            out, lse = fa.flash_attention_forward(q, k, v, False)
-            w_out, w_lse = fa.flash_attention_forward_reference(q, k, v,
-                                                                False)
-            args = (q, k, v, go, w_lse, fa.flash_delta(w_out, go), False)
-            scale = 1.0 / np.sqrt(D)
-            got = (out, lse, fa.flash_attention_dq(*args),
-                   *fa.flash_attention_dkv(*args))
-            want = (w_out, w_lse,
-                    fa.flash_attention_dq_reference(*args, scale),
-                    *fa.flash_attention_dkv_reference(*args, scale))
-            torch.cuda.synchronize()
-            ok, counts = True, {}
-            for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), got,
-                                  want):
-                a, b = a.float(), b.float()
-                na, nb = torch.isnan(a), torch.isnan(b)
-                counts[name] = [int(na.sum()), int(nb.sum())]
-                close, _, _ = _close(a.masked_fill(nb, 0), b.masked_fill(
-                    nb, 0), "float32" if name == "lse" else dname)
-                ok = ok and bool(nb.any()) and bool(torch.equal(na, nb)) \
-                    and close
-            rows.append({"dtype": dname, "D": D, "nan_counts": counts,
-                         "ok": ok})
+            for causal in (False, True):
+                dname = str(dtype).split(".")[-1]
+                g = torch.Generator(device=dev).manual_seed(SEED + D)
+                q, k, v, go = (torch.randn(B, T, H, D, generator=g,
+                                           device=dev) for _ in range(4))
+                q[0, 5, 0, 3:4] = nan  # a bit copy: the pattern stays
+                go[1, 40, 1, D - 1:] = nan
+                q, k, v, go = (t.to(dtype) for t in (q, k, v, go))
+                out, lse = fa.flash_attention_forward(q, k, v, causal)
+                w_out, w_lse = fa.flash_attention_forward_reference(
+                    q, k, v, causal)
+                args = (q, k, v, go, w_lse, fa.flash_delta(w_out, go),
+                        causal)
+                scale = 1.0 / np.sqrt(D)
+                got = (out, lse, fa.flash_attention_dq(*args),
+                       *fa.flash_attention_dkv(*args))
+                want = (w_out, w_lse,
+                        fa.flash_attention_dq_reference(*args, scale),
+                        *fa.flash_attention_dkv_reference(*args, scale))
+                torch.cuda.synchronize()
+                ok, counts = True, {}
+                for name, a, b in zip(("out", "lse", "dq", "dk", "dv"),
+                                      got, want):
+                    a, b = a.float(), b.float()
+                    na, nb = torch.isnan(a), torch.isnan(b)
+                    counts[name] = [int(na.sum()), int(nb.sum())]
+                    if causal and name in ("dk", "dv"):
+                        placed = bool((na | ~(nb & attended)).all()) \
+                            and not bool((na & ~nb).any())
+                    else:
+                        placed = bool(torch.equal(na, nb))
+                    close, _, _ = _close(
+                        a.masked_fill(nb, 0), b.masked_fill(nb, 0),
+                        "float32" if name == "lse" else dname)
+                    ok = ok and bool(nb.any()) and placed and close
+                rows.append({"dtype": dname, "D": D, "causal": causal,
+                             "nan_counts": counts, "ok": ok})
     return rows
 
 
@@ -861,9 +879,9 @@ def _routed(names, want):
 def _flash_routes(dev):
     """Which kernel functions the three flash wrappers launch for each
     dtype (``torch.profiler`` over two calls of each at a small shape):
-    bf16 must take the three tensor-core kernels, f32 the CUDA-core
-    forward and the 3xTF32 dQ and dK/dV (``FLASH_ROUTES``), and no other
-    flash kernel (bf16 no ``_tf32_kernel``, f32 no ``_tc_kernel``)."""
+    bf16 must take the three tensor-core kernels, f32 the three 3xTF32
+    kernels (``FLASH_ROUTES``), and no other flash kernel (bf16 no
+    ``_tf32_kernel``, f32 no ``_tc_kernel``)."""
     import torch
 
     from mxnet_tpu_torch.ops import flash_attention as fa

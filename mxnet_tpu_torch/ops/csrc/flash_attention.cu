@@ -6,11 +6,11 @@
 // (tpumx_flash_dkv), the attention of the transformer LM's training step
 // when `flash_attention(causal=True)` is its `attention=` callable.
 //
-// Three designs sit behind the three entries, chosen by dtype:
+// Two designs sit behind the three entries, chosen by dtype:
 //
-//   dtype     forward               dQ                     dK/dV
-//   bfloat16  flash_fwd_tc_kernel   flash_dq_tc_kernel     flash_dkv_tc_kernel
-//   float32   flash_fwd_kernel      flash_dq_tf32_kernel   flash_dkv_tf32_kernel
+//  dtype     forward                dQ                    dK/dV
+//  bfloat16  flash_fwd_tc_kernel    flash_dq_tc_kernel    flash_dkv_tc_kernel
+//  float32   flash_fwd_tf32_kernel  flash_dq_tf32_kernel  flash_dkv_tf32_kernel
 //
 // What bounds them on an H100.  At the LM's training shape (B*H = 96
 // heads, T = 1024, D = 64, causal) the forward needs 4*D flops per live
@@ -57,10 +57,10 @@
 // 32-query tiles, so that its two f32 accumulators (dK, dV: 128 registers
 // a thread) do not spill.
 //
-// f32 backward: the 3xTF32 design (flash_*_tf32_kernel), the bf16 dQ and
-// dK/dV kernels' skeleton (four warps of 16 rows, the other side's tiles
-// through a 2-stage cp.async ring, masks on edge tiles only, outputs
-// through shared memory) on mma.sync.m16n8k8 with TF32 operands.  One
+// f32: the 3xTF32 design (flash_*_tf32_kernel), the bf16 kernels'
+// skeleton (four warps of 16 rows, the other side's tiles through a
+// 2-stage cp.async ring, masks on edge tiles only, outputs through shared
+// memory) on mma.sync.m16n8k8 with TF32 operands.  One
 // TF32 rounding keeps 11 of f32's 24 bits (relative error 2^-11), which
 // misses an f32 tolerance (rtol 1e-4), and an error in s moves p by the
 // same relative amount; so every operand of every product, the score
@@ -80,20 +80,13 @@
 // distinct banks, so q and g (dK/dV) and k (dQ), read both ways, need no
 // swizzle.  The split, three instructions an element, and not the
 // tensor cores, bounds these kernels: the other side's tiles are 16 or
-// 32 rows and the register budget is set for three blocks an SM (DqTf32,
-// DkvTf32), so that enough warps hide its latency.  The softmax runs in
-// base 2 as above, on scores of the scaled q.
-//
-// The f32 forward is the CUDA-core design.  The TPU grid's sequential
-// innermost axis (k tiles), which carries the running sums in VMEM
-// scratch, becomes a loop inside one block of 256 threads that owns one
-// 64-row q tile of one (batch, head) and walks the 64-row k tiles, staged
-// in shared memory as f32; q is multiplied by `scale` in f32 while staged,
-// as the reference does.  Thread (ty, tx) of the 16 x 16 grid holds rows
-// ty + 16*i (i < 4) of its tile against columns tx + 16*j of the other, so
-// each score row lives in 16 lanes of one warp and its max and sum are
-// 4-step shuffles.  Shared rows are padded to D+1 floats.  All its
-// arithmetic is f32 on CUDA cores (`fmaf`).
+// 32 rows and the register budget is set for three blocks an SM
+// (FwdTf32, DqTf32, DkvTf32), so that enough warps hide its latency.  The
+// softmax runs in base 2 as above, on scores of the scaled q.  The forward
+// is the bf16 forward's online softmax on these products: S = (scale q)
+// K^T with q scaled and split exactly as dQ and dK/dV split it, so that
+// their recomputed p = exp(s - lse) sees the forward's s; P split from its
+// accumulator for O += P V; 1/l multiplies O at the store.
 //
 // Every design masks ragged T in the kernel (rows past T load as 0 and are
 // not written, keys past T get probability 0), never pads in memory, and
@@ -107,9 +100,9 @@
 // strides of B, T and H given (the LM passes strided views of its fused
 // qkv product, so nothing is copied); g, out, dq, dk and dv are contiguous
 // (B, T, H, D); lse and delta are contiguous (B, H, T) float32.  D is 16,
-// 32, 64 or 128.  The tensor-core kernels copy 16-byte chunks, so their q,
-// k, v and g start on 16 bytes and the B, T and H strides are multiples
-// of 16 bytes (the wrapper copies inputs that are not).
+// 32, 64 or 128.  Every kernel copies 16-byte chunks, so q, k, v and g
+// start on 16 bytes and the B, T and H strides are multiples of 16 bytes
+// (the wrapper copies inputs that are not).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -118,8 +111,6 @@
 namespace {
 
 constexpr int kTile = 64;
-constexpr int kThreads = 256;
-constexpr int kPad = kTile + 1;  // row stride of the (64, 64) score tiles
 constexpr float kNeg = -1e30f;   // the reference's _NEG
 
 // max(l, 1e-30) as the reference takes it: a NaN sum stays NaN (fmaxf
@@ -128,142 +119,10 @@ __device__ __forceinline__ float max_sum(float l) {
   return l < 1e-30f ? 1e-30f : l;
 }
 
-// sum / max over the 16 lanes that hold one score row
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// rows row0 .. row0+63 of one head (src points at its row 0, `ld` elements
-// between rows) into dst (64, D+1) times `mul`; rows past T are 0
-template <int D>
-__device__ __forceinline__ void stage(float* dst,
-                                      const float* __restrict__ src,
-                                      long long ld, int row0, int Tn,
-                                      float mul) {
-  for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
-    const int r = e / D, d = e % D, row = row0 + r;
-    dst[r * (D + 1) + d] =
-        row < Tn ? src[static_cast<long long>(row) * ld + d] * mul : 0.f;
-  }
-}
-
 // causal: key tile kt is live for the query tile starting at q0
 __device__ __forceinline__ int k_tiles(int q0, int Tn, int causal) {
   const int n = (Tn + kTile - 1) / kTile;
   return causal ? min(n, (q0 + kTile - 1) / kTile + 1) : n;
-}
-
-// ---- kernel 6: forward ----------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, long long sb, long long st,
-                 long long sh, float* __restrict__ out,
-                 float* __restrict__ lse,
-                 int Tn, int H, float scale, int causal) {
-  constexpr int LD = D + 1, NJ = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + kTile * LD;
-  float* Vs = Ks + kTile * LD;
-  float* Ps = Vs + kTile * LD;  // (64, kPad) probabilities
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  // the longest causal rows first: they finish last otherwise
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const long long base = b * sb + h * sh;
-  stage<D>(Qs, q + base, st, q0, Tn, scale);
-
-  float m[4], l[4], acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNeg;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  }
-  const int nk = k_tiles(q0, Tn, causal);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // the last tile's readers are done
-    stage<D>(Ks, k + base, st, k0, Tn, 1.f);
-    stage<D>(Vs, v + base, st, k0, Tn, 1.f);
-    __syncthreads();
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float a[4], c[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[(ty + 16 * i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) c[j] = Ks[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty + 16 * i;
-      float mx = kNeg;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        const bool ok = kpos < Tn && (!causal || kpos <= qpos);
-        s[i][j] = ok ? s[i][j] : kNeg;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        Ps[(ty + 16 * i) * kPad + tx + 16 * j] = p;
-        rs += p;
-      }
-      l[i] = alpha * l[i] + row_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int c = 0; c < kTile; ++c) {
-      float p[4], vv[NJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[(ty + 16 * i) * kPad + c];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) vv[j] = Vs[c * LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(p[i], vv[j], acc[i][j]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= Tn) continue;
-    const float lm = max_sum(l[i]);
-    float* orow = out + ((static_cast<long long>(b) * Tn + row) * H + h) * D;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) orow[tx + 16 * j] = acc[i][j] / lm;
-    if (tx == 0) lse[static_cast<long long>(bh) * Tn + row] = m[i] + logf(lm);
-  }
 }
 
 // ---- bf16 on the tensor cores: building blocks ----------------------------
@@ -1059,12 +918,177 @@ __device__ __forceinline__ void acc_to_a(FragA& f, const float (&c)[4]) {
 // three blocks; dK/dV there takes 16-query tiles, with which its two
 // accumulators (dK, dV) and the S^T and dS^T tiles fit under that cap.  At
 // D = 128 the accumulators need more registers: 16-row tiles and no cap.
+// The forward holds one accumulator (O) and one score tile, as dQ does,
+// under the same caps; at D <= 64 it takes 64-key tiles (87 KB of shared
+// memory at D = 64, so two blocks an SM), which ran 4% faster than
+// 32-key tiles on an H100 (chip_flash_sweep.py): half the loop trips and
+// barriers outweigh the masked half-tiles on the diagonal.
+template <int D> struct FwdTf32 {
+  static constexpr int kOther = D <= 64 ? 64 : 16, kBlocks = D <= 64 ? 3 : 0;
+};
 template <int D> struct DqTf32 {
   static constexpr int kOther = D <= 64 ? 32 : 16, kBlocks = D <= 64 ? 3 : 0;
 };
 template <int D> struct DkvTf32 {
   static constexpr int kOther = 16, kBlocks = D <= 64 ? 3 : 0;
 };
+
+// ---- kernel 6, f32 on the tensor cores: 3xTF32 forward --------------------
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, FwdTf32<D>::kBlocks)
+flash_fwd_tf32_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v, long long sb, long long st,
+                      long long sh, float* __restrict__ out,
+                      float* __restrict__ lse, int Tn, int H, float scale,
+                      int causal) {
+  constexpr int BK = FwdTf32<D>::kOther;
+  constexpr int LD = D + kF32Pad, KD = D / 8, ND = D / 8, NS = BK / 8;
+  constexpr int kKvElems = BK * LD;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  float* Qs = reinterpret_cast<float*>(tc_smem);
+  float* Ks = Qs + kTile * LD;    // two stages
+  float* Vs = Ks + 2 * kKvElems;  // two stages
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gi = lane >> 2, t = lane & 3;
+  const LanesF32 at(lane, LD);
+  // the longest causal rows first: they finish last otherwise
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
+  const int r0 = q0 + warp * 16;  // this warp's first row
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const long long base = b * sb + h * sh;
+  // causal: keys past this tile's last row see none of it
+  const int nk = ((causal ? min(Tn, q0 + kTile) : Tn) + BK - 1) / BK;
+
+  copy_rows<kTile, D>(Qs, q + base, st, q0, Tn);
+  copy_rows<BK, D>(Ks, k + base, st, 0, Tn);
+  copy_rows<BK, D>(Vs, v + base, st, 0, Tn);
+  cp_async_commit();
+
+  float o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  // running max (base-2 units) of rows gi and gi+8, and this lane's part
+  // of their running sums (the quad's parts are added at the end)
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+  const float* Qw = Qs + warp * 16 * LD + at.d;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * BK;
+    if (kt + 1 < nk) {  // the next tile's copy overlaps this tile's math
+      const int nxt = ((kt + 1) & 1) * kKvElems;
+      copy_rows<BK, D>(Ks + nxt, k + base, st, k0 + BK, Tn);
+      copy_rows<BK, D>(Vs + nxt, v + base, st, k0 + BK, Tn);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* Kt = Ks + (kt & 1) * kKvElems;
+    const float* Vt = Vs + (kt & 1) * kKvElems;
+
+    // causal: keys past this warp's last row are all masked
+    if (!causal || k0 < r0 + 16) {
+      // S = (scale q) K^T: 16 rows x BK keys a warp
+      float s[NS][4];
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        FragA aq;
+        lds_a<LD>(aq, Qw + kk * 8, scale);
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          FragB bk;
+          lds_b(bk, Kt + n * 8 * LD + at.d + kk * 8, 1.f);
+          mma_3xtf32(s[n], aq, bk);
+        }
+      }
+
+      // into base-2 units, mask, online softmax
+      const bool edge = k0 + BK > Tn || (causal && k0 + BK - 1 > r0);
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[n][e] * kLog2e;
+          if (edge) {
+            const int kpos = k0 + n * 8 + 2 * t + (e & 1);
+            const int qpos = r0 + gi + (e >> 1) * 8;
+            if (kpos >= Tn || (causal && kpos > qpos)) x = kNeg;
+          }
+          s[n][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        alpha[r] = exp2f(m[r] - mx[r]);
+        m[r] = mx[r];
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(s[n][e] - m[e >> 1]);
+          s[n][e] = p;
+          l[e >> 1] += p;
+        }
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        o[n][0] *= alpha[0];
+        o[n][1] *= alpha[0];
+        o[n][2] *= alpha[1];
+        o[n][3] *= alpha[1];
+      }
+
+      // O += P V, P split from its accumulator (v read across rows: the
+      // sum runs over keys)
+#pragma unroll
+      for (int kk = 0; kk < NS; ++kk) {
+        FragA ap;
+        acc_to_a(ap, s[kk]);
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+          FragB bv;
+          lds_bt<LD>(bv, Vt + kk * 8 * LD + n * 8 + at.tr, 1.f);
+          mma_3xtf32(o[n], ap, bv);
+        }
+      }
+    }
+    __syncthreads();  // this stage's readers are done before it refills
+  }
+
+  float lm[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    lm[r] = max_sum(l[r]);
+  }
+  // out through this warp's own 16 rows of Qs (read only by this warp)
+  store_rows<D>(out + (static_cast<long long>(b) * Tn * H + h) * D,
+                static_cast<long long>(H) * D, r0, Tn, Qs + warp * 16 * LD,
+                o, 1.f / lm[0], 1.f / lm[1], lane);
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + gi + 8 * r;
+      if (row < Tn)
+        lse[static_cast<long long>(bh) * Tn + row] =
+            m[r] * kLn2 + logf(lm[r]);
+    }
+  }
+}
 
 // ---- kernel 7, f32 on the tensor cores: 3xTF32 dQ -------------------------
 template <int D>
@@ -1365,9 +1389,6 @@ flash_dkv_tf32_kernel(const float* __restrict__ q,
 }
 
 // dynamic shared memory in bytes of each kernel
-template <int D> constexpr size_t fwd_smem() {
-  return sizeof(float) * (3 * kTile * (D + 1) + kTile * kPad);
-}
 template <int D> constexpr size_t fwd_tc_smem() {
   return sizeof(bf16) * 5 * kTile * (D + kTcPad);
 }
@@ -1378,6 +1399,9 @@ template <int D> constexpr size_t dkv_tc_smem() {
   constexpr int BQ = DkvTc<D>::kRows;
   return sizeof(bf16) * (2 * kTile + 4 * BQ) * (D + kTcPad) +
          sizeof(float) * 4 * BQ;
+}
+template <int D> constexpr size_t fwd_tf32_smem() {
+  return sizeof(float) * (kTile + 4 * FwdTf32<D>::kOther) * (D + kF32Pad);
 }
 template <int D> constexpr size_t dq_tf32_smem() {
   return sizeof(float) * (2 * kTile + 4 * DqTf32<D>::kOther) * (D + kF32Pad);
@@ -1408,38 +1432,26 @@ struct Shape {
   }
 };
 
-template <int D>
-int fwd_tc(const void* q, const void* k, const void* v, long long sb,
-           long long st, long long sh, void* out, void* lse, const Shape& s) {
-  static bool done = false;
-  auto kernel = flash_fwd_tc_kernel<D>;
-  cudaError_t err = opt_in(kernel, fwd_tc_smem<D>(), &done);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<s.grid(), kTcThreads, fwd_tc_smem<D>(), s.stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), sb, st, sh, static_cast<bf16*>(out),
-      static_cast<float*>(lse), s.Tn, s.H, s.scale, s.causal);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// bf16 takes the tensor-core kernels; f32 takes the CUDA-core forward and
-// the 3xTF32 dQ and dK/dV
+// bf16 takes the tensor-core kernels, f32 the 3xTF32 ones
 template <typename T, int D>
 int fwd(const void* q, const void* k, const void* v, long long sb,
         long long st, long long sh, void* out, void* lse, const Shape& s) {
-  if constexpr (std::is_same_v<T, bf16>) {
-    return fwd_tc<D>(q, k, v, sb, st, sh, out, lse, s);
-  } else {
-    static bool done = false;
-    auto kernel = flash_fwd_kernel<D>;
-    cudaError_t err = opt_in(kernel, fwd_smem<D>(), &done);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<s.grid(), kThreads, fwd_smem<D>(), s.stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), sb, st, sh, static_cast<float*>(out),
-        static_cast<float*>(lse), s.Tn, s.H, s.scale, s.causal);
-    return static_cast<int>(cudaGetLastError());
-  }
+  constexpr bool kBf16 = std::is_same_v<T, bf16>;
+  static bool done = false;
+  auto kernel = [] {
+    if constexpr (kBf16)
+      return flash_fwd_tc_kernel<D>;
+    else
+      return flash_fwd_tf32_kernel<D>;
+  }();
+  constexpr size_t smem = kBf16 ? fwd_tc_smem<D>() : fwd_tf32_smem<D>();
+  cudaError_t err = opt_in(kernel, smem, &done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<s.grid(), kTcThreads, smem, s.stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), sb, st, sh, static_cast<T*>(out),
+      static_cast<float*>(lse), s.Tn, s.H, s.scale, s.causal);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int D>

@@ -54,9 +54,9 @@
 //     (M = max m, L = sum l e^(m - M), out = sum acc e^(m - M) / L), with
 //     no atomics, so the output repeats bit for bit.  A span that saw no
 //     live block contributes m = -1e30, l = 0.
-// Prefill: one block of 256 threads per (64-query tile, h, b), the register
-// tiling of the f32 flash forward (flash_attention.cu, flash_fwd_kernel):
-// thread (ty, tx) holds queries ty + 16i against keys tx + 16j (i, j < 4)
+// Prefill: one block of 256 threads per (64-query tile, h, b), a CUDA-core
+// register tiling: thread (ty, tx) holds queries ty + 16i against keys
+// tx + 16j (i, j < 4)
 // of each 64 x 64 score tile, row max and sum are 16-lane shuffles, all
 // arithmetic is f32 `fmaf`.  K/V stream as 64-key tiles assembled from
 // ceil(64 / bs) pool blocks, looked up in the row's table row by row,

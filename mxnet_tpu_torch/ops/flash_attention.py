@@ -5,14 +5,14 @@ PyTorch counterpart of ``mxnet_tpu/ops/flash_attention.py``: the
 ``_dkv_kernel`` Pallas kernels behind ``flash_attention``.  For CUDA tensors
 each of the three wrappers below launches its hand-written CUDA kernel
 (``csrc/flash_attention.cu``); for CPU tensors it takes its plain version.
-A CUDA tensor a kernel does not take raises; nothing falls back.  The
-dtype picks the design: bfloat16 runs all three on the tensor cores
-(``mma.sync`` with bf16 operands and f32 sums, tiles brought in by
-``cp.async``); float32 runs the forward on CUDA cores in f32 and dQ and
-dK/dV on the tensor cores in 3xTF32 (``flash_dq_tf32_kernel``,
-``flash_dkv_tf32_kernel``: every operand split into two TF32 parts and
-each product taken as three TF32 products with f32 sums, about f32's
-accuracy; no global TF32 setting is read or changed).
+A CUDA tensor a kernel does not take raises; nothing falls back.  Every
+kernel runs on the tensor cores (``mma.sync``, tiles brought in by
+``cp.async``), and the dtype picks the design: bfloat16 takes bf16
+operands with f32 sums; float32 takes 3xTF32 (``flash_fwd_tf32_kernel``,
+``flash_dq_tf32_kernel``, ``flash_dkv_tf32_kernel``: every operand split
+into two TF32 parts and each product taken as three TF32 products with
+f32 sums, about f32's accuracy; no global TF32 setting is read or
+changed).
 
 :func:`flash_attention` is a ``torch.autograd.Function``: its forward
 launches the forward kernel and saves ``q, k, v, out, lse``; its backward
@@ -28,16 +28,16 @@ kernels round at two more places, as every tensor-core flash kernel does:
 ``scale`` multiplies the f32 product of the bf16 q and k (not q before the
 product), and p and ds are split into a bf16 high and a bf16 low part
 before they multiply v, g, q and k (two products, f32 sums).  The f32
-dQ and dK/dV kernels keep q scaled before its product and split every
-operand, the scaled q, k, v, g, p and ds, into a TF32 pair big + small
+kernels keep q scaled before its product and split every operand, the
+scaled q, k, v, g, p and ds, into a TF32 pair big + small
 (``big = tf32(x)`` rounded to nearest, ties away from zero; ``small = x -
 big`` truncated to TF32), taking ``big*big + big*small + small*big``; a
 NaN operand keeps small NaN, so it reaches every sum it is in.  The reference's
 ``select_flash_blocks`` and ``TPUMX_FLASH_BLOCK_Q/K`` size tiles for TPU
 VMEM and are not carried over: every CUDA kernel owns 64 rows of one
 head and walks tiles of the other side: 64 rows, except the bf16 dK/dV at
-D = 128 (32), the f32 dQ (32 keys; 16 at D = 128) and the f32 dK/dV (16
-queries).
+D = 128 (32), the f32 forward (64 keys; 16 at D = 128), the f32 dQ (32
+keys; 16 at D = 128) and the f32 dK/dV (16 queries).
 """
 from __future__ import annotations
 
@@ -149,12 +149,11 @@ def _device_ok(t, what: str) -> bool:
     return True
 
 
-def _check_qkv(q, k, v, what: str, chunks: bool = True):
+def _check_qkv(q, k, v, what: str):
     """Checks q, k, v for the kernels and returns them with one shared
-    stride set: views that share their strides (the LM's split qkv
-    product) pass as they are, others are made contiguous.  ``chunks``:
-    the kernel copies 16-byte chunks (every kernel but the f32 forward),
-    so views that are not :func:`_aligned` are made contiguous too."""
+    stride set: views that share their strides and are :func:`_aligned`
+    (the LM's split qkv product) pass as they are, others are made
+    contiguous on 16 bytes (copied unless they already are)."""
     if q.dim() != 4:
         raise MXNetError(f"{what}: q must be (B, T, H, D), got "
                          f"{tuple(q.shape)}")
@@ -170,13 +169,15 @@ def _check_qkv(q, k, v, what: str, chunks: bool = True):
         raise MXNetError(f"{what}: head dim {q.shape[-1]} not supported "
                          f"{_HEAD_DIMS}")
     if not (q.stride() == k.stride() == v.stride() and q.stride(-1) == 1
-            and (not chunks or all(_aligned(t) for t in (q, k, v)))):
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+            and all(_aligned(t) for t in (q, k, v))):
+        q, k, v = (t if t.is_contiguous() and _aligned(t)
+                   else t.clone(memory_format=torch.contiguous_format)
+                   for t in (q, k, v))
     return q, k, v
 
 
 def _aligned(t) -> bool:
-    """The tensor-core kernels copy rows in 16-byte chunks: a tensor must
+    """The kernels copy rows in 16-byte chunks: a tensor must
     start on 16 bytes with its B, T and H strides multiples of 16 bytes."""
     per = 16 // t.element_size()
     return t.data_ptr() % 16 == 0 and all(s % per == 0
@@ -207,8 +208,7 @@ def flash_attention_forward(q, k, v, causal: bool = False, scale=None):
     scale = _scale(q.shape[-1], scale)
     if not _device_ok(q, "flash_attention"):
         return flash_attention_forward_reference(q, k, v, causal, scale)
-    q, k, v = _check_qkv(q, k, v, "flash_attention",
-                         chunks=q.dtype == torch.bfloat16)
+    q, k, v = _check_qkv(q, k, v, "flash_attention")
     B, T, H, D = q.shape
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)

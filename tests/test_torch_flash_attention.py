@@ -431,6 +431,75 @@ def test_single_tf32_rounding_exceeds_f32_budget(pallas):
     assert min(over) > 10.0, over
 
 
+def _tf32_forward_emulation(q, k, v, causal, mm):
+    """The f32 forward kernel's products in torch ops on f32 (B, T, H, D)
+    inputs: q scaled in f32 before S = (scale q) K^T, masked scores at
+    -1e30 before the row max, P = exp(s - m) and O = P V, both products
+    through ``mm``, out = O / max(l, 1e-30) and lse = m + log(max(l,
+    1e-30)).  Returns (out, lse (B, H, T))."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = mm("bqhd,bkhd->bhqk", q * scale, k)
+    if causal:
+        pos = torch.arange(q.shape[1])
+        s = torch.where(pos[None, :] <= pos[:, None], s, -1e30)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    den = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = mm("bhqk,bkhd->bqhd", p, v) / den.permute(0, 2, 1, 3)
+    return out, (m + torch.log(den))[..., 0]
+
+
+def _tf32_forward_case(B, T, H, D, causal, mm):
+    """(emulated (out, lse), the JAX Pallas forward's (out, lse)) on the
+    same f32 inputs, lse as (B*H, T)."""
+    q, k, v = _inputs(B, T, H, D, seed=19 * T + D + int(causal))
+    out, lse = _tf32_forward_emulation(*map(torch.from_numpy, (q, k, v)),
+                                       causal, mm)
+    return (out, lse.reshape(B * H, T)), _jax_forward_with_lse(q, k, v,
+                                                                causal)
+
+
+@pytest.mark.parametrize("B,T,H,D,causal", TF32_CASES)
+def test_3xtf32_forward_rounding_budget_against_jax_pallas(B, T, H, D,
+                                                           causal):
+    """The f32 tensor-core forward's roundings (the scaled q, k, p and v
+    each split into two TF32 parts, three products each) stay inside
+    chip_smoke.py's f32 tolerance against the JAX Pallas forward
+    (interpreted) on the same f32 inputs, for out and lse."""
+    got, want = _tf32_forward_case(B, T, H, D, causal, _mm_3xtf32)
+    for a, b, name in zip(got, want, ("out", "lse")):
+        assert a.dtype == torch.float32
+        np.testing.assert_allclose(a.numpy(), b, **F32_TOL, err_msg=name)
+
+
+def test_single_tf32_rounding_of_forward_exceeds_f32_budget():
+    """Why the f32 forward splits every operand: one TF32 rounding and one
+    product put out well outside the f32 tolerance."""
+    (out, lse), (w_out, w_lse) = _tf32_forward_case(*TF32_CASES[4],
+                                                     _mm_tf32)
+    assert _over_f32_budget(out, w_out) > 10.0, _over_f32_budget(out, w_out)
+
+
+@pytest.mark.parametrize("causal", (True, False))
+def test_3xtf32_forward_nan_lands_as_in_plain_version(causal):
+    """A NaN in q (the card's own pattern, 0x7fffffff) makes the emulated
+    3xTF32 forward's out and lse NaN exactly where the plain version's
+    are, causal or not (both replace a masked score by -1e30 before the
+    row max, so the NaN stays in its row); the rest agrees within the f32
+    tolerance."""
+    B, T, H, D = 2, 72, 2, 64
+    q, k, v = map(torch.from_numpy, _inputs(B, T, H, D, seed=23))
+    q[0, 5, 0, 3] = _f32_bits(0x7FFFFFFF)[0]
+    got = _tf32_forward_emulation(q, k, v, causal, _mm_3xtf32)
+    want = tfa.flash_attention_forward_reference(q, k, v, causal)
+    for a, b, name in zip(got, want, ("out", "lse")):
+        nan_b = torch.isnan(b)
+        assert nan_b.any() and not nan_b.all(), name
+        assert torch.equal(torch.isnan(a), nan_b), name
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **F32_TOL,
+                                   err_msg=name)
+
+
 def test_block_sizes_and_layouts_leave_result_unchanged():
     """block_q/block_k change nothing; strided views (the LM's split qkv
     product) and a non-contiguous output gradient give the same bits as
@@ -467,14 +536,12 @@ def test_kernel_argument_checks():
     assert (q2.data_ptr(), k2.data_ptr()) == (q.data_ptr(), k.data_ptr())
     q3, _, v3 = tfa._check_qkv(q.contiguous(), k, v, "t")
     assert q3.is_contiguous() and v3.is_contiguous()
-    # 4 bytes off 16 and a row stride of 97 floats: copied for the kernels
-    # that copy 16-byte chunks, passed as it is to the f32 forward
+    # 4 bytes off 16 and a row stride of 97 floats: copied, since every
+    # kernel copies 16-byte chunks
     odd = torch.zeros(B, T, 3 * H * D + 1)[..., 1:]
     q4, k4, v4 = (t.reshape(B, T, H, D) for t in odd.split(H * D, dim=-1))
-    assert tfa._check_qkv(q4, k4, v4, "t")[0].is_contiguous()
-    kept = tfa._check_qkv(q4, k4, v4, "t", chunks=False)
-    assert [t.data_ptr() for t in kept] == [
-        t.data_ptr() for t in (q4, k4, v4)]
+    assert all(t.is_contiguous() and tfa._aligned(t)
+               for t in tfa._check_qkv(q4, k4, v4, "t"))
     bad_d = torch.zeros(B, T, H, 24)
     with pytest.raises(MXNetError, match="head dim"):
         tfa._check_qkv(bad_d, bad_d, bad_d, "t")
@@ -487,6 +554,22 @@ def test_kernel_argument_checks():
     with pytest.raises(MXNetError, match="delta must be"):
         tfa._check_bwd(q, k, v, torch.zeros(B, T, H, D), lse,
                        lse.transpose(1, 2), "t")
+
+
+def test_misaligned_contiguous_inputs_are_copied():
+    """A contiguous tensor that starts 4 bytes off 16 is copied to an
+    aligned one (``contiguous()`` alone would return it as it is); aligned
+    contiguous tensors pass uncopied."""
+    B, T, H, D = 1, 8, 2, 16
+    flat = torch.zeros(3 * B * T * H * D + 1)
+    q, k, v = (t.view(B, T, H, D) for t in flat[1:].split(B * T * H * D))
+    assert q.is_contiguous() and not tfa._aligned(q)
+    got = tfa._check_qkv(q, k, v, "t")
+    assert all(t.is_contiguous() and tfa._aligned(t) for t in got)
+    assert all(torch.equal(a, b) for a, b in zip(got, (q, k, v)))
+    dense = [torch.zeros(B, T, H, D) for _ in range(3)]
+    assert [t.data_ptr() for t in tfa._check_qkv(*dense, "t")] == [
+        t.data_ptr() for t in dense]
 
 
 def test_flash_attention_refuses_other_devices():
