@@ -84,6 +84,25 @@ toolkit (``nvcc``) and PyTorch built for CUDA.  Phases, one JSON line each:
               trainer loss against resnet_training's step, and a step at
               threshold 1e9 that leaves every parameter unchanged and the
               gradients in the residuals.
+11. gluon_training — the imperative Gluon loop on the same net in f32
+              (``NDArray``, ``autograd.record``/``backward``,
+              ``gluon.Trainer`` over the ``device`` kvstore,
+              ``DataLoader``, parameter files; cuDNN deterministic): one
+              Trainer step at B=32 against ``_resnet_step`` (loss 1e-6,
+              weights against the net's noise floor, running statistics),
+              ten steps at B=128 from a ``DataLoader`` over 1,280 random
+              images (53 launches of each BatchNorm kernel a step and no
+              other; the first two updates lower the repeated first
+              batch's loss; two backwards leave one gradient), images/s
+              and peak memory beside ``_sgd_foreach_step``'s (the same
+              ``_foreach`` SGD pass over ``block_train_fn`` and over the
+              block called with tensors) on the same batches and one
+              profiled step of each, three 2-bit
+              steps at B=32 (a pack and an unpack per trainable parameter
+              a step; the residuals and pulled gradients bit for bit
+              against the plain 2-bit round trip), a dataset kept on the
+              card (batches stacked on the card), and ``save_parameters``/
+              ``load_parameters`` (outputs and file bytes bitwise).
 
 Every ResNet phase also requires that the BatchNorm op copied no
 non-contiguous input (``batch_norm.noncontiguous_copies`` stays 0).
@@ -91,7 +110,7 @@ non-contiguous input (``batch_norm.noncontiguous_copies`` stays 0).
 An optional comma-separated argument (``kernels``, ``model``,
 ``training``, ``serving``, ``serving_default``, ``serving_int8`` — which
 also runs ``serving``, its float baseline — ``resnet_training``,
-``resnet_compressed``, and
+``resnet_compressed``, ``gluon_training``, and
 ``profile``, ``profile_training`` and ``profile_resnet``, which are not in
 the default run: the serving window, or two bf16 LM or ResNet training
 steps, once more under ``torch.profiler``)
@@ -174,6 +193,9 @@ DEFAULT_POOL_BLOCKS = 52
 TWOBIT_THRESHOLD = 0.5
 TWOBIT_EDGES = (1, 2047, 2049, 64 * 2048, 64 * 2048 + 1, 65 * 2048)
 COMPRESSED_STEPS = 10
+# gluon_training: the imperative loop's DataLoader samples and steps, and
+# its compressed steps (at RESNET_F32_BATCH)
+GLUON_SAMPLES, GLUON_STEPS, GLUON_COMPRESSED_STEPS = 1280, 10, 3
 
 
 def emit(obj) -> None:
@@ -2356,6 +2378,495 @@ def phase_resnet_compressed(dev):
     return res
 
 
+def _gluon_trainable(net):
+    return [(n, p) for n, p in net.collect_params().items()
+            if p.grad_req != "null"]
+
+
+def _gluon_one_step(dev):
+    """One ``gluon.Trainer`` step (sgd, lr 0.1, momentum 0.9, wd 0, the
+    ``device`` kvstore) at f32 B = 32 from ``_resnet(dev)``'s weights,
+    against ``_resnet_step`` on the same net's ``block_train_fn`` tensors
+    (the same update: the Trainer's 1/B rescale of the summed loss's
+    gradient is exact at a power of two), and the reference step on the
+    images moved by ~2^-22 (the net's f32 noise floor)."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, nd
+
+    net, apply_fn, params, aux = _resnet(dev)
+    B = RESNET_F32_BATCH
+    x, y = _resnet_batch(dev, B)
+    g1 = torch.Generator(device=dev).manual_seed(SEED + 3)
+    xp = x + x * 2.0 ** -22 * torch.empty_like(x).uniform_(
+        -1.0, 1.0, generator=g1)
+    zeros = {k: torch.zeros_like(v) for k, v in params.items()}
+    # the reference first: params and aux share the net's storage, which
+    # the Trainer's step writes
+    lr_, p_ref, _, aux_ref, g_ref = _resnet_step(apply_fn, params, zeros,
+                                                 aux, x, y)
+    p_floor = _resnet_step(apply_fn, params, zeros, aux, xp, y)[1]
+    old = {k: v.clone() for k, v in params.items()}
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": RESNET_LR,
+                             "momentum": RESNET_MOMENTUM, "wd": 0.0},
+                            kvstore="device")
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    X, Y = nd.array(x, ctx=mx.gpu(0)), nd.array(y, ctx=mx.gpu(0))
+    torch.cuda.synchronize()
+    _reset_launches()
+    with autograd.record():
+        L = loss_fn(net(X), Y)
+    L.backward()
+    trainer.step(B)
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    loss = L.mean().asscalar().item()
+    pd = net.collect_params()
+    new = {k: pd[k].data()._data for k in p_ref}
+    top = max(v.norm().item() for v in g_ref.values())
+    zero = sorted(k for k, v in g_ref.items() if v.norm() < 1e-6 * top)
+
+    def rel(a, keys):
+        num = torch.cat([(a[k] - p_ref[k]).flatten() for k in keys]).norm()
+        den = torch.cat([(p_ref[k] - old[k]).flatten() for k in keys]).norm()
+        return (num / den).item()
+
+    live = [k for k in p_ref if k not in zero]
+    each = {k: rel(new, [k]) for k in live}
+    floor = {k: rel(p_floor, [k]) for k in live}
+    glob, glob_floor = rel(new, live), rel(p_floor, live)
+    over = sorted(k for k in live if each[k] > max(1e-4, 10 * floor[k]))
+    zero_ok = all(k.endswith("bias") and "conv2d" in k for k in zero) and \
+        all((new[k] - old[k]).norm() <= 1e-6 * top * RESNET_LR for k in zero)
+    aux_err = max(((pd[k].data()._data - v).abs() - 1e-5 * v.abs()).max()
+                  .item() for k, v in aux_ref.items())
+    bitwise = all(torch.equal(new[k], p_ref[k]) for k in p_ref)
+    worst = max(each, key=each.get)
+    res = {"B": B, "loss": loss, "resnet_step_loss": lr_.item(),
+           "loss_rel_err": abs(loss - lr_.item()) / abs(lr_.item()),
+           "weights_bitwise_equal": bitwise,
+           "update_rel_err_global": glob,
+           "update_rel_err_floor_global": glob_floor,
+           "update_rel_err_max": each[worst], "update_rel_err_worst": worst,
+           "update_rel_err_floor_of_worst": floor[worst],
+           "updates_beyond_floor": over, "zero_grads": zero,
+           "zero_grads_ok": zero_ok,
+           "running_stats_err_beyond_rtol": aux_err, "launches": launches,
+           "tolerance": {"loss_rel": 1e-6, "update_global": "3 x floor",
+                         "update_each": "max(1e-4, 10 x floor)",
+                         "running_stats": {"rtol": 1e-5, "atol": 1e-6}}}
+    bad = []
+    if res["loss_rel_err"] > 1e-6:
+        bad.append(f"loss {loss} vs _resnet_step {lr_.item()}")
+    if glob > 3 * glob_floor:
+        bad.append(f"weights differ by {glob:.3g} of the update, over 3 x "
+                   f"the floor {glob_floor:.3g}")
+    if over:
+        bad.append(f"weights beyond max(1e-4, 10 x their floor): {over}")
+    if not zero_ok:
+        bad.append(f"zero-gradient parameters moved: {zero}")
+    if aux_err > 1e-6:
+        bad.append(f"running statistics differ by {aux_err:.3g}")
+    want = {k: 0 for k in launches}
+    want.update(bn_stats=RESNET_BNS, bn_normalize=RESNET_BNS)
+    if launches != want:
+        bad.append(f"one step launched {launches}")
+    return res, bad
+
+
+def _sgd_foreach_step(forward, ws, ms, x, y):
+    """The Gluon loop's step without the NDArray / autograd tape / kvstore
+    / Trainer layer: ``forward(x)``, the gradient of the summed softmax
+    cross-entropy (the per-sample loss's head gradients of ones) with
+    respect to ``ws``, and the Trainer's SGD pass
+    (``optimizer.SGD._update_list``: rescale 1/B, wd 1e-4, lr, momentum)
+    as the same ``torch._foreach_*`` ops, in place on ``ws`` and ``ms``."""
+    import torch
+
+    out = forward(x)
+    loss = -torch.log_softmax(out, dim=-1).gather(1, y[:, None]).sum()
+    gs = list(torch.autograd.grad(loss, ws))
+    with torch.no_grad():
+        g = torch._foreach_mul(gs, 1.0 / x.shape[0])
+        torch._foreach_add_(g, torch._foreach_mul(ws, [1e-4] * len(ws)))
+        lg = torch._foreach_mul(g, [RESNET_LR] * len(ws))
+        torch._foreach_mul_(ms, RESNET_MOMENTUM)
+        torch._foreach_sub_(ms, lg)
+        torch._foreach_add_(ws, ms)
+
+
+def _timed_steps(step, batches):
+    """``step(x, y)`` over ``batches`` (host wall ms each, ending in a
+    sync), then the last batch once more under the profiler."""
+    import torch
+
+    ms = []
+    for xb, yb in batches:
+        xt, yt = xb._data, yb._data.long()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(xt, yt)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    steady = float(np.median(ms[1:]))
+    return {"step_ms": ms, "steady_step_ms": steady,
+            "images_per_s": xt.shape[0] / (steady / 1e3),
+            "profiled_step": _profiled(lambda: step(xt, yt))}
+
+
+def _gluon_loop(dev):
+    """The main path: the user's loop, ten f32 steps at B = 128 from a
+    ``DataLoader`` over 1,280 random images (numpy, from SEED), the
+    Trainer made before the first forward resolves the shapes.  Steps 2
+    and 3 take the first batch again, so that the first two updates are
+    each held to lower its loss (as ``resnet_training`` holds them on its
+    one batch); the rest take the loader's next batches.  Then the same
+    ten batches through ``_sgd_foreach_step`` (the same loss and
+    ``_foreach`` SGD pass without the NDArray/Trainer layer), once over
+    ``block_train_fn`` and once over the block called with tensors: the
+    Gluon step's time less the latter's is that layer's cost."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.parallel.data_parallel import block_train_fn
+
+    ctx = mx.gpu(0)
+    B = RESNET_BATCH
+    rs = np.random.default_rng(SEED)
+    X = rs.standard_normal((GLUON_SAMPLES, RESNET_HW, RESNET_HW, 3),
+                           dtype=np.float32)
+    Y = rs.integers(0, RESNET_CLASSES, GLUON_SAMPLES).astype(np.int32)
+    torch.manual_seed(SEED)    # the initializer draws from torch's own
+    net = gluon.model_zoo.vision.resnet50_v1(classes=RESNET_CLASSES,
+                                             layout="NHWC")
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    np.random.seed(SEED)       # the shuffle draws from numpy's own
+    loader = gluon.data.DataLoader(gluon.data.ArrayDataset(X, Y),
+                                   batch_size=B, shuffle=True,
+                                   last_batch="discard")
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": RESNET_LR,
+                             "momentum": RESNET_MOMENTUM, "wd": 1e-4})
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, data_ms, per_step, batches = [], [], [], [], []
+    write_check = None
+    it = iter(loader)
+    for step in range(GLUON_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if step in (1, 2):
+            x, y = batches[0]   # the first batch again (see the doc)
+        else:
+            x, y = next(it)
+            x, y = x.as_in_context(ctx), y.as_in_context(ctx)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _reset_launches()
+        with autograd.record():
+            L = loss_fn(net(x), y)
+        if step == GLUON_STEPS - 1:
+            # grad_req="write": a second backward over the same graph
+            # leaves the one gradient, not their sum
+            L.backward(retain_graph=True)
+            once = {n: p.grad()._data.clone()
+                    for n, p in _gluon_trainable(net)}
+        L.backward()
+        if step == GLUON_STEPS - 1:
+            write_check = {n: (p.grad()._data - once[n]).abs().max().item()
+                           / max(once[n].abs().max().item(), 1e-30)
+                           for n, p in _gluon_trainable(net)}
+            del once
+        trainer.step(x.shape[0])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        per_step.append(_read_launches())
+        data_ms.append((t1 - t0) * 1e3)
+        step_ms.append((t2 - t1) * 1e3)
+        losses.append(L.mean().asscalar().item())
+        batches.append((x, y))
+    peak = torch.cuda.max_memory_allocated()
+    steady = float(np.median(step_ms[1:]))
+    loop_ms = float(np.median([a + b for a, b in zip(step_ms[1:],
+                                                     data_ms[1:])]))
+    launches = {k: sum(n[k] for n in per_step) for k in per_step[0]}
+    # one more step under the profiler: every kernel the step launches
+    x, y = batches[-1]
+
+    def gluon_step():
+        with autograd.record():
+            L2 = loss_fn(net(x), y)
+        L2.backward()
+        trainer.step(x.shape[0])
+
+    prof = _profiled(gluon_step)
+    # the same ten batches, and the same _foreach SGD pass, without the
+    # NDArray, autograd tape, kvstore or Trainer: through block_train_fn's
+    # functional forward, and through the block itself called with tensors
+    # (the one forward the Gluon step runs, so the difference is the
+    # layer's alone)
+    apply_fn, params, aux = block_train_fn(net, is_train=True)
+    leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+    box = [{k: v.clone() for k, v in aux.items()}]
+
+    def functional(xt):
+        out, new_aux = apply_fn(leaves, box[0], xt)
+        box[0] = {k: v.detach() for k, v in new_aux.items()}
+        return out
+
+    ws = list(leaves.values())
+    ms = [torch.zeros_like(w) for w in ws]
+    functional_run = _timed_steps(
+        lambda xt, yt: _sgd_foreach_step(functional, ws, ms, xt, yt), batches)
+    del leaves, box, ws, ms
+
+    def eager(xt):
+        with autograd.train_mode():
+            return net(xt)
+
+    ws = [p._tensor() for _, p in _gluon_trainable(net)]
+    ms = [torch.zeros_like(w) for w in ws]
+    eager_run = _timed_steps(
+        lambda xt, yt: _sgd_foreach_step(eager, ws, ms, xt, yt), batches)
+    del ws, ms, batches
+    n_params = len(_gluon_trainable(net))
+    res = {"B": B, "steps": GLUON_STEPS, "samples": GLUON_SAMPLES,
+           "trainable_parameters": n_params, "losses": losses,
+           "step_ms": step_ms,
+           "data_ms": data_ms, "steady_step_ms": steady,
+           "images_per_s": B / (steady / 1e3),
+           "loop_images_per_s": B / (loop_ms / 1e3), "peak_bytes": peak,
+           "profiled_step": prof,
+           "block_train_fn": functional_run, "eager_block": eager_run,
+           "trainer_layer_ms": steady - eager_run["steady_step_ms"],
+           "trainer_layer_device_ms": (
+               prof["device_busy_s"]
+               - eager_run["profiled_step"]["device_busy_s"]) * 1e3,
+           "grad_write_rel_err": max(write_check.values()),
+           "launches_per_step": per_step[0], "launches": launches}
+    bad = []
+    want = {k: 0 for k in per_step[0]}
+    want.update(bn_stats=RESNET_BNS, bn_normalize=RESNET_BNS)
+    off = [n for n in per_step if n != want]
+    if off:
+        bad.append(f"{len(off)} loop steps launched other counts than "
+                   f"{want}, the first {off[0]}")
+    if not all(np.isfinite(losses)):
+        bad.append(f"non-finite loss: {losses}")
+    if not losses[2] < losses[1] < losses[0]:
+        bad.append(f"the first two updates did not each lower the first "
+                   f"batch's loss: {losses[:3]}")
+    if res["grad_write_rel_err"] > 1e-6:
+        bad.append(f"two backwards left {res['grad_write_rel_err']:.3g} "
+                   f"relative beyond one gradient (grad_req='write')")
+    return net, res, bad
+
+
+def _gluon_compressed(dev):
+    """Three f32 Trainer steps at B = 32 with 2-bit compression through
+    the ``device`` kvstore: one pack and one unpack a trainable parameter
+    a step.  After step 1, the store's residuals and the gradients it
+    pulled back are held, bit for bit, to the 2-bit round trip written out
+    plainly here (from a zero residual: q = +-t where the gradient reaches
+    +-t, else 0; residual = gradient - q), so that a wrong quantization
+    fails as well as a wrong wiring.  (The kernels themselves are held to
+    their plain versions in the kernels phase.)"""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, nd
+
+    net = _resnet(dev)[0]
+    comp = {"type": "2bit", "threshold": TWOBIT_THRESHOLD}
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": RESNET_LR,
+                             "momentum": RESNET_MOMENTUM, "wd": 1e-4},
+                            compression_params=comp)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    x, y = _resnet_batch(dev, RESNET_F32_BATCH)
+    X, Y = nd.array(x, ctx=mx.gpu(0)), nd.array(y, ctx=mx.gpu(0))
+    trainable = _gluon_trainable(net)
+    n = len(trainable)
+    losses, per_step, raw = [], [], None
+    for step in range(GLUON_COMPRESSED_STEPS):
+        torch.cuda.synchronize()
+        _reset_launches()
+        with autograd.record():
+            L = loss_fn(net(X), Y)
+        L.backward()
+        if step == 0:
+            raw = [p.grad()._data.clone() for _, p in trainable]
+        trainer.step(RESNET_F32_BATCH)
+        torch.cuda.synchronize()
+        per_step.append(_read_launches())
+        losses.append(L.mean().asscalar().item())
+        if step == 0:
+            t = torch.tensor(TWOBIT_THRESHOLD, device=dev)
+            store, idx = trainer._kvstore._residuals, trainer._param2idx
+            res_equal = grad_equal = 0
+            for (name, p), g in zip(trainable, raw):
+                q = t * (g >= t) - t * (g <= -t)
+                res_equal += torch.equal(store[(idx[name], 0)], g - q)
+                grad_equal += torch.equal(p.grad()._data, q)
+            del raw
+    launches = {k: sum(s[k] for s in per_step) for k in per_step[0]}
+    res = {"B": RESNET_F32_BATCH, "steps": GLUON_COMPRESSED_STEPS,
+           "threshold": TWOBIT_THRESHOLD, "trainable_parameters": n,
+           "losses": losses, "residuals_bitwise_equal": res_equal,
+           "pulled_grads_bitwise_equal": grad_equal,
+           "launches_per_step": per_step[0], "launches": launches}
+    want = {k: 0 for k in per_step[0]}
+    want.update(bn_stats=RESNET_BNS, bn_normalize=RESNET_BNS,
+                twobit_pack=n, twobit_unpack=n)
+    bad = []
+    off = [s for s in per_step if s != want]
+    if off:
+        bad.append(f"{len(off)} compressed steps launched other counts than "
+                   f"{want}, the first {off[0]}")
+    if res_equal != n or grad_equal != n:
+        bad.append(f"after step 1, {res_equal} residuals and {grad_equal} "
+                   f"pulled gradients of {n} bitwise equal to the plain "
+                   f"2-bit round trip")
+    if not all(np.isfinite(losses)):
+        bad.append(f"non-finite compressed loss: {losses}")
+    return res, bad
+
+
+def _gluon_files(dev, net):
+    """``save_parameters`` on the card, ``load_parameters`` into a fresh
+    net: eval-mode outputs bitwise equal; the file's bytes equal those a
+    CPU net holding the same weights writes."""
+    import os
+
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, nd
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke_files")
+    os.makedirs(out_dir, exist_ok=True)
+    f_gpu = os.path.join(out_dir, "resnet50_gpu.params")
+    f_cpu = os.path.join(out_dir, "resnet50_cpu.params")
+    net.save_parameters(f_gpu)
+    fresh = gluon.model_zoo.vision.resnet50_v1(classes=RESNET_CLASSES,
+                                               layout="NHWC")
+    fresh.load_parameters(f_gpu, ctx=mx.gpu(0))
+    x = nd.array(_resnet_batch(dev, 8)[0], ctx=mx.gpu(0))
+    a, b = net(x), fresh(x)
+    equal = torch.equal(a._data, b._data)
+    on_cpu = gluon.model_zoo.vision.resnet50_v1(classes=RESNET_CLASSES,
+                                                layout="NHWC")
+    on_cpu.load_parameters(f_gpu, ctx=mx.cpu())
+    on_cpu.save_parameters(f_cpu)
+    with open(f_gpu, "rb") as f1, open(f_cpu, "rb") as f2:
+        same = f1.read() == f2.read()
+    res = {"bytes": os.path.getsize(f_gpu), "outputs_bitwise_equal": equal,
+           "cpu_file_bytes_equal": same}
+    for f in (f_gpu, f_cpu):
+        os.remove(f)
+    bad = []
+    if not equal:
+        bad.append("the reloaded net's eval output differs")
+    if not same:
+        bad.append("the parameter file written on the card differs from "
+                   "the CPU net's")
+    return res, bad
+
+
+def _gluon_card_dataset(dev):
+    """A dataset kept on the card, ``ArrayDataset(nd.array(X, ctx=gpu))``:
+    its batches are stacked where the samples lie (``nd.stack``, as the
+    reference's ``default_batchify_fn`` stacks), so they come out on the
+    card, bit for bit the same rows uploaded whole; the labels (a 1-d
+    array, which ``ArrayDataset`` reads through numpy, as the reference's
+    does) come out equal to the numpy rows."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, nd
+
+    ctx, n, B = mx.gpu(0), 64, 32
+    rs = np.random.default_rng(SEED + 5)
+    X = rs.standard_normal((n, RESNET_HW, RESNET_HW, 3), dtype=np.float32)
+    Y = rs.integers(0, RESNET_CLASSES, n).astype(np.int32)
+    ds = gluon.data.ArrayDataset(nd.array(X, ctx=ctx), nd.array(Y, ctx=ctx))
+    batches = list(gluon.data.DataLoader(ds, batch_size=B))
+    devices = sorted({str(x.context) for x, _ in batches})
+    equal = sum(torch.equal(x._data, torch.from_numpy(X[i * B:(i + 1) * B])
+                            .to(dev))
+                for i, (x, _) in enumerate(batches))
+    labels = sum(np.array_equal(y.asnumpy(), Y[i * B:(i + 1) * B])
+                 for i, (_, y) in enumerate(batches))
+    res = {"samples": n, "B": B, "batches": len(batches),
+           "image_batch_devices": devices, "images_bitwise_equal": equal,
+           "labels_equal": labels}
+    bad = []
+    if devices != [str(ctx)] or len(batches) != n // B:
+        bad.append(f"a dataset on the card gave {len(batches)} image "
+                   f"batches on {devices}")
+    if equal != n // B or labels != n // B:
+        bad.append(f"card dataset batches: {equal} image and {labels} "
+                   f"label batches of {n // B} equal to the rows")
+    return res, bad
+
+
+def phase_gluon_training(dev):
+    """The imperative Gluon training loop through the port's own
+    modules — ``NDArray``, ``autograd.record``/``backward``,
+    ``gluon.Trainer`` over the ``device`` kvstore, ``DataLoader`` and
+    parameter files — on ``resnet50_v1(classes=1000, layout="NHWC")`` at
+    224x224x3 in f32 (Gluon's default dtype), cuDNN deterministic, TF32
+    off.  ``_gluon_one_step`` holds one Trainer step against
+    ``_resnet_step``; ``_gluon_loop`` is the main path (ten steps at B =
+    128: 53 + 53 BatchNorm launches a step and no other port kernel,
+    losses finite, the first two updates each lowering the first batch's
+    loss, ``grad_req="write"`` seen on the card; images/s and peak memory
+    beside ``_sgd_foreach_step``'s over ``block_train_fn`` and over the
+    block on the same batches, and one profiled step of each); ``_gluon_compressed`` the 2-bit path; ``_gluon_files``
+    the parameter files; ``_gluon_card_dataset`` a dataset kept on the
+    card."""
+    import gc
+
+    import torch
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise SystemExit("TF32 is on: the f32 comparison needs full f32")
+    gc.collect()   # earlier phases' nets hold marked variables until then
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        one, bad = _gluon_one_step(dev)
+        gc.collect()
+        net, loop, bad_loop = _gluon_loop(dev)
+        comp, bad_comp = _gluon_compressed(dev)
+        files, bad_files = _gluon_files(dev, net)
+        card_ds, bad_ds = _gluon_card_dataset(dev)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = det
+    launches = {k: loop["launches"][k] + comp["launches"][k]
+                for k in loop["launches"]}
+    res = {"phase": "gluon_training",
+           "config": {"model": "resnet50_v1", "classes": RESNET_CLASSES,
+                      "layout": "NHWC", "image": [RESNET_HW, RESNET_HW, 3],
+                      "dtype": "float32", "optimizer": "sgd",
+                      "lr": RESNET_LR, "momentum": RESNET_MOMENTUM,
+                      "kvstore": "device"},
+           "one_step": one, "loop": loop, "compressed": comp,
+           "files": files, "card_dataset": card_ds, "launches": launches}
+    emit(res)
+    bad += bad_loop + bad_comp + bad_files + bad_ds
+    if bad:
+        raise SystemExit("gluon_training phase failed: " + "; ".join(bad))
+    return res
+
+
 def phase_profile_resnet(dev):
     """Optional (not in the default run): two chained bf16 ResNet-50
     training steps of the ``resnet_training`` phase's main path under
@@ -2505,7 +3016,8 @@ def main(argv) -> int:
         return 2
     phases = set(argv[1].split(",")) if len(argv) > 1 else {
         "kernels", "model", "training", "serving", "serving_default",
-        "serving_int8", "resnet_training", "resnet_compressed"}
+        "serving_int8", "resnet_training", "resnet_compressed",
+        "gluon_training"}
     if "serving_int8" in phases:
         phases.add("serving")   # its float baseline
     t_start = time.perf_counter()
@@ -2538,6 +3050,8 @@ def main(argv) -> int:
         runs["resnet_training"] = phase_resnet_training(dev)
     if "resnet_compressed" in phases:
         runs["resnet_compressed"] = phase_resnet_compressed(dev)
+    if "gluon_training" in phases:
+        runs["gluon_training"] = phase_gluon_training(dev)
     if "profile_resnet" in phases:
         phase_profile_resnet(dev)
     if kern is not None and runs:

@@ -11,6 +11,17 @@ parameters its ``nn.Parameter``s (see ``gluon.parameter``), so
 ``parameters()``, ``state_dict()``, ``to()`` and
 ``torch.func.functional_call`` work on any block.
 
+Calling a block with ``NDArray`` inputs (the imperative Gluon path) runs
+its forward on their tensors with torch's grad mode set from
+``autograd.is_recording()``, and wraps the outputs as NDArrays; called
+with tensors (a parent block's forward, ``block_train_fn``'s functional
+call) it is a plain ``torch.nn.Module`` call that returns tensors.
+
+``save_parameters``/``load_parameters`` use the reference's file and keys
+(the dotted structural names of ``_collect_params_with_prefix``, with the
+full-name fallback on load), so a file written by either package loads
+into the other.
+
 ``hybridize()`` is accepted and recorded, and the block keeps running
 eagerly: cached programs (CUDA graphs, ``torch.compile``) are later work.
 
@@ -28,8 +39,10 @@ import threading
 import numpy as np
 import torch
 
-from .. import ndarray as _F
+from .. import autograd, ndarray as _F
 from ..base import MXNetError
+from ..context import cpu
+from ..ndarray.ndarray import NDArray
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
 __all__ = ["Block", "HybridBlock", "params_from_jax"]
@@ -162,6 +175,79 @@ class Block(torch.nn.Module):
     def forward(self, *args):
         raise NotImplementedError
 
+    def __call__(self, *args, **kwargs):
+        if not any(isinstance(a, NDArray) for a in
+                   list(args) + list(kwargs.values())):
+            return super().__call__(*args, **kwargs)
+        args = [_unwrap(a) for a in args]
+        kwargs = {k: _unwrap(v) for k, v in kwargs.items()}
+        with torch.set_grad_enabled(autograd.is_recording()):
+            out = super().__call__(*args, **kwargs)
+        return _wrap(out)
+
+    # -- parameter files ----------------------------------------------------
+    def _collect_params_with_prefix(self, prefix=""):
+        """``{dotted structural name: Parameter}`` (reference keys)."""
+        if prefix:
+            prefix += "."
+        ret = {prefix + k: v for k, v in self._reg_params.items()}
+        for name, child in self._children.items():
+            ret.update(child._collect_params_with_prefix(prefix + name))
+        return ret
+
+    def save_parameters(self, filename, deduplicate=False):
+        """Write every parameter under its dotted structural name in the
+        reference's default file format."""
+        _F.save(filename, {k: p.data() for k, p in
+                           self._collect_params_with_prefix().items()})
+
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False, cast_dtype=False,
+                        dtype_source="current"):
+        """Load a file of either package's ``save_parameters`` (or of full
+        parameter names, as ``export`` writes them) into this block;
+        parameters not yet initialized are initialized on ``ctx``."""
+        loaded = _F.load(filename, ctx=cpu())
+        params = self._collect_params_with_prefix()
+        if not loaded and not params:
+            return
+        if loaded and params and not all(k in loaded for k in params):
+            stripped = {k.split(":", 1)[-1]: v for k, v in loaded.items()}
+            if all(p.name in stripped for p in params.values()):
+                loaded = {key: stripped[p.name]
+                          for key, p in params.items()}
+        for name, p in params.items():
+            if name not in loaded:
+                if not allow_missing:
+                    raise MXNetError(f"parameter {name} missing in "
+                                     f"{filename}")
+                continue
+            if p._var is None:
+                p.shape = tuple(loaded[name].shape)
+                p.initialize(ctx=ctx)
+            p.set_data(loaded[name])
+        if not ignore_extra:
+            for name in loaded:
+                if name not in params:
+                    raise MXNetError(f"parameter {name} in file not in "
+                                     f"Block")
+
+
+def _unwrap(a):
+    if isinstance(a, NDArray):
+        return a._data
+    if isinstance(a, (list, tuple)):
+        return type(a)(_unwrap(x) for x in a)
+    return a
+
+
+def _wrap(out):
+    if isinstance(out, torch.Tensor):
+        return NDArray(out)
+    if isinstance(out, (list, tuple)):
+        return type(out)(_wrap(x) for x in out)
+    return out
+
 
 class HybridBlock(Block):
     def __init__(self, prefix=None, params=None):
@@ -190,10 +276,10 @@ class HybridBlock(Block):
         params = {}
         for name, p in self._reg_params.items():
             try:
-                params[name] = p.data()
+                params[name] = p._tensor()
             except DeferredInitializationError:
                 self._infer_param_shapes((x,) + args)
-                params[name] = p.data()
+                params[name] = p._tensor()
         return self.hybrid_forward(_F, x, *args, **kwargs, **params)
 
     def hybrid_forward(self, F, x, *args, **kwargs):

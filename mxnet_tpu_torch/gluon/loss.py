@@ -2,10 +2,11 @@
 
 PyTorch counterpart of ``mxnet_tpu/gluon/loss.py`` (reference:
 python/mxnet/gluon/loss.py): the same classes, constructor arguments,
-``weight`` / ``sample_weight`` handling and per-sample ``_batch_mean``,
-over ``torch.Tensor``s (the ``NDArray`` class comes with a later slice).
+``weight`` / ``sample_weight`` handling and per-sample ``_batch_mean``.
 Each loss is a ``HybridBlock`` whose ``hybrid_forward`` calls the op
-namespace ``F`` by the reference's op names.  ``CTCLoss`` needs the
+namespace ``F`` by the reference's op names: called with ``NDArray``s
+(the imperative loop) a loss returns an NDArray, called with
+``torch.Tensor``s a tensor.  ``CTCLoss`` needs the
 ``CTCLoss`` op, which is not ported yet: constructing it raises.
 """
 from __future__ import annotations

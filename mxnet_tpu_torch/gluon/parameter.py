@@ -1,16 +1,21 @@
 """Gluon Parameter / ParameterDict.
 
 PyTorch counterpart of ``mxnet_tpu/gluon/parameter.py``: a ``Parameter``
-with a deferred shape, ``grad_req`` and ``data()``, and a
+with a deferred shape, ``grad_req`` and ``data()``/``grad()``, and a
 ``ParameterDict`` with prefix scoping and sharing.
 
 A Parameter's tensor is an ``nn.Parameter`` (``requires_grad`` unless
 ``grad_req == "null"``) registered on every block that holds it as an
 attribute, under that attribute's name, so ``block.parameters()`` and
-``block.state_dict()`` see it.  ``data()`` reads it back from the block,
-so a ``torch.func.functional_call`` that substitutes the block's tensors
-is seen by the block's own ``hybrid_forward``.  Writes a layer makes to
-its state in the forward (BatchNorm's running statistics) go through
+``block.state_dict()`` see it.  ``data()`` is an ``NDArray`` over that
+``nn.Parameter`` itself (``_data``; ``None`` until initialized), so an
+optimizer's in-place update through it is the block's weight, and
+``grad()`` the ``NDArray`` that ``autograd.backward`` writes
+(``grad_req="write"``) or adds to (``"add"``).  The block's forward reads
+the tensor the block currently holds (:meth:`Parameter._tensor`), so a
+``torch.func.functional_call`` that substitutes the block's tensors is
+seen by its ``hybrid_forward``.  Writes a layer makes to its state in the
+forward (BatchNorm's running statistics) go through
 :meth:`Parameter._assign`: in place outside a functional call, and, inside
 one (``parallel.data_parallel.block_train_fn``), into the substituted slot
 and a record the caller returns as ``new_aux``.
@@ -23,28 +28,15 @@ from typing import Optional
 
 import torch
 
-from .. import initializer as init_mod
-from ..base import MXNetError
-from ..context import resolve_device
+from .. import autograd, initializer as init_mod
+from ..base import MXNetError, torch_dtype
+from ..context import context_of, resolve_device
+from ..ndarray.ndarray import NDArray
 
 __all__ = ["DeferredInitializationError", "Parameter", "ParameterDict",
            "capture_writes"]
 
-_DTYPES = {"float32": torch.float32, "float16": torch.float16,
-           "bfloat16": torch.bfloat16, "float64": torch.float64}
 _tls = threading.local()
-
-
-def torch_dtype(dtype) -> torch.dtype:
-    """The ``torch.dtype`` for a dtype name, numpy dtype or torch dtype."""
-    if isinstance(dtype, torch.dtype):
-        return dtype
-    name = getattr(dtype, "name", None) or getattr(dtype, "__name__", None) \
-        or str(dtype)
-    try:
-        return _DTYPES[name]
-    except KeyError:
-        raise MXNetError(f"unsupported parameter dtype {dtype!r}") from None
 
 
 class capture_writes:
@@ -83,7 +75,10 @@ class Parameter:
         self.allow_deferred_init = allow_deferred_init
         self._differentiable = differentiable
         self._var: Optional[torch.nn.Parameter] = None
+        self._data: Optional[NDArray] = None
+        self._grad: Optional[NDArray] = None
         self._deferred_init = None
+        self._ctx_list = []
         self._owners = []   # (block, attribute name)
 
     def __repr__(self):
@@ -104,15 +99,17 @@ class Parameter:
         self._grad_req = req
         if self._var is not None:
             self._var.requires_grad_(req != "null")
+            self._init_grad()
 
     def _shape_known(self):
         return self.shape is not None and all(s > 0 for s in self.shape)
 
     def initialize(self, init=None, ctx=None, default_init=None,
                    force_reinit=False, generator=None):
-        """Allocate and initialize on ``ctx`` (a torch device or its name;
-        ``None`` is ``cuda``), drawing from ``generator``; with an unknown
-        shape and ``allow_deferred_init``, wait for the first forward."""
+        """Allocate and initialize on ``ctx`` (a ``Context``, a torch
+        device or its name; ``None`` is ``cuda``), drawing from
+        ``generator``; with an unknown shape and ``allow_deferred_init``,
+        wait for the first forward."""
         if default_init is None:
             default_init = init_mod.Uniform()
         if self._var is not None and not force_reinit:
@@ -120,6 +117,7 @@ class Parameter:
         if isinstance(ctx, (list, tuple)):
             ctx = ctx[0]
         device = resolve_device(ctx)
+        self._ctx_list = [context_of(device)]
         if not self._shape_known():
             if self.allow_deferred_init:
                 self._deferred_init = (init, device, default_init, generator)
@@ -142,8 +140,23 @@ class Parameter:
 
     def _set_var(self, var):
         self._var = var
+        if self._data is None:
+            self._data = NDArray(var)
+        else:   # keep the handle: callers may hold it
+            self._data._data = var
         for block, attr in self._owners:
             block._parameters[attr] = var
+        self._init_grad()
+
+    def _init_grad(self):
+        """A zero gradient buffer, marked for ``autograd.backward`` (none
+        for ``grad_req="null"``)."""
+        if self._grad_req == "null":
+            self._grad = None
+            return
+        self._grad = NDArray(torch.zeros_like(self._var.detach()))
+        autograd.mark_variables([self._data], [self._grad],
+                                grad_reqs=[self._grad_req])
 
     def _bind(self, block, attr):
         """Register this parameter's tensor on ``block`` as ``attr``."""
@@ -158,9 +171,7 @@ class Parameter:
         init, device, default_init, generator = self._deferred_init
         self._finish_init(init, device, default_init, generator)
 
-    def data(self, ctx=None) -> torch.Tensor:
-        """The tensor the owning block currently holds (the one a
-        functional call substituted, inside one)."""
+    def _check_init(self):
         if self._var is None:
             if self._deferred_init is not None:
                 raise DeferredInitializationError(
@@ -168,14 +179,31 @@ class Parameter:
                     f"first")
             raise MXNetError(
                 f"parameter {self.name} has not been initialized")
+
+    def data(self, ctx=None) -> NDArray:
+        """The parameter's ``NDArray`` (over its ``nn.Parameter``)."""
+        self._check_init()
+        return self._data
+
+    def list_data(self):
+        return [self.data()]
+
+    def list_ctx(self):
+        self._check_init()
+        return list(self._ctx_list)
+
+    def _tensor(self) -> torch.Tensor:
+        """The tensor the owning block currently holds (the one a
+        functional call substituted, inside one)."""
+        self._check_init()
         if self._owners:
             block, attr = self._owners[0]
             return block._parameters[attr]
         return self._var
 
     def set_data(self, data):
-        """Copy ``data`` (a tensor or array of the parameter's shape) into
-        the parameter, in its dtype and on its device."""
+        """Copy ``data`` (an NDArray, tensor or array of the parameter's
+        shape) into the parameter, in its dtype and on its device."""
         if self._var is None:
             if self._deferred_init is not None:
                 self._finish_deferred_init(tuple(data.shape))
@@ -185,6 +213,8 @@ class Parameter:
             raise MXNetError(
                 f"set_data for {self.name}: shape {tuple(data.shape)} "
                 f"incompatible with parameter shape {tuple(self.shape)}")
+        if isinstance(data, NDArray):
+            data = data._data
         with torch.no_grad():
             self._var.copy_(torch.as_tensor(data))
 
@@ -193,21 +223,26 @@ class Parameter:
         writes = getattr(_tls, "writes", None)
         if writes is None:
             with torch.no_grad():
-                self.data().copy_(value)
+                self._tensor().copy_(value)
             return
         writes[self.name] = value
         for block, attr in self._owners:
             block._parameters[attr] = value
 
-    def grad(self, ctx=None):
-        if self._grad_req == "null" or self._var is None:
+    def grad(self, ctx=None) -> NDArray:
+        """The gradient ``NDArray`` that ``autograd.backward`` writes
+        (``grad_req="write"``) or adds to (``"add"``)."""
+        if self._grad is None:
             raise MXNetError(f"parameter {self.name} has no gradient "
                              f"(grad_req={self._grad_req})")
-        return self._var.grad
+        return self._grad
+
+    def list_grad(self):
+        return [self.grad()]
 
     def zero_grad(self):
-        if self._var is not None and self._var.grad is not None:
-            self._var.grad.zero_()
+        if self._grad is not None:
+            self._grad._data.zero_()
 
 
 class ParameterDict:

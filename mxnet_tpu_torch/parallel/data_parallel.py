@@ -60,8 +60,8 @@ def block_train_fn(block: Block, is_train: bool = True):
     param_names = [n for n in pd if pd[n].grad_req != "null"]
     aux_names = [n for n in pd if pd[n].grad_req == "null"]
     try:
-        init_params = {n: pd[n].data().detach() for n in param_names}
-        init_aux = {n: pd[n].data().detach() for n in aux_names}
+        init_params = {n: pd[n]._tensor().detach() for n in param_names}
+        init_aux = {n: pd[n]._tensor().detach() for n in aux_names}
     except MXNetError as e:
         raise RuntimeError(
             "block has uninitialized (deferred-shape) parameters; run one "

@@ -280,15 +280,17 @@ def test_write_back_and_inputs():
     block = tt._block
     pd = block.collect_params()
     trained = {k: v.clone() for k, v in tt.params.items()}
-    assert not any(torch.equal(pd[k].data(), v) for k, v in trained.items())
+    assert not any(torch.equal(pd[k].data()._data, v)
+               for k, v in trained.items())
     tt.write_back()
     jt.write_back()
     for k, v in trained.items():
-        assert torch.equal(pd[k].data(), v), k
+        assert torch.equal(pd[k].data()._data, v), k
     jpd = jt._block.collect_params()
     for name, want, got in _pairs({k: jpd[k].data().asnumpy()
                                    for k in jt.params},
-                                  {k: pd[k].data().detach() for k in trained},
+                                  {k: pd[k].data()._data.detach()
+                                   for k in trained},
                                   jpre, tpre):
         np.testing.assert_allclose(got.numpy(), want, **TOL, err_msg=name)
     # float64 numpy input is taken as float32, as the reference's is

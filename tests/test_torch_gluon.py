@@ -196,7 +196,7 @@ def test_params_from_jax_refuses_mismatches():
         tnet(torch.zeros(1, 3, 32, 32))
     good = arrays_of(jnet)
     tgluon.params_from_jax(tnet, good)
-    assert all(bool((p.data() == 0.5).all())
+    assert all(bool((p.data().asnumpy() == 0.5).all())
                for p in tnet.collect_params().values())
     first = next(iter(good))
     missing = {k: v for k, v in good.items() if k != first}

@@ -201,10 +201,10 @@ def test_resnet_train_step_matches_jax(monkeypatch, nets, batch):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
                                    rtol=1e-5, atol=1e-6, err_msg=k)
     # the functional call left the block's own tensors untouched
-    own = _strip({k: p.data() for k, p in tnet.collect_params().items()},
-                 tpre)
+    own = _strip({k: p.data().asnumpy()
+                  for k, p in tnet.collect_params().items()}, tpre)
     for k, v in own.items():
-        assert np.array_equal(v.detach().numpy(), arrays[k]), k
+        assert np.array_equal(v, arrays[k]), k
 
 
 def test_resnet_inference_matches_jax(nets, batch):
@@ -226,12 +226,12 @@ def test_eager_training_forward_updates_running_stats(nets, batch):
     x, _ = batch
     bn = next(b for b in tnet.modules()
               if isinstance(b, tgluon.nn.BatchNorm) and b._scale)
-    before = bn.running_mean.data().clone()
+    before = bn.running_mean.data().copy()._data
     state = {k: v.clone() for k, v in tnet.state_dict().items()}
     try:
         with autograd.record():
             tnet(torch.from_numpy(x))
-        after = bn.running_mean.data()
+        after = bn.running_mean.data()._data
         assert not torch.equal(before, after)
         assert after is bn.running_mean._var
     finally:
