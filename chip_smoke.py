@@ -103,6 +103,23 @@ toolkit (``nvcc``) and PyTorch built for CUDA.  Phases, one JSON line each:
               against the plain 2-bit round trip), a dataset kept on the
               card (batches stacked on the card), and ``save_parameters``/
               ``load_parameters`` (outputs and file bytes bitwise).
+12. module_fit — ``Module.fit`` over the symbolic API: the example
+              ResNet-50 symbol (``_example_resnet_symbol``, NCHW, through
+              ``tojson`` and ``sym.load_json``) on the default context in
+              f32 (cuDNN deterministic), ``NDArrayIter`` over 12 x 128
+              random images, ``kvstore="tpu_sync"``, SGD lr 0.05
+              momentum 0.9 with a ``MultiFactorScheduler``, Xavier,
+              metrics acc and top-5, ``Speedometer``, ``do_checkpoint``.
+              Checks: a fused Module step against a legacy one (1e-6,
+              bitwise reported); the cifar-depth symbol on the card
+              against the CPU (outputs, gradients, moving statistics);
+              losses finite and the first two updates lowering the
+              repeated first batch's loss; the checkpoint files read
+              back bitwise; a channels-last check net through the
+              BatchNorm kernels (one stats and one normalize launch per
+              BatchNorm node a step) against its CPU run.  Images/s, step
+              ms, the executor's host ms a forward, a profiled step's
+              device time and idle share, peak memory, the metrics.
 
 Every ResNet phase also requires that the BatchNorm op copied no
 non-contiguous input (``batch_norm.noncontiguous_copies`` stays 0).
@@ -110,7 +127,7 @@ non-contiguous input (``batch_norm.noncontiguous_copies`` stays 0).
 An optional comma-separated argument (``kernels``, ``model``,
 ``training``, ``serving``, ``serving_default``, ``serving_int8`` — which
 also runs ``serving``, its float baseline — ``resnet_training``,
-``resnet_compressed``, ``gluon_training``, and
+``resnet_compressed``, ``gluon_training``, ``module_fit``, and
 ``profile``, ``profile_training`` and ``profile_resnet``, which are not in
 the default run: the serving window, or two bf16 LM or ResNet training
 steps, once more under ``torch.profiler``)
@@ -196,6 +213,14 @@ COMPRESSED_STEPS = 10
 # gluon_training: the imperative loop's DataLoader samples and steps, and
 # its compressed steps (at RESNET_F32_BATCH)
 GLUON_SAMPLES, GLUON_STEPS, GLUON_COMPRESSED_STEPS = 1280, 10, 3
+# module_fit: Module.fit over the example ResNet-50 symbol (bench.py
+# e2e_throughput's SGD: lr 0.05, momentum 0.9, no wd; a MultiFactorScheduler
+# step at update 8), the cifar card-vs-CPU check's batch, and the
+# channels-last check net (units of 1x1 conv + BatchNorm + ReLU)
+FIT_BATCHES, FIT_LR, FIT_MOMENTUM = 12, 0.05, 0.9
+FIT_LR_STEPS, FIT_LR_FACTOR = (8,), 0.1
+CIFAR_BATCH = 16
+NHWC_BATCH, NHWC_BATCHES, NHWC_HW, NHWC_C, NHWC_UNITS = 32, 3, 56, 256, 3
 
 
 def emit(obj) -> None:
@@ -2867,6 +2892,583 @@ def phase_gluon_training(dev):
     return res
 
 
+# ---------------------------------------------------------------------------
+# module_fit: Module.fit over the example ResNet symbol
+# ---------------------------------------------------------------------------
+
+_FIT_BN = dict(fix_gamma=False, eps=2e-5, momentum=0.9)
+
+
+def _fit_preact_conv(mx, x, width, kernel, stride, tag):
+    normed = mx.sym.BatchNorm(data=x, name=tag + "_norm", **_FIT_BN)
+    active = mx.sym.Activation(data=normed, act_type="relu")
+    k = (kernel, kernel)
+    conv = mx.sym.Convolution(data=active, num_filter=width, kernel=k,
+                              stride=(stride, stride), pad=(kernel // 2,) * 2,
+                              no_bias=True, name=tag + "_w")
+    return active, conv
+
+
+def _fit_residual_unit(mx, x, width, stride, project, tag, deep):
+    if deep:
+        plan = [(width // 4, 1, 1), (width // 4, 3, stride), (width, 1, 1)]
+    else:
+        plan = [(width, 3, stride), (width, 3, 1)]
+    first_act = None
+    h = x
+    for step, (w, kernel, s) in enumerate(plan):
+        act, h = _fit_preact_conv(mx, h, w, kernel, s, f"{tag}_p{step}")
+        if first_act is None:
+            first_act = act
+    if project:
+        skip = mx.sym.Convolution(data=first_act, num_filter=width,
+                                  kernel=(1, 1), stride=(stride, stride),
+                                  no_bias=True, name=tag + "_proj")
+    else:
+        skip = x
+    return h + skip
+
+
+def _example_resnet_symbol(num_classes, num_layers=50,
+                           image_shape="3,224,224"):
+    """``example/image-classification/symbols/resnet.py``'s
+    ``get_symbol``, written against the port (the example imports the JAX
+    package): pre-activation units, the thumbnail stem at cifar sizes.
+    Built under a fresh ``NameManager``, its graph JSON is the example's,
+    byte for byte (``tests/test_torch_symbol.py``)."""
+    import mxnet_tpu_torch as mx
+
+    shape = [int(v) for v in image_shape.split(",")] \
+        if isinstance(image_shape, str) else list(image_shape)
+    if shape[1] <= 32:
+        if (num_layers - 2) % 9 == 0 and num_layers >= 164:
+            reps, deep, widths = (num_layers - 2) // 9, True, [16, 64, 128,
+                                                               256]
+        elif (num_layers - 2) % 6 == 0 and num_layers < 164:
+            reps, deep, widths = (num_layers - 2) // 6, False, [16, 16, 32,
+                                                                64]
+        else:
+            raise ValueError(f"no cifar resnet spec for depth {num_layers}")
+        repeats, thumbnail = [reps] * 3, True
+    else:
+        depths = {18: ([2, 2, 2, 2], False), 34: ([3, 4, 6, 3], False),
+                  50: ([3, 4, 6, 3], True), 101: ([3, 4, 23, 3], True),
+                  152: ([3, 8, 36, 3], True)}
+        if num_layers not in depths:
+            raise ValueError(f"no imagenet resnet spec for depth "
+                             f"{num_layers}")
+        repeats, deep = depths[num_layers]
+        base = 256 if deep else 64
+        widths, thumbnail = [64] + [base << i for i in range(4)], False
+    with mx.name.NameManager():
+        x = mx.sym.Variable("data")
+        x = mx.sym.BatchNorm(data=x, fix_gamma=True, eps=2e-5, momentum=0.9,
+                             name="input_whiten")
+        if thumbnail:
+            x = mx.sym.Convolution(data=x, num_filter=widths[0],
+                                   kernel=(3, 3), stride=(1, 1), pad=(1, 1),
+                                   no_bias=True, name="stem_w")
+        else:
+            x = mx.sym.Convolution(data=x, num_filter=widths[0],
+                                   kernel=(7, 7), stride=(2, 2), pad=(3, 3),
+                                   no_bias=True, name="stem_w")
+            x = mx.sym.BatchNorm(data=x, name="stem_norm", **_FIT_BN)
+            x = mx.sym.Activation(data=x, act_type="relu")
+            x = mx.sym.Pooling(data=x, kernel=(3, 3), stride=(2, 2),
+                               pad=(1, 1), pool_type="max")
+        for stage, (reps, width) in enumerate(zip(repeats, widths[1:])):
+            for unit in range(reps):
+                stride = 2 if (stage > 0 and unit == 0) else 1
+                x = _fit_residual_unit(mx, x, width, stride,
+                                       project=(unit == 0),
+                                       tag=f"s{stage}u{unit}", deep=deep)
+        x = mx.sym.BatchNorm(data=x, name="head_norm", **_FIT_BN)
+        x = mx.sym.Activation(data=x, act_type="relu")
+        x = mx.sym.Pooling(data=x, global_pool=True, kernel=(7, 7),
+                           pool_type="avg", name="head_pool")
+        x = mx.sym.FullyConnected(data=mx.sym.Flatten(data=x),
+                                  num_hidden=num_classes, name="fc1")
+        return mx.sym.SoftmaxOutput(data=x, name="softmax")
+
+
+def _fit_loaded_symbol():
+    """The ResNet-50 symbol through ``tojson`` -> ``sym.load_json`` (the
+    loaded one is what the phase binds), and whether the loaded symbol
+    writes the same bytes."""
+    import mxnet_tpu_torch as mx
+
+    net = _example_resnet_symbol(RESNET_CLASSES, 50,
+                                 f"3,{RESNET_HW},{RESNET_HW}")
+    text = net.tojson()
+    loaded = mx.sym.load_json(text)
+    return loaded, text, loaded.tojson() == text
+
+
+def _fit_optimizer_params():
+    """``bench.py`` ``e2e_throughput``'s SGD settings plus a
+    ``MultiFactorScheduler`` as ``common/fit.py`` builds one (its step
+    at update 8, so the decay falls inside the 12-batch epoch)."""
+    import mxnet_tpu_torch as mx
+
+    return {"learning_rate": FIT_LR, "momentum": FIT_MOMENTUM,
+            "lr_scheduler": mx.lr_scheduler.MultiFactorScheduler(
+                step=list(FIT_LR_STEPS), factor=FIT_LR_FACTOR)}
+
+
+def _fit_images(n, B, seed, image=None, classes=RESNET_CLASSES):
+    """``n`` batches of B random images of shape ``image`` (N(0, 1);
+    default 3 x RESNET_HW x RESNET_HW) and labels from a seeded numpy
+    generator; batches 1 and 2 repeat batch 0, so the first two updates
+    can each be held to lower its loss."""
+    image = image or (3, RESNET_HW, RESNET_HW)
+    rs = np.random.default_rng(seed)
+    X = rs.standard_normal((n * B,) + tuple(image), dtype=np.float32)
+    Y = rs.integers(0, classes, n * B).astype(np.float32)
+    for k in range(1, min(n, 3)):
+        X[k * B:(k + 1) * B] = X[:B]
+        Y[k * B:(k + 1) * B] = Y[:B]
+    return X, Y
+
+
+def _ce(probs, labels) -> float:
+    """Mean cross-entropy of a SoftmaxOutput's probabilities."""
+    import torch
+
+    p = probs._data.float()
+    y = labels._data.long().to(p.device)
+    return -torch.log(p.gather(1, y[:, None]).clamp_min(1e-30)).mean().item()
+
+
+def _rel(a, b) -> float:
+    import torch
+
+    num = (a.double() - b.double()).norm().item()
+    den = b.double().norm().item()
+    return num / den if den else num
+
+
+def _fit_fused_vs_legacy(net):
+    """One fused Module step (``Executor.fused_step``) against one legacy
+    step (``forward_backward`` + ``update`` through the ``Updater``) from
+    the same parameters and batch: loss and every weight and moving
+    statistic to 1e-6 normwise."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    B = RESNET_BATCH
+    X, Y = _fit_images(1, B, SEED + 5)
+    it = mx.io.NDArrayIter(X, Y, batch_size=B)
+    batch = next(iter(it))
+    res = {}
+    start = None
+    for route in ("fused", "legacy"):
+        mod = mx.mod.Module(net, label_names=["softmax_label"])
+        mod.bind(it.provide_data, it.provide_label)
+        if start is None:
+            torch.manual_seed(SEED)
+            mod.init_params(mx.init.Xavier(rnd_type="gaussian",
+                                           factor_type="in", magnitude=2))
+            start = mod.get_params()
+        else:
+            mod.init_params(arg_params=start[0], aux_params=start[1])
+        mod.init_optimizer(kvstore="tpu_sync", optimizer="sgd",
+                           optimizer_params=_fit_optimizer_params())
+        took = route == "fused" and mod._try_fused_step(batch)
+        if route == "legacy":
+            mod.forward_backward(batch)
+            mod.update()
+        torch.cuda.synchronize()
+        loss = _ce(mod.get_outputs()[0], batch.label[0])
+        arg, aux = mod.get_params()
+        res[route] = (loss, {**arg, **{"aux:" + k: v for k, v in
+                                       aux.items()}}, took)
+        del mod
+    (la, pa, fused_took), (lb, pb, _) = res["fused"], res["legacy"]
+    errs = {k: _rel(pa[k]._data, pb[k]._data) for k in pb}
+    worst = max(errs, key=errs.get)
+    out = {"B": B, "loss_fused": la, "loss_legacy": lb,
+           "loss_rel_err": abs(la - lb) / abs(lb),
+           "fused_route_taken": fused_took,
+           "max_rel_err": errs[worst], "worst": worst,
+           "bitwise_equal": all(torch.equal(pa[k]._data, pb[k]._data)
+                                for k in pb),
+           "tolerance": 1e-6}
+    bad = []
+    if not fused_took:
+        bad.append("the fused Module step was not taken")
+    if out["loss_rel_err"] > 1e-6 or errs[worst] > 1e-6:
+        bad.append(f"fused and legacy steps differ: loss {la} vs {lb}, "
+                   f"{worst} by {errs[worst]:.3g}")
+    return out, bad
+
+
+def _fit_main(net, text):
+    """The main path: ``Module.fit`` over ``NDArrayIter`` (FIT_BATCHES x
+    B random images), ``kvstore="tpu_sync"``, SGD with the scheduler,
+    Xavier(gaussian, in, 2), metrics acc and top-5, ``Speedometer`` and a
+    timing callback (a sync, then the host clock), ``do_checkpoint``."""
+    import tempfile
+
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    B = RESNET_BATCH
+    X, Y = _fit_images(FIT_BATCHES, B, SEED)
+    it = mx.io.NDArrayIter(X, Y, batch_size=B)
+    mod = mx.mod.Module(net, label_names=["softmax_label"])
+    metric = mx.metric.create(["acc", mx.metric.create("top_k_accuracy",
+                                                       top_k=5)])
+    marks, losses = [], []
+
+    def timing(param):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        losses.append(_ce(param.locals["self"].get_outputs()[0],
+                          param.locals["data_batch"].label[0]))
+
+    torch.manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = f"{tmp}/resnet50"
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        mod.fit(it, num_epoch=1, kvstore="tpu_sync", optimizer="sgd",
+                optimizer_params=_fit_optimizer_params(),
+                initializer=mx.init.Xavier(rnd_type="gaussian",
+                                           factor_type="in", magnitude=2),
+                eval_metric=metric,
+                batch_end_callback=[mx.callback.Speedometer(B, 4,
+                                                            auto_reset=False),
+                                    timing],
+                epoch_end_callback=mx.callback.do_checkpoint(prefix))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = _read_launches()
+        fused_steps = mod._fused_step_count
+        peak = torch.cuda.max_memory_allocated()
+        # check 4: the checkpoint files read back bitwise, the JSON bytes
+        _, cargs, cauxs = mx.model.load_checkpoint(prefix, 1)
+        with open(f"{prefix}-symbol.json") as f:
+            json_equal = f.read() == text
+    arg, aux = mod.get_params()
+    ckpt_bitwise = (set(cargs) == set(arg) and set(cauxs) == set(aux) and all(
+        torch.equal(cargs[k]._data.to(arg[k]._data.device), arg[k]._data)
+        for k in arg) and all(
+        torch.equal(cauxs[k]._data.to(aux[k]._data.device), aux[k]._data)
+        for k in aux))
+    step_ms = [(b - a) * 1e3 for a, b in zip([t0] + marks, marks)]
+    steady = float(np.median(step_ms[1:10]))
+    # the fused step alone on a batch already on the card, and the
+    # executor's host time for one forward (per-node dispatch)
+    it.reset()
+    batch = next(iter(it))
+    alone = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        mod._try_fused_step(batch)
+        torch.cuda.synchronize()
+        alone.append((time.perf_counter() - s) * 1e3)
+    ex = mod._exec
+    fwd_host, fwd_wall = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        ex.forward(is_train=False)
+        fwd_host.append((time.perf_counter() - s) * 1e3)
+        torch.cuda.synchronize()
+        fwd_wall.append((time.perf_counter() - s) * 1e3)
+    prof = _profiled(lambda: (mod._try_fused_step(batch),
+                              mod.update_metric(metric, batch.label)))
+    nodes = sum(1 for n in ex._order if n.kind == "op")
+    res = {"B": B, "batches": FIT_BATCHES, "fit_s": fit_s,
+           "step_ms": step_ms, "steady_step_ms": steady,
+           "images_per_s": B / (steady / 1e3),
+           "fused_step_alone_ms": alone,
+           "fused_step_alone_images_per_s": B / (
+               float(np.median(alone[1:])) / 1e3),
+           "executor_forward_host_ms": float(np.median(fwd_host)),
+           "executor_forward_wall_ms": float(np.median(fwd_wall)),
+           "op_nodes": nodes, "peak_bytes": peak, "losses": losses,
+           "metric": dict(metric.get_name_value()),
+           "lr_after": mod._optimizer.learning_rate,
+           "fused_steps": fused_steps,
+           "checkpoint_bitwise": ckpt_bitwise,
+           "checkpoint_json_equal": json_equal,
+           "profiled_step": prof, "launches": launches}
+    bad = []
+    if fused_steps != FIT_BATCHES:
+        bad.append(f"fit took the fused step {fused_steps} times in "
+                   f"{FIT_BATCHES} batches")
+    if not all(np.isfinite(losses)):
+        bad.append(f"non-finite loss: {losses}")
+    if not losses[2] < losses[1] < losses[0]:
+        bad.append(f"the first two updates did not each lower the first "
+                   f"batch's loss: {losses[:3]}")
+    if not (ckpt_bitwise and json_equal):
+        bad.append(f"checkpoint files: params bitwise {ckpt_bitwise}, "
+                   f"JSON bytes {json_equal}")
+    want_lr = FIT_LR * FIT_LR_FACTOR ** sum(FIT_BATCHES > s
+                                            for s in FIT_LR_STEPS)
+    if abs(res["lr_after"] - want_lr) > 1e-12:
+        bad.append(f"scheduled rate {res['lr_after']}, expected {want_lr}")
+    if any(launches.values()):
+        bad.append(f"the channels-first net launched port kernels: "
+                   f"{launches}")
+    return mod, res, bad
+
+
+def _fill(ex, args, aux, dev):
+    import torch
+
+    for n, v in args.items():
+        ex.arg_dict[n]._data.copy_(torch.from_numpy(v).to(dev))
+    for n, v in aux.items():
+        ex.aux_dict[n]._data.copy_(torch.from_numpy(v).to(dev))
+
+
+def _random_values(sym, data_shape, seed, classes):
+    """Numpy arguments (weights N(0, 1/fan-in), gammas near 1, labels in
+    range) and aux states (moving variances positive) for ``sym``."""
+    arg_shapes, _, aux_shapes = sym.infer_shape(data=data_shape)
+    rs = np.random.default_rng(seed)
+    args = {}
+    for n, s in zip(sym.list_arguments(), arg_shapes):
+        if n == "softmax_label":
+            args[n] = rs.integers(0, classes, s).astype(np.float32)
+        elif n == "data":
+            args[n] = rs.standard_normal(s, dtype=np.float32)
+        elif n.endswith("gamma"):
+            args[n] = (1 + 0.1 * rs.standard_normal(s)).astype(np.float32)
+        else:
+            fan = int(np.prod(s[1:])) if len(s) > 1 else 1
+            args[n] = (rs.standard_normal(s) / np.sqrt(fan)).astype(
+                np.float32)
+    aux = {n: (0.1 * rs.standard_normal(s) if n.endswith("mean")
+               else 1 + 0.5 * rs.random(s)).astype(np.float32)
+           for n, s in zip(sym.list_auxiliary_states(), aux_shapes)}
+    return args, aux
+
+
+def _tolerance(errs, floors):
+    """Each tensor's error against max(1e-4, 10 x its floor), the global
+    one against max(1e-4, 3 x the global floor): which tensors fail."""
+    return sorted(k for k in errs
+                  if errs[k] > max(1e-4, 10 * floors.get(k, 0.0)))
+
+
+def _fit_cifar_card_vs_cpu(dev):
+    """The example symbol at its cifar depth (ResNet-20, 32x32, B=16)
+    through the executor on the card and on the CPU from the same numpy
+    arguments: the training forward's output, every parameter gradient
+    and every moving-statistic update.  The floor is the card against
+    itself with the images moved by ~2^-22 (gluon_training's measure)."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    net = _example_resnet_symbol(10, 20, "3,32,32")
+    shape = (CIFAR_BATCH, 3, 32, 32)
+    args, aux = _random_values(net, shape, SEED + 6, 10)
+    req = {n: ("null" if n in ("data", "softmax_label") else "write")
+           for n in net.list_arguments()}
+    moved = dict(args)
+    u = np.random.default_rng(SEED + 7).uniform(-1, 1, shape)
+    moved["data"] = (args["data"] * (1 + 2.0 ** -22 * u)).astype(np.float32)
+
+    def run(ctx, values):
+        ex = net.simple_bind(ctx=ctx, grad_req=req, data=shape)
+        _fill(ex, values, aux, mx.context.resolve_device(ctx))
+        out = ex.forward(is_train=True)[0]._data
+        ex.backward()
+        got = {"out": out}
+        got.update({"grad:" + n: ex.grad_dict[n]._data
+                    for n in ex._grad_arg_names})
+        got.update({"aux:" + n: ex.aux_dict[n]._data for n in ex._aux_names})
+        return {k: v.detach().cpu() for k, v in got.items()}
+
+    card = run(mx.gpu(0), args)
+    card_moved = run(mx.gpu(0), moved)
+    cpu = run(mx.cpu(), args)
+    errs = {k: _rel(card[k], cpu[k]) for k in cpu}
+    floors = {k: _rel(card_moved[k], card[k]) for k in card}
+    glob = _rel(torch.cat([card[k].flatten() for k in cpu]),
+                torch.cat([cpu[k].flatten() for k in cpu]))
+    glob_floor = _rel(torch.cat([card_moved[k].flatten() for k in card]),
+                      torch.cat([card[k].flatten() for k in card]))
+    over = _tolerance(errs, floors)
+    worst = max(errs, key=errs.get)
+    res = {"B": CIFAR_BATCH, "tensors": len(errs), "rel_err_global": glob,
+           "floor_global": glob_floor, "max_rel_err": errs[worst],
+           "worst": worst, "floor_of_worst": floors[worst],
+           "over_tolerance": over,
+           "tolerance": {"each": "max(1e-4, 10 x floor)",
+                         "global": "max(1e-4, 3 x floor)",
+                         "set_by": "floor" if 3 * glob_floor > 1e-4
+                         else "1e-4"}}
+    bad = []
+    if over or glob > max(1e-4, 3 * glob_floor):
+        bad.append(f"cifar ResNet-20 card vs CPU: global {glob:.3g} "
+                   f"(floor {glob_floor:.3g}), beyond tolerance {over}")
+    return res, bad
+
+
+def _nhwc_symbol():
+    """The channels-last check net: NHWC_UNITS units of a 1x1
+    ``Convolution(layout="NHWC")`` + ``BatchNorm(axis=3)`` + ReLU at
+    56x56x256, global average pooling, a 10-way ``FullyConnected`` and
+    ``SoftmaxOutput``."""
+    import mxnet_tpu_torch as mx
+
+    with mx.name.NameManager():
+        x = mx.sym.Variable("data")
+        for u in range(NHWC_UNITS):
+            x = mx.sym.Convolution(data=x, num_filter=NHWC_C, kernel=(1, 1),
+                                   no_bias=True, layout="NHWC",
+                                   name=f"u{u}_conv")
+            x = mx.sym.BatchNorm(data=x, axis=3, name=f"u{u}_bn",
+                                 **_FIT_BN)
+            x = mx.sym.Activation(data=x, act_type="relu")
+        x = mx.sym.Pooling(data=x, global_pool=True, kernel=(1, 1),
+                           pool_type="avg", layout="NHWC")
+        x = mx.sym.FullyConnected(data=mx.sym.Flatten(data=x),
+                                  num_hidden=10, name="fc")
+        return mx.sym.SoftmaxOutput(data=x, name="softmax")
+
+
+def _fit_channels_last(dev):
+    """``Module.fit`` over the channels-last check net at B=NHWC_BATCH on
+    the card (BatchNorm through ``bn_train_fused``: one stats and one
+    normalize launch per BatchNorm node a step) and on the CPU, from the
+    same numpy parameters and batches: each batch's outputs and the final
+    parameters and moving statistics, to check 2's tolerance against the
+    card's own floor (the images moved by ~2^-22)."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    net = _nhwc_symbol()
+    B, n = NHWC_BATCH, NHWC_BATCHES
+    X, Y = _fit_images(n, B, SEED + 8, (NHWC_HW, NHWC_HW, NHWC_C), 10)
+    params, aux = _random_values(net, (B, NHWC_HW, NHWC_HW, NHWC_C),
+                                 SEED + 9, 10)
+    params = {k: v for k, v in params.items()
+              if k not in ("data", "softmax_label")}
+    u = np.random.default_rng(SEED + 10).uniform(-1, 1, X.shape)
+    X_moved = (X * (1 + 2.0 ** -22 * u)).astype(np.float32)
+
+    def run(ctx, images):
+        outs = []
+
+        def keep(param):
+            outs.append(param.locals["self"].get_outputs()[0]._data.cpu())
+
+        with ctx:
+            it = mx.io.NDArrayIter(images, Y, batch_size=B)
+            mod = mx.mod.Module(net, label_names=["softmax_label"],
+                                context=ctx)
+            mod.fit(it, num_epoch=1, optimizer="sgd",
+                    optimizer_params=_fit_optimizer_params(),
+                    arg_params=params, aux_params=aux,
+                    batch_end_callback=keep)
+            arg, auxs = mod.get_params()
+        got = {f"out{i}": o for i, o in enumerate(outs)}
+        got.update({k: v._data.cpu() for k, v in arg.items()})
+        got.update({"aux:" + k: v._data.cpu() for k, v in auxs.items()})
+        return got
+
+    torch.cuda.synchronize()
+    _reset_launches()
+    card = run(mx.gpu(0), X)
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    card_moved = run(mx.gpu(0), X_moved)
+    cpu = run(mx.cpu(), X)
+    errs = {k: _rel(card[k], cpu[k]) for k in cpu}
+    floors = {k: _rel(card_moved[k], card[k]) for k in card}
+    over = _tolerance(errs, floors)
+    worst = max(errs, key=errs.get)
+    res = {"B": B, "batches": n, "shape": [B, NHWC_HW, NHWC_HW, NHWC_C],
+           "units": NHWC_UNITS, "max_rel_err": errs[worst], "worst": worst,
+           "floor_of_worst": floors[worst], "over_tolerance": over,
+           "launches": launches}
+    bad = []
+    want = {k: 0 for k in launches}
+    want.update(bn_stats=NHWC_UNITS * n, bn_normalize=NHWC_UNITS * n)
+    if launches != want:
+        bad.append(f"channels-last fit launched {launches}, expected "
+                   f"{want}")
+    if over:
+        bad.append(f"channels-last fit card vs CPU beyond tolerance: "
+                   f"{over} (worst {worst} {errs[worst]:.3g})")
+    return res, bad
+
+
+def phase_module_fit(dev):
+    """``Module.fit`` over the symbolic API (SURVEY §3.1's path, the one
+    ``bench.py`` ``e2e_throughput`` times): the example ResNet-50 symbol
+    (``_example_resnet_symbol``, NCHW, 1000 classes) through ``tojson`` ->
+    ``sym.load_json``, bound by ``Module`` on the default context, in f32
+    with TF32 off and cuDNN deterministic.  Checks: a fused against a
+    legacy Module step (1e-6); the cifar depth on the card against the
+    CPU; losses finite, the first two updates lowering the repeated first
+    batch's loss; the ``do_checkpoint`` files bitwise; the channels-last
+    check net through ``bn_train_fused`` (its launches are this phase's).
+    Numbers: images/s and step ms (median of steps 2-10), the executor's
+    host ms a forward and its op-node count, one profiled step's device
+    ms and idle share, peak memory, the metrics."""
+    import gc
+
+    import torch
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise SystemExit("TF32 is on: the f32 comparison needs full f32")
+    gc.collect()
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        net, text, json_roundtrip = _fit_loaded_symbol()
+        mod, main, bad = _fit_main(net, text)
+        del mod
+        gc.collect()
+        fused, bad_fused = _fit_fused_vs_legacy(net)
+        gc.collect()
+        cifar, bad_cifar = _fit_cifar_card_vs_cpu(dev)
+        nhwc, bad_nhwc = _fit_channels_last(dev)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = det
+    launches = {k: main["launches"][k] + nhwc["launches"][k]
+                for k in main["launches"]}
+    res = {"phase": "module_fit",
+           "config": {"symbol": "example/image-classification/symbols/"
+                      "resnet.py", "num_layers": 50,
+                      "num_classes": RESNET_CLASSES,
+                      "image_shape": [3, RESNET_HW, RESNET_HW],
+                      "dtype": "float32", "optimizer": "sgd", "lr": FIT_LR,
+                      "momentum": FIT_MOMENTUM,
+                      "lr_scheduler": {"MultiFactorScheduler": {
+                          "step": list(FIT_LR_STEPS),
+                          "factor": FIT_LR_FACTOR}},
+                      "kvstore": "tpu_sync",
+                      "initializer": "Xavier(gaussian, in, 2)"},
+           "json_roundtrip": json_roundtrip, "fit": main,
+           "fused_vs_legacy": fused, "cifar_card_vs_cpu": cifar,
+           "channels_last": nhwc, "launches": launches}
+    emit(res)
+    if not json_roundtrip:
+        bad.append("load_json(tojson()) wrote other bytes")
+    bad += bad_fused + bad_cifar + bad_nhwc
+    if bad:
+        raise SystemExit("module_fit phase failed: " + "; ".join(bad))
+    return res
+
+
 def phase_profile_resnet(dev):
     """Optional (not in the default run): two chained bf16 ResNet-50
     training steps of the ``resnet_training`` phase's main path under
@@ -3017,7 +3619,7 @@ def main(argv) -> int:
     phases = set(argv[1].split(",")) if len(argv) > 1 else {
         "kernels", "model", "training", "serving", "serving_default",
         "serving_int8", "resnet_training", "resnet_compressed",
-        "gluon_training"}
+        "gluon_training", "module_fit"}
     if "serving_int8" in phases:
         phases.add("serving")   # its float baseline
     t_start = time.perf_counter()
@@ -3052,6 +3654,8 @@ def main(argv) -> int:
         runs["resnet_compressed"] = phase_resnet_compressed(dev)
     if "gluon_training" in phases:
         runs["gluon_training"] = phase_gluon_training(dev)
+    if "module_fit" in phases:
+        runs["module_fit"] = phase_module_fit(dev)
     if "profile_resnet" in phases:
         phase_profile_resnet(dev)
     if kern is not None and runs:

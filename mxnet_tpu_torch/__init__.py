@@ -15,15 +15,24 @@ ResNets, trained channels-last through the BatchNorm stats and normalize
 kernels, and the imperative Gluon training loop: ``NDArray``, the autograd
 tape API, the optimizers, the local/device kvstore (2-bit compression
 through the pack and unpack kernels), ``gluon.Trainer``, ``DataLoader``
-and parameter files.  Entry points run on ``cuda`` (``mx.gpu()``, the
-default context) unless the caller passes the CPU (``ctx=mx.cpu()`` or
-``device="cpu"``).
+and parameter files; and the symbolic path: ``Symbol`` (graph JSON byte
+for byte the reference's), the ``Executor``, ``Module.fit`` with its
+metrics, callbacks, data iterators, learning-rate schedulers and
+checkpoint files.  Entry points run on ``cuda`` (``mx.gpu()``, the default
+context) unless the caller passes the CPU (``ctx=mx.cpu()``,
+``context=mx.cpu()`` or ``device="cpu"``).
 """
-from . import (autograd, base, context, gluon, initializer, kvstore,
-               ndarray, ops, optimizer, parallel, serving)
+from . import (attribute, autograd, base, callback, context, executor, gluon,
+               initializer, io, kvstore, lr_scheduler, metric, model, module,
+               name, ndarray, ops, optimizer, parallel, serving, symbol)
 from . import initializer as init
 from . import kvstore as kv
+from . import module as mod
 from . import ndarray as nd
+from . import symbol as sym
+from .model import load_checkpoint, save_checkpoint
+from .module import Module
+from .symbol import Symbol
 from .base import MXNetError
 from .context import (Context, cpu, current_context, gpu, num_devices,
                       resolve_device, tpu)
@@ -31,6 +40,9 @@ from .context import (Context, cpu, current_context, gpu, num_devices,
 __version__ = "0.1.0"
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "current_context",
-           "num_devices", "resolve_device", "autograd", "base", "context",
-           "gluon", "init", "initializer", "kv", "kvstore", "nd", "ndarray",
-           "ops", "optimizer", "parallel", "serving"]
+           "num_devices", "resolve_device", "attribute", "autograd", "base",
+           "callback", "context", "executor", "gluon", "init", "initializer",
+           "io", "kv", "kvstore", "lr_scheduler", "metric", "mod", "model",
+           "module", "Module", "name", "nd", "ndarray", "ops", "optimizer",
+           "parallel", "serving", "sym", "symbol", "Symbol",
+           "save_checkpoint", "load_checkpoint"]

@@ -13,6 +13,7 @@ distributions, not its bits; weights are carried across exactly by
 """
 from __future__ import annotations
 
+import json
 import math
 
 import torch
@@ -59,11 +60,25 @@ class Initializer:
     def __init__(self, **kwargs):
         self._kwargs = kwargs
 
+    def dumps(self) -> str:
+        """``[name, kwargs]`` as JSON: a symbol variable's ``__init__``
+        attribute (``sym.Variable(init=...)``)."""
+        return json.dumps([self.__class__.__name__.lower(), self._kwargs])
+
     def __call__(self, desc, arr, generator=None):
-        """Initialize the tensor ``arr`` in place by its name ``desc``."""
+        """Initialize the tensor ``arr`` in place by its name ``desc`` (an
+        ``InitDesc`` whose ``__init__`` attribute names an initializer
+        takes that one)."""
         if not isinstance(desc, str):
             raise TypeError("desc must be a string or InitDesc")
         self._gen = generator
+        init = getattr(desc, "attrs", {}).get("__init__", "")
+        if init:
+            klass, kwargs = json.loads(init)
+            chosen = create(klass, **kwargs)
+            chosen._gen = generator
+            chosen._init_weight(desc, arr)
+            return
         name = desc.lower()
         if name.endswith("weight"):
             self._init_weight(desc, arr)

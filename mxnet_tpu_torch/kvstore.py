@@ -22,8 +22,14 @@ them with one ``torch._foreach_copy_``.
 reference) quantizes and dequantizes every float32 contribution against
 its error-feedback residual before the reduce
 (``parallel.compression.GradientCompression``: the 2-bit pack and unpack
-kernels on the card).  ``dist_*`` and ``tpu_sync``/``nccl`` stores are not
-ported (ROADMAP.md, Queue 1, item 5).
+kernels on the card).
+
+``tpu_sync`` (alias ``nccl``) is the ``device`` store of one process under
+the reference's name for its collective store: no update runs on it
+(``Module`` keeps the update off the store), and a Module may take the
+fused train step over it (``_fused_step_ok``).  Across processes it would
+be an all-reduce; ``dist_*`` stores and several processes are not ported
+(ROADMAP.md, Queue 1, item 5).
 """
 from __future__ import annotations
 
@@ -34,7 +40,7 @@ import torch
 from .base import MXNetError
 from .ndarray.ndarray import NDArray
 
-__all__ = ["KVStore", "KVStoreLocal", "create"]
+__all__ = ["KVStore", "KVStoreLocal", "KVStoreTPUSync", "create"]
 
 
 def _as_list(x):
@@ -115,6 +121,13 @@ class KVStore:
     def barrier(self):
         pass
 
+    def _fused_step_ok(self) -> bool:
+        """Whether a Module may skip this store's per-parameter push and
+        pull for the fused train step: only a one-worker local-family
+        store without compression, whose reduce of one contribution is a
+        copy."""
+        return False
+
     def save_optimizer_states(self, fname, dump_optimizer=False):
         if self._updater is None:
             raise MXNetError("optimizer is not set")
@@ -136,6 +149,9 @@ class KVStoreLocal(KVStore):
         super().__init__()
         self._type = "device" if device_reduce else "local"
         self._store: Dict = {}
+
+    def _fused_step_ok(self) -> bool:
+        return self._grad_compression is None and self.num_workers == 1
 
     def init(self, key, value):
         for k, vs in _pairs(key, value):
@@ -209,15 +225,27 @@ class KVStoreLocal(KVStore):
             torch._foreach_copy_(dsts, srcs)
 
 
+class KVStoreTPUSync(KVStoreLocal):
+    """``tpu_sync``: the reference's collective store, here on one
+    process (see the module doc)."""
+
+    def __init__(self):
+        super().__init__(device_reduce=True)
+        self._type = "tpu_sync"
+
+
 def create(name: str = "local") -> KVStore:
-    """``local`` or ``device`` (reference: src/kvstore/kvstore.cc)."""
+    """``local``, ``device`` or ``tpu_sync``/``nccl`` (reference:
+    src/kvstore/kvstore.cc)."""
     name = name.lower()
     if name == "local" or name.startswith("local_"):
         return KVStoreLocal()
     if name == "device":
         return KVStoreLocal(device_reduce=True)
-    if name in ("tpu_sync", "nccl") or name.startswith("dist"):
+    if name in ("tpu_sync", "nccl"):
+        return KVStoreTPUSync()
+    if name.startswith("dist"):
         raise MXNetError(f"kvstore {name!r} is not ported yet (ROADMAP.md, "
                          f"Queue 1, item 5: multi-process distributed); "
-                         f"use 'local' or 'device'")
+                         f"use 'local', 'device' or 'tpu_sync'")
     raise MXNetError(f"unknown kvstore type {name!r}")

@@ -572,6 +572,8 @@ def array(source, ctx=None, dtype=None) -> NDArray:
     src = np.asarray(source)
     if want is None and src.dtype == np.float64:
         src = src.astype(np.float32)
+    if any(st < 0 for st in src.strides):
+        src = src.copy()   # torch takes no negative strides (a[::-1])
     t = torch.tensor(src, device=dev)   # a copy (src may be read-only)
     if want is not None:
         t = t.to(want)

@@ -1,8 +1,13 @@
-"""Neural-net ops the ResNet family and the Gluon losses need:
-FullyConnected, Convolution, Pooling, BatchNorm, Activation, softmax and
-log_softmax.
+"""Neural-net ops the ResNet family, the Gluon losses and the symbolic
+API's loss heads need: FullyConnected, Convolution, Pooling, BatchNorm,
+Activation, softmax, log_softmax, SoftmaxActivation, and the heads
+SoftmaxOutput (alias Softmax), LinearRegressionOutput,
+MAERegressionOutput, LogisticRegressionOutput and MakeLoss.
 
 PyTorch counterpart of ``mxnet_tpu/ops/nn.py`` (only these ops so far).
+A head's backward is its own (a ``torch.autograd.Function``): the
+reference's custom vjp, which ignores the incoming cotangent unless
+``out_grad``.
 Layouts follow the reference: channels-first ``NCHW`` data with ``OIHW``
 weights by default, and for ``layout="NHWC"`` the reference's
 channels-last convention (``_conv_dnums``): NHWC data, OHWI weights.  A
@@ -34,7 +39,8 @@ from .batch_norm import bn_train_fused
 from .registry import register
 
 __all__ = ["fully_connected", "is_channels_last", "convolution", "pooling",
-           "batch_norm", "activation", "softmax", "log_softmax"]
+           "batch_norm", "activation", "softmax", "log_softmax",
+           "softmax_activation", "softmax_output", "make_loss", "attr_bool"]
 
 
 def _pair(v, n=2):
@@ -225,3 +231,161 @@ def softmax(data, axis=-1, temperature=None):
 def log_softmax(data, axis=-1, temperature=None):
     x = data if temperature in (None, 1.0) else data / temperature
     return torch.log_softmax(x, dim=int(axis))
+
+
+@register("SoftmaxActivation")
+def softmax_activation(data, mode="instance"):
+    if mode == "channel":
+        return torch.softmax(data, dim=1)
+    return torch.softmax(data.reshape(data.shape[0], -1), dim=-1).reshape(
+        data.shape)
+
+
+# ---------------------------------------------------------------------------
+# Loss heads (softmax_output.cc, regression_output.cc, make_loss.cc)
+# ---------------------------------------------------------------------------
+
+def attr_bool(v, default=False):
+    """A boolean attribute that may arrive as a string ("False", "0",
+    "true": graph JSON stringifies attributes)."""
+    if v is None:
+        return default
+    if isinstance(v, str):
+        return v.strip().lower() in ("1", "true", "yes")
+    return bool(v)
+
+
+def _softmax_fwd_only(data, multi_output):
+    if multi_output and data.ndim > 2:
+        return torch.softmax(data, dim=1)
+    return torch.softmax(data.reshape(data.shape[0], -1), dim=-1).reshape(
+        data.shape)
+
+
+def _one_hot(lab, nclass, dtype, axis=-1):
+    """One-hot of integer ``lab`` (out-of-range rows, such as a -1
+    ignore label, all zeros, as ``jax.nn.one_hot`` gives them)."""
+    hit = lab.unsqueeze(-1) == torch.arange(nclass, device=lab.device)
+    oh = hit.to(dtype)
+    return oh.movedim(-1, axis) if axis != -1 else oh
+
+
+def _so_bwd(out, label, g, grad_scale, ignore_label, multi_output,
+            use_ignore, normalization, smooth_alpha, out_grad):
+    """The head's gradient (reference ``_so_bwd``; softmax_output-inl.h):
+    ``p - onehot`` masked, normalized and scaled, not the softmax's own
+    vjp; the incoming cotangent ``g`` counts only with ``out_grad``."""
+    if tuple(label.shape) == tuple(out.shape):
+        # probability labels: scale * (p - label), no ignore/normalization
+        grad = (out - label.to(out.dtype)) * grad_scale
+        if out_grad:
+            grad = grad * g.to(grad.dtype)
+        return grad.to(out.dtype)
+    lab = label.to(torch.int32).long()
+    if multi_output and out.ndim > 2:
+        nclass = out.shape[1]
+        onehot = _one_hot(lab, nclass, out.dtype, axis=1)
+        spatial = 1
+        for d in out.shape[2:]:
+            spatial *= d
+    else:
+        nclass = out.shape[-1]
+        onehot = _one_hot(lab, nclass, out.dtype)
+        if onehot.ndim < out.ndim:
+            onehot = onehot.reshape(out.shape)
+        spatial = 1
+    if smooth_alpha:
+        onehot = onehot * (1.0 - smooth_alpha) + smooth_alpha / nclass
+    grad = out - onehot
+    if use_ignore:
+        mask = (label != ignore_label).to(out.dtype)
+        if multi_output and out.ndim > 2:
+            mask = mask.unsqueeze(1)
+        else:
+            mask = mask.reshape(mask.shape + (1,) * (grad.ndim - mask.ndim))
+        grad = grad * mask
+    # the denominator: N (x spatial) for "batch", the non-ignored label
+    # count for "valid", spatial for "null"
+    if normalization == "batch":
+        denom = float(label.shape[0]) * spatial
+    elif normalization == "valid":
+        if use_ignore:
+            denom = torch.clamp((label != ignore_label).sum(), min=1).to(
+                out.dtype)
+        else:
+            denom = float(label.numel())
+    else:
+        denom = float(spatial)
+    grad = grad * (grad_scale / denom)
+    if out_grad:
+        grad = grad * g.to(grad.dtype)
+    return grad.to(out.dtype)
+
+
+class _SoftmaxOutputFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, label, cfg):
+        out = _softmax_fwd_only(data, cfg[2])
+        ctx.save_for_backward(out, label)
+        ctx.cfg = cfg
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        return _so_bwd(out, label, g, *ctx.cfg), None, None
+
+
+@register("SoftmaxOutput", aliases=("Softmax",))
+def softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
+                   multi_output=False, use_ignore=False, preserve_shape=False,
+                   normalization="null", out_grad=False, smooth_alpha=0.0):
+    """Softmax with the cross-entropy gradient as its backward (reference:
+    src/operator/nn/softmax_output.cc): the forward gives probabilities,
+    the backward ``p - onehot(label)`` with ``ignore_label`` masking, the
+    ``normalization`` modes, ``smooth_alpha`` and ``grad_scale``,
+    probability labels (``label.shape == data.shape``), and the incoming
+    cotangent only with ``out_grad``."""
+    cfg = (float(grad_scale), float(ignore_label), bool(multi_output),
+           bool(use_ignore), str(normalization), float(smooth_alpha),
+           attr_bool(out_grad))
+    return _SoftmaxOutputFn.apply(data, label, cfg)
+
+
+class _RegressionFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, label, grad_scale, kind, out_grad):
+        out = torch.sigmoid(data) if kind == "logistic" else data.clone()
+        ctx.save_for_backward(out, label)
+        ctx.cfg = (grad_scale, kind, out_grad)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        grad_scale, kind, out_grad = ctx.cfg
+        lab = label.reshape(out.shape)
+        grad = torch.sign(out - lab) if kind == "mae" else out - lab
+        grad = grad * grad_scale
+        if out_grad:
+            grad = grad * g.to(grad.dtype)
+        return grad, None, None, None, None
+
+
+def _regression(kind):
+    def head(data, label, grad_scale=1.0, out_grad=False):
+        return _RegressionFn.apply(data, label, float(grad_scale), kind,
+                                   attr_bool(out_grad))
+    return head
+
+
+register("LinearRegressionOutput")(_regression("linear"))
+register("MAERegressionOutput")(_regression("mae"))
+register("LogisticRegressionOutput")(_regression("logistic"))
+
+
+@register("MakeLoss")
+def make_loss(data, grad_scale=1.0, valid_thresh=0.0, normalization="null"):
+    """The identity: the head's gradient is the incoming cotangent (ones
+    from the executor), as the reference's ``MakeLoss`` is."""
+    return data

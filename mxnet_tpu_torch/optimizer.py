@@ -28,8 +28,13 @@ pickled ``{index: numpy arrays}`` dict that loads in either package
 optimizer object is pickled too, and its class belongs to one package: a
 file the JAX package wrote that way is refused by ``set_states`` (with
 ``MXNetError``), and the JAX package cannot read this package's.
-``lr_scheduler`` is not ported (ROADMAP Queue 1): any value but ``None``
-is refused.
+
+An ``lr_scheduler`` (``lr_scheduler.py``) takes the optimizer's
+``learning_rate`` as its ``base_lr`` and gives the rate of every update,
+read at ``num_update`` (the ``_foreach`` pass reads it once a step, after
+the step's update counts).  ``sym=`` reads each variable's
+``__lr_mult__``/``__wd_mult__`` attributes, as ``Module.init_optimizer``
+passes its symbol; a ``set_wd_mult`` call keeps the symbol's.
 """
 from __future__ import annotations
 
@@ -79,16 +84,11 @@ class Optimizer:
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
                  sym=None, begin_num_update=0, multi_precision=False,
                  param_dict=None, **kwargs):
-        if lr_scheduler is not None:
-            raise MXNetError("lr_scheduler is not ported yet (ROADMAP.md, "
-                             "Queue 1); pass lr_scheduler=None and use "
-                             "set_learning_rate")
-        if sym is not None:
-            raise MXNetError("symbol attributes are not ported; pass "
-                             "sym=None")
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
-        self.lr_scheduler = None
+        self.lr_scheduler = lr_scheduler
+        if lr_scheduler is not None:
+            self.lr_scheduler.base_lr = learning_rate
         self.wd = wd
         self.clip_gradient = clip_gradient
         self.begin_num_update = begin_num_update
@@ -99,6 +99,14 @@ class Optimizer:
         self.param_dict = param_dict or {}
         self.lr_mult: Dict[str, float] = {}
         self.wd_mult: Dict[str, float] = {}
+        self._sym_wd_mult: Dict[str, float] = {}
+        if sym is not None:
+            for name, a in sym.attr_dict().items():
+                if "__lr_mult__" in a:
+                    self.lr_mult[name] = float(a["__lr_mult__"])
+                if "__wd_mult__" in a:
+                    self.wd_mult[name] = float(a["__wd_mult__"])
+                    self._sym_wd_mult[name] = float(a["__wd_mult__"])
 
     def __getstate__(self):
         # param_dict holds the Gluon Parameters (and through them their
@@ -113,6 +121,8 @@ class Optimizer:
 
     @property
     def learning_rate(self):
+        if self.lr_scheduler is not None:
+            return self.lr_scheduler(self.num_update)
         return self.lr
 
     def set_lr_mult(self, args_lr_mult):
@@ -123,6 +133,7 @@ class Optimizer:
         for n in self.idx2name.values():
             if not (n.endswith("_weight") or n.endswith("_gamma")):
                 self.wd_mult[n] = 0.0
+        self.wd_mult.update(self._sym_wd_mult)
         self.wd_mult.update(args_wd_mult)
 
     def _update_count(self, index):
@@ -147,7 +158,9 @@ class Optimizer:
         return self.wd_mult.get(name, 1.0)
 
     def _get_lr(self, index):
-        return self.lr * self._get_lr_mult(index)
+        lr = self.lr_scheduler(self.num_update) if self.lr_scheduler \
+            else self.lr
+        return lr * self._get_lr_mult(index)
 
     def _get_wd(self, index):
         return self.wd * self._get_wd_mult(index)

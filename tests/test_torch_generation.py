@@ -654,7 +654,11 @@ def test_port_never_imports_jax_or_reference():
             " mxnet_tpu_torch.gluon.model_zoo.vision,"
             " mxnet_tpu_torch.parallel.data_parallel,"
             " mxnet_tpu_torch.parallel.compression,"
-            " mxnet_tpu_torch.ops.twobit, mxnet_tpu_torch.gluon.loss;"
+            " mxnet_tpu_torch.ops.twobit, mxnet_tpu_torch.gluon.loss,"
+            " mxnet_tpu_torch.symbol, mxnet_tpu_torch.executor,"
+            " mxnet_tpu_torch.module, mxnet_tpu_torch.io,"
+            " mxnet_tpu_torch.metric, mxnet_tpu_torch.callback,"
+            " mxnet_tpu_torch.lr_scheduler, mxnet_tpu_torch.model;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')];"
             "print(bad); sys.exit(1 if bad else 0)")

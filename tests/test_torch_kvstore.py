@@ -152,9 +152,13 @@ def test_compressed_reduce_bit_exact():
 
 
 def test_refusals():
-    for name in ("dist_sync", "dist_async", "tpu_sync", "nccl"):
+    for name in ("dist_sync", "dist_async"):
         with pytest.raises(MXNetError, match="Queue 1, item 5"):
             tmx.kvstore.create(name)
+    # tpu_sync (alias nccl) is the one-process collective store now
+    for name in ("tpu_sync", "nccl"):
+        kv = tmx.kvstore.create(name)
+        assert kv.type == "tpu_sync" and kv._fused_step_ok()
     kv = tmx.kvstore.create("local")
     with pytest.raises(MXNetError, match="local"):
         kv.set_gradient_compression({"type": "2bit", "threshold": 0.5})

@@ -183,8 +183,11 @@ def test_dump_optimizer_files(tmp_path):
 
 
 def test_optimizer_refusals():
-    with pytest.raises(MXNetError, match="lr_scheduler"):
-        tmx.optimizer.SGD(lr_scheduler=object())
+    # a scheduler is taken now (its base_lr set from learning_rate, as the
+    # reference's): only optimizers not yet ported are refused
+    sched = tmx.lr_scheduler.FactorScheduler(step=1, factor=0.5)
+    opt = tmx.optimizer.SGD(learning_rate=0.5, lr_scheduler=sched)
+    assert sched.base_lr == 0.5 and opt.learning_rate == 0.5
     with pytest.raises(MXNetError, match="not ported"):
         tmx.optimizer.create("ftml")
     opt = tmx.optimizer.create("SGD", learning_rate=0.5)
