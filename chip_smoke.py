@@ -120,6 +120,26 @@ toolkit (``nvcc``) and PyTorch built for CUDA.  Phases, one JSON line each:
               BatchNorm node a step) against its CPU run.  Images/s, step
               ms, the executor's host ms a forward, a profiled step's
               device time and idle share, peak memory, the metrics.
+13. gluon_hybrid — the rest of the Gluon surface: ``inception_v3(
+              classes=1000, layout="NHWC")`` (Xavier magnitude 2),
+              ``cast("bfloat16")``, ``hybridize()`` (each call replays
+              two captured CUDA graphs), ``Trainer("sgd", lr 0.1,
+              momentum 0.9, wd 1e-4, multi_precision)`` and
+              ``SoftmaxCrossEntropyLoss`` on one B=128 batch of 299x299
+              images kept on the card: ten hybridized steps, then ten
+              eager ones (``hybridize(False)``); step ms, images/s, a
+              profiled step's idle share and its 94 + 94 BatchNorm
+              launches by kernel name, peak memory, each way.  Checks:
+              (a) a captured program bitwise against the same program
+              uncaptured on the card (outputs, gradients, running
+              statistics; f32, cuDNN deterministic) and one bf16 step of
+              the cast check net; (b) ``uniform`` bits and a ``Dropout``
+              mask card = CPU bitwise, the kept fraction binomial; (c) the
+              repeated batch's loss falls, no NaN; (d) ``load_parameters``
+              on a hybridized net is seen; (e) ``export`` +
+              ``SymbolBlock.imports`` reproduce the hybridized net's
+              output; (f) ``gluon.nn.LayerNorm`` on the card launches the
+              LayerNorm kernel.
 
 Every ResNet phase also requires that the BatchNorm op copied no
 non-contiguous input (``batch_norm.noncontiguous_copies`` stays 0).
@@ -127,7 +147,8 @@ non-contiguous input (``batch_norm.noncontiguous_copies`` stays 0).
 An optional comma-separated argument (``kernels``, ``model``,
 ``training``, ``serving``, ``serving_default``, ``serving_int8`` — which
 also runs ``serving``, its float baseline — ``resnet_training``,
-``resnet_compressed``, ``gluon_training``, ``module_fit``, and
+``resnet_compressed``, ``gluon_training``, ``module_fit``,
+``gluon_hybrid``, and
 ``profile``, ``profile_training`` and ``profile_resnet``, which are not in
 the default run: the serving window, or two bf16 LM or ResNet training
 steps, once more under ``torch.profiler``)
@@ -221,6 +242,11 @@ FIT_BATCHES, FIT_LR, FIT_MOMENTUM = 12, 0.05, 0.9
 FIT_LR_STEPS, FIT_LR_FACTOR = (8,), 0.1
 CIFAR_BATCH = 16
 NHWC_BATCH, NHWC_BATCHES, NHWC_HW, NHWC_C, NHWC_UNITS = 32, 3, 56, 256, 3
+# gluon_hybrid: Inception v3 at its published input, B=128, one BatchNorm
+# per conv unit (94); the capture check net's batch; the export round
+# trip's tolerance, relative to the output's largest magnitude
+GH_BATCH, GH_HW, GH_CLASSES, GH_STEPS, GH_BN = 128, 299, 1000, 10, 94
+GH_CHECK_BATCH = 8
 
 
 def emit(obj) -> None:
@@ -1884,11 +1910,13 @@ def phase_training(dev, cfg, params):
     return res
 
 
-def _profiled(fn):
+def _profiled(fn, families=()):
     """Run ``fn`` under ``torch.profiler``: wall time, device busy time
     (the union of kernel intervals), the idle share, device time by kernel
-    name, and by autograd backward node.  The profiler slows the host, so
-    the wall time is not an unprofiled run's."""
+    name, and by autograd backward node; with ``families``, the launches
+    and names of the kernel functions whose names contain each.  The
+    profiler slows the host, so the wall time is not an unprofiled
+    run's."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1929,14 +1957,20 @@ def _profiled(fn):
             if us is None:
                 us = e.cuda_time_total
             nodes[e.key.split(": ", 1)[1]] = us / 1e3
-    return {"wall_s": wall, "kernels": len(kernels),
-            "device_busy_s": busy_us / 1e6,
-            "idle_share": 1.0 - busy_us / 1e6 / wall,
-            "top": [{"name": n[:80], "count": c, "ms": us / 1e3}
-                    for n, (c, us) in top],
-            "port_kernels_ms": ours,
-            "backward_nodes_ms": dict(sorted(nodes.items(),
-                                             key=lambda kv: -kv[1])[:10])}
+    out = {"wall_s": wall, "kernels": len(kernels),
+           "device_busy_s": busy_us / 1e6,
+           "idle_share": 1.0 - busy_us / 1e6 / wall,
+           "top": [{"name": n[:80], "count": c, "ms": us / 1e3}
+                   for n, (c, us) in top],
+           "port_kernels_ms": ours,
+           "backward_nodes_ms": dict(sorted(nodes.items(),
+                                            key=lambda kv: -kv[1])[:10])}
+    if families:
+        out["families"] = {f: sum(c for n, (c, _) in by_name.items()
+                                  if f in n) for f in families}
+        out["family_names"] = {f: sorted(n for n in by_name if f in n)
+                               for f in families}
+    return out
 
 
 def _device_ms(fn):
@@ -3469,6 +3503,432 @@ def phase_module_fit(dev):
     return res
 
 
+# -- phase 13: gluon_hybrid -----------------------------------------------------------------
+
+def _gh_check_net(mx, layout="NHWC"):
+    """The capture check net: conv-BN-relu units, a concat fan-out with
+    asymmetric 1x7/7x1 kernels and a padded ``AvgPool2D(3, 1, 1)``
+    branch, ``MaxPool2D``, ``Dropout(0.3)``, ``Dense(10)``."""
+    nn = mx.gluon.nn
+    ax = -1 if layout == "NHWC" else 1
+
+    def unit(ch, k, p=0):
+        u = nn.HybridSequential(prefix="")
+        u.add(nn.Conv2D(ch, k, 1, p, use_bias=False, layout=layout),
+              nn.BatchNorm(axis=ax, epsilon=1e-3), nn.Activation("relu"))
+        return u
+
+    net = nn.HybridSequential(prefix="check_")
+    with net.name_scope():
+        net.add(unit(32, 3, 1))
+        cat = nn.HybridConcatenate(axis=ax)
+        b2 = nn.HybridSequential(prefix="")
+        b2.add(unit(32, 1), unit(32, (1, 7), (0, 3)),
+               unit(48, (7, 1), (3, 0)))
+        b3 = nn.HybridSequential(prefix="")
+        b3.add(nn.AvgPool2D(3, 1, 1, layout=layout), unit(32, 1))
+        cat.add(unit(64, 1), b2, b3)
+        net.add(cat, nn.MaxPool2D(2, 2, layout=layout), nn.Dropout(0.3),
+                nn.Flatten(), nn.Dense(10))
+    return net
+
+
+def _gh_state(net):
+    """Every parameter, gradient and running statistic, cloned."""
+    out = {}
+    for name, p in net.collect_params().items():
+        out[name] = p._tensor().detach().clone()
+        if p.grad_req != "null":
+            out[name + ".grad"] = p.grad()._data.detach().clone()
+    return out
+
+
+def _gh_capture_exact(dev):
+    """Check (a): from one stream state, the captured program (the API's
+    ``net(x)`` after ``hybridize()``) and the same pure program run
+    uncaptured on the card give bitwise-equal outputs, gradients and
+    running statistics (f32, cuDNN deterministic) over one sequence that
+    makes three captures of one program: a training-mode forward outside
+    ``record`` (capture A), a recorded siamese pair ``net(x) + net(x2)``
+    before one backward (capture B, then C while B waits for its
+    backward), and A replayed again, whose masks must come from its own
+    key table; then one hybridized ``Trainer`` step of the check net cast
+    to bf16 (multi_precision)."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, random as mxr
+    from mxnet_tpu_torch.gluon import cached_op
+
+    net = _gh_check_net(mx)
+    net.initialize(mx.init.Xavier(magnitude=2), ctx=dev,
+                   generator=torch.Generator(device=dev).manual_seed(SEED))
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    x = torch.randn(GH_CHECK_BATCH, 35, 35, 3, generator=g, device=dev)
+    with torch.no_grad(), autograd.pause():
+        net(x)                                   # deferred shapes
+    start = {n: p._tensor().detach().clone()
+             for n, p in net.collect_params().items()}
+    x2 = torch.randn(GH_CHECK_BATCH, 35, 35, 3, generator=g, device=dev)
+    net.hybridize()
+    base = mxr.prng_key(1234)
+    prog = cached_op.CachedProgram(net, ["__t__"], True)
+    results = {}
+    for captured in (True, False):
+        with torch.no_grad():
+            for n, p in net.collect_params().items():
+                p._tensor().copy_(start[n])
+        mxr.set_state(base)
+
+        def call(a):
+            if captured:
+                return net(mx.nd.array(a, ctx=dev))
+            # the same program uncaptured, with the call's one draw
+            return mx.nd.NDArray(prog([a], mxr.next_key(),
+                                      autograd.is_recording(),
+                                      capture=False))
+
+        outs = []
+        with autograd.train_mode():
+            outs.append(call(x))
+        with autograd.record():
+            outs += [call(x), call(x2)]
+            loss = outs[1].sum() + outs[2].sum()
+        loss.backward()
+        with autograd.train_mode():
+            outs.append(call(x))
+        torch.cuda.synchronize()
+        results[captured] = ([o._data.detach().clone() for o in outs],
+                             _gh_state(net))
+    (o_c, s_c), (o_u, s_u) = results[True], results[False]
+    diffs = {f"out{i}": float((a - b).abs().max())
+             for i, (a, b) in enumerate(zip(o_c, o_u))}
+    for k in s_c:
+        diffs[k] = float((s_c[k].float() - s_u[k].float()).abs().max())
+    bitwise = all(torch.equal(a, b) for a, b in zip(o_c, o_u)) and \
+        all(torch.equal(s_c[k], s_u[k]) for k in s_c)
+    captures = [len(c) for p in net._cached_ops.values()
+                for c in p._captures.values()]
+    moved = any(not torch.equal(s_c[n], start[n]) for n in start
+                if n.endswith("running_mean"))
+    net.cast("bfloat16")
+    net.hybridize()
+    tr = mx.gluon.Trainer(net.collect_params(), "sgd",
+                          {"learning_rate": 0.1, "momentum": 0.9,
+                           "multi_precision": True})
+    lf = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    y = mx.nd.array(torch.arange(GH_CHECK_BATCH, device=dev) % 10, ctx=dev)
+    with autograd.record():
+        L = lf(net(mx.nd.array(x, ctx=dev, dtype="bfloat16")), y)
+    L.backward()
+    tr.step(GH_CHECK_BATCH)
+    torch.cuda.synchronize()
+    return {"bitwise": bool(bitwise), "max_abs_diff": max(diffs.values()),
+            "tensors": len(diffs), "running_stats_moved": bool(moved),
+            "programs": len(net._cached_ops), "captures": captures,
+            "bf16_step_loss": float(L.astype("float32").mean().asscalar()),
+            "bf16_params_finite": all(
+                bool(torch.isfinite(p._tensor().float()).all())
+                for p in net.collect_params().values()),
+            "bf16_weight_dtype": str(
+                net.collect_params()["check_dense0_weight"]._tensor().dtype)}
+
+
+def _gh_masks(dev):
+    """Check (b): ``uniform`` bits and a ``Dropout`` mask for a fixed key
+    are the same on the card and on the CPU, bit for bit; the kept
+    fraction of a 10**6-element mask (p = 0.5) lies within 5 binomial
+    standard deviations."""
+    import torch
+
+    from mxnet_tpu_torch import random as mxr
+    from mxnet_tpu_torch.ops import nn as ops_nn, random_ops
+
+    n = 10 ** 6
+    key = mxr.prng_key(42)
+    u_card = random_ops.uniform01(mxr.key_tensor(key, dev), (n,)).cpu()
+    u_cpu = random_ops.uniform01(mxr.key_tensor(key, "cpu"), (n,))
+    ones = torch.ones(n)
+    m_card = ops_nn.dropout(ones.to(dev), rng_key=mxr.key_tensor(key, dev),
+                            p=0.5).cpu()
+    m_cpu = ops_nn.dropout(ones, rng_key=mxr.key_tensor(key, "cpu"), p=0.5)
+    kept = int((m_card != 0).sum())
+    sd = (n * 0.25) ** 0.5
+    return {"uniform_bitwise": bool(torch.equal(u_card.view(torch.int32),
+                                                u_cpu.view(torch.int32))),
+            "mask_bitwise": bool(torch.equal(m_card, m_cpu)),
+            "kept": kept, "kept_sd": (kept - n / 2) / sd,
+            "within_5sd": abs(kept - n / 2) <= 5 * sd}
+
+
+def _gh_reload(dev, tmp):
+    """Check (d): after ``load_parameters`` on a hybridized net (its
+    program captured), the next call uses the loaded values: its output
+    equals a second net's, eager, whose parameters the file holds."""
+    import os
+
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    x = torch.randn(GH_CHECK_BATCH, 35, 35, 3, generator=g, device=dev)
+    nets = []
+    for seed in (SEED, SEED + 7):
+        net = _gh_check_net(mx)
+        net.initialize(mx.init.Xavier(magnitude=2), ctx=dev,
+                       generator=torch.Generator(device=dev).manual_seed(
+                           seed))
+        with torch.no_grad(), autograd.pause():
+            net(x)
+        nets.append(net)
+    a, b = nets
+    a.hybridize()
+    xs = mx.nd.array(x, ctx=dev)
+    before = a(xs)._data.clone()
+    path = os.path.join(tmp, "gh_reload.params")
+    b.save_parameters(path)
+    a.load_parameters(path, ctx=dev)
+    after = a(xs)._data
+    want = b(xs)._data
+    return {"changed": not torch.equal(before, after),
+            "max_abs_err": float((after - want).abs().max()),
+            "bitwise": bool(torch.equal(after, want))}
+
+
+def _gh_export(dev, net, x, tmp):
+    """Check (e): ``export`` and ``SymbolBlock.imports`` reproduce the
+    hybridized (bf16) net's inference output on the card bit for bit (the
+    executor runs the same ops in the same order); the largest absolute
+    difference is reported against the output's scale."""
+    import os
+
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    prefix = os.path.join(tmp, "gh_inception")
+    xs = mx.nd.array(x, ctx=dev)
+    ref = net(xs)._data.float()
+    net.export(prefix)
+    blk = mx.gluon.SymbolBlock.imports(prefix + "-symbol.json", ["data"],
+                                       prefix + "-0000.params", ctx=dev)
+    got = blk(xs)._data.float()
+    scale = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    return {"max_abs_err": err, "out_abs_max": scale,
+            "rel_err": err / max(scale, 1e-30),
+            "bitwise": bool(torch.equal(got, ref)),
+            "symbol_bytes": os.path.getsize(prefix + "-symbol.json")}
+
+
+def _gh_layer_norm(dev):
+    """Check (f): ``gluon.nn.LayerNorm`` on a CUDA tensor (the serving
+    decode shape, 8 x 768, f32) launches the LayerNorm kernel: the
+    wrapper counts one launch a call, and the profiler (``_launched``, 20
+    calls between two matmuls a session) sees ``layer_norm_kernel`` and
+    no other LayerNorm function; its output agrees with the plain
+    version."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops.layer_norm import (layer_norm_fused,
+                                                layer_norm_reference)
+
+    ln = mx.gluon.nn.LayerNorm(in_channels=768)
+    ln.initialize(ctx=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    x = torch.randn(8, 768, generator=g, device=dev)
+    lead = torch.randn(256, 256, generator=g, device=dev)
+    calls = 20
+
+    def session():
+        with torch.no_grad():
+            lead @ lead
+            for _ in range(calls):
+                ln(x)
+            lead @ lead
+
+    with torch.no_grad():
+        got = ln(x)
+        want = layer_norm_reference(x, ln.gamma._tensor(), ln.beta._tensor())
+    before = layer_norm_fused.launches
+    names, sessions = _launched(session, "layer_norm")
+    counted = layer_norm_fused.launches - before
+    return {"max_abs_err": float((got - want).abs().max()),
+            "functions": names, "sessions": sessions, "counted": counted,
+            "routed": counted == calls * sessions
+            and _routed(names, ("layer_norm_kernel",))[0]}
+
+
+def _gh_train(dev, net, trainer, loss_fn, x, y, steps):
+    """``steps`` Trainer steps on the one batch: losses (f32 mean), host
+    wall ms each (ending in a sync)."""
+    import torch
+
+    from mxnet_tpu_torch import autograd
+
+    losses, ms = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with autograd.record():
+            L = loss_fn(net(x), y)
+        L.backward()
+        trainer.step(x.shape[0])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(L.astype("float32").mean().asscalar()))
+    return losses, ms
+
+
+def phase_gluon_hybrid(dev):
+    """The rest of the Gluon surface on the card: ``inception_v3(classes=
+    1000, layout="NHWC")`` (Xavier magnitude 2 from seed 0, one eager
+    forward for the deferred shapes), ``cast("bfloat16")``,
+    ``hybridize()``, ``Trainer("sgd", lr 0.1, momentum 0.9, wd 1e-4,
+    multi_precision)`` with ``SoftmaxCrossEntropyLoss``, one batch of
+    B=128 random 299x299x3 images kept on the card: ten hybridized steps
+    (captured CUDA graphs), then ten eager steps of the same net
+    (``hybridize(False)``).  Numbers: step ms and images/s (median of
+    steps 2-10), a profiled step's idle share and its BatchNorm stats and
+    normalize launches by kernel name, peak memory, each way; the
+    wrappers' counts over the ten steps, which on the hybridized run are
+    the two warm-ups and the replays of each capture (94 + 94 each).
+    Checks (a)-(f): ``_gh_capture_exact``, ``_gh_masks``, the losses
+    falling without NaN, ``_gh_reload``, ``_gh_export``,
+    ``_gh_layer_norm``."""
+    import gc
+    import tempfile
+
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon.model_zoo.vision import inception_v3
+
+    bad = []
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        capture = _gh_capture_exact(dev)
+        gc.collect()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = det
+    if not capture["bitwise"]:
+        bad.append(f"(a) captured and uncaptured programs differ "
+                   f"({capture['max_abs_diff']})")
+    if capture["captures"] != [1, 2]:
+        bad.append(f"(a) captures per signature {capture['captures']}, "
+                   f"want [1, 2] (inference-mode A; B and C)")
+    if not capture["running_stats_moved"]:
+        bad.append("(a) the running statistics were not committed")
+    if not (capture["bf16_params_finite"]
+            and capture["bf16_weight_dtype"] == "torch.bfloat16"):
+        bad.append(f"(a) the bf16 step: {capture}")
+    masks = _gh_masks(dev)
+    if not (masks["uniform_bitwise"] and masks["mask_bitwise"]
+            and masks["within_5sd"]):
+        bad.append(f"(b) masks: {masks}")
+    ln = _gh_layer_norm(dev)
+    tmp = tempfile.mkdtemp(prefix="gh_", dir="build")
+    reload = _gh_reload(dev, tmp)
+    if not (reload["changed"] and reload["max_abs_err"] <= 1e-5):
+        bad.append(f"(d) load_parameters: {reload}")
+    gc.collect()
+
+    net = inception_v3(classes=GH_CLASSES, layout="NHWC")
+    net.initialize(mx.init.Xavier(magnitude=2), ctx=dev,
+                   generator=torch.Generator(device=dev).manual_seed(SEED))
+    with torch.no_grad(), autograd.pause():
+        net(torch.zeros(2, GH_HW, GH_HW, 3, device=dev))
+    net.cast("bfloat16")
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    x = mx.nd.NDArray(torch.randn(GH_BATCH, GH_HW, GH_HW, 3, generator=g,
+                                  device=dev).to(torch.bfloat16))
+    y = mx.nd.NDArray(torch.randint(0, GH_CLASSES, (GH_BATCH,), generator=g,
+                                    device=dev).float())
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.1, "momentum": 0.9,
+                                "wd": 1e-4, "multi_precision": True})
+    runs = {}
+    for mode in ("hybridized", "eager"):
+        net.hybridize(mode == "hybridized")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        losses, ms = _gh_train(dev, net, trainer, loss_fn, x, y, GH_STEPS)
+        launches = _read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        captures = sum(len(c) for p in net._cached_ops.values()
+                       for c in p._captures.values())
+        prof = _profiled(
+            lambda: _gh_train(dev, net, trainer, loss_fn, x, y, 1),
+            families=("bn_stats_partial", "bn_normalize"))
+        step = float(np.median(ms[1:]))
+        runs[mode] = {"losses": losses, "step_ms": ms,
+                      "step_ms_median": step,
+                      "images_per_s": GH_BATCH / step * 1e3,
+                      "peak_bytes": peak,
+                      "profiled": {k: prof[k] for k in (
+                          "wall_s", "kernels", "device_busy_s",
+                          "idle_share", "top", "port_kernels_ms")},
+                      "bn_launches_per_step": {
+                          "stats": prof["families"]["bn_stats_partial"],
+                          "normalize": prof["families"]["bn_normalize"]},
+                      "launches": launches, "captures": captures}
+        if mode == "hybridized":
+            runs[mode]["programs"] = len(net._cached_ops)
+    if not ln["routed"] or \
+            ln["max_abs_err"] > TOL["float32"]["atol"] * 10:
+        bad.append(f"(f) LayerNorm: {ln}")
+    ls = runs["hybridized"]["losses"]
+    if not min(ls[1:4]) < ls[0]:
+        bad.append(f"(c) the first updates did not lower the loss: {ls}")
+    for mode, r in runs.items():
+        if not all(np.isfinite(r["losses"])):
+            bad.append(f"(c) {mode} losses {r['losses']}")
+        if not (r["launches"]["bn_stats"] and r["launches"]["bn_normalize"]):
+            bad.append(f"{mode}: a BatchNorm kernel never launched")
+        want = GH_BN * (GH_STEPS + 2 * r["captures"])
+        if (r["launches"]["bn_stats"], r["launches"]["bn_normalize"]) != \
+                (want, want):
+            bad.append(f"{mode}: counted BatchNorm launches "
+                       f"{r['launches']['bn_stats']} + "
+                       f"{r['launches']['bn_normalize']}, want {want} each "
+                       f"({r['captures']} captures)")
+        if r["bn_launches_per_step"] != {"stats": GH_BN, "normalize": GH_BN}:
+            bad.append(f"{mode}: BatchNorm launches a step "
+                       f"{r['bn_launches_per_step']}, want {GH_BN} + {GH_BN}")
+        if r["launches"]["bn_noncontiguous_copies"]:
+            bad.append(f"{mode}: BatchNorm copied non-contiguous input")
+    net.hybridize()
+    export = _gh_export(dev, net, x._data[:GH_CHECK_BATCH], tmp)
+    if not export["bitwise"]:
+        bad.append(f"(e) export round trip: {export}")
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                for k in runs["eager"]["launches"]}
+    res = {"phase": "gluon_hybrid",
+           "config": {"model": "inception_v3", "classes": GH_CLASSES,
+                      "layout": "NHWC", "image": [GH_HW, GH_HW, 3],
+                      "batch": GH_BATCH, "dtype": "bfloat16 (cast)",
+                      "optimizer": "sgd", "lr": 0.1, "momentum": 0.9,
+                      "wd": 1e-4, "multi_precision": True,
+                      "initializer": "Xavier(magnitude=2)"},
+           "capture_exact": capture, "masks": masks, "reload": reload,
+           "export": export, "layer_norm": ln, "runs": runs,
+           "launches": launches}
+    emit(res)
+    if bad:
+        raise SystemExit("gluon_hybrid phase failed: " + "; ".join(bad))
+    return res
+
+
 def phase_profile_resnet(dev):
     """Optional (not in the default run): two chained bf16 ResNet-50
     training steps of the ``resnet_training`` phase's main path under
@@ -3619,7 +4079,7 @@ def main(argv) -> int:
     phases = set(argv[1].split(",")) if len(argv) > 1 else {
         "kernels", "model", "training", "serving", "serving_default",
         "serving_int8", "resnet_training", "resnet_compressed",
-        "gluon_training", "module_fit"}
+        "gluon_training", "module_fit", "gluon_hybrid"}
     if "serving_int8" in phases:
         phases.add("serving")   # its float baseline
     t_start = time.perf_counter()
@@ -3656,6 +4116,8 @@ def main(argv) -> int:
         runs["gluon_training"] = phase_gluon_training(dev)
     if "module_fit" in phases:
         runs["module_fit"] = phase_module_fit(dev)
+    if "gluon_hybrid" in phases:
+        runs["gluon_hybrid"] = phase_gluon_hybrid(dev)
     if "profile_resnet" in phases:
         phase_profile_resnet(dev)
     if kern is not None and runs:

@@ -24,7 +24,8 @@ context) unless the caller passes the CPU (``ctx=mx.cpu()``,
 """
 from . import (attribute, autograd, base, callback, context, executor, gluon,
                initializer, io, kvstore, lr_scheduler, metric, model, module,
-               name, ndarray, ops, optimizer, parallel, serving, symbol)
+               name, ndarray, ops, optimizer, parallel, random, serving,
+               symbol)
 from . import initializer as init
 from . import kvstore as kv
 from . import module as mod
@@ -37,6 +38,8 @@ from .base import MXNetError
 from .context import (Context, cpu, current_context, gpu, num_devices,
                       resolve_device, tpu)
 
+random._install_samplers()
+
 __version__ = "0.1.0"
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "current_context",
@@ -44,5 +47,5 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "current_context",
            "callback", "context", "executor", "gluon", "init", "initializer",
            "io", "kv", "kvstore", "lr_scheduler", "metric", "mod", "model",
            "module", "Module", "name", "nd", "ndarray", "ops", "optimizer",
-           "parallel", "serving", "sym", "symbol", "Symbol",
+           "parallel", "random", "serving", "sym", "symbol", "Symbol",
            "save_checkpoint", "load_checkpoint"]

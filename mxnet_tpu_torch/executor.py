@@ -27,6 +27,10 @@ as the executor's host ms a forward.
   parameter.  Gradient buffers are allocated like their weights
   (``zeros_like``), so the ``_foreach`` pass meets one memory layout and
   stays multi-tensor.
+- Random nodes (``Dropout``): each forward draws one key from the stream
+  (``mxnet_tpu_torch.random``) and a random node takes ``fold_in(key,
+  node uid)``, as the reference's ``trace``; ``fused_step`` draws one a
+  call and folds in the step index when it runs several.
 
 Not ported, each refused with ``MXNetError``: ``set_spmd`` and
 ``group2ctx`` placement (ROADMAP.md, Queue 1, item 5), loss scaling and
@@ -38,8 +42,9 @@ from typing import Dict, List, Optional
 
 import torch
 
+from . import random as _random
 from .base import MXNetError
-from .context import Context
+from .context import Context, resolve_device
 from .ndarray.ndarray import NDArray
 from .symbol.graph import release_plan, topo_order, trace
 
@@ -84,6 +89,7 @@ class Executor:
         self._graph = None          # (outputs, leaves) of a training forward
         self._cached_grads: Optional[Dict[str, torch.Tensor]] = None
         self._forwarded = False
+        self._last_rng = None
         self._monitor_callback = None
         self._grad_arg_names = sorted(
             n for n in self._arg_names if self.grad_req.get(n, "null") != "null"
@@ -127,8 +133,10 @@ class Executor:
                 raise MXNetError(f"forward: unknown argument {k!r}")
             self.arg_dict[k]._data = _as_tensor(v, self.arg_dict[k]._data)
 
-    def _run(self, is_train: bool, with_grad: bool, collect_aux: bool):
-        """Evaluate the graph: (outputs, aux updates, leaves)."""
+    def _run(self, is_train: bool, with_grad: bool, collect_aux: bool,
+             rng=None):
+        """Evaluate the graph: (outputs, aux updates, leaves); random
+        nodes fold their uids into ``rng``."""
         env = {n: self.arg_dict[n]._data for n in self._arg_names}
         env.update((n, self.aux_dict[n]._data) for n in self._aux_names)
         leaves = {}
@@ -140,7 +148,8 @@ class Executor:
         with torch.set_grad_enabled(with_grad):
             outs = trace(self._symbol._entries, env, is_train,
                          aux_updates if collect_aux else None,
-                         self._order, self._release)
+                         self._order, self._release, rng,
+                         resolve_device(self._ctx))
         return outs, aux_updates, leaves
 
     def _commit_aux(self, aux_updates) -> None:
@@ -159,8 +168,12 @@ class Executor:
         self._graph = None
         self._cached_grads = None
         with_grad = bool(is_train and self._grad_arg_names)
+        # one key per forward, as the reference's; a backward that must
+        # evaluate again reuses it
+        self._last_rng = _random.next_key()
         outs, aux_updates, leaves = self._run(is_train, with_grad,
-                                              collect_aux=is_train)
+                                              collect_aux=is_train,
+                                              rng=self._last_rng)
         if with_grad:
             self._graph = (outs, leaves)
         self._forwarded = True
@@ -204,7 +217,8 @@ class Executor:
                 outs, leaves = self._graph
                 self._graph = None
             else:   # the graph went with an earlier backward: evaluate again
-                outs, _, leaves = self._run(True, True, collect_aux=False)
+                outs, _, leaves = self._run(True, True, collect_aux=False,
+                                            rng=self._last_rng)
             cts = [_as_tensor(g, o) for g, o in zip(out_grads, outs)]
             grads = self._grads(outs, leaves, cts)
         self._write_grads(grads)
@@ -253,10 +267,13 @@ class Executor:
         weights = [self.arg_dict[n] for n in unames]
         grads = [self.grad_dict[n] for n in unames]
         sts = [states[n] for n in unames]
-        for _ in range(max(1, int(num_steps or 1))):
+        steps = max(1, int(num_steps or 1))
+        rng = _random.next_key()
+        for step in range(steps):
             self._graph = None
-            outs, aux_updates, leaves = self._run(True, True,
-                                                  collect_aux=True)
+            outs, aux_updates, leaves = self._run(
+                True, True, collect_aux=True,
+                rng=_random.fold(rng, step) if steps > 1 else rng)
             self._cached_grads = self._grads(
                 outs, leaves, [_ones_cotangent(o) for o in outs])
             self._write_grads(self._cached_grads)

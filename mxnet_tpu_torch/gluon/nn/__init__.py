@@ -1,4 +1,5 @@
-"""gluon.nn: the layers the ResNet family needs (PyTorch counterpart of
+"""gluon.nn: the 2-D layers, activations, normalizations, Dropout,
+Embedding and the container and lambda blocks (PyTorch counterpart of
 ``mxnet_tpu/gluon/nn/``)."""
 from .activations import *  # noqa: F401,F403
 from .basic_layers import *  # noqa: F401,F403

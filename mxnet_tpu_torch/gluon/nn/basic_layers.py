@@ -1,13 +1,16 @@
 """Basic Gluon layers (PyTorch counterpart of
 ``mxnet_tpu/gluon/nn/basic_layers.py``: Sequential, HybridSequential,
-Dense, BatchNorm, Flatten)."""
+Dense, Dropout, BatchNorm, Embedding, Flatten, InstanceNorm, LayerNorm,
+Lambda, HybridLambda, HybridConcatenate, Concatenate, Identity)."""
 from __future__ import annotations
 
 from ... import autograd
 from ... import initializer as init_mod
 from ..block import Block, HybridBlock
 
-__all__ = ["Sequential", "HybridSequential", "Dense", "BatchNorm", "Flatten"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
+           "Embedding", "Flatten", "InstanceNorm", "LayerNorm", "Lambda",
+           "HybridLambda", "HybridConcatenate", "Concatenate", "Identity"]
 
 
 def _init_of(spec):
@@ -99,7 +102,9 @@ class Dense(HybridBlock):
         return (self._units, in_units)
 
     def hybrid_forward(self, F, x, weight, bias=None):
-        out = F.FullyConnected(x, weight, bias, num_hidden=self._units,
+        out = F.FullyConnected(x, weight,
+                               *([bias] if bias is not None else []),
+                               num_hidden=self._units,
                                no_bias=bias is None, flatten=self._flatten)
         if self._activation is not None:
             out = F.Activation(out, act_type=self._activation)
@@ -144,6 +149,11 @@ class BatchNorm(HybridBlock):
     def _param_shape(self, param, args):
         return (args[0].shape[self._axis],)
 
+    def cast(self, dtype):
+        if dtype in ("float16", "bfloat16"):
+            dtype = "float32"   # the statistics stay f32, as the reference
+        super().cast(dtype)
+
     def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
         if autograd.is_training() and not self._use_global_stats:
             out, mean, var = F.BatchNorm(
@@ -165,6 +175,148 @@ class BatchNorm(HybridBlock):
                            output_mean_var=False, axis=self._axis)
 
 
+class Dropout(HybridBlock):
+    """``F.Dropout(x, p=rate, axes=axes)``: one key from the stream per
+    call, in inference too; the identity for ``rate == 0``."""
+
+    def __init__(self, rate, axes=(), **kwargs):
+        super().__init__(**kwargs)
+        self._rate = rate
+        self._axes = axes
+
+    def hybrid_forward(self, F, x):
+        if self._rate > 0:
+            return F.Dropout(x, p=self._rate, axes=self._axes)
+        return x
+
+
+class Embedding(HybridBlock):
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, sparse_grad=False, **kwargs):
+        super().__init__(**kwargs)
+        self._input_dim = input_dim
+        self._output_dim = output_dim
+        with self.name_scope():
+            self.weight = self.params.get(
+                "weight", shape=(input_dim, output_dim),
+                init=weight_initializer, dtype=dtype,
+                grad_stype="row_sparse" if sparse_grad else "default")
+
+    def hybrid_forward(self, F, x, weight):
+        return F.Embedding(x, weight, input_dim=self._input_dim,
+                           output_dim=self._output_dim)
+
+
 class Flatten(HybridBlock):
     def hybrid_forward(self, F, x):
         return F.flatten(x)
+
+
+class InstanceNorm(HybridBlock):
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._epsilon = epsilon
+        self._axis = axis
+        ch = in_channels if in_channels else 0
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null", shape=(ch,),
+                init=_init_of(gamma_initializer), allow_deferred_init=True)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null", shape=(ch,),
+                init=_init_of(beta_initializer), allow_deferred_init=True)
+
+    def _param_shape(self, param, args):
+        return (args[0].shape[self._axis],)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        if self._axis == 1:
+            return F.InstanceNorm(x, gamma, beta, eps=self._epsilon)
+        x = F.swapaxes(x, dim1=1, dim2=self._axis)
+        out = F.InstanceNorm(x, gamma, beta, eps=self._epsilon)
+        return F.swapaxes(out, dim1=1, dim2=self._axis)
+
+
+class LayerNorm(HybridBlock):
+    """LayerNorm over ``axis``; over the last axis of a CUDA tensor the
+    op runs the fused LayerNorm kernel (``ops.layer_norm``)."""
+
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._axis = axis
+        self._epsilon = epsilon
+        ch = in_channels if in_channels else 0
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null", shape=(ch,),
+                init=_init_of(gamma_initializer), allow_deferred_init=True)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null", shape=(ch,),
+                init=_init_of(beta_initializer), allow_deferred_init=True)
+
+    def _param_shape(self, param, args):
+        return (args[0].shape[self._axis],)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.LayerNorm(x, gamma, beta, axis=self._axis,
+                           eps=self._epsilon)
+
+
+class Lambda(Block):
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            from ... import ndarray as nd
+
+            function = getattr(nd, function)
+        self._func = function
+
+    def forward(self, *args):
+        return self._func(*args)
+
+
+class HybridLambda(HybridBlock):
+    """``function(F, *args)``, or the ``F`` op named by a string."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            self._func_name = function
+            function = None
+        else:
+            self._func_name = getattr(function, "__name__", "custom")
+        self._func = function
+
+    def hybrid_forward(self, F, *args):
+        if self._func is not None:
+            return self._func(F, *args)
+        return getattr(F, self._func_name)(*args)
+
+
+class HybridConcatenate(HybridBlock):
+    """The children's outputs on one input, concatenated along ``axis``."""
+
+    def __init__(self, axis=-1, **kwargs):
+        super().__init__(**kwargs)
+        self.axis = axis
+
+    def add(self, *blocks):
+        for b in blocks:
+            self.register_child(b)
+
+    def hybrid_forward(self, F, x):
+        outs = [block(x) for block in self._children.values()]
+        return F.concat(*outs, dim=self.axis)
+
+
+class Concatenate(HybridConcatenate):
+    pass
+
+
+class Identity(HybridBlock):
+    def hybrid_forward(self, F, x):
+        return x

@@ -1,14 +1,15 @@
 """2-D convolution and pooling Gluon layers (PyTorch counterpart of
-``mxnet_tpu/gluon/nn/conv_layers.py``: Conv2D, MaxPool2D, GlobalAvgPool2D;
-the other pooling layers, other dimensionalities and transposed
-convolutions come later)."""
+``mxnet_tpu/gluon/nn/conv_layers.py``: Conv2D, MaxPool2D, AvgPool2D,
+GlobalMaxPool2D, GlobalAvgPool2D; other dimensionalities and transposed
+convolutions are ROADMAP.md Queue 1, item 2)."""
 from __future__ import annotations
 
 from ...ops.nn import is_channels_last
 from ..block import HybridBlock
 from .basic_layers import _init_of
 
-__all__ = ["Conv2D", "MaxPool2D", "GlobalAvgPool2D"]
+__all__ = ["Conv2D", "MaxPool2D", "AvgPool2D", "GlobalMaxPool2D",
+           "GlobalAvgPool2D"]
 
 
 def _tuple(v, n):
@@ -64,7 +65,8 @@ class _Conv(HybridBlock):
             kw["layout"] = self._layout
             weight = F.transpose(
                 weight, axes=(0,) + tuple(range(2, 2 + self._ndim)) + (1,))
-        out = F.Convolution(x, weight, bias, **kw)
+        out = F.Convolution(x, weight,
+                            *([bias] if bias is not None else []), **kw)
         if self._activation is not None:
             out = F.Activation(out, act_type=self._activation)
         return out
@@ -106,6 +108,23 @@ class MaxPool2D(_Pooling):
         super().__init__(_tuple(pool_size, 2),
                          _tuple(strides, 2) if strides is not None else None,
                          _tuple(padding, 2), ceil_mode, False, "max",
+                         layout=layout, **kwargs)
+
+
+class AvgPool2D(_Pooling):
+    def __init__(self, pool_size=(2, 2), strides=None, padding=0,
+                 layout="NCHW", ceil_mode=False, count_include_pad=True,
+                 **kwargs):
+        super().__init__(_tuple(pool_size, 2),
+                         _tuple(strides, 2) if strides is not None else None,
+                         _tuple(padding, 2), ceil_mode, False, "avg",
+                         count_include_pad=count_include_pad, layout=layout,
+                         **kwargs)
+
+
+class GlobalMaxPool2D(_Pooling):
+    def __init__(self, layout="NCHW", **kwargs):
+        super().__init__((1, 1), None, (0, 0), True, True, "max",
                          layout=layout, **kwargs)
 
 

@@ -2,7 +2,8 @@
 
 PyTorch counterpart of ``mxnet_tpu/gluon/parameter.py``: a ``Parameter``
 with a deferred shape, ``grad_req`` and ``data()``/``grad()``, and a
-``ParameterDict`` with prefix scoping and sharing.
+``ParameterDict`` with prefix scoping and sharing; ``cast`` and the
+symbolic variable ``var()``.
 
 A Parameter's tensor is an ``nn.Parameter`` (``requires_grad`` unless
 ``grad_req == "null"``) registered on every block that holds it as an
@@ -80,6 +81,7 @@ class Parameter:
         self._deferred_init = None
         self._ctx_list = []
         self._owners = []   # (block, attribute name)
+        self._symvar = None
 
     def __repr__(self):
         return (f"Parameter {self.name} (shape={self.shape}, "
@@ -228,6 +230,29 @@ class Parameter:
         writes[self.name] = value
         for block, attr in self._owners:
             block._parameters[attr] = value
+
+    def cast(self, dtype):
+        """Cast to ``dtype``: a new tensor (and a new zero gradient buffer)
+        of the cast values, registered on every owner; a captured program
+        that held the old storage is built again."""
+        self._symvar = None
+        self.dtype = dtype
+        if self._var is not None:
+            self._set_var(torch.nn.Parameter(
+                self._var.detach().to(torch_dtype(dtype)),
+                requires_grad=self._grad_req != "null"))
+
+    def var(self):
+        """The parameter's ``Symbol`` variable (full name, shape, dtype,
+        ``lr_mult``/``wd_mult``), cached so a shared block contributes one
+        node (reference: ``Parameter.var``)."""
+        if getattr(self, "_symvar", None) is None:
+            from .. import symbol as sym
+
+            self._symvar = sym.var(self.name, shape=self.shape,
+                                   dtype=self.dtype, lr_mult=self.lr_mult,
+                                   wd_mult=self.wd_mult)
+        return self._symvar
 
     def grad(self, ctx=None) -> NDArray:
         """The gradient ``NDArray`` that ``autograd.backward`` writes

@@ -26,12 +26,14 @@ import torch
 
 from .. import autograd
 from ..base import MXNetError, dtype_name, torch_dtype
-from ..ops import nn as _nn, tensor as _tensor  # noqa: F401  (registers)
+from ..ops import (nn as _nn, random_ops as _random_ops,  # noqa: F401
+                   tensor as _tensor)   # (registers)
 from ..ops.registry import OP_REGISTRY
-from .ndarray import NDArray, _device, array, invoke, waitall
+from .ndarray import NDArray, _device, array, invoke, rng_kwargs, waitall
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
-           "eye", "save", "load", "waitall", "invoke"] + sorted(OP_REGISTRY)
+           "eye", "save", "load", "waitall", "invoke", "random"] + \
+    sorted(OP_REGISTRY)
 
 
 # ---------------------------------------------------------------------------
@@ -100,6 +102,9 @@ def _make_wrapper(opname):
         if out is None and not _has_nd(args):
             if takes_training:
                 kwargs.setdefault("_training", autograd.is_training())
+            if op.rng:
+                rng_kwargs([a for a in args if isinstance(a, torch.Tensor)],
+                           kwargs)
             return op.fn(*args, **kwargs)
         inputs, dev = [], None
         for a in args:
@@ -134,6 +139,8 @@ _this = sys.modules[__name__]   # not "_mod": that is an op's name
 for _name in list(OP_REGISTRY):
     setattr(_this, _name, _make_wrapper(_name))
 del _this, _name
+
+from . import random  # noqa: E402  (mx.nd.random, after the ops)
 
 add = broadcast_add                # noqa: F821 (generated above)
 subtract = broadcast_sub           # noqa: F821

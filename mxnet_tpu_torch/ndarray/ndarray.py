@@ -519,6 +519,20 @@ def _recording() -> bool:
 # op dispatch (reference: Imperative::Invoke)
 # ---------------------------------------------------------------------------
 
+def rng_kwargs(vals, kwargs) -> None:
+    """A random op's key: one draw from the stream (reference: ``invoke``
+    draws ``next_key()`` for every rng op), as a tensor on the first
+    input's device, or on ``ctx`` (default: the current context) for an op
+    without inputs."""
+    from .. import random as _random
+
+    ctx = kwargs.pop("ctx", None)
+    if "rng_key" in kwargs:
+        return
+    dev = vals[0].device if vals else _device(ctx)
+    kwargs["rng_key"] = _random.key_tensor(_random.next_key(), dev)
+
+
 def invoke(op: Op, inputs: Sequence[NDArray], attrs: dict, out=None):
     """Run ``op`` on the inputs' tensors, building a graph only under
     ``autograd.record()``; wrap the results (each of its own storage), or
@@ -529,6 +543,8 @@ def invoke(op: Op, inputs: Sequence[NDArray], attrs: dict, out=None):
     kwargs = dict(attrs)
     if _accepts_training(op):
         kwargs.setdefault("_training", autograd.is_training())
+    if op.rng:
+        rng_kwargs(vals, kwargs)
     try:
         with torch.set_grad_enabled(autograd.is_recording()):
             result = op.fn(*vals, **kwargs)

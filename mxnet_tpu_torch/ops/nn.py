@@ -1,6 +1,8 @@
-"""Neural-net ops the ResNet family, the Gluon losses and the symbolic
-API's loss heads need: FullyConnected, Convolution, Pooling, BatchNorm,
-Activation, softmax, log_softmax, SoftmaxActivation, and the heads
+"""Neural-net ops the model zoo, the Gluon layers and losses and the
+symbolic API's loss heads need: FullyConnected, Convolution, Pooling
+(valid and full conventions), BatchNorm, LayerNorm, InstanceNorm,
+Activation, LeakyReLU, Dropout (a random op: it takes its key from the
+stream), softmax, log_softmax, SoftmaxActivation, and the heads
 SoftmaxOutput (alias Softmax), LinearRegressionOutput,
 MAERegressionOutput, LogisticRegressionOutput and MakeLoss.
 
@@ -36,11 +38,14 @@ import torch.nn.functional as F
 
 from ..base import MXNetError
 from .batch_norm import bn_train_fused
+from .layer_norm import layer_norm_fused
+from .random_ops import bernoulli_mask
 from .registry import register
 
 __all__ = ["fully_connected", "is_channels_last", "convolution", "pooling",
            "batch_norm", "activation", "softmax", "log_softmax",
-           "softmax_activation", "softmax_output", "make_loss", "attr_bool"]
+           "softmax_activation", "softmax_output", "make_loss", "attr_bool",
+           "layer_norm", "instance_norm", "leaky_relu", "dropout"]
 
 
 def _pair(v, n=2):
@@ -121,9 +126,10 @@ def pooling(data, kernel=(), pool_type="max", global_pool=False, stride=(),
         if pool_type == "max":
             return data.amax(dim=spatial, keepdim=True)
         return data.mean(dim=spatial, keepdim=True)
-    if pooling_convention != "valid":
+    if pooling_convention not in ("valid", "full"):
         raise MXNetError(f"Pooling: pooling_convention "
-                         f"{pooling_convention!r} is not ported (valid)")
+                         f"{pooling_convention!r} is not ported (valid, "
+                         f"full)")
     k = _pair(kernel, 2)
     # reference PoolingParamParser defaults stride to 1 (pooling.cc:43-54)
     s = _pair(stride, 2) if stride else (1, 1)
@@ -137,7 +143,26 @@ def pooling(data, kernel=(), pool_type="max", global_pool=False, stride=(),
                 f"Pooling kernel {k} exceeds padded input "
                 f"{tuple(data.shape[sp0:sp0 + 2])} (pad {p})")
     x = data.permute(0, 3, 1, 2) if channels_last else data
-    if pool_type == "max":
+    if pooling_convention == "full":
+        # ceil mode as the reference computes it: the high side padded
+        # until the ceil division is met, and an average still divided by
+        # the whole window
+        extra = []
+        for i in range(2):
+            size = x.shape[2 + i] + 2 * p[i]
+            out_sz = -(-(size - k[i]) // s[i]) + 1
+            extra.append(max(0, (out_sz - 1) * s[i] + k[i] - size))
+        fill = float("-inf") if pool_type == "max" else 0.0
+        pads = (p[1], p[1] + extra[1], p[0], p[0] + extra[0])
+        if pool_type == "max" or count_include_pad:
+            xp = F.pad(x, pads, value=fill)
+            out = F.max_pool2d(xp, k, s) if pool_type == "max" else \
+                F.avg_pool2d(xp, k, s)
+        else:
+            ones = F.pad(torch.ones_like(x[:1, :1]), pads)
+            out = F.avg_pool2d(F.pad(x, pads), k, s, divisor_override=1) \
+                / F.avg_pool2d(ones, k, s, divisor_override=1)
+    elif pool_type == "max":
         out = F.max_pool2d(x, k, s, p)
     else:
         out = F.avg_pool2d(x, k, s, p, count_include_pad=count_include_pad)
@@ -215,6 +240,83 @@ def activation(data, act_type="relu"):
     if act_type == "softsign":
         return F.softsign(data)
     raise ValueError(f"unknown act_type {act_type}")
+
+
+@register("LeakyReLU")
+def leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
+               lower_bound=0.125, upper_bound=0.334):
+    """Reference: src/operator/leaky_relu.cc (leaky, elu, selu, prelu,
+    rrelu at its mean slope, and tanh-approximated gelu)."""
+    if act_type == "leaky":
+        return torch.where(data >= 0, data, slope * data)
+    if act_type == "elu":
+        return torch.where(data >= 0, data, slope * (torch.exp(data) - 1))
+    if act_type == "selu":
+        a, lam = 1.6732632423543772, 1.0507009873554805
+        return lam * torch.where(data >= 0, data, a * (torch.exp(data) - 1))
+    if act_type == "prelu":
+        g = gamma.reshape((1, -1) + (1,) * (data.ndim - 2)) \
+            if gamma.ndim == 1 else gamma
+        return torch.where(data >= 0, data, g * data)
+    if act_type == "rrelu":
+        mid = (lower_bound + upper_bound) / 2.0
+        return torch.where(data >= 0, data, mid * data)
+    if act_type == "gelu":
+        return F.gelu(data, approximate="tanh")
+    raise ValueError(f"unknown act_type {act_type}")
+
+
+@register("Dropout", rng=True)
+def dropout(data, rng_key=None, p=0.5, mode="training", axes=(),
+            _training=True):
+    """Reference: src/operator/nn/dropout.cc.  ``data * mask / keep`` in
+    ``data``'s dtype, the mask ``uniform < keep`` from ``rng_key`` over
+    ``data``'s shape with ``axes`` set to 1 (broadcast); identity outside
+    training unless ``mode="always"``."""
+    if not _training and mode != "always":
+        return data
+    p = float(p)
+    if p <= 0.0:
+        return data
+    keep = 1.0 - p
+    shape = list(data.shape)
+    for ax in (axes or ()):
+        shape[int(ax)] = 1
+    mask = bernoulli_mask(rng_key, keep, tuple(shape)).to(data.dtype)
+    return data * mask / keep
+
+
+# ---------------------------------------------------------------------------
+# LayerNorm / InstanceNorm (layer_norm.cc, instance_norm.cc)
+# ---------------------------------------------------------------------------
+
+@register("LayerNorm")
+def layer_norm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False):
+    """Normalization over ``axis``.  Over the last axis (without
+    ``output_mean_var``) it is :func:`ops.layer_norm.layer_norm_fused`
+    (the CUDA kernel on a CUDA tensor, its plain version on a CPU one),
+    as the reference takes ``layer_norm_fused`` there; other axes are
+    plain torch ops."""
+    ax = int(axis) % data.ndim
+    if ax == data.ndim - 1 and not output_mean_var:
+        return layer_norm_fused(data.contiguous(), gamma, beta,
+                                eps=float(eps))
+    mean = data.mean(dim=ax, keepdim=True)
+    var = data.var(dim=ax, keepdim=True, unbiased=False)
+    out = (data - mean) * torch.rsqrt(var + eps)
+    shape = [1] * data.ndim
+    shape[ax] = data.shape[ax]
+    return out * gamma.reshape(shape) + beta.reshape(shape)
+
+
+@register("InstanceNorm")
+def instance_norm(data, gamma, beta, eps=1e-3):
+    red = tuple(range(2, data.ndim))
+    mean = data.mean(dim=red, keepdim=True)
+    var = data.var(dim=red, keepdim=True, unbiased=False)
+    out = (data - mean) * torch.rsqrt(var + eps)
+    shape = (1, -1) + (1,) * (data.ndim - 2)
+    return out * gamma.reshape(shape) + beta.reshape(shape)
 
 
 # ---------------------------------------------------------------------------

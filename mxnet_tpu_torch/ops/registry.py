@@ -24,7 +24,9 @@ class Op:
     fn:             plain function over tensors.
     num_outputs:    static int, or a callable(attrs_dict) -> int.
     differentiable: False for ops whose outputs carry no gradient.
-    rng:            op consumes a random key (none ported yet).
+    rng:            op consumes a random key: its wrappers pass
+                    ``rng_key``, one draw from the stream per call
+                    (``mxnet_tpu_torch.random``), in inference too.
     """
 
     __slots__ = ("name", "fn", "num_outputs", "differentiable", "rng",

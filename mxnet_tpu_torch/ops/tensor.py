@@ -2,9 +2,9 @@
 ``broadcast_*``, ``elemwise_*``, ``_*`` and ``_*_scalar`` names the
 reference's NDArray operators map to), ``where``, the reductions, the
 shape ops (``reshape`` with the reference's special codes, ``transpose``,
-``expand_dims``, ``squeeze``, slicing, ``split``, ``concat``, ``stack``,
+``swapaxes``, ``expand_dims``, ``squeeze``, slicing, ``split``, ``concat``, ``stack``,
 ``tile``, ``repeat``, ``flip``, the ``broadcast_*`` shapes), ``dot``,
-``take``/``pick``/``one_hot``, ``cast`` and the ``*_like`` fills.
+``take``/``pick``/``one_hot``, ``Embedding``, ``cast`` and the ``*_like`` fills.
 
 PyTorch counterpart of ``mxnet_tpu/ops/tensor.py`` (only these ops so
 far).  Comparisons return 0/1 in the first input's dtype, and
@@ -271,6 +271,11 @@ def transpose(x, axes=None):
     return x.permute(*(int(a) for a in axes))
 
 
+@register("swapaxes", aliases=("SwapAxis",))
+def swapaxes(x, dim1=0, dim2=1):
+    return x.transpose(int(dim1), int(dim2))
+
+
 @register("expand_dims")
 def expand_dims(x, axis=0):
     return x.unsqueeze(int(axis))
@@ -398,6 +403,17 @@ def take(a, indices, axis=0, mode="clip"):
     idx = idx % n if mode == "wrap" else idx.clamp(0, n - 1)
     out = a.index_select(ax, idx.reshape(-1))
     return out.reshape(a.shape[:ax] + idx.shape + a.shape[ax + 1:])
+
+
+@register("Embedding")
+def embedding(data, weight, input_dim=None, output_dim=None, dtype="float32",
+              sparse_grad=False):
+    """Reference: src/operator/tensor/indexing_op.cc Embedding: rows of
+    ``weight`` gathered by ``data`` (cast to int32); the gradient is a
+    dense scatter-add."""
+    idx = data.to(torch.int32).long()
+    return weight.index_select(0, idx.reshape(-1)).reshape(
+        tuple(idx.shape) + tuple(weight.shape[1:]))
 
 
 @register("pick")

@@ -28,6 +28,7 @@ import torch
 from .. import autograd
 from ..base import MXNetError
 from ..gluon.block import Block
+from ..gluon.cached_op import program_scope
 from ..gluon.parameter import capture_writes
 from .compression import GradientCompression
 
@@ -73,7 +74,10 @@ def block_train_fn(block: Block, is_train: bool = True):
                  aux: Dict[str, torch.Tensor], x):
         tensors = {paths[n]: params[n] for n in param_names}
         tensors.update({paths[n]: aux[n] for n in aux_names})
-        with capture_writes() as cap, autograd.pause(train_mode=is_train):
+        # a hybridized block runs its forward here, under split keys,
+        # never a captured program of its own over the substituted tensors
+        with program_scope(), capture_writes() as cap, \
+                autograd.pause(train_mode=is_train):
             out = torch.func.functional_call(block, tensors, (x,))
         return out, {n: cap.writes.get(n, aux[n]) for n in aux_names}
 

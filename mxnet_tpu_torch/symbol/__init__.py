@@ -2,16 +2,18 @@
 ``load``/``load_json``, and one wrapper per op (and alias) of the port's
 ``OP_REGISTRY``.
 
-PyTorch counterpart of ``mxnet_tpu/symbol/__init__.py``.  ``sym.random``,
-``sym.contrib`` and the control-flow ops are not ported: their ops
-(samplers, ``multinomial``, ``shuffle``, ``_contrib_*``) are not
-registered in the port yet (ROADMAP.md, Queue 1).
+PyTorch counterpart of ``mxnet_tpu/symbol/__init__.py``.  The random
+ops (``Dropout``, ``_random_*``) are graph nodes like any other, each
+seeded per forward by the executor; the ``sym.random`` namespace,
+``sym.contrib`` and the control-flow ops are not ported (ROADMAP.md,
+Queue 1).
 """
 from __future__ import annotations
 
 import sys
 
-from ..ops import nn as _nn, tensor as _tensor  # noqa: F401  (registers)
+from ..ops import (nn as _nn, random_ops as _random_ops,  # noqa: F401
+                   tensor as _tensor)   # (registers)
 from ..ops.registry import OP_REGISTRY
 from . import graph  # noqa: F401
 from .symbol import (Symbol, Variable, var, Group, load, load_json, zeros,

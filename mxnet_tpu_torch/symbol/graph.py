@@ -116,14 +116,26 @@ def input_nodes(entries: Sequence[SymbolEntry], include_aux=True) -> List[Node]:
 
 
 def eval_node(node: Node, ins: List[torch.Tensor], is_train: bool,
-              collect_aux: Optional[dict] = None) -> tuple:
+              collect_aux: Optional[dict] = None, rng=None,
+              device=None) -> tuple:
     """Evaluate one op node.  A training BatchNorm with ``collect_aux``
     puts its new moving mean and variance (``momentum * old + (1 -
-    momentum) * batch``, detached) under its aux variables' names."""
+    momentum) * batch``, detached) under its aux variables' names.  A
+    random op takes ``fold_in(rng, node uid)`` (``rng`` a host key, or a
+    program's ``LazyKey``; ``PRNGKey(0)`` without one), on its first
+    input's device or ``device``."""
     kwargs = dict(node.attrs)
     op = node.op
     if _accepts_training(op):
         kwargs["_training"] = is_train
+    if op.rng:
+        from .. import random as _random
+
+        base = rng if rng is not None else _random.prng_key(0)
+        key = base.folded(node._uid) if isinstance(base, _random.LazyKey) \
+            else _random.fold(base, node._uid)
+        dev = ins[0].device if ins else (device or torch.device("cpu"))
+        kwargs["rng_key"] = _random.key_tensor(key, dev)
     if op.name == "BatchNorm" and collect_aux is not None and is_train \
             and not attr_bool(kwargs.get("use_global_stats")):
         user_wants_stats = attr_bool(node.attrs.get("output_mean_var"))
@@ -161,11 +173,13 @@ def release_plan(entries: Sequence[SymbolEntry], order: List[Node]
 def trace(entries: Sequence[SymbolEntry], env: Dict[str, torch.Tensor],
           is_train: bool, collect_aux: Optional[dict] = None,
           order: Optional[List[Node]] = None,
-          release: Optional[List[List[int]]] = None):
+          release: Optional[List[List[int]]] = None, rng=None,
+          device=None):
     """Evaluate the DAG over ``env`` (variable name -> tensor); the
     entries' values in order.  With ``order`` and ``release``
     (``topo_order`` and ``release_plan`` of the entries, precomputed) each
-    node's value is dropped after its last consumer has run."""
+    node's value is dropped after its last consumer has run.  ``rng`` (a
+    host key) seeds the random nodes (:func:`eval_node`)."""
     order = order if order is not None else topo_order(entries)
     values: Dict[int, tuple] = {}
     for i, node in enumerate(order):
@@ -175,7 +189,8 @@ def trace(entries: Sequence[SymbolEntry], env: Dict[str, torch.Tensor],
             values[id(node)] = (env[node.name],)
             continue
         ins = [values[id(e.node)][e.index] for e in node.inputs]
-        values[id(node)] = eval_node(node, ins, is_train, collect_aux)
+        values[id(node)] = eval_node(node, ins, is_train, collect_aux, rng,
+                                     device)
         for nid in (release[i] if release is not None else ()):
             del values[nid]
     return [values[id(e.node)][e.index] for e in entries]

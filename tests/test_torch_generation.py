@@ -658,7 +658,10 @@ def test_port_never_imports_jax_or_reference():
             " mxnet_tpu_torch.symbol, mxnet_tpu_torch.executor,"
             " mxnet_tpu_torch.module, mxnet_tpu_torch.io,"
             " mxnet_tpu_torch.metric, mxnet_tpu_torch.callback,"
-            " mxnet_tpu_torch.lr_scheduler, mxnet_tpu_torch.model;"
+            " mxnet_tpu_torch.lr_scheduler, mxnet_tpu_torch.model,"
+            " mxnet_tpu_torch.random, mxnet_tpu_torch.ops.random_ops,"
+            " mxnet_tpu_torch.gluon.cached_op,"
+            " mxnet_tpu_torch.gluon.model_zoo.vision.simple_nets;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')];"
             "print(bad); sys.exit(1 if bad else 0)")

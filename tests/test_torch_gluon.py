@@ -97,7 +97,7 @@ def test_pooling_matches_jax(layout, pool_type, global_pool, kernel, stride,
 def test_pooling_refuses_what_is_not_ported():
     x = torch.zeros(1, 3, 4, 4)
     with pytest.raises(MXNetError, match="pooling_convention"):
-        tnn.pooling(x, kernel=(2, 2), pooling_convention="full")
+        tnn.pooling(x, kernel=(2, 2), pooling_convention="same")
     with pytest.raises(MXNetError, match="exceeds padded input"):
         tnn.pooling(x, kernel=(5, 5))
 
@@ -271,7 +271,8 @@ def test_blocks_prefixes_hybridize_and_model_zoo():
     eager = seq(x)
     seq.hybridize()
     assert seq._active and all(c._active for c in seq._children.values())
-    assert torch.equal(seq(x), eager)
+    assert torch.equal(seq(x), eager)      # the program, uncaptured
+    assert len(seq._cached_ops) == 1
     assert not autograd.is_training()
     with autograd.record():
         assert autograd.is_training() and autograd.is_recording()
@@ -283,7 +284,7 @@ def test_blocks_prefixes_hybridize_and_model_zoo():
     with pytest.raises(RuntimeError, match="pretrained"):
         tgluon.model_zoo.vision.get_resnet(1, 18, pretrained=True)
     with pytest.raises(ValueError, match="unknown model"):
-        tgluon.model_zoo.get_model("vgg16")
+        tgluon.model_zoo.get_model("vgg17")
     net = tgluon.model_zoo.get_model("resnet18_v2", classes=3,
                                      thumbnail=True, layout="NHWC")
     assert isinstance(net, tgluon.model_zoo.vision.ResNetV2)

@@ -197,7 +197,7 @@ def test_infer_shape_errors():
             fc.infer_shape()
     with tmx.name.NameManager():
         pool = tmx.sym.Pooling(tmx.sym.Variable("data"), kernel=(2, 2),
-                               pooling_convention="full", name="p")
+                               pooling_convention="same", name="p")
     # an op that raises inside inference reports the reference's error
     with pytest.raises(MXNetError, match="infer_shape failed at op 'p'"):
         pool.infer_shape(data=(1, 1, 5, 5))
