@@ -141,14 +141,48 @@ toolkit (``nvcc``) and PyTorch built for CUDA.  Phases, one JSON line each:
               output; (f) ``gluon.nn.LayerNorm`` on the card launches the
               LayerNorm kernel.
 
+14. rnn_lm — ``example/gluon/word_language_model/train.py``'s
+              ``RNNModel`` (``Embedding`` -> ``gluon.rnn.LSTM`` -> ``Dense``)
+              at the upstream example's medium width (650/650, two
+              layers, dropout 0.5, vocab 33,278), bptt 35, batch 32, f32:
+              the ``RNN`` op (lstm and gru, two layers, bidirectional) on
+              the card against the CPU (outputs, final states, gradients;
+              TOL float32), then twenty truncated-BPTT steps
+              (``clip_global_norm``, ``Trainer("sgd")``) over the example's
+              Markov token stream; the first segment's loss falls, nothing
+              is NaN (SGD lr 20 and clip 0.2, the upstream defaults).
+              Tokens/s, step ms, peak memory, a profiled step's
+              idle share, and cuDNN's LSTM forward + backward beside the
+              port's op (a yardstick, never on the path).
+15. bucketing_fit — ``example/rnn/bucketing/lstm_bucketing.py`` at its
+              widths (2 x ``LSTMCell(200)``, embed 200, buckets 10-40,
+              batch 32, Adam lr 0.01, Xavier(in, 2.34)) over ``word_lm.py``'s
+              Markov corpus (3,200 sentences of 5-40 tokens, vocab 10,000):
+              two epochs of ``BucketingModule.fit`` (every bucket bound,
+              perplexity falls, no fused step); a bucket switch sees the
+              trained weights; one step per bucket card vs CPU (loss and
+              gradients 1e-4); a ``FusedRNNCell`` against its ``unfuse()``d
+              cells on the card.  Sentences/s, ms a step per bucket, the
+              executor's host ms a forward.
+16. image_rec — ``ImageRecordIter`` over a RAW0 ``.rec`` of 1,280
+              random 256x256 images (``train_imagenet``'s settings: resize
+              256, random 224 crops and mirrors, its mean) on 8 threads,
+              uint8 to the card and normalized there: one-thread batches
+              card = CPU bitwise with an exact trailing pad, the iterator's
+              images/s alone, and ``Module.fit``'s ms a batch over four
+              batches of the example ResNet-50 symbol fed by it (beside
+              module_fit's ``NDArrayIter`` figure when that phase ran).
+
 Every ResNet phase also requires that the BatchNorm op copied no
-non-contiguous input (``batch_norm.noncontiguous_copies`` stays 0).
+non-contiguous input (``batch_norm.noncontiguous_copies`` stays 0); no
+port kernel runs on the three sequence and RecordIO paths, so their
+launch counts must stay 0.
 
 An optional comma-separated argument (``kernels``, ``model``,
 ``training``, ``serving``, ``serving_default``, ``serving_int8`` — which
 also runs ``serving``, its float baseline — ``resnet_training``,
 ``resnet_compressed``, ``gluon_training``, ``module_fit``,
-``gluon_hybrid``, and
+``gluon_hybrid``, ``rnn_lm``, ``bucketing_fit``, ``image_rec``, and
 ``profile``, ``profile_training`` and ``profile_resnet``, which are not in
 the default run: the serving window, or two bf16 LM or ResNet training
 steps, once more under ``torch.profiler``)
@@ -247,6 +281,25 @@ NHWC_BATCH, NHWC_BATCHES, NHWC_HW, NHWC_C, NHWC_UNITS = 32, 3, 56, 256, 3
 # trip's tolerance, relative to the output's largest magnitude
 GH_BATCH, GH_HW, GH_CLASSES, GH_STEPS, GH_BN = 128, 299, 1000, 10, 94
 GH_CHECK_BATCH = 8
+# rnn_lm: the Gluon word language model at the upstream example's "medium"
+# width (train.py --nhid 650 --emsize 650 --dropout 0.5; two layers;
+# WikiText-2's vocabulary) with its other defaults: bptt 35, batch 32, SGD
+# lr 20, clip 0.2 a token; the RNN op's card-vs-CPU check size (T, N, I,
+# H, L)
+LM_VOCAB, LM_WIDTH, LM_LAYERS, LM_DROPOUT = 33278, 650, 2, 0.5
+LM_BPTT, LM_BATCH, LM_STEPS, LM_LR, LM_CLIP = 35, 32, 20, 20.0, 0.2
+RNN_CHECK = (35, 4, 128, 128, 2)
+# bucketing_fit: lstm_bucketing.py at its own widths (2 x LSTMCell(200),
+# embed 200, buckets 10-40, batch 32, Adam lr 0.01) over PTB's vocabulary
+BK_VOCAB, BK_HIDDEN, BK_EMBED, BK_LAYERS = 10000, 200, 200, 2
+BK_BUCKETS, BK_BATCH, BK_LR, BK_EPOCHS = (10, 20, 30, 40), 32, 0.01, 2
+BK_SENTENCES = 3200
+# image_rec: a RAW0 file of 1,280 images stored at 256 x 256, read at
+# train_imagenet's settings (resize 256, 224 x 224 random crops and
+# mirrors, its mean), B=128 on 8 threads; four Module.fit batches of the
+# example ResNet-50 symbol fed by it; the one-thread card-vs-CPU check's B
+REC_IMAGES, REC_STORED, REC_BATCH, REC_THREADS = 1280, 256, 128, 8
+REC_MEAN, REC_FIT_BATCHES, REC_CHECK_BATCH = (123.68, 116.779, 103.939), 4, 100
 
 
 def emit(obj) -> None:
@@ -3929,6 +3982,636 @@ def phase_gluon_hybrid(dev):
     return res
 
 
+# -- phase 14: rnn_lm ----------------------------------------------------------------
+
+def _example_ns(relpath):
+    """An example script's namespace, built against the port (its package
+    import swapped), as a user runs it under ``import mxnet_tpu_torch``."""
+    import os
+    import re
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), relpath)
+    with open(path) as f:
+        src = re.sub(r"\bmxnet_tpu\b", "mxnet_tpu_torch", f.read())
+    ns = {"__name__": "chip_smoke_example", "__file__": path}
+    exec(compile(src, path, "exec"), ns)
+    return ns
+
+
+def _rnn_op_card_vs_cpu(dev):
+    """The ``RNN`` op (lstm and gru, two layers, bidirectional, with the
+    final states) on the card against the port on the CPU at RNN_CHECK:
+    outputs, final states and the gradients of every input."""
+    import torch
+
+    from mxnet_tpu_torch.ops.rnn import rnn, rnn_param_size
+
+    T, N, I, H, L = RNN_CHECK
+    rows, bad = [], []
+    for mode in ("lstm", "gru"):
+        rs = np.random.RandomState(SEED)
+        P = rnn_param_size(mode, L, I, H, True)
+        host = [rs.randn(T, N, I), 0.1 * rs.randn(P), rs.randn(2 * L, N, H)]
+        if mode == "lstm":
+            host.append(rs.randn(2 * L, N, H))
+        host = [a.astype(np.float32) for a in host]
+        shapes = [(T, N, 2 * H)] + [(2 * L, N, H)] * (len(host) - 2)
+        cts = [rs.randn(*s).astype(np.float32) for s in shapes]
+
+        def run(d):
+            args = [torch.tensor(a, device=d, requires_grad=True)
+                    for a in host]
+            outs = rnn(*args, state_size=H, num_layers=L, mode=mode,
+                       bidirectional=True, state_outputs=True)
+            grads = torch.autograd.grad(
+                outs, args, [torch.tensor(c, device=d) for c in cts])
+            return [t.detach().cpu() for t in list(outs) + list(grads)]
+
+        names = ["out", "hT"] + (["cT"] if mode == "lstm" else []) + \
+            ["d_data", "d_parameters", "d_state"] + \
+            (["d_state_cell"] if mode == "lstm" else [])
+        errs = {}
+        for n, a, b in zip(names, run(dev), run("cpu")):
+            ok, err, _ = _close(a, b, "float32")
+            errs[n] = err
+            if not ok:
+                bad.append(f"RNN {mode} {n}: card vs CPU max error {err}")
+        rows.append({"mode": mode, "shape": [T, N, I, H, L],
+                     "max_abs_err": errs})
+    return rows, bad
+
+
+def _lm_data(mx, ns):
+    """The example's Markov token stream at WikiText-2's vocabulary, enough
+    for LM_STEPS segments of LM_BPTT, batchified on the card."""
+    tokens, vocab = ns["get_stream"](
+        num_tokens=LM_BATCH * (LM_STEPS * LM_BPTT + 1), vocab_size=LM_VOCAB,
+        seed=0)
+    return ns["batchify"](tokens, LM_BATCH), vocab
+
+
+def _lm_train(mx, ns, model, data, loss_fn, trainer, steps):
+    """``steps`` of the example's truncated-BPTT loop: losses (mean per
+    token) and host wall ms each (ending in a sync)."""
+    import torch
+
+    autograd, gluon = mx.autograd, mx.gluon
+    hidden = model.begin_state(func=mx.nd.zeros, batch_size=LM_BATCH)
+    losses, ms = [], []
+    for k in range(steps):
+        i = k * LM_BPTT
+        X = data[i:i + LM_BPTT]
+        y = data[i + 1:i + 1 + LM_BPTT].reshape((-1,))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hidden = ns["detach"](hidden)
+        with autograd.record():
+            out, hidden = model(X, hidden)
+            L = loss_fn(out, y)
+        L.backward()
+        grads = [p.grad() for p in model.collect_params().values()
+                 if p.grad_req != "null"]
+        gluon.utils.clip_global_norm(grads, LM_CLIP * LM_BPTT * LM_BATCH)
+        trainer.step(LM_BPTT * LM_BATCH)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(L.mean().asscalar()))
+    return losses, ms
+
+
+def _lm_first_loss(mx, model, data, loss_fn):
+    """The first segment's mean loss from zero states, in inference (no
+    dropout)."""
+    hidden = model.begin_state(func=mx.nd.zeros, batch_size=LM_BATCH)
+    out, _ = model(data[0:LM_BPTT], hidden)
+    return float(loss_fn(out, data[1:1 + LM_BPTT].reshape((-1,)))
+                 .mean().asscalar())
+
+
+def _cudnn_lstm_ms(dev):
+    """The yardstick (PERF.md only, never on the port's path): cuDNN's
+    LSTM (``torch.nn.LSTM``) forward + backward at the word LM's shape,
+    beside the port's ``RNN`` op on the same shape, device ms each."""
+    import torch
+
+    from mxnet_tpu_torch.ops.rnn import rnn, rnn_param_size
+
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    shape = (LM_BPTT, LM_BATCH, LM_WIDTH)
+    x = torch.randn(shape, generator=g).to(dev).requires_grad_()
+    lstm = torch.nn.LSTM(LM_WIDTH, LM_WIDTH, LM_LAYERS).to(dev)
+    P = rnn_param_size("lstm", LM_LAYERS, LM_WIDTH, LM_WIDTH)
+    blob = (0.07 * torch.randn(P, generator=g)).to(dev).requires_grad_()
+    h0 = torch.zeros((LM_LAYERS, LM_BATCH, LM_WIDTH), device=dev)
+    ct = torch.randn(shape, generator=g).to(dev)
+
+    def cudnn():
+        out, _ = lstm(x, (h0, h0))
+        torch.autograd.grad(out, [x] + list(lstm.parameters()), ct)
+
+    def port():
+        out = rnn(x, blob, h0, h0, state_size=LM_WIDTH,
+                  num_layers=LM_LAYERS, mode="lstm")
+        torch.autograd.grad(out, [x, blob], ct)
+
+    return {"shape": list(shape), "layers": LM_LAYERS,
+            "cudnn_fwd_bwd_ms": _event_ms(cudnn),
+            "port_rnn_op_fwd_bwd_ms": _event_ms(port)}
+
+
+def phase_rnn_lm(dev):
+    """Path A: ``example/gluon/word_language_model/train.py``'s
+    ``RNNModel`` (``Embedding`` -> ``rnn.LSTM`` -> ``Dense``, dropout 0.5)
+    at the upstream example's medium width, f32, on the default context:
+    the RNN op card vs CPU at RNN_CHECK, then LM_STEPS truncated-BPTT steps
+    (``clip_global_norm``, ``Trainer("sgd")``) over the example's token
+    stream.  Checks: the op's outputs, states and gradients (TOL float32);
+    no NaN; the first segment's loss (inference, zero states) lower after
+    the steps than before.  Numbers: tokens/s and step ms (median of steps
+    2-LM_STEPS), peak memory, a profiled step's device time and idle
+    share, cuDNN's LSTM beside the port's op."""
+    import gc
+
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise SystemExit("TF32 is on: the f32 comparison needs full f32")
+    gc.collect()
+    op_rows, bad = _rnn_op_card_vs_cpu(dev)
+    ns = _example_ns("example/gluon/word_language_model/train.py")
+    mx.random.seed(SEED)
+    data, vocab = _lm_data(mx, ns)
+    model = ns["RNNModel"](vocab, LM_WIDTH, LM_WIDTH, LM_LAYERS, LM_DROPOUT)
+    model.initialize(mx.init.Xavier(), ctx=mx.current_context())
+    trainer = mx.gluon.Trainer(model.collect_params(), "sgd",
+                               {"learning_rate": LM_LR, "momentum": 0,
+                                "wd": 0})
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    loss0 = _lm_first_loss(mx, model, data, loss_fn)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    losses, ms = _lm_train(mx, ns, model, data, loss_fn, trainer, LM_STEPS)
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    loss1 = _lm_first_loss(mx, model, data, loss_fn)
+    prof = _profiled(lambda: _lm_train(mx, ns, model, data, loss_fn,
+                                       trainer, 1))
+    steady = float(np.median(ms[1:]))
+    res = {"phase": "rnn_lm",
+           "config": {"example": "example/gluon/word_language_model/"
+                      "train.py", "vocab": vocab, "emsize": LM_WIDTH,
+                      "nhid": LM_WIDTH, "nlayers": LM_LAYERS,
+                      "dropout": LM_DROPOUT, "bptt": LM_BPTT,
+                      "batch": LM_BATCH, "lr": LM_LR, "clip": LM_CLIP,
+                      "params": sum(p.data().size for p in
+                                    model.collect_params().values())},
+           "rnn_op_card_vs_cpu": op_rows, "losses": losses, "step_ms": ms,
+           "steady_step_ms": steady,
+           "tokens_per_s": LM_BPTT * LM_BATCH / (steady / 1e3),
+           "first_segment_loss": [loss0, loss1], "peak_bytes": peak,
+           "profiled_step": prof, "yardstick": _cudnn_lstm_ms(dev),
+           "launches": launches}
+    emit(res)
+    if not all(np.isfinite(losses + [loss0, loss1])):
+        bad.append(f"non-finite loss: {losses}, {loss0}, {loss1}")
+    if not loss1 < loss0:
+        bad.append(f"the first segment's loss did not fall: {loss0} -> "
+                   f"{loss1}")
+    if any(launches.values()):
+        bad.append(f"the word LM launched port kernels: {launches}")
+    if bad:
+        raise SystemExit("rnn_lm phase failed: " + "; ".join(bad))
+    return res
+
+
+# -- phase 15: bucketing_fit ---------------------------------------------------------
+
+def _bk_corpus(n=None, seed=0):
+    """``word_lm.py``'s Markov corpus (each token one of three successors of
+    the last) at PTB's vocabulary, sentence lengths 5-40 so every bucket
+    gets batches."""
+    rs = np.random.RandomState(seed)
+    trans = rs.randint(1, BK_VOCAB, size=(BK_VOCAB, 3))
+    sentences = []
+    for _ in range(n or BK_SENTENCES):
+        tok = rs.randint(1, BK_VOCAB)
+        sent = [int(tok)]
+        for _ in range(rs.randint(5, max(BK_BUCKETS) + 1) - 1):
+            tok = trans[tok, rs.randint(3)]
+            sent.append(int(tok))
+        sentences.append(sent)
+    return sentences
+
+
+def _bk_sym_gen(mx):
+    """``lstm_bucketing.py``'s ``sym_gen``: Embedding, the unrolled stack
+    of LSTMCells, a FullyConnected decoder, SoftmaxOutput."""
+    stack = mx.rnn.SequentialRNNCell()
+    for i in range(BK_LAYERS):
+        stack.add(mx.rnn.LSTMCell(num_hidden=BK_HIDDEN, prefix=f"lstm_l{i}_"))
+
+    def sym_gen(seq_len):
+        data = mx.sym.Variable("data")
+        label = mx.sym.Variable("softmax_label")
+        embed = mx.sym.Embedding(data=data, input_dim=BK_VOCAB,
+                                 output_dim=BK_EMBED, name="embed")
+        stack.reset()
+        outputs, _ = stack.unroll(seq_len, inputs=embed, merge_outputs=True)
+        pred = mx.sym.Reshape(outputs, shape=(-1, BK_HIDDEN))
+        pred = mx.sym.FullyConnected(data=pred, num_hidden=BK_VOCAB,
+                                     name="pred")
+        label = mx.sym.Reshape(label, shape=(-1,))
+        pred = mx.sym.SoftmaxOutput(data=pred, label=label, name="softmax")
+        return pred, ("data",), ("softmax_label",)
+
+    return sym_gen
+
+
+def _bk_batches(mx):
+    """One batch of each bucket (the corpus's, in bucket order)."""
+    import random
+
+    random.seed(SEED)
+    it = mx.rnn.BucketSentenceIter(_bk_corpus(400, seed=1), BK_BATCH,
+                                   buckets=list(BK_BUCKETS), invalid_label=0)
+    got = {}
+    for b in it:
+        got.setdefault(b.bucket_key, b)
+    return [got[k] for k in BK_BUCKETS]
+
+
+def _bk_card_vs_cpu(mx, arg_params):
+    """One forward_backward per bucket on a card and on a CPU
+    ``BucketingModule`` from the same parameters: the loss and every
+    gradient within 1e-4 (relative to each gradient's largest entry)."""
+    import torch
+
+    rows, bad = [], []
+    mods = {}
+    for name, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+        with ctx:
+            batches = _bk_batches(mx)
+            mod = mx.mod.BucketingModule(_bk_sym_gen(mx),
+                                         default_bucket_key=max(BK_BUCKETS),
+                                         context=ctx)
+            mod.bind(batches[-1].provide_data, batches[-1].provide_label)
+            mod.init_params(arg_params={k: mx.nd.array(v)
+                                        for k, v in arg_params.items()})
+            mods[name] = (mod, batches)
+    for k, key in enumerate(BK_BUCKETS):
+        out = {}
+        for name, (mod, batches) in mods.items():
+            mod.forward_backward(batches[k])
+            ex = mod._curr_module._exec
+            out[name] = (_ce(ex.outputs[0],
+                             batches[k].label[0].reshape((-1,))),
+                         {n: g._data.float().cpu()
+                          for n, g in ex.grad_dict.items()
+                          if n not in ("data", "softmax_label")})
+        (lc, gc_), (lp, gp) = out["card"], out["cpu"]
+        err = max(float((gc_[n] - gp[n]).abs().max() /
+                        gp[n].abs().max().clamp_min(1e-12)) for n in gp)
+        rows.append({"bucket": key, "loss_card": lc, "loss_cpu": lp,
+                     "max_grad_rel_err": err})
+        if abs(lc - lp) > 1e-4 * abs(lp) or err > 1e-4:
+            bad.append(f"bucket {key}: card vs CPU loss {lc} / {lp}, "
+                       f"gradient error {err}")
+    del mods
+    torch.cuda.empty_cache()
+    return rows, bad
+
+
+def _bk_fused_vs_unfused(mx, dev):
+    """A two-layer ``FusedRNNCell`` (the ``RNN`` op) at the bucket model's
+    widths against its ``unfuse()``d LSTMCells on the card, T = the largest
+    bucket."""
+    T = max(BK_BUCKETS)
+    with mx.name.NameManager():
+        fused = mx.rnn.FusedRNNCell(BK_HIDDEN, num_layers=BK_LAYERS,
+                                    mode="lstm", prefix="fz_")
+        fo, _ = fused.unroll(T, inputs=mx.sym.Variable("data"),
+                             layout="TNC", merge_outputs=True)
+        uo, _ = fused.unfuse().unroll(T, inputs=mx.sym.Variable("data"),
+                                      layout="TNC", merge_outputs=True)
+    arg_shapes, _, _ = fo.infer_shape(data=(T, BK_BATCH, BK_EMBED))
+    rs = np.random.RandomState(SEED)
+    vals = {n: (0.0 * rs.randn(*s) if "state" in n else
+                (0.1 if n != "data" else 1.0) * rs.randn(*s)).astype(
+                    np.float32)
+            for n, s in zip(fo.list_arguments(), arg_shapes)}
+    want = _bound_outputs(fo, vals, dev)[0]
+    unfused = _fused_to_unfused(vals["fz_parameters"], "lstm", BK_LAYERS,
+                                BK_EMBED, BK_HIDDEN, False, "fz_")
+    got = _bound_outputs(uo, {**unfused, "data": vals["data"]}, dev)[0]
+    import torch
+
+    ok, err, _ = _close(torch.from_numpy(got), torch.from_numpy(want),
+                        "float32")
+    return {"T": T, "max_abs_err": err}, ([] if ok else [
+        f"FusedRNNCell vs its unfused cells on the card: {err}"])
+
+
+def _bk_switch_check(mx, mod, batches):
+    """After a step on the largest bucket, the smallest bucket's module
+    forwards with the weights that step left (bitwise)."""
+    import torch
+
+    big, small = batches[-1], batches[0]
+    mod.forward_backward(big)
+    mod.update()
+    trained = {n: v._data.clone() for n, v in
+               mod._curr_module._exec.arg_dict.items()
+               if n not in ("data", "softmax_label")}
+    mod.forward(small, is_train=False)
+    seen = mod._buckets[small.bucket_key]._exec.arg_dict
+    same = all(torch.equal(seen[n]._data, v) for n, v in trained.items())
+    return same, ([] if same else [
+        "bucket switch: the small bucket did not see the trained weights"])
+
+
+def phase_bucketing_fit(dev):
+    """Path B: ``example/rnn/bucketing/lstm_bucketing.py``'s
+    ``BucketingModule.fit`` at its widths over the Markov corpus
+    (BK_SENTENCES sentences, lengths 5-40, ``BucketSentenceIter``), Adam lr
+    0.01, Xavier(in, 2.34), Perplexity(ignore_label=0), BK_EPOCHS epochs,
+    f32 on the default context.  Checks: every bucket bound, perplexity
+    lower in epoch 2 than in epoch 1, no fused step (the reference's
+    route); a bucket switch sees the trained weights; one step per bucket
+    card vs CPU (loss, gradients 1e-4); a FusedRNNCell against its
+    unfused cells on the card.  Numbers: sentences/s, step ms per bucket
+    (median), the executor's host ms a forward per bucket, peak memory."""
+    import gc
+    import random
+
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    gc.collect()
+    random.seed(SEED)
+    it = mx.rnn.BucketSentenceIter(_bk_corpus(), BK_BATCH,
+                                   buckets=list(BK_BUCKETS), invalid_label=0)
+    mod = mx.mod.BucketingModule(_bk_sym_gen(mx),
+                                 default_bucket_key=it.default_bucket_key)
+    perplexity = mx.metric.Perplexity(ignore_label=0)
+    ppl, marks, keys = [], [], []
+
+    def timing(param):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        keys.append(param.locals["data_batch"].bucket_key)
+
+    def per_epoch(epoch, sym, arg, aux):
+        ppl.append(perplexity.get()[1])
+
+    torch.manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mod.fit(it, eval_metric=perplexity, optimizer="adam",
+            optimizer_params={"learning_rate": BK_LR},
+            initializer=mx.init.Xavier(factor_type="in", magnitude=2.34),
+            num_epoch=BK_EPOCHS, batch_end_callback=timing,
+            epoch_end_callback=per_epoch)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [(b - a) * 1e3 for a, b in zip([t0] + marks, marks)]
+    per_bucket = {k: float(np.median([m for m, kk in zip(step_ms, keys)
+                                      if kk == k][2:] or [float("nan")]))
+                  for k in BK_BUCKETS}
+    counts = {k: keys.count(k) for k in BK_BUCKETS}
+    fused = [m._fused_step_count for m in mod._buckets.values()]
+    fwd_host = {}
+    for k, m in sorted(mod._buckets.items()):
+        ex, host = m._exec, []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            s = time.perf_counter()
+            ex.forward(is_train=False)
+            host.append((time.perf_counter() - s) * 1e3)
+        torch.cuda.synchronize()
+        fwd_host[k] = {"ms": float(np.median(host)),
+                       "op_nodes": sum(1 for n in ex._order
+                                       if n.kind == "op")}
+    arg_params = {n: v.asnumpy() for n, v in mod.get_params()[0].items()}
+    same, bad = _bk_switch_check(mx, mod, _bk_batches(mx))
+    del mod
+    gc.collect()
+    card_cpu, bad_cc = _bk_card_vs_cpu(mx, arg_params)
+    fused_check, bad_fu = _bk_fused_vs_unfused(mx, dev)
+    res = {"phase": "bucketing_fit",
+           "config": {"example": "example/rnn/bucketing/lstm_bucketing.py",
+                      "vocab": BK_VOCAB, "num_hidden": BK_HIDDEN,
+                      "num_embed": BK_EMBED, "num_layers": BK_LAYERS,
+                      "buckets": list(BK_BUCKETS), "batch": BK_BATCH,
+                      "optimizer": "adam", "lr": BK_LR,
+                      "sentences": BK_SENTENCES, "epochs": BK_EPOCHS},
+           "fit_s": fit_s, "batches": len(marks),
+           "batches_per_bucket": counts,
+           "sentences_per_s": BK_BATCH * len(marks) / fit_s,
+           "step_ms_per_bucket": per_bucket,
+           "executor_forward_host": fwd_host, "perplexity": ppl,
+           "fused_steps": fused, "peak_bytes": peak,
+           "switch_sees_trained_weights": same,
+           "card_vs_cpu": card_cpu, "fused_vs_unfused": fused_check,
+           "launches": launches}
+    emit(res)
+    bad += bad_cc + bad_fu
+    if sorted(counts) != sorted(BK_BUCKETS) or not all(counts.values()):
+        bad.append(f"not every bucket trained: {counts}")
+    if not (len(ppl) == BK_EPOCHS and np.all(np.isfinite(ppl))
+            and ppl[1] < ppl[0]):
+        bad.append(f"perplexity did not fall from epoch 1 to 2: {ppl}")
+    if any(fused):
+        bad.append(f"a bucket module took fused steps: {fused}")
+    if any(launches.values()):
+        bad.append(f"the bucketing fit launched port kernels: {launches}")
+    if bad:
+        raise SystemExit("bucketing_fit phase failed: " + "; ".join(bad))
+    return res
+
+
+# -- phase 16: image_rec -------------------------------------------------------------
+
+def _write_rec(path):
+    """A RAW0 RecordIO file of REC_IMAGES random REC_STORED² RGB images
+    with labels below RESNET_CLASSES (about 250 MB at 1,280 of 256²)."""
+    import struct
+
+    import mxnet_tpu_torch as mx
+
+    rs = np.random.RandomState(SEED)
+    side = REC_STORED
+    head = b"RAW0" + struct.pack("<I", 3) + \
+        np.asarray((side, side, 3), np.int32).tobytes()
+    w = mx.recordio.MXRecordIO(path, "w")
+    for i in range(REC_IMAGES):
+        img = rs.randint(0, 256, (side, side, 3), dtype=np.uint8)
+        w.write(mx.recordio.pack(mx.recordio.IRHeader(
+            0, float(rs.randint(RESNET_CLASSES)), i, 0), head + img.tobytes()))
+    w.close()
+
+
+def _rec_iter(mx, path, **kw):
+    args = dict(path_imgrec=path, data_shape=(3, RESNET_HW, RESNET_HW),
+                batch_size=REC_BATCH, resize=REC_STORED, rand_crop=True,
+                rand_mirror=True, mean_r=REC_MEAN[0], mean_g=REC_MEAN[1],
+                mean_b=REC_MEAN[2], preprocess_threads=REC_THREADS, seed=SEED)
+    args.update(kw)
+    return mx.io.ImageRecordIter(**args)
+
+
+def _rec_card_vs_cpu(mx, path):
+    """One epoch at B=REC_CHECK_BATCH on one thread (deterministic) under
+    the card's context and under the CPU's: every batch bitwise, and the
+    trailing batch's pad exact."""
+    import torch
+
+    epochs = {}
+    for name, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+        with ctx:
+            it = _rec_iter(mx, path, batch_size=REC_CHECK_BATCH,
+                           preprocess_threads=1)
+            epochs[name] = [(b.data[0]._data.cpu(), b.label[0]._data.cpu(),
+                             b.pad, b.data[0]._data.device.type)
+                            for b in it]
+            it.close()
+    card, cpu = epochs["card"], epochs["cpu"]
+    want_pads = [0] * (REC_IMAGES // REC_CHECK_BATCH) + (
+        [REC_CHECK_BATCH - REC_IMAGES % REC_CHECK_BATCH]
+        if REC_IMAGES % REC_CHECK_BATCH else [])
+    same = len(card) == len(cpu) and all(
+        torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        for a, b in zip(card, cpu))
+    res = {"B": REC_CHECK_BATCH, "batches": len(card), "bitwise": same,
+           "pads": [b[2] for b in card], "devices": sorted(
+               {b[3] for b in card} | {b[3] for b in cpu})}
+    bad = []
+    if not same:
+        bad.append("ImageRecordIter: the card's batches differ from the "
+                   "CPU's")
+    if res["pads"] != want_pads or [b[2] for b in cpu] != want_pads:
+        bad.append(f"pads {res['pads']}, expected {want_pads}")
+    if res["devices"] != ["cpu", "cuda"]:
+        bad.append(f"batch devices {res['devices']}")
+    return res, bad
+
+
+def _rec_throughput(mx, path):
+    """The iterator alone on REC_THREADS threads at B=REC_BATCH: images/s of
+    the second epoch (batches on the card, normalized, then a sync)."""
+    import torch
+
+    it = _rec_iter(mx, path)
+    rates = []
+    for _ in range(2):
+        it.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = sum(b.data[0].shape[0] - b.pad for b in it)
+        torch.cuda.synchronize()
+        rates.append(n / (time.perf_counter() - t0))
+    it.close()
+    return {"threads": REC_THREADS, "B": REC_BATCH, "images_per_s": rates}
+
+
+def _rec_fit(mx, path):
+    """``Module.fit`` on the example ResNet-50 symbol (f32, NCHW, SGD as
+    module_fit's) fed by the iterator for REC_FIT_BATCHES batches: ms a
+    batch (a sync, then the host clock, in the batch-end callback)."""
+    import torch
+
+    net, _, _ = _fit_loaded_symbol()
+    feed = _rec_iter(mx, path)
+    it = mx.io.ResizeIter(feed, REC_FIT_BATCHES)
+    mod = mx.mod.Module(net, label_names=["softmax_label"])
+    marks, losses = [], []
+
+    def timing(param):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        losses.append(_ce(param.locals["self"].get_outputs()[0],
+                          param.locals["data_batch"].label[0]))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=1, kvstore="tpu_sync", optimizer="sgd",
+            optimizer_params={"learning_rate": FIT_LR,
+                              "momentum": FIT_MOMENTUM},
+            initializer=mx.init.Xavier(rnd_type="gaussian",
+                                       factor_type="in", magnitude=2),
+            batch_end_callback=timing)
+    feed.close()
+    ms = [(b - a) * 1e3 for a, b in zip([t0] + marks, marks)]
+    res = {"batches": len(marks), "step_ms": ms,
+           "steady_ms": float(np.median(ms[1:])), "losses": losses,
+           "fused_steps": mod._fused_step_count}
+    bad = []
+    if len(marks) != REC_FIT_BATCHES or not np.all(np.isfinite(losses)):
+        bad.append(f"fit over ImageRecordIter: {len(marks)} batches, "
+                   f"losses {losses}")
+    return res, bad
+
+
+def phase_image_rec(dev, module_fit=None):
+    """Path C: ``ImageRecordIter`` over a RAW0 ``.rec`` of REC_IMAGES
+    images (``train_imagenet``'s settings: resize 256, random 224 crops and
+    mirrors, its mean) on REC_THREADS host threads, uint8 to the card and
+    normalized there.  Checks: one-thread batches card = CPU bitwise with
+    an exact trailing pad; fit batches finite.  Numbers: the iterator's
+    images/s alone; ``Module.fit``'s ms a batch on the example ResNet-50
+    symbol fed by it, beside module_fit's ``NDArrayIter`` figure when that
+    phase ran."""
+    import gc
+    import os
+    import tempfile
+
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    gc.collect()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "train.rec")
+        t0 = time.perf_counter()
+        _write_rec(path)
+        write_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        check, bad = _rec_card_vs_cpu(mx, path)
+        rate = _rec_throughput(mx, path)
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        fit, bad_fit = _rec_fit(mx, path)
+        launches = _read_launches()
+    res = {"phase": "image_rec",
+           "config": {"images": REC_IMAGES, "stored": [REC_STORED] * 2,
+                      "data_shape": [3, RESNET_HW, RESNET_HW],
+                      "resize": REC_STORED, "rand_crop": True,
+                      "rand_mirror": True, "mean": list(REC_MEAN),
+                      "batch": REC_BATCH, "threads": REC_THREADS},
+           "rec_bytes": size, "write_s": write_s, "card_vs_cpu": check,
+           "iterator": rate, "fit": fit,
+           "module_fit_ndarrayiter_ms": (module_fit or {}).get(
+               "fit", {}).get("steady_step_ms"),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches}
+    emit(res)
+    bad += bad_fit
+    if any(launches.values()):
+        bad.append(f"the NCHW fit launched port kernels: {launches}")
+    if bad:
+        raise SystemExit("image_rec phase failed: " + "; ".join(bad))
+    return res
+
+
+
 def phase_profile_resnet(dev):
     """Optional (not in the default run): two chained bf16 ResNet-50
     training steps of the ``resnet_training`` phase's main path under
@@ -3949,6 +4632,50 @@ def phase_profile_resnet(dev):
     torch.cuda.synchronize()
     emit({"phase": "profile_resnet", "steps": 2, "B": RESNET_BATCH,
           **_profiled(lambda: steps(2))})
+
+
+# -- sequence models: helpers of rnn_lm and bucketing_fit ---------------------
+
+def _fused_to_unfused(blob, mode, num_layers, input_size, H, bidirectional,
+                      prefix, forget_bias=1.0):
+    """A ``FusedRNNCell``'s flat blob (numpy) as the weights of its
+    ``unfuse()``d cells (``{prefix}l{i}_`` / ``{prefix}r{i}_``
+    i2h/h2h weight and bias).  An unfused ``LSTMCell`` adds
+    ``forget_bias`` to its forget gate in the graph, where the fused op
+    adds none, so that gate's i2h bias is lowered by it."""
+    import torch
+
+    from mxnet_tpu_torch.ops.rnn import _unpack_params
+
+    Ws, Bs = _unpack_params(torch.from_numpy(np.asarray(blob, np.float32)),
+                            mode, num_layers, input_size, H, bidirectional)
+    dirs = 2 if bidirectional else 1
+    out = {}
+    for k, ((wx, wh), (bx, bh)) in enumerate(zip(Ws, Bs)):
+        layer, d = divmod(k, dirs)
+        cell = f"{prefix}{'lr'[d]}{layer}_"
+        bx = bx.numpy().copy()
+        if mode == "lstm":
+            bx[H:2 * H] -= forget_bias
+        out.update({cell + "i2h_weight": wx.numpy().copy(),
+                    cell + "h2h_weight": wh.numpy().copy(),
+                    cell + "i2h_bias": bx, cell + "h2h_bias": bh.numpy().copy()})
+    return out
+
+
+def _bound_outputs(sym, vals, dev, mx=None):
+    """``sym``'s outputs (numpy) from an inference forward bound on
+    ``dev`` with the numpy arguments ``vals`` (``mx``: the package, the
+    port's by default)."""
+    if mx is None:
+        import mxnet_tpu_torch as mx
+
+    ctx = mx.cpu() if str(dev) == "cpu" else mx.gpu(0)
+    ex = sym.simple_bind(ctx=ctx, grad_req="null",
+                         **{n: v.shape for n, v in vals.items()})
+    for n, v in vals.items():
+        ex.arg_dict[n][:] = v
+    return [o.asnumpy() for o in ex.forward(is_train=False)]
 
 
 def _kernel_table(kern, runs):
@@ -4079,7 +4806,8 @@ def main(argv) -> int:
     phases = set(argv[1].split(",")) if len(argv) > 1 else {
         "kernels", "model", "training", "serving", "serving_default",
         "serving_int8", "resnet_training", "resnet_compressed",
-        "gluon_training", "module_fit", "gluon_hybrid"}
+        "gluon_training", "module_fit", "gluon_hybrid", "rnn_lm",
+        "bucketing_fit", "image_rec"}
     if "serving_int8" in phases:
         phases.add("serving")   # its float baseline
     t_start = time.perf_counter()
@@ -4118,6 +4846,12 @@ def main(argv) -> int:
         runs["module_fit"] = phase_module_fit(dev)
     if "gluon_hybrid" in phases:
         runs["gluon_hybrid"] = phase_gluon_hybrid(dev)
+    if "rnn_lm" in phases:
+        runs["rnn_lm"] = phase_rnn_lm(dev)
+    if "bucketing_fit" in phases:
+        runs["bucketing_fit"] = phase_bucketing_fit(dev)
+    if "image_rec" in phases:
+        runs["image_rec"] = phase_image_rec(dev, runs.get("module_fit"))
     if "profile_resnet" in phases:
         phase_profile_resnet(dev)
     if kern is not None and runs:

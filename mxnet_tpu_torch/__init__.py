@@ -18,14 +18,17 @@ through the pack and unpack kernels), ``gluon.Trainer``, ``DataLoader``
 and parameter files; and the symbolic path: ``Symbol`` (graph JSON byte
 for byte the reference's), the ``Executor``, ``Module.fit`` with its
 metrics, callbacks, data iterators, learning-rate schedulers and
-checkpoint files.  Entry points run on ``cuda`` (``mx.gpu()``, the default
+checkpoint files; sequence models: the fused ``RNN`` op, ``mx.rnn``
+cells with ``BucketSentenceIter``, ``BucketingModule``,
+``SequentialModule``, ``Monitor`` and ``gluon.rnn``; and the RecordIO
+image feed (``recordio``, ``io.ImageRecordIter``).  Entry points run on ``cuda`` (``mx.gpu()``, the default
 context) unless the caller passes the CPU (``ctx=mx.cpu()``,
 ``context=mx.cpu()`` or ``device="cpu"``).
 """
 from . import (attribute, autograd, base, callback, context, executor, gluon,
                initializer, io, kvstore, lr_scheduler, metric, model, module,
-               name, ndarray, ops, optimizer, parallel, random, serving,
-               symbol)
+               monitor, name, ndarray, ops, optimizer, parallel, random,
+               recordio, rnn, serving, symbol)
 from . import initializer as init
 from . import kvstore as kv
 from . import module as mod
@@ -46,6 +49,7 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "current_context",
            "num_devices", "resolve_device", "attribute", "autograd", "base",
            "callback", "context", "executor", "gluon", "init", "initializer",
            "io", "kv", "kvstore", "lr_scheduler", "metric", "mod", "model",
-           "module", "Module", "name", "nd", "ndarray", "ops", "optimizer",
-           "parallel", "random", "serving", "sym", "symbol", "Symbol",
+           "module", "Module", "monitor", "name", "nd", "ndarray", "ops",
+           "optimizer", "parallel", "random", "recordio", "rnn", "serving",
+           "sym", "symbol", "Symbol",
            "save_checkpoint", "load_checkpoint"]

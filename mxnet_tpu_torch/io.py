@@ -1,6 +1,6 @@
 """Data iterators: ``DataDesc``, ``DataBatch``, ``DataIter``,
-``NDArrayIter``, ``ResizeIter``, ``PrefetchingIter``, ``CSVIter`` and
-``MNISTIter``.
+``NDArrayIter``, ``ResizeIter``, ``PrefetchingIter``, ``CSVIter``,
+``MNISTIter``, ``ImageRecordIter`` and ``RecordIOIter``.
 
 PyTorch counterpart of ``mxnet_tpu/io.py`` (reference:
 python/mxnet/io.py, src/io/iter_csv.cc, src/io/iter_mnist.cc).  Batches
@@ -12,17 +12,25 @@ current when it started.  ``MNISTIter`` reads idx
 files already on disk (or makes the reference's synthetic set when they
 are absent); nothing is downloaded.
 
-Not ported, each refused with ``MXNetError``: ``ImageRecordIter`` and
-``RecordIOIter`` (the reference's native decode pipeline; ROADMAP.md,
-Queue 1, item 3) and ``shard_data_batch`` (a device mesh; Queue 1,
-item 5).
+``ImageRecordIter`` (``ImageRecordIterNative``) is the reference's
+default RecordIO image route: decode, resize, crop and mirror on host
+worker threads into uint8 NHWC batches, normalized and transposed on the
+device; ``RecordIOIter`` yields a shard's raw records.
+
+Not ported, each refused with ``MXNetError``: ``ImageRecordIter``'s
+``ImageIter`` route (``use_native=False``, or C != 3; ``image.py``,
+ROADMAP.md, Queue 1, item 7) and ``shard_data_batch`` (a device mesh;
+Queue 1, item 5).  ``LibSVMIter`` waits for ``ndarray/sparse``.
 """
 from __future__ import annotations
 
+import atexit
 import collections
 import contextlib
 import queue
+import struct
 import threading
+import weakref
 from collections import namedtuple
 
 import numpy as _np
@@ -34,7 +42,7 @@ from .ndarray.ndarray import NDArray
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
            "PrefetchingIter", "CSVIter", "MNISTIter", "ImageRecordIter",
-           "RecordIOIter", "shard_data_batch"]
+           "ImageRecordIterNative", "RecordIOIter", "shard_data_batch"]
 
 
 def shard_data_batch(batch, mesh, axis: str = "dp", strict: bool = False):
@@ -458,12 +466,470 @@ def _first_existing(path):
     return path if os.path.exists(path) else path + ".gz"
 
 
+# the live image pipelines: their worker threads are stopped at exit, so
+# none still holds the record file while the interpreter finalizes
+_PIPELINES = weakref.WeakSet()
+
+
+@atexit.register
+def _close_pipelines():
+    for pipe in list(_PIPELINES):
+        pipe.close()
+
+
+class _Worker:
+    """One decode worker's random stream: ``std::mt19937`` seeded with
+    ``uint32(seed + worker_id + 9973 * epoch)``, the native pipeline's
+    (``cpp/src/imagedec.cc``).  numpy's legacy ``RandomState`` is the same
+    Mersenne Twister, and its full-range uint32 draw is one raw output."""
+
+    def __init__(self, seed: int):
+        self._rs = _np.random.RandomState(seed & 0xFFFFFFFF)
+
+    def draw(self) -> int:
+        return int(self._rs.randint(0, 2 ** 32, dtype=_np.uint32))
+
+    def shuffle(self, items: list) -> None:
+        self._rs.shuffle(items)
+
+
+def _resize_bilinear(src, dh: int, dw: int):
+    """The native pipeline's bilinear resize of an RGB uint8 image, in its
+    float32 arithmetic: source sample ``(i + 0.5) * (in / out) - 0.5``,
+    truncated toward zero and clamped, and each channel
+    ``uint8((1-wy)((1-wx)p00 + wx p01) + wy((1-wx)p10 + wx p11) + 0.5)``."""
+    sh, sw = src.shape[:2]
+    f32 = _np.float32
+
+    def axis(n_src, n_dst):
+        scale = f32(n_src) / f32(n_dst)
+        fc = (_np.arange(n_dst, dtype=f32) + f32(0.5)) * scale - f32(0.5)
+        c0 = _np.maximum(fc.astype(_np.int32), 0)
+        c1 = _np.minimum(c0 + 1, n_src - 1)
+        w = _np.maximum(fc - c0.astype(f32), f32(0))
+        return c0, c1, w
+
+    y0, y1, wy = axis(sh, dh)
+    x0, x1, wx = axis(sw, dw)
+    wy, wx = wy[:, None, None], wx[None, :, None]
+    img = src.astype(f32)
+    top, bot = img[y0], img[y1]
+    one = f32(1)
+    v = (one - wy) * ((one - wx) * top[:, x0] + wx * top[:, x1]) + \
+        wy * ((one - wx) * bot[:, x0] + wx * bot[:, x1])
+    return (v + f32(0.5)).astype(_np.uint8)
+
+
+def _decode_raw0(img: bytes):
+    """A RAW0 blob as an (H, W, 3) uint8 array (a gray or other channel
+    count broadcasts its first channel), or None when malformed."""
+    if len(img) < 8:
+        return None
+    (ndim,) = struct.unpack("<I", img[4:8])
+    if ndim < 2 or ndim > 3 or len(img) < 8 + 4 * ndim:
+        return None
+    shape = struct.unpack(f"<{ndim}i", img[8:8 + 4 * ndim]) + (1,)
+    h, w, c = shape[0], shape[1], shape[2] if ndim == 3 else 1
+    if min(h, w, c) <= 0:
+        return None
+    need = h * w * c
+    if len(img) - (8 + 4 * ndim) < need:
+        return None
+    px = _np.frombuffer(img, _np.uint8, need, 8 + 4 * ndim).reshape(h, w, c)
+    return px if c == 3 else _np.repeat(px[:, :, :1], 3, axis=2)
+
+
+def _decode_jpeg(img: bytes, min_side: int):
+    """A JPEG through PIL, decoded at the smallest 1/2^k scale whose short
+    side still covers ``min_side`` (the native pipeline's libjpeg
+    ``scale_denom``), as (H, W, 3) uint8."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise MXNetError("ImageRecordIter: a JPEG record needs PIL to "
+                         "decode (RAW0 records need nothing)") from e
+    import io as _io
+
+    im = Image.open(_io.BytesIO(img))
+    if min_side > 0:
+        w, h = im.size
+        den = 1
+        while den < 8 and min(w, h) // (den * 2) >= min_side:
+            den *= 2
+        if den > 1:
+            im.draft("RGB", (-(-w // den), -(-h // den)))
+    return _np.asarray(im.convert("RGB"))
+
+
+class _ImagePipeline:
+    """The record reader and the decode workers of one
+    :class:`ImageRecordIterNative`.
+
+    Workers take chunks of records (``window``: one batch, four with
+    ``shuffle``) from the shard's reader under a lock, decode, resize,
+    crop and mirror each record into a uint8 NHWC batch (pinned host
+    memory when ``pin``), and hand the batches over in the order their
+    chunks were read, so an epoch's order depends on the thread count only
+    through the random draws.  A trailing batch repeats its own rows and
+    counts its real images; a shard with fewer batches than the largest
+    shard's ``ceil(size / B)`` emits copies of its first batch counting 0
+    images, so every shard steps equally."""
+
+    def __init__(self, path, batch_size, data_shape, resize, num_threads,
+                 queue_depth, shard_index, num_shards, rand_crop, rand_mirror,
+                 shuffle, label_width, seed, pin):
+        c, h, w = data_shape
+        if batch_size < 1 or h < 1 or w < 1 or resize < 0:
+            raise MXNetError("ImageRecordIter: batch_size and data_shape "
+                             "must be positive")
+        self.path = path
+        self.B, self.H, self.W = int(batch_size), int(h), int(w)
+        self.resize = int(resize)
+        self.num_threads = max(1, int(num_threads))
+        self.depth = max(1, int(queue_depth))
+        self.shard, self.nshards = int(shard_index), max(1, int(num_shards))
+        self.rand_crop, self.rand_mirror = bool(rand_crop), bool(rand_mirror)
+        self.shuffle = bool(shuffle)
+        self.label_width = max(1, int(label_width))
+        self.seed = int(seed)
+        self.pin = pin
+        from .recordio import _count_records
+
+        n_total = _count_records(path)
+        max_shard = -(-n_total // self.nshards)
+        self.target = -(-max_shard // self.B)
+        self.epoch = 0
+        self._threads = []
+        self._start()
+        _PIPELINES.add(self)
+
+    # -- epoch -----------------------------------------------------------
+    def _start(self):
+        from .recordio import MXRecordIO
+
+        self._reader = MXRecordIO(self.path, "r")
+        self._ordinal = 0
+        self._stream_end = False
+        self._next_seq = 0      # next batch number to hand to a chunk
+        self._emit = 0          # next batch number next() returns
+        self._done = {}
+        self._error = None
+        self._first = None
+        self._stop = False
+        self._active = self.num_threads
+        self._read_lock = threading.Lock()
+        self._cv = threading.Condition()
+        self._threads = [threading.Thread(target=self._work, args=(i,),
+                                          daemon=True)
+                         for i in range(self.num_threads)]
+        for t in self._threads:
+            t.start()
+
+    def _halt(self):
+        with self._cv:
+            self._stop = True
+            self._cv.notify_all()
+        for t in self._threads:
+            t.join()
+        self._threads = []
+        self._reader.close()
+
+    def reset(self):
+        self._halt()
+        self.epoch += 1     # new crops and mirrors every epoch
+        self._start()
+
+    def close(self):
+        if self._threads:
+            self._halt()
+
+    # -- workers ---------------------------------------------------------
+    def _fetch(self, n):
+        """Up to ``n`` of the shard's records, and the first batch number
+        of the batches they make."""
+        with self._read_lock:
+            out = []
+            while len(out) < n and not self._stream_end:
+                buf = self._reader.read()
+                if buf is None:
+                    self._stream_end = True
+                    break
+                if self._ordinal % self.nshards == self.shard:
+                    out.append(buf)
+                self._ordinal += 1
+            with self._cv:
+                # hold back while far ahead of the consumer
+                while not self._stop and self._next_seq - self._emit >= \
+                        self.depth + self.num_threads:
+                    self._cv.wait()
+                seq = self._next_seq
+                self._next_seq += -(-len(out) // self.B)
+            return out, seq
+
+    def _new_batch(self):
+        import torch
+
+        data = torch.empty((self.B, self.H, self.W, 3), dtype=torch.uint8,
+                           pin_memory=self.pin)
+        return data, _np.zeros((self.B, self.label_width), _np.float32)
+
+    def _work(self, worker_id):
+        rng = _Worker(self.seed + worker_id + 9973 * self.epoch)
+        window = 4 * self.B if self.shuffle else self.B
+        try:
+            while True:
+                chunk, seq = self._fetch(window)
+                if not chunk or self._stop:
+                    break
+                if self.shuffle:
+                    rng.shuffle(chunk)
+                for k in range(0, len(chunk), self.B):
+                    part = chunk[k:k + self.B]
+                    data, labels = self._new_batch()
+                    px = data.numpy()
+                    for i, rec in enumerate(part):
+                        self._decode(rec, rng, px[i], labels[i])
+                    for i in range(len(part), self.B):   # repeat its rows
+                        px[i] = px[i % len(part)]
+                        labels[i] = labels[i % len(part)]
+                    self._put(seq + k // self.B, (data, labels, len(part)))
+        except Exception as e:  # noqa: BLE001 (handed to the consumer)
+            with self._cv:
+                self._error = self._error or e
+                self._cv.notify_all()
+        finally:
+            with self._cv:
+                self._active -= 1
+                self._cv.notify_all()
+
+    def _put(self, seq, batch):
+        with self._cv:
+            if seq == 0:
+                self._first = batch
+            self._done[seq] = batch
+            self._cv.notify_all()
+
+    def _decode(self, rec, rng, out_px, out_label):
+        if len(rec) < 24:
+            raise MXNetError(f"{self.path}: a record of {len(rec)} bytes "
+                             f"has no image header")
+        flag, label = struct.unpack("<If", rec[:8])
+        img = rec[24:]
+        if flag > 0:
+            if len(img) < 4 * flag:
+                raise MXNetError(f"{self.path}: a record shorter than its "
+                                 f"{flag} labels")
+            n = min(flag, self.label_width)
+            out_label[:n] = _np.frombuffer(img, _np.float32, n)
+            img = img[4 * flag:]
+        else:
+            out_label[0] = label
+        if img[:4] == b"RAW0":
+            src = _decode_raw0(img)
+            if src is None:
+                raise MXNetError(f"{self.path}: a malformed RAW0 record")
+        else:
+            try:
+                src = _decode_jpeg(img, self.resize)
+            except MXNetError:
+                raise
+            except Exception as e:
+                raise MXNetError(f"{self.path}: an undecodable image "
+                                 f"record ({e})") from e
+        h, w = src.shape[:2]
+        rh, rw = h, w
+        if self.resize > 0:     # shorter side to `resize`, aspect kept
+            if h < w:
+                rh, rw = self.resize, max(self.W, w * self.resize // max(1, h))
+            else:
+                rw, rh = self.resize, max(self.H, h * self.resize // max(1, w))
+        rh, rw = max(rh, self.H), max(rw, self.W)
+        if (rh, rw) != (h, w):
+            src = _resize_bilinear(src, rh, rw)
+        if self.rand_crop:
+            y0 = 0 if rh == self.H else rng.draw() % (rh - self.H + 1)
+            x0 = 0 if rw == self.W else rng.draw() % (rw - self.W + 1)
+        else:
+            y0, x0 = (rh - self.H) // 2, (rw - self.W) // 2
+        crop = src[y0:y0 + self.H, x0:x0 + self.W]
+        if self.rand_mirror and rng.draw() & 1:
+            crop = crop[:, ::-1]
+        out_px[...] = crop
+
+    # -- consumer --------------------------------------------------------
+    def next(self):
+        """(uint8 NHWC tensor, float32 labels, real image count), or None
+        at the end of the epoch."""
+        with self._cv:
+            while True:
+                if self._emit in self._done:
+                    batch = self._done.pop(self._emit)
+                    self._emit += 1
+                    self._cv.notify_all()
+                    return batch
+                if self._error is not None:
+                    raise self._error
+                if self._active == 0:
+                    break
+                self._cv.wait()
+            if self._emit >= self.target:
+                return None
+            # this shard is short of the largest one's batches
+            self._emit += 1
+        if self._first is None:
+            data, labels = self._new_batch()
+            data.zero_()
+            return data, labels, 0
+        return self._first[0].clone(), self._first[1].copy(), 0
+
+
+class ImageRecordIterNative(DataIter):
+    """The RecordIO image pipeline, with the semantics of the reference's
+    default route (``ImageRecordIterNative`` over ``cpp/src/imagedec.cc``):
+    decode RAW0 (JPEG through PIL where PIL can be imported; an
+    undecodable record raises ``MXNetError``, it is never skipped), resize
+    the shorter side to ``resize`` (default the larger of H and W) with
+    the native bilinear arithmetic, crop H x W (random with
+    ``rand_crop``, else centered), mirror (with ``rand_mirror``, each
+    image with probability 1/2), on ``preprocess_threads`` worker threads
+    (numpy), each drawing from ``mt19937(seed + worker + 9973 * epoch)``.
+
+    Batches are uint8 NHWC on the host (pinned when the current context
+    is a card), copied to the current context's device as they are;
+    ``(x - mean) / std * scale`` and the transpose to NCHW run there, so
+    one byte a pixel crosses the link.  ``DataBatch.pad`` counts a
+    trailing batch's repeated rows."""
+
+    def __init__(self, path_imgrec, data_shape=(3, 224, 224), batch_size=128,
+                 resize=-1, rand_crop=False, rand_mirror=False, shuffle=False,
+                 mean_r=0.0, mean_g=0.0, mean_b=0.0,
+                 std_r=1.0, std_g=1.0, std_b=1.0, scale=1.0,
+                 preprocess_threads=4, prefetch_buffer=4,
+                 num_parts=1, part_index=0, label_width=1, seed=0,
+                 data_name="data", label_name="softmax_label", **kwargs):
+        super().__init__(batch_size)
+        from .context import current_context, resolve_device
+
+        c, h, w = data_shape
+        if c != 3:
+            raise MXNetError("ImageRecordIter: the native route is RGB only "
+                             "(C=3); the ImageIter route (image.py) is not "
+                             "ported (ROADMAP.md, Queue 1, item 7)")
+        if resize <= 0:
+            resize = max(h, w)
+        pin = resolve_device(current_context()).type == "cuda"
+        self._pipe = _ImagePipeline(
+            path_imgrec, batch_size, tuple(data_shape), resize,
+            preprocess_threads, prefetch_buffer, part_index, num_parts,
+            rand_crop, rand_mirror, shuffle, label_width, seed, pin)
+        self._label_width = label_width
+        self.data_name, self.label_name = data_name, label_name
+        self.provide_data = [DataDesc(data_name,
+                                      (batch_size,) + tuple(data_shape))]
+        lshape = (batch_size,) if label_width == 1 else \
+            (batch_size, label_width)
+        self.provide_label = [DataDesc(label_name, lshape)]
+        self._mean = _np.asarray([mean_r, mean_g, mean_b], _np.float32)
+        self._std = _np.asarray([std_r, std_g, std_b], _np.float32)
+        self._scale = float(scale)
+        self._consts = {}
+
+    def _preprocess(self, img_u8, dev):
+        """uint8 NHWC (host) -> normalized float32 NCHW on ``dev``."""
+        import torch
+
+        if dev not in self._consts:
+            self._consts[dev] = tuple(
+                torch.from_numpy(a).to(dev).view(1, 3, 1, 1)
+                for a in (self._mean, self._std))
+        mean, std = self._consts[dev]
+        u8 = img_u8.to(dev, non_blocking=True)
+        B, H, W, _ = u8.shape
+        x = torch.empty((B, 3, H, W), dtype=torch.float32, device=dev)
+        x.copy_(u8.permute(0, 3, 1, 2))
+        x = (x - mean) / std
+        if self._scale != 1.0:
+            x = x * self._scale
+        return x
+
+    def next(self):
+        import torch
+
+        from .context import current_context, resolve_device
+
+        batch = self._pipe.next()
+        if batch is None:
+            raise StopIteration
+        img, lab, count = batch
+        dev = resolve_device(current_context())
+        data = NDArray(self._preprocess(img, dev))
+        label = torch.from_numpy(_np.ascontiguousarray(
+            lab[:, 0] if self._label_width == 1 else lab))
+        if dev.type == "cuda":
+            # pinned, so the copy does not wait for the card's queue
+            label = label.pin_memory()
+        return DataBatch([data], [NDArray(label.to(dev, non_blocking=True))],
+                         pad=self.batch_size - count)
+
+    def reset(self):
+        self._pipe.reset()
+
+    def close(self):
+        self._pipe.close()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:   # noqa: BLE001 (interpreter shutdown)
+            pass
+
+
 def ImageRecordIter(**kwargs):
-    raise MXNetError("ImageRecordIter is not ported (ROADMAP.md, Queue 1, "
-                     "item 3: the RecordIO image pipeline)")
+    """The RecordIO image pipeline (reference: src/io/
+    iter_image_recordio_2.cc): :class:`ImageRecordIterNative`, the
+    reference's default route.  ``use_native=False`` (the reference's
+    Python ``ImageIter`` route, ``image.py``) is not ported and raises
+    ``MXNetError`` (ROADMAP.md, Queue 1, item 7)."""
+    if not kwargs.pop("use_native", True) or not kwargs.get("path_imgrec"):
+        raise MXNetError("ImageRecordIter: the ImageIter route (image.py: "
+                         "use_native=False, or no path_imgrec) is not "
+                         "ported (ROADMAP.md, Queue 1, item 7)")
+    return ImageRecordIterNative(**kwargs)
 
 
 class RecordIOIter:
-    def __init__(self, *args, **kwargs):
-        raise MXNetError("RecordIOIter is not ported (ROADMAP.md, Queue 1, "
-                         "item 3: the RecordIO image pipeline)")
+    """The raw records of one shard of a RecordIO file, in order: record
+    ``i`` (counting logical records) belongs to part ``i % num_parts``
+    (reference: ``io.RecordIOIter``, dmlc's round-robin split).  Yields
+    ``bytes``; decode with ``recordio.unpack``/``unpack_img``.
+    ``batch_records`` and ``queue_depth`` (the reference's native
+    read-ahead) are accepted; reading is synchronous."""
+
+    def __init__(self, path, batch_records=64, queue_depth=4, part_index=0,
+                 num_parts=1):
+        from .recordio import MXRecordIO
+
+        self._path = path
+        self._reader = MXRecordIO(path, "r")
+        self._part_index, self._num_parts = part_index, max(1, num_parts)
+        self._ordinal = 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> bytes:
+        while True:
+            buf = self._reader.read()
+            if buf is None:
+                raise StopIteration
+            mine = (self._ordinal % self._num_parts) == self._part_index
+            self._ordinal += 1
+            if mine:
+                return buf
+
+    def reset(self):
+        self._reader.reset()
+        self._ordinal = 0
+
+    def close(self):
+        self._reader.close()

@@ -3,7 +3,8 @@
 PyTorch counterpart of ``mxnet_tpu/module/base_module.py`` (reference:
 python/mxnet/module/base_module.py).  ``fit`` takes the fused train step
 (``Module._try_fused_step``) where the module allows it, else
-``forward_backward`` + ``update``.  Not ported, each refused with
+``forward_backward`` + ``update`` (always for ``BucketingModule`` and
+``SequentialModule``, which take no fused step, as the reference's).  Not ported, each refused with
 ``MXNetError``: ``fit``'s fault-tolerant checkpoints (``checkpoint_dir``,
 ``resume``) and partition rules (``shard_rules``) (ROADMAP.md, Queue 1,
 items 6 and 5).

@@ -16,7 +16,8 @@ Not ported, each refused with ``MXNetError``: several contexts or a
 ``TPUMX_DP_DEVICES``/``TPUMX_MP_DEVICES``/``TPUMX_PP_DEVICES`` width above
 1 and ``group2ctxs`` (ROADMAP.md, Queue 1, item 5), AMP and the
 fault-tolerant train state (Queue 1, item 6).  ``BucketingModule`` and
-``SequentialModule`` are not ported yet (Queue 1, item 3).
+``SequentialModule`` (``bucketing_module.py``, ``sequential_module.py``)
+drive ``Module``s through the legacy route.
 """
 from __future__ import annotations
 

@@ -27,7 +27,7 @@ import torch
 from .. import autograd
 from ..base import MXNetError, dtype_name, torch_dtype
 from ..ops import (nn as _nn, random_ops as _random_ops,  # noqa: F401
-                   tensor as _tensor)   # (registers)
+                   rnn as _rnn, tensor as _tensor)   # (registers)
 from ..ops.registry import OP_REGISTRY
 from .ndarray import NDArray, _device, array, invoke, rng_kwargs, waitall
 

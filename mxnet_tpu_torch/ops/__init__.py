@@ -2,14 +2,15 @@
 NDArrays call (``nn``, ``tensor``), the hand-written CUDA kernels (built
 from ``csrc/``, at first use) with their plain PyTorch versions, the
 token-sampling functions of the generation engine, the random samplers
-(``random_ops``, bit for bit the reference's threefry draws), the 2-bit gradient
+(``random_ops``, bit for bit the reference's threefry draws), the fused
+recurrent ``RNN`` op (``rnn``, plain torch), the 2-bit gradient
 compression kernels (``twobit``) and the optimizers' update rules
 (``optimizer_ops``)."""
 from . import (batch_norm, flash_attention, layer_norm, nn, optimizer_ops,
-               paged_attention, random_ops, registry, sampling, tensor,
+               paged_attention, random_ops, registry, rnn, sampling, tensor,
                twobit)
 
 __all__ = ["batch_norm", "flash_attention", "layer_norm", "nn",
            "optimizer_ops", "paged_attention", "random_ops", "registry",
-           "sampling",
+           "rnn", "sampling",
            "tensor", "twobit"]

@@ -4,7 +4,9 @@ reference's NDArray operators map to), ``where``, the reductions, the
 shape ops (``reshape`` with the reference's special codes, ``transpose``,
 ``swapaxes``, ``expand_dims``, ``squeeze``, slicing, ``split``, ``concat``, ``stack``,
 ``tile``, ``repeat``, ``flip``, the ``broadcast_*`` shapes), ``dot``,
-``take``/``pick``/``one_hot``, ``Embedding``, ``cast`` and the ``*_like`` fills.
+``take``/``pick``/``one_hot``, ``Embedding``, the ``Sequence*`` ops
+(``SequenceMask``, ``SequenceLast``, ``SequenceReverse``), ``cast`` and the
+``*_like`` fills.
 
 PyTorch counterpart of ``mxnet_tpu/ops/tensor.py`` (only these ops so
 far).  Comparisons return 0/1 in the first input's dtype, and
@@ -414,6 +416,56 @@ def embedding(data, weight, input_dim=None, output_dim=None, dtype="float32",
     idx = data.to(torch.int32).long()
     return weight.index_select(0, idx.reshape(-1)).reshape(
         tuple(idx.shape) + tuple(weight.shape[1:]))
+
+
+def _lengths(sequence_length):
+    return sequence_length.to(torch.int32).long()
+
+
+@register("SequenceMask")
+def sequence_mask(data, sequence_length=None, use_sequence_length=False,
+                  value=0.0, axis=0):
+    """Steps at or past each sequence's length set to ``value`` (time on
+    ``axis`` 0 or 1, the batch on the other)."""
+    if not use_sequence_length or sequence_length is None:
+        return data
+    steps = torch.arange(data.shape[int(axis)], device=data.device)
+    lens = _lengths(sequence_length)
+    if int(axis) == 0:
+        mask = steps[:, None] < lens[None, :]
+    else:
+        mask = steps[None, :] < lens[:, None]
+    mask = mask.reshape(tuple(mask.shape) + (1,) * (data.ndim - 2))
+    return torch.where(mask, data, torch.full((), value, dtype=data.dtype,
+                                              device=data.device))
+
+
+@register("SequenceLast")
+def sequence_last(data, sequence_length=None, use_sequence_length=False,
+                  axis=0):
+    """Each sequence's last valid step (the last step without lengths)."""
+    ax = int(axis)
+    if not use_sequence_length or sequence_length is None:
+        return data.select(ax, data.shape[ax] - 1)
+    idx = _lengths(sequence_length) - 1
+    shape = ((1, -1) if ax == 0 else (-1, 1)) + (1,) * (data.ndim - 2)
+    idx = idx.reshape(shape).expand(
+        *(1 if d == ax else data.shape[d] for d in range(data.ndim)))
+    return torch.gather(data, ax, idx).squeeze(ax)
+
+
+@register("SequenceReverse")
+def sequence_reverse(data, sequence_length=None, use_sequence_length=False,
+                     axis=0):
+    """Each sequence's first ``length`` steps reversed along axis 0, the
+    padding left in place (the whole axis flipped without lengths)."""
+    if not use_sequence_length or sequence_length is None:
+        return torch.flip(data, (int(axis),))
+    steps = torch.arange(data.shape[0], device=data.device)[:, None]
+    lens = _lengths(sequence_length)[None, :]
+    rev = torch.where(steps < lens, lens - 1 - steps, steps)
+    rev = rev.reshape(tuple(rev.shape) + (1,) * (data.ndim - 2))
+    return torch.gather(data, 0, rev.expand(*data.shape))
 
 
 @register("pick")

@@ -13,7 +13,7 @@ from __future__ import annotations
 import sys
 
 from ..ops import (nn as _nn, random_ops as _random_ops,  # noqa: F401
-                   tensor as _tensor)   # (registers)
+                   rnn as _rnn, tensor as _tensor)   # (registers)
 from ..ops.registry import OP_REGISTRY
 from . import graph  # noqa: F401
 from .symbol import (Symbol, Variable, var, Group, load, load_json, zeros,

@@ -30,6 +30,11 @@ OP_EXTRA_INPUTS: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {
     "FullyConnected": (("weight", "bias"), ()),
     "Convolution": (("weight", "bias"), ()),
     "BatchNorm": (("gamma", "beta"), ("moving_mean", "moving_var")),
+    "LayerNorm": (("gamma", "beta"), ()),
+    "InstanceNorm": (("gamma", "beta"), ()),
+    "Embedding": (("weight",), ()),
+    "RNN": (("parameters", "state", "state_cell"), ()),
+    "LeakyReLU": (("gamma",), ()),
 }
 
 
@@ -39,6 +44,12 @@ def _active_extra_inputs(opname: str, attrs: dict
     if opname in ("FullyConnected", "Convolution") \
             and attr_bool(attrs.get("no_bias")):
         params = tuple(p for p in params if p != "bias")
+    if opname == "LeakyReLU" and attrs.get("act_type", "leaky") != "prelu":
+        params = ()
+    if opname == "RNN" and attrs.get("mode", "lstm") != "lstm":
+        # the op's own default mode is "lstm": only another mode drops
+        # the state_cell slot
+        params = ("parameters", "state")
     return params, aux
 
 

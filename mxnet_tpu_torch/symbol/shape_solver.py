@@ -18,6 +18,7 @@ import torch
 from ..base import MXNetError
 from ..ndarray.ndarray import _accepts_training
 from ..ops.nn import is_channels_last
+from ..ops.rnn import rnn_param_size
 from .graph import attr_bool, _active_extra_inputs, input_nodes, topo_order
 
 __all__ = ["solve_shapes"]
@@ -49,9 +50,23 @@ def _param_shape_rule(op_name: str, slot: str, attrs: dict,
                 return (nf,) + kernel + (cin // ng,)
             return (nf, cin // ng) + kernel
         return (nf,)
-    if op_name == "BatchNorm":
+    if op_name in ("BatchNorm", "InstanceNorm"):
         ax = int(attrs.get("axis", 1))
         return (data[ax],)
+    if op_name == "LayerNorm":
+        return (data[int(attrs.get("axis", -1))],)
+    if op_name == "Embedding":
+        return (int(attrs["input_dim"]), int(attrs["output_dim"]))
+    if op_name == "LeakyReLU":
+        return (data[1],)
+    if op_name == "RNN":
+        H = int(attrs["state_size"])
+        L = int(attrs["num_layers"])
+        bi = bool(attrs.get("bidirectional", False))
+        T, N, I = data
+        if slot == "parameters":
+            return (rnn_param_size(attrs.get("mode", "lstm"), L, I, H, bi),)
+        return (L * (2 if bi else 1), N, H)
     raise MXNetError(f"no shape rule for {op_name}.{slot}")
 
 

@@ -550,6 +550,11 @@ _DECLARED_DATA_INPUTS = {
     "FullyConnected": ["data"],
     "Convolution": ["data"],
     "BatchNorm": ["data"],
+    "LayerNorm": ["data"],
+    "InstanceNorm": ["data"],
+    "Embedding": ["data"],
+    "RNN": ["data"],
+    "LeakyReLU": ["data"],
     "SoftmaxOutput": ["data", "label"],
     "LinearRegressionOutput": ["data", "label"],
     "MAERegressionOutput": ["data", "label"],
