@@ -23,10 +23,13 @@ toolkit (``nvcc``) and PyTorch built for CUDA.  Phases, one JSON line each:
               rows), paged attention over the float pool and over the int8
               pool (q in float32 and bfloat16; decode at block sizes 32
               and 16, one 1,000-position row, three queries a row, head
-              dims 128 and 40, and T=512 prefill chunks; bitwise
+              dims 128 and 40, speculative verify steps at T = 2, 4
+              and 5 over B = 8 ragged rows, and T=512 prefill chunks;
+              bitwise
               repeatable; timed over table sets that cycle past the L2;
-              decode launching the split and merge kernels and prefill
-              the tile kernel, by kernel name), and the three flash
+              decode and verify at T <= 4 launching the split and merge
+              kernels, prefill and verify at T = 5 the tile kernel, by
+              kernel name), and the three flash
               attention kernels (forward with lse, dQ, dK/dV; float32 and
               bfloat16, causal and not, the training shape, a ragged T and
               D = 16, 32 and 128; the backward kernels bitwise equal over
@@ -172,6 +175,32 @@ toolkit (``nvcc``) and PyTorch built for CUDA.  Phases, one JSON line each:
               images/s alone, and ``Module.fit``'s ms a batch over four
               batches of the example ResNet-50 symbol fed by it (beside
               module_fit's ``NDArrayIter`` figure when that phase ran).
+17. serving_spec — speculative and multi-step decode at the same LM
+              width: ``bench.py`` ``speculative_decode_throughput``'s mix
+              (16 requests, half periodic, prompts 24 or 48, 64 new
+              tokens, 4 sampled) in waves of 8 slots, served single-step,
+              multi-step (k=8: one CUDA-graph replay a dispatch), n-gram
+              speculative (draft_k=4) and self-draft speculative (the
+              target as draft, window 128), then single-step, multi-step
+              and n-gram on the int8 pool.  Checks: multi-step = single-
+              step bit for bit (float, int8); speculative tokens teacher-
+              forced (greedy, and sampled with their Gumbel keys; int8
+              n-gram may miss at most twice the positions, at least 2,
+              that single-step int8 misses against the float forward); self-
+              draft greedy acceptance >= 0.9; no program key or capture
+              after warmup; LayerNorm and the pool's paged kernel launched.
+              Tokens/s per mode, mean accepted length, verify and multi-
+              step ms per iteration against single-step's.
+18. serving_fleet — ``GenerationRouter`` with two replicas on the card
+              (affinity on, tracing on, the flight recorder in a temporary
+              directory) serving ``serving_default``'s traffic: plainly
+              (teacher-forced), with replica 1 killed after its third
+              dispatch (queued work resubmitted and finished, only streams
+              under way end in ``ReplicaDeadError``) and with one request
+              failing every step (it alone ends in ``GenerationStepError``,
+              the others' tokens equal the plain run's, a
+              ``gen_quarantine`` dump names it); the generation gauges in
+              ``to_prometheus()``, both replicas in ``health()``.
 
 Every ResNet phase also requires that the BatchNorm op copied no
 non-contiguous input (``batch_norm.noncontiguous_copies`` stays 0); no
@@ -182,7 +211,8 @@ An optional comma-separated argument (``kernels``, ``model``,
 ``training``, ``serving``, ``serving_default``, ``serving_int8`` — which
 also runs ``serving``, its float baseline — ``resnet_training``,
 ``resnet_compressed``, ``gluon_training``, ``module_fit``,
-``gluon_hybrid``, ``rnn_lm``, ``bucketing_fit``, ``image_rec``, and
+``gluon_hybrid``, ``rnn_lm``, ``bucketing_fit``, ``image_rec``,
+``serving_spec``, ``serving_fleet``, and
 ``profile``, ``profile_training`` and ``profile_resnet``, which are not in
 the default run: the serving window, or two bf16 LM or ResNet training
 steps, once more under ``torch.profiler``)
@@ -280,6 +310,9 @@ NHWC_BATCH, NHWC_BATCHES, NHWC_HW, NHWC_C, NHWC_UNITS = 32, 3, 56, 256, 3
 # per conv unit (94); the capture check net's batch; the export round
 # trip's tolerance, relative to the output's largest magnitude
 GH_BATCH, GH_HW, GH_CLASSES, GH_STEPS, GH_BN = 128, 299, 1000, 10, 94
+# empty kernels that open a profiler session counting kernels by name:
+# their records take the loss of a session's first records (``_profiled``)
+PROFILE_LEAD = 1024
 GH_CHECK_BATCH = 8
 # rnn_lm: the Gluon word language model at the upstream example's "medium"
 # width (train.py --nhid 650 --emsize 650 --dropout 0.5; two layers;
@@ -525,6 +558,10 @@ PAGED_ROTATE_BYTES = 64e6
 PAGED_ROUTES = {"decode": ("paged_decode_split_kernel",
                            "paged_decode_merge_kernel"),
                 "prefill": ("paged_prefill_tile_kernel",)}
+# the speculative verify chunk lengths (Tk ladder at draft_k=4) and the
+# route each takes
+VERIFY_TS = (2, 4, 5)
+VERIFY_ROUTES = {2: "decode", 4: "decode", 5: "prefill"}
 
 
 def _paged_cases():
@@ -562,6 +599,14 @@ def _paged_cases():
     st, ln, tmpl = decode(ctx, 32, 32, T=3)
     ln[2] = 2
     cases.append(("decode_t3", 8, 3, 32, 32, 12, 64, st, ln, tmpl))
+    # speculative verify steps ([pending, d_1..d_s], Tk = s + 1 on the
+    # engine's ladder for draft_k=4: 2, 4, 5): the decode contexts, one
+    # row inactive, one with a draft fewer; T <= 4 takes split + merge,
+    # T = 5 the prefill tile kernel
+    for T in VERIFY_TS:
+        st, ln, tmpl = decode(ctx, 32, 32, T=T)
+        ln[2] = T - 1
+        cases.append((f"verify_t{T}", 8, T, 32, 32, 12, 64, st, ln, tmpl))
     # prefill: one 512-query chunk at offset 256 (a chunked prompt), 400
     # valid queries, so blocks past the last valid position are skipped
     for name, W, bs, H, D in (("prefill", 32, 32, 12, 64),
@@ -697,7 +742,9 @@ def _paged_routes(dev):
     from mxnet_tpu_torch.ops.paged_attention import paged_attention
 
     rows = []
-    for route, T in (("decode", 1), ("prefill", 64)):
+    calls_by = [("decode", "decode", 1), ("prefill", "prefill", 64)] + [
+        (f"verify_t{T}", VERIFY_ROUTES[T], T) for T in VERIFY_TS]
+    for case_name, route, T in calls_by:
         for int8 in (False, True):
             case = (route, 2, T, 8, 32, 2, 64, [100, 37], [T, T],
                     np.ones((2, 8), np.int32))
@@ -711,7 +758,8 @@ def _paged_routes(dev):
 
             names, sessions = _launched(calls, "paged_")
             ok, other = _routed(names, PAGED_ROUTES[route])
-            rows.append({"route": route, "kv": "int8" if int8 else "float32",
+            rows.append({"case": case_name, "route": route,
+                         "kv": "int8" if int8 else "float32",
                          "kernels": names, "other": other,
                          "profiler_sessions": sessions, "ok": ok})
     return rows
@@ -1822,6 +1870,478 @@ def phase_serving_default(dev, cfg, params):
     return res
 
 
+# -- serving_spec and serving_fleet ------------------------------------------------
+# serving_spec: bench.py speculative_decode_throughput's request mix at the
+# LM's vocabulary (16 requests, odd ones periodic: 6 tokens tiled; prompts
+# 24 or 48 tokens; 64 new tokens; requests 12-15 sampled), served in waves
+# of max_slots so decode runs with an empty queue
+SPEC_REQUESTS, SPEC_NEW_TOKENS, SPEC_SAMPLED = 16, 64, (12, 13, 14, 15)
+SPEC_MULTISTEP_K, SPEC_DRAFT_K, SPEC_DRAFT_WINDOW = 8, 4, 128
+SPEC_ACCEPT_MIN = 0.9
+
+
+def _spec_traffic(cfg):
+    rs = np.random.RandomState(0)
+    prompts = []
+    for i in range(SPEC_REQUESTS):
+        n = int(rs.choice([24, 48]))
+        if i % 2:
+            prompts.append(np.tile(rs.randint(0, cfg.vocab, 6), 8)[:n])
+        else:
+            prompts.append(rs.randint(0, cfg.vocab, n))
+    return prompts
+
+
+def _spec_kwargs(i):
+    if i in SPEC_SAMPLED:
+        return dict(temperature=0.8, top_k=40, seed=1000 + i)
+    return {}
+
+
+def _sampled_check(dev, cfg, params, prompts, outs, idx):
+    """Sampled tokens teacher-forced: the full forward's logits at each
+    position, filtered and perturbed with the request's (seed, position)
+    Gumbel noise, must pick the served token unless the top-2 gap of the
+    perturbed logits is < 1e-3.  Returns (mismatches, near ties)."""
+    import torch
+
+    from mxnet_tpu_torch.ops import sampling as S
+    from mxnet_tpu_torch.parallel.transformer import transformer_lm_apply
+
+    mismatches, near_ties = [], 0
+    for i in idx:
+        kw = _spec_kwargs(i)
+        prompt, out = prompts[i], outs[i]
+        seq = np.concatenate([prompt, out])
+        logits = transformer_lm_apply(
+            params, torch.as_tensor(seq[None, :-1], device=dev),
+            torch.arange(len(seq) - 1, device=dev), cfg)[0]
+        tail = logits[len(prompt) - 1:].float()
+        n = tail.shape[0]
+        ctr = np.arange(len(prompt), len(prompt) + n, dtype=np.uint32)
+        seeds = np.full(n, kw["seed"], np.uint32)
+        filt = S.temperature_scale(
+            S.top_p_mask(S.top_k_mask(tail, kw["top_k"]), 1.0),
+            kw["temperature"])
+        pert = filt + S.gumbel(S.fold_keys(seeds, ctr).to(dev),
+                               tail.shape[-1])
+        top2 = torch.topk(pert, 2, dim=-1)
+        gap = (top2.values[:, 0] - top2.values[:, 1]).cpu().numpy()
+        pred = top2.indices[:, 0].cpu().numpy()
+        for j, (a, b) in enumerate(zip(pred, out)):
+            if int(a) != int(b):
+                if gap[j] < 1e-3:
+                    near_ties += 1
+                else:
+                    mismatches.append((i, j, int(a), int(b), float(gap[j])))
+    return mismatches, near_ties
+
+
+def _spec_run(dev, cfg, params, prompts, mode, kv_dtype=None):
+    """Serve the spec traffic once in ``mode`` (single, multistep, ngram,
+    model) in waves of max_slots: outputs, the window's numbers, the
+    speculative/multi-step stats, kernel launches, and the program keys and
+    CUDA-graph captures added after warmup (must be 0)."""
+    import torch
+
+    from mxnet_tpu_torch.serving.generation import (GenerationConfig,
+                                                    GenerationService)
+
+    kw = {"single": {}, "multistep": dict(multistep_k=SPEC_MULTISTEP_K),
+          "ngram": dict(speculative=True, draft_mode="ngram",
+                        draft_k=SPEC_DRAFT_K),
+          "model": dict(speculative=True, draft_mode="model",
+                        draft_k=SPEC_DRAFT_K,
+                        draft_window=SPEC_DRAFT_WINDOW)}[mode]
+    gcfg = GenerationConfig(max_slots=8, block_size=32,
+                            seq_buckets=[64, 128, 256, 512],
+                            max_new_tokens=SPEC_NEW_TOKENS,
+                            kv_dtype=kv_dtype, **kw)
+    draft = (dict(draft_params=params, draft_cfg=cfg) if mode == "model"
+             else {})
+    svc = GenerationService(params, cfg, gcfg, device=dev, **draft)
+    try:
+        t0 = time.perf_counter()
+        warmed = svc.warmup()
+        warm_s = time.perf_counter() - t0
+        keys0 = svc.stats()["compiled_signatures"]
+        caps0 = svc._programs.captures
+        stats0 = svc.compile_stats()
+        _reset_launches()
+        t0 = time.perf_counter()
+        outs, streams = [], []
+        for w in range(0, len(prompts), gcfg.max_slots):
+            wave = [svc.submit(p, **_spec_kwargs(i))
+                    for i, p in enumerate(prompts[w:w + gcfg.max_slots],
+                                          start=w)]
+            outs += [s.result(timeout=600) for s in wave]
+            streams += wave
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_launches()
+        stats = svc.stats()
+        new_keys = stats["compiled_signatures"] - keys0
+        new_caps = svc._programs.captures - caps0
+        steps = {}
+        for key, per in svc.compile_stats().items():
+            kind = key[0]
+            k = dict(x for x in key[1] if x[0] == "k").get("k", 1)
+            before = stats0.get(key, {"hits": 0, "misses": 0,
+                                      "seconds": 0.0})
+            n = per["hits"] + per["misses"] - before["hits"] \
+                - before["misses"]
+            agg = steps.setdefault(kind, {"steps": 0, "iterations": 0,
+                                          "seconds": 0.0})
+            agg["steps"] += n
+            agg["iterations"] += n * k
+            agg["seconds"] += per["seconds"] - before["seconds"]
+        greedy = [i for i in range(len(prompts)) if i not in SPEC_SAMPLED]
+        acc = [streams[i].stats() for i in greedy]
+        prop = sum(e["draft_proposed_tokens"] for e in acc)
+    finally:
+        svc.stop()
+    n_tokens = sum(len(o) for o in outs)
+    per_iter = {k: (v["seconds"] * 1e3 / v["iterations"]
+                    if v["iterations"] else None) for k, v in steps.items()}
+    return {"mode": mode, "kv_dtype": stats["kv_dtype"],
+            "decode_mode": stats["decode_mode"], "outs": outs,
+            "tokens": n_tokens, "wall_s": wall,
+            "tokens_per_s": n_tokens / wall, "warmup_s": warm_s,
+            "warmup_signatures": warmed, "new_keys_after_warmup": new_keys,
+            "captures_after_warmup": new_caps,
+            "captures": svc._programs.captures,
+            "failed": stats["counts"]["failed"],
+            "speculative": stats["speculative"],
+            "multistep": stats["multistep"],
+            "greedy_accepted_ratio": (None if not prop else sum(
+                e["draft_accepted_tokens"] for e in acc) / prop),
+            "steps": steps, "ms_per_iteration": per_iter,
+            "launches": launches}
+
+
+def phase_serving_spec(dev, cfg, params):
+    """Speculative and multi-step decode at GPT-2 width (random weights
+    from seed 0): the spec traffic served single-step, multi-step
+    (k=8, CUDA-graph replays), n-gram speculative (draft_k=4),
+    self-draft speculative (the target's weights as draft, window 128),
+    then multi-step and n-gram on the int8 pool (beside a single-step int8
+    run).  Checks: (a) multi-step tokens equal single-step tokens bit for
+    bit, float and int8; (b) speculative greedy tokens teacher-forced
+    against the full forward, sampled ones against the same (seed,
+    position) Gumbel keys on its logits (a mismatch at a top-2 gap >= 1e-3
+    fails); int8 n-gram tokens, which a partial rejection's requantized
+    boundary block can move off single-step int8's, teacher-forced the
+    same way, missing at most twice the positions single-step int8
+    misses (at least 2);
+    (c) the self-draft acceptance ratio of the greedy requests >= 0.9;
+    (d) no program key or capture added after warmup; (e) LayerNorm and
+    the pool's paged kernel launched in every run, the other pool's
+    never."""
+    prompts = _spec_traffic(cfg)
+    runs = {}
+    for mode, kv in (("single", None), ("multistep", None),
+                     ("ngram", None), ("model", None),
+                     ("single", "int8"), ("multistep", "int8"),
+                     ("ngram", "int8")):
+        name = mode if kv is None else f"{mode}_int8"
+        runs[name] = _spec_run(dev, cfg, params, prompts, mode, kv)
+        emit({"phase": "serving_spec", "run": name,
+              **{k: v for k, v in runs[name].items() if k != "outs"}})
+    fails = []
+    base, base8 = runs["single"]["outs"], runs["single_int8"]["outs"]
+    # (a) multi-step bit for bit against single-step
+    for name, ref in (("multistep", base), ("multistep_int8", base8)):
+        diff = [i for i, (a, b) in enumerate(zip(runs[name]["outs"], ref))
+                if a != b]
+        if diff:
+            fails.append(f"{name} differs from single-step at requests "
+                         f"{diff}")
+    # (b) teacher-forced checks of every float run; int8 speculative
+    # against int8 single-step
+    greedy = [i for i in range(len(prompts)) if i not in SPEC_SAMPLED]
+    checks = {}
+    for name in ("single", "ngram", "model"):
+        outs = runs[name]["outs"]
+        mm, nt, _ = _greedy_check(dev, cfg, params,
+                                  [prompts[i] for i in greedy],
+                                  [outs[i] for i in greedy])
+        smm, snt = _sampled_check(dev, cfg, params, prompts, outs,
+                                  SPEC_SAMPLED)
+        checks[name] = {"greedy_mismatches": mm, "greedy_near_ties": nt,
+                        "sampled_mismatches": smm, "sampled_near_ties": snt}
+        if mm or smm:
+            fails.append(f"{name}: tokens disagree with the teacher-forced "
+                         f"forward: {mm + smm}")
+    # int8 n-gram: a partial rejection requantizes the boundary block
+    # under scales that saw the rejected drafts, so its tokens may leave
+    # single-step int8's; both are teacher-forced against the float
+    # forward, and the n-gram run may miss at most twice as many positions
+    # (at least 2) as the single-step int8 run misses there
+    missed = {}
+    for name in ("single_int8", "ngram_int8"):
+        outs = runs[name]["outs"]
+        mm, nt, _ = _greedy_check(dev, cfg, params,
+                                  [prompts[i] for i in greedy],
+                                  [outs[i] for i in greedy])
+        smm, snt = _sampled_check(dev, cfg, params, prompts, outs,
+                                  SPEC_SAMPLED)
+        missed[name] = len(mm) + len(smm)
+        checks[name] = {"greedy_mismatches": mm, "greedy_near_ties": nt,
+                        "sampled_mismatches": smm, "sampled_near_ties": snt}
+    limit = 2 * max(1, missed["single_int8"])
+    checks["ngram_int8_vs_single_int8"] = {
+        "requests_differing": [i for i, (a, b) in enumerate(
+            zip(runs["ngram_int8"]["outs"], base8)) if a != b],
+        "teacher_forced_misses": missed, "limit": limit}
+    if missed["ngram_int8"] > limit:
+        fails.append(f"ngram_int8 misses the float forward at "
+                     f"{missed['ngram_int8']} positions, more than {limit} "
+                     f"(twice single-step int8's {missed['single_int8']})")
+    # (c) self-draft acceptance on the greedy requests
+    ratio = runs["model"]["greedy_accepted_ratio"]
+    if ratio is None or ratio < SPEC_ACCEPT_MIN:
+        fails.append(f"self-draft greedy acceptance {ratio} < "
+                     f"{SPEC_ACCEPT_MIN}")
+    for name, r in runs.items():
+        # (d) nothing new after warmup
+        if r["new_keys_after_warmup"] or r["captures_after_warmup"]:
+            fails.append(f"{name}: {r['new_keys_after_warmup']} program "
+                         f"keys and {r['captures_after_warmup']} captures "
+                         f"after warmup")
+        if r["failed"] or any(len(o) != SPEC_NEW_TOKENS for o in r["outs"]):
+            fails.append(f"{name}: a request did not complete")
+        # (e) kernels 5 and the pool's paged kernel on every run
+        la = r["launches"]
+        own, other = (("paged_attention_int8", "paged_attention")
+                      if r["kv_dtype"] == "int8"
+                      else ("paged_attention", "paged_attention_int8"))
+        if not (la["layer_norm"] and la[own]) or la[other]:
+            fails.append(f"{name}: launches {la}")
+    if not runs["multistep"]["multistep"]["steps"] \
+            or not runs["multistep_int8"]["multistep"]["steps"]:
+        fails.append("no multi-step dispatch ran")
+    if not runs["multistep"]["captures"]:
+        fails.append("multi-step captured no CUDA graph")
+    summary = {
+        "phase": "serving_spec", "requests": len(prompts),
+        "tokens_per_s": {k: r["tokens_per_s"] for k, r in runs.items()},
+        "mean_accepted_len": {k: (r["speculative"] or {}).get(
+            "mean_accepted_len") for k, r in runs.items()
+            if r["speculative"]},
+        "accepted_ratio": {k: (r["speculative"] or {}).get("accepted_ratio")
+                           for k, r in runs.items() if r["speculative"]},
+        "self_draft_greedy_accepted_ratio": ratio,
+        "verify_ms": {k: r["ms_per_iteration"].get("gen_verify")
+                      for k, r in runs.items() if r["speculative"]},
+        "multistep_ms_per_token": {
+            k: r["ms_per_iteration"].get("gen_multistep")
+            for k, r in runs.items() if k.startswith("multistep")},
+        "single_ms_per_token": {
+            k: r["ms_per_iteration"].get("gen_decode")
+            for k, r in runs.items() if k.startswith("single")},
+        "checks": checks, "failures": fails}
+    emit(summary)
+    if fails:
+        raise SystemExit(f"serving_spec failed: {fails}")
+    launches = {}
+    for r in runs.values():
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return {"launches": launches, "summary": summary}
+
+
+def _fleet_serve(router, waves):
+    """Serve the waves through the router; per request the stream and
+    its tokens or the exception it raised."""
+    results = []
+    for wave in waves:
+        streams = [router.submit(p) for p in wave]
+        for s in streams:
+            try:
+                results.append((s, s.result(timeout=600), None))
+            except Exception as exc:  # noqa: BLE001 — recorded, checked
+                results.append((s, None, exc))
+    return results
+
+
+def _fleet(dev, cfg, params, first_rid=1000):
+    """A two-replica router (affinity on) over the serving_default
+    configuration with the default 128-block pools; replica 1 numbers its
+    requests from ``first_rid``, so a rid names one request on one
+    replica."""
+    from mxnet_tpu_torch.serving import GenerationRouter, RouterConfig
+    from mxnet_tpu_torch.serving.generation import GenerationConfig
+
+    gcfg = GenerationConfig(max_slots=8, block_size=32,
+                            seq_buckets=[64, 128, 256, 512],
+                            max_new_tokens=32)
+    router = GenerationRouter(params, cfg, gcfg,
+                              RouterConfig(num_replicas=2, affinity=True),
+                              start=False, device=dev)
+    router._replicas[1].service._next_rid = first_rid
+    return router
+
+
+def phase_serving_fleet(dev, cfg, params):
+    """``GenerationRouter`` with two replicas sharing the card, tracing on
+    and the flight recorder writing to a temporary directory, serving
+    ``_default_traffic`` three times: plainly (every stream teacher-
+    forced); with ``TPUMX_FAULT_GEN_KILL_REPLICA=1@3`` (queued work on the
+    killed replica resubmitted and finished, only streams under way end in
+    ``ReplicaDeadError``); with ``TPUMX_FAULT_GEN_STEP_FAIL=1@1`` (request
+    rid 1 of replica 0 alone ends in ``GenerationStepError``, the others'
+    tokens equal the plain run's, a ``gen_quarantine`` dump names it).
+    Also: ``to_prometheus()`` holds the generation gauges and ``health()``
+    reports both replicas."""
+    import os
+    import tempfile
+
+    import torch
+
+    from mxnet_tpu_torch import observability as obs
+    from mxnet_tpu_torch.fault.inject import injector
+    from mxnet_tpu_torch.serving import ReplicaDeadError
+    from mxnet_tpu_torch.serving.generation import GenerationStepError
+
+    waves = _default_traffic(cfg)
+    prompts = [p for w in waves for p in w]
+    tmp = tempfile.mkdtemp(prefix="tpumx_fleet_")
+    saved = {k: os.environ.get(k) for k in (
+        "TPUMX_TRACING", "TPUMX_FLIGHT_RECORDER_DIR",
+        "TPUMX_FAULT_GEN_KILL_REPLICA", "TPUMX_FAULT_GEN_STEP_FAIL")}
+    os.environ["TPUMX_TRACING"] = "1"
+    os.environ["TPUMX_FLIGHT_RECORDER_DIR"] = tmp
+    fails, res = [], {"phase": "serving_fleet", "requests": len(prompts)}
+    launches = {}
+
+    def add_launches():
+        for k, v in _read_launches().items():
+            launches[k] = launches.get(k, 0) + v
+
+    def run(env):
+        for k in ("TPUMX_FAULT_GEN_KILL_REPLICA",
+                  "TPUMX_FAULT_GEN_STEP_FAIL"):
+            os.environ.pop(k, None)
+        os.environ.update(env)
+        injector().reset()
+        router = _fleet(dev, cfg, params)
+        try:
+            t0 = time.perf_counter()
+            warmed = router.warmup()
+            warm_s = time.perf_counter() - t0
+            router.start()
+            _reset_launches()
+            t0 = time.perf_counter()
+            results = _fleet_serve(router, waves)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            add_launches()
+            st = router.stats()
+            prom = obs.to_prometheus()
+        finally:
+            router.stop(drain=False, timeout=30)
+        return router, results, st, prom, {"wall_s": wall,
+                                           "warmup_s": warm_s,
+                                           "warmup_signatures": warmed}
+
+    try:
+        # 1. plain
+        _, results, st, prom, win = run({})
+        outs = [o for _, o, _ in results]
+        errs = [repr(e) for _, _, e in results if e is not None]
+        if errs:
+            fails.append(f"plain fleet: {errs}")
+            outs = [o or [] for o in outs]
+        mm, nt, _ = _greedy_check(dev, cfg, params, prompts, outs)
+        if mm:
+            fails.append(f"plain fleet: tokens disagree with the oracle "
+                         f"{mm}")
+        gauges = ("generation_running_requests", "generation_waiting_requests",
+                  "generation_kv_block_occupancy", "generation_tokens_per_sec",
+                  "generation_kv_blocks_used", "router_healthy_replicas")
+        missing = [g for g in gauges if g not in prom]
+        if missing:
+            fails.append(f"to_prometheus() lacks {missing}")
+        health = [r["health"] for r in st["replicas"]]
+        if len(health) != 2 or not all(h["alive"] for h in health):
+            fails.append(f"health() of the replicas: {health}")
+        res["plain"] = {**win, "tokens": sum(len(o) for o in outs),
+                        "tokens_per_s": sum(len(o) for o in outs)
+                        / win["wall_s"],
+                        "dispatches": [r["dispatches"]
+                                       for r in st["replicas"]],
+                        "affinity_entries": st["affinity_entries"],
+                        "greedy_mismatches": mm, "greedy_near_ties": nt,
+                        "wide_events": len(obs.recent_requests()),
+                        "prometheus_gauges_present": not missing}
+        # 2. replica 1 killed after its third dispatch
+        router, results, st, _, win = run(
+            {"TPUMX_FAULT_GEN_KILL_REPLICA": "1@3"})
+        dead = [(s, e) for s, _, e in results if e is not None]
+        bad = [repr(e) for s, e in dead
+               if not isinstance(e, ReplicaDeadError)]
+        done = [(prompts[i], o) for i, (_, o, e) in enumerate(results)
+                if e is None]
+        mm2, _, _ = _greedy_check(dev, cfg, params, [p for p, _ in done],
+                                  [o for _, o in done])
+        resubmits = sum(s.resubmits for s, _, _ in results)
+        if bad or mm2:
+            fails.append(f"kill: errors {bad}, mismatches {mm2}")
+        if not st["replicas"][1]["dead"] or resubmits < 1:
+            fails.append(f"kill: replica 1 dead={st['replicas'][1]['dead']}"
+                         f", resubmits {resubmits}")
+        res["kill"] = {**win, "finished": len(done),
+                       "replica_dead_errors": len(dead),
+                       "resubmits": resubmits,
+                       "dispatches": [r["dispatches"]
+                                      for r in st["replicas"]]}
+        # 3. request rid 1 of replica 0 fails every step it is in
+        before = set(os.listdir(tmp))
+        _, results, st, _, win = run({"TPUMX_FAULT_GEN_STEP_FAIL": "1@1"})
+        errs = [(i, s, e) for i, (s, _, e) in enumerate(results)
+                if e is not None]
+        target = [i for i, s, e in errs
+                  if isinstance(e, GenerationStepError)
+                  and s.replica == 0 and s.request_id == 1]
+        if len(errs) != 1 or len(target) != 1:
+            fails.append(f"quarantine: errors {[(i, repr(e)) for i, _, e in errs]}")
+        diverged = [i for i, (s, o, e) in enumerate(results)
+                    if e is None and o != outs[i]]
+        if diverged:
+            fails.append(f"quarantine: tokens differ from the plain run at "
+                         f"requests {diverged}")
+        dumps = []
+        for f in sorted(set(os.listdir(tmp)) - before):
+            if "gen_quarantine" in f:
+                with open(os.path.join(tmp, f)) as fh:
+                    dumps.append(json.load(fh)["extra"])
+        if not any(d.get("rid") == 1 and d.get("replica") == 0
+                   for d in dumps):
+            fails.append(f"quarantine: no gen_quarantine dump for rid 1: "
+                         f"{dumps}")
+        res["quarantine"] = {**win, "errors": len(errs),
+                             "dumps": [{k: d.get(k) for k in ("rid",
+                                                              "replica")}
+                                       for d in dumps],
+                             "tokens_equal_plain": not diverged}
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        injector().reset()
+    res["launches"] = launches
+    res["failures"] = fails
+    emit(res)
+    if fails:
+        raise SystemExit(f"serving_fleet failed: {fails}")
+    if not (launches["layer_norm"] and launches["paged_attention"]):
+        raise SystemExit(f"a kernel never launched on the fleet path: "
+                         f"{launches}")
+    return {"launches": launches}
+
+
 def _grad_rel_errors(m_a, m_b, m0, momentum):
     """Per-parameter normwise error ||a - b|| / ||b|| of the gradients read
     back from two steps' momenta: ``g = m_after - momentum * m_before``."""
@@ -1967,20 +2487,35 @@ def _profiled(fn, families=()):
     """Run ``fn`` under ``torch.profiler``: wall time, device busy time
     (the union of kernel intervals), the idle share, device time by kernel
     name, and by autograd backward node; with ``families``, the launches
-    and names of the kernel functions whose names contain each.  The
-    profiler slows the host, so the wall time is not an unprofiled
-    run's."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    and names of the kernel functions whose names contain each, and the
+    launch records that came back without their kernel's record
+    (``lost_records``: before ``fn`` and inside it).  The profiler slows
+    the host, so the wall time is not an unprofiled run's.
 
+    A session can come back without the records of its first kernels,
+    though each has its launch record, and the more of them the longer
+    the process has lived, idle or not; a long first kernel does not
+    help, many short ones do.  So a session that counts ``families``
+    first launches ``PROFILE_LEAD`` empty ``spin_kernel``s, whose records
+    take the loss; they count in no number returned."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+        for _ in range(PROFILE_LEAD if families else 0):
+            torch.cuda._sleep(0)
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with record_function("profiled_fn"):
+            fn()
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = list(prof.events())
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "spin_kernel" not in e.name]
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy_us, end = 0.0, float("-inf")
     for s, e in spans:   # union of kernel intervals (one stream: ~the sum)
@@ -2023,6 +2558,16 @@ def _profiled(fn, families=()):
                                   if f in n) for f in families}
         out["family_names"] = {f: sorted(n for n in by_name if f in n)
                                for f in families}
+        # launch records whose kernel record never came back
+        recorded = {e.id for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA}
+        start = min((e.time_range.start for e in events
+                     if e.name == "profiled_fn"), default=0.0)
+        lost = [e.time_range.start >= start for e in events
+                if e.device_type != torch.autograd.DeviceType.CUDA
+                and "LaunchKernel" in e.name and e.id not in recorded]
+        out["lost_records"] = {"lead": lost.count(False),
+                               "fn": lost.count(True)}
     return out
 
 
@@ -3934,6 +4479,7 @@ def phase_gluon_hybrid(dev):
                       "bn_launches_per_step": {
                           "stats": prof["families"]["bn_stats_partial"],
                           "normalize": prof["families"]["bn_normalize"]},
+                      "profiler_lost_records": prof["lost_records"],
                       "launches": launches, "captures": captures}
         if mode == "hybridized":
             runs[mode]["programs"] = len(net._cached_ops)
@@ -3957,7 +4503,9 @@ def phase_gluon_hybrid(dev):
                        f"({r['captures']} captures)")
         if r["bn_launches_per_step"] != {"stats": GH_BN, "normalize": GH_BN}:
             bad.append(f"{mode}: BatchNorm launches a step "
-                       f"{r['bn_launches_per_step']}, want {GH_BN} + {GH_BN}")
+                       f"{r['bn_launches_per_step']}, want {GH_BN} + {GH_BN} "
+                       f"(launch records without a kernel record: "
+                       f"{r['profiler_lost_records']})")
         if r["launches"]["bn_noncontiguous_copies"]:
             bad.append(f"{mode}: BatchNorm copied non-contiguous input")
     net.hybridize()
@@ -4777,7 +5325,12 @@ def _kernel_table(kern, runs):
                            and c["dtype"] == "float32")
                 extra = {"functions": PAGED_ROUTES,
                          **{"prefill_" + k: pre[k] for k in (
-                             "ms", "plain_ms", "bound_ms", "bound_by")}}
+                             "ms", "plain_ms", "bound_ms", "bound_by")},
+                         "verify": {
+                             c["case"]: {k: c[k] for k in (
+                                 "ms", "plain_ms", "bound_ms", "bound_by")}
+                             for c in kern[name] if c["kind"] == "verify"
+                             and c["dtype"] == "float32"}}
         by_phase = {ph: res["launches"][name] for ph, res in runs.items()}
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "launches": sum(by_phase.values()),
@@ -4807,7 +5360,7 @@ def main(argv) -> int:
         "kernels", "model", "training", "serving", "serving_default",
         "serving_int8", "resnet_training", "resnet_compressed",
         "gluon_training", "module_fit", "gluon_hybrid", "rnn_lm",
-        "bucketing_fit", "image_rec"}
+        "bucketing_fit", "image_rec", "serving_spec", "serving_fleet"}
     if "serving_int8" in phases:
         phases.add("serving")   # its float baseline
     t_start = time.perf_counter()
@@ -4852,6 +5405,14 @@ def main(argv) -> int:
         runs["bucketing_fit"] = phase_bucketing_fit(dev)
     if "image_rec" in phases:
         runs["image_rec"] = phase_image_rec(dev, runs.get("module_fit"))
+    # the generation phases last, on the LM built again
+    if phases & {"serving_spec", "serving_fleet"}:
+        cfg, params = _model(dev)
+        if "serving_spec" in phases:
+            runs["serving_spec"] = phase_serving_spec(dev, cfg, params)
+        if "serving_fleet" in phases:
+            runs["serving_fleet"] = phase_serving_fleet(dev, cfg, params)
+        del params
     if "profile_resnet" in phases:
         phase_profile_resnet(dev)
     if kern is not None and runs:

@@ -25,9 +25,10 @@ image feed (``recordio``, ``io.ImageRecordIter``).  Entry points run on ``cuda``
 context) unless the caller passes the CPU (``ctx=mx.cpu()``,
 ``context=mx.cpu()`` or ``device="cpu"``).
 """
-from . import (attribute, autograd, base, callback, context, executor, gluon,
-               initializer, io, kvstore, lr_scheduler, metric, model, module,
-               monitor, name, ndarray, ops, optimizer, parallel, random,
+from . import (attribute, autograd, base, callback, context, engine,
+               executor, fault, gluon, initializer, io, kvstore,
+               lr_scheduler, metric, model, module, monitor, name, ndarray,
+               observability, ops, optimizer, parallel, profiler, random,
                recordio, rnn, serving, symbol)
 from . import initializer as init
 from . import kvstore as kv
@@ -47,7 +48,8 @@ __version__ = "0.1.0"
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "current_context",
            "num_devices", "resolve_device", "attribute", "autograd", "base",
-           "callback", "context", "executor", "gluon", "init", "initializer",
+           "callback", "context", "engine", "executor", "fault", "gluon",
+           "init", "initializer", "observability", "profiler",
            "io", "kv", "kvstore", "lr_scheduler", "metric", "mod", "model",
            "module", "Module", "monitor", "name", "nd", "ndarray", "ops",
            "optimizer", "parallel", "random", "recordio", "rnn", "serving",

@@ -38,7 +38,8 @@ _TORCH_DTYPES = {"float32": torch.float32, "float64": torch.float64,
                  "float16": torch.float16, "bfloat16": torch.bfloat16,
                  "uint8": torch.uint8, "int8": torch.int8,
                  "int16": torch.int16, "int32": torch.int32,
-                 "int64": torch.int64, "bool": torch.bool}
+                 "int64": torch.int64, "uint32": torch.uint32,
+                 "bool": torch.bool}
 _NAMES = {v: k for k, v in _TORCH_DTYPES.items()}
 
 

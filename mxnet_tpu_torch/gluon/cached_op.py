@@ -46,6 +46,7 @@ import torch
 from .. import autograd
 from .. import random as _random
 from ..base import MXNetError
+from ..ops.capture import add_counts, capture_graph, warm_up
 from .parameter import capture_writes
 
 __all__ = ["CachedProgram", "in_program", "program_scope", "flatten",
@@ -69,33 +70,6 @@ def program_scope():
         yield
     finally:
         _tls.depth -= 1
-
-
-def _launch_counters():
-    """The kernel wrappers' launch counters, as (wrapper, attribute)."""
-    from ..ops import batch_norm, flash_attention, layer_norm, \
-        paged_attention, twobit
-
-    return [(twobit.twobit_pack, "launches"),
-            (twobit.twobit_unpack, "launches"),
-            (batch_norm.bn_stats, "launches"),
-            (batch_norm.bn_normalize, "launches"),
-            (layer_norm.layer_norm_fused, "launches"),
-            (paged_attention.paged_attention, "launches"),
-            (paged_attention.paged_attention, "launches_int8"),
-            (flash_attention.flash_attention_forward, "launches"),
-            (flash_attention.flash_attention_dq, "launches"),
-            (flash_attention.flash_attention_dkv, "launches")]
-
-
-def _counts():
-    return [getattr(f, a) for f, a in _launch_counters()]
-
-
-def _add_counts(delta):
-    for (f, a), d in zip(_launch_counters(), delta):
-        if d:
-            setattr(f, a, getattr(f, a) + d)
 
 
 def flatten(obj, acc):
@@ -179,7 +153,7 @@ class _Replay(torch.autograd.Function):
             else:
                 dst.copy_(g)
         cap.bwd.replay()
-        _add_counts(cap.bwd_launches)
+        add_counts(cap.bwd_launches)
         cap.pending = None
         grads = [None if g is None else g.clone() for g in cap.static_grads]
         return (None, None, None) + tuple(grads)
@@ -300,7 +274,7 @@ class CachedProgram:
                 dst.detach().copy_(src)
         self._fill_table(cap)
         cap.fwd.replay()
-        _add_counts(cap.fwd_launches)
+        add_counts(cap.fwd_launches)
         cap.gen += 1
         self._commit(cap.aux)
         return [o.detach().clone() for o in cap.outs]
@@ -315,9 +289,8 @@ class CachedProgram:
         saved = [(p, p._tensor().detach().clone()) for p in self.params
                  if not p._tensor().requires_grad]
         self._mode, self._cap = "warmup", cap
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
+
+        def warmup():
             for _ in range(_WARMUP):
                 with torch.set_grad_enabled(need_grad):
                     flat, _, _ = self._forward(cap.static_args)
@@ -328,8 +301,12 @@ class CachedProgram:
                         grad_outputs=[torch.empty_like(o) for o in diff],
                         allow_unused=True)
                 del flat, diff
-        torch.cuda.current_stream().wait_stream(side)
-        torch.cuda.synchronize()
+
+        def forward():
+            with torch.set_grad_enabled(need_grad):
+                return self._forward(cap.static_args)
+
+        warm_up(warmup)
         # the warm-ups commit nothing, but restore what a forward may touch
         with torch.no_grad():
             for p, v in saved:
@@ -340,13 +317,9 @@ class CachedProgram:
         self._mode = "capture"
         pool = torch.cuda.graph_pool_handle()
         cap.fwd = torch.cuda.CUDAGraph()
-        start = _counts()
         try:
-            with torch.cuda.graph(cap.fwd, pool=pool):
-                with torch.set_grad_enabled(need_grad):
-                    flat, struct, aux = self._forward(cap.static_args)
-            mid = _counts()
-            cap.fwd_launches = [b - a for a, b in zip(start, mid)]
+            (flat, struct, aux), cap.fwd_launches = capture_graph(
+                cap.fwd, forward, pool=pool)
             cap.outs, cap.out_struct, cap.aux = flat, struct, aux
             cap.grad_out_idx = [i for i, o in enumerate(flat)
                                 if o.requires_grad]
@@ -354,11 +327,12 @@ class CachedProgram:
                 cap.static_gouts = [torch.empty_like(flat[i])
                                     for i in cap.grad_out_idx]
                 cap.bwd = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(cap.bwd, pool=pool):
-                    cap.static_grads = list(torch.autograd.grad(
+                grads, cap.bwd_launches = capture_graph(
+                    cap.bwd, lambda: torch.autograd.grad(
                         [flat[i] for i in cap.grad_out_idx], grad_inputs,
-                        grad_outputs=cap.static_gouts, allow_unused=True))
-                cap.bwd_launches = [b - a for a, b in zip(mid, _counts())]
+                        grad_outputs=cap.static_gouts, allow_unused=True),
+                    pool=pool)
+                cap.static_grads = list(grads)
             else:
                 cap.grad_out_idx = []
         except MXNetError:
@@ -368,7 +342,5 @@ class CachedProgram:
                              f"captured as a CUDA graph: {e}") from e
         finally:
             self._mode, self._cap = "host", None
-            # recorded, not launched
-            _add_counts([a - b for a, b in zip(start, _counts())])
         torch.cuda.synchronize()
         return cap

@@ -572,10 +572,16 @@ def _device(ctx) -> torch.device:
     return resolve_device(ctx if ctx is not None else current_context())
 
 
+_NARROW = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32,
+           np.dtype(np.uint64): np.uint32}
+
+
 def array(source, ctx=None, dtype=None) -> NDArray:
     """A new NDArray holding a copy of ``source`` (an NDArray, a tensor or
-    anything numpy takes) on ``ctx`` (default: the current context);
-    float64 input without a ``dtype`` becomes float32."""
+    anything numpy takes) on ``ctx`` (default: the current context).
+    Without a ``dtype``, numpy input takes the reference's 32-bit types
+    (it runs without 64-bit ones): float64 becomes float32, int64 int32
+    and uint64 uint32."""
     dev = _device(ctx)
     if isinstance(source, NDArray):
         source = source._data
@@ -586,8 +592,8 @@ def array(source, ctx=None, dtype=None) -> NDArray:
         return NDArray(t)
     want = None if dtype is None else torch_dtype(dtype)
     src = np.asarray(source)
-    if want is None and src.dtype == np.float64:
-        src = src.astype(np.float32)
+    if want is None and src.dtype in _NARROW:
+        src = src.astype(_NARROW[src.dtype])
     if any(st < 0 for st in src.strides):
         src = src.copy()   # torch takes no negative strides (a[::-1])
     t = torch.tensor(src, device=dev)   # a copy (src may be read-only)

@@ -323,20 +323,29 @@ def instance_norm(data, gamma, beta, eps=1e-3):
 # Softmax family (softmax.cc)
 # ---------------------------------------------------------------------------
 
+def _inexact(x):
+    """Integer input of the softmax family computes in float32, as the
+    reference's (``jax.nn.softmax`` on an integer array)."""
+    return x if x.dtype.is_floating_point else x.to(torch.float32)
+
+
 @register("softmax")
 def softmax(data, axis=-1, temperature=None):
+    data = _inexact(data)
     x = data if temperature in (None, 1.0) else data / temperature
     return torch.softmax(x, dim=int(axis))
 
 
 @register("log_softmax")
 def log_softmax(data, axis=-1, temperature=None):
+    data = _inexact(data)
     x = data if temperature in (None, 1.0) else data / temperature
     return torch.log_softmax(x, dim=int(axis))
 
 
 @register("SoftmaxActivation")
 def softmax_activation(data, mode="instance"):
+    data = _inexact(data)
     if mode == "channel":
         return torch.softmax(data, dim=1)
     return torch.softmax(data.reshape(data.shape[0], -1), dim=-1).reshape(

@@ -20,6 +20,10 @@ Randomness is bit-compatible with the reference: a row's key is JAX's
 reproduced here in integer torch ops (int64 masked to 32 bits) — so a
 request's sampled tokens depend only on its seed and position, and match
 the JAX package's for the same logits.
+
+Seeds and counters may be numpy arrays or tensors already on the logits'
+device; with device tensors every function here runs without a host copy,
+so the multi-step decode program can be captured as a CUDA graph.
 """
 from __future__ import annotations
 
@@ -27,7 +31,8 @@ import numpy as np
 import torch
 
 __all__ = ["temperature_scale", "top_k_mask", "top_p_mask", "sample_logits",
-           "fold_keys", "threefry2x32", "gumbel", "NEG_INF"]
+           "speculative_verify", "fold_keys", "threefry2x32", "gumbel",
+           "NEG_INF"]
 
 #: the finite -inf stand-in the attention masks use
 NEG_INF = -1e30
@@ -132,7 +137,7 @@ def gumbel(keys, n: int):
                           idx)
     bits = (((b0 ^ b1) >> 9) | 0x3F800000).to(torch.int32)
     floats = bits.view(torch.float32) - 1.0
-    tiny = torch.tensor(_TINY, dtype=torch.float32, device=keys.device)
+    tiny = torch.full((), _TINY, dtype=torch.float32, device=keys.device)
     u = torch.maximum(tiny, floats * (1.0 - tiny) + tiny)
     return -torch.log(-torch.log(u))
 
@@ -153,3 +158,51 @@ def sample_logits(logits, seeds, counters, temperature, top_k, top_p):
     sampled = torch.argmax(scaled + gumbel(keys, logits.shape[-1]), dim=-1)
     t = _rows(temperature, logits, torch.float32)
     return torch.where(t > 0, sampled, greedy)
+
+
+def speculative_verify(logits, fed_tokens, seeds, counters, temperature,
+                       top_k, top_p, lengths):
+    """Vectorized draft verification for speculative decoding.
+
+    A multi-query verify step fed row ``b`` the tokens ``[pending, d_1,
+    .., d_s]`` at consecutive positions and produced per-position
+    ``logits`` (B, T, V).  :func:`sample_logits` is keyed on (seed,
+    position) only, so the target's token at every position is a function
+    of (logits, seed, position) alone, and verification is exact match:
+    draft ``d_j`` is accepted iff it equals the target's own token at the
+    position it was proposed for, cumulatively from the left.
+
+    fed_tokens : (B, T) — the chunk fed to the verify step (column 0 the
+        pending token, columns ``1..`` the drafts, right-padded).
+    counters : (B,) — index of the FIRST token being produced (``ctx +
+        1``); column ``j`` samples with ``counters + j``.
+    lengths : (B,) — valid fed tokens per row (``s + 1``; 0 inactive).
+
+    Returns ``(target_tokens (B, T) int64, accepted (B,) int64)``: the
+    target's token for produced index ``counters[b] + j``, and the count
+    of leading drafts that matched — the row may emit ``accepted[b] + 1``
+    tokens.  Entries past ``lengths`` are garbage."""
+    logits = logits.float()
+    B, T, V = logits.shape
+    dev = logits.device
+    row = logits[:, 0]
+
+    def rep(a, dtype):
+        return _rows(a, row, dtype)[:, None].expand(B, T).reshape(-1)
+
+    ctr = (_u32(counters, dev)[:, None]
+           + torch.arange(T, device=dev, dtype=torch.int64)[None, :]) & _M32
+    target = sample_logits(
+        logits.reshape(B * T, V), rep(_u32(seeds, dev), torch.int64),
+        ctr.reshape(-1), rep(temperature, torch.float32),
+        rep(top_k, torch.int64), rep(top_p, torch.float32)).reshape(B, T)
+    if T == 1:
+        return target, torch.zeros(B, dtype=torch.int64, device=dev)
+    # draft j (fed column j) is checked against the target token sampled
+    # at the previous column; the cumulative product keeps the leading run
+    fed = torch.as_tensor(fed_tokens, device=dev).long()
+    match = fed[:, 1:] == target[:, :-1]
+    valid = torch.arange(T - 1, device=dev)[None, :] \
+        < (_rows(lengths, row, torch.int64) - 1)[:, None]
+    ok = (match & valid).long()
+    return target, torch.cumprod(ok, dim=1).sum(dim=1)

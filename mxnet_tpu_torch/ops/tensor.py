@@ -58,11 +58,25 @@ for _name, _f in _UNARY.items():
 
 @register("cast", aliases=("Cast",))
 def cast(x, dtype="float32"):
-    return x.to(torch_dtype(dtype))
+    """Convert to ``dtype``.  Floating point to an integer type truncates
+    toward zero and saturates at the type's range, NaN giving 0 (XLA's
+    convert, which the reference runs); torch's ``.to`` alone would wrap
+    an out-of-range value."""
+    dt = torch_dtype(dtype)
+    if x.dtype.is_floating_point and not (dt.is_floating_point
+                                          or dt.is_complex
+                                          or dt == torch.bool):
+        info = torch.iinfo(dt)
+        lo, hi = float(info.min), float(info.max)
+        x = torch.nan_to_num(x.double(), nan=0.0, posinf=hi,
+                             neginf=lo).clamp(lo, hi)
+    return x.to(dt)
 
 
 @register("clip")
 def clip(x, a_min=None, a_max=None):
+    if a_min is None and a_max is None:
+        return x.clone()   # nothing to clip (torch.clamp needs a bound)
     return torch.clamp(x, a_min, a_max)
 
 
@@ -158,14 +172,47 @@ def _amin(x, dim, keepdim):
     return torch.amin(x, dim=dim, keepdim=keepdim)
 
 
+_UNSIGNED = (torch.uint8, torch.uint16, torch.uint32, torch.uint64)
+
+
+def _int_acc(x):
+    """Accumulator of an integer (or bool) sum or product, None for floats:
+    the reference runs without 64-bit types, so signed integers and bool
+    reduce in int32 and unsigned ones in uint32 (accumulated here in int64
+    and wrapped to 32 bits)."""
+    if x.dtype.is_floating_point or x.dtype.is_complex:
+        return None
+    return torch.int64 if x.dtype in _UNSIGNED else torch.int32
+
+
+def _narrow(r, x):
+    return r.to(torch.uint32) if x.dtype in _UNSIGNED else r
+
+
+def _sum(x, dim, keepdim):
+    acc = _int_acc(x)
+    if acc is None:
+        return torch.sum(x, dim=dim, keepdim=keepdim)
+    return _narrow(torch.sum(x, dim=dim, keepdim=keepdim, dtype=acc), x)
+
+
+def _mean(x, dim, keepdim):
+    # an integer mean is float32, as the reference's (to_inexact)
+    if _int_acc(x) is not None:
+        x = x.to(torch.float32)
+    return torch.mean(x, dim=dim, keepdim=keepdim)
+
+
 def _prod(x, dim, keepdim):
+    acc = _int_acc(x)
+    r = x
     for d in sorted((d % x.ndim for d in dim), reverse=True):
-        x = torch.prod(x, dim=d, keepdim=keepdim)
-    return x
+        r = torch.prod(r, dim=d, keepdim=keepdim, dtype=acc)
+    return r if acc is None else _narrow(r, x)
 
 
-register("sum", aliases=("sum_axis",))(_reduce(torch.sum))
-register("mean")(_reduce(torch.mean))
+register("sum", aliases=("sum_axis",))(_reduce(_sum))
+register("mean")(_reduce(_mean))
 register("max", aliases=("max_axis",))(_reduce(_amax))
 register("min", aliases=("min_axis",))(_reduce(_amin))
 register("prod")(_reduce(_prod))
@@ -173,7 +220,7 @@ register("prod")(_reduce(_prod))
 
 @register("norm")
 def norm(x, ord=2, axis=None, keepdims=False):
-    s = _reduce(torch.sum)
+    s = _reduce(_sum)
     if ord == 1:
         return s(torch.abs(x), axis=axis, keepdims=keepdims)
     return torch.sqrt(s(torch.square(x), axis=axis, keepdims=keepdims))
@@ -387,11 +434,15 @@ def broadcast_like(x, like):
 @register("dot")
 def dot(a, b, transpose_a=False, transpose_b=False):
     """numpy's ``dot`` (reference: src/operator/tensor/dot.cc): a sum
-    over the last axis of ``a`` and the first of ``b``."""
+    over the last axis of ``a`` and the first of ``b``.  bfloat16 and
+    float16 inputs accumulate in float32 and return float32, as the
+    reference's ``preferred_element_type`` does."""
     if transpose_a and a.ndim > 1:
         a = a.transpose(-1, -2)
     if transpose_b and b.ndim > 1:
         b = b.transpose(-1, -2)
+    if a.dtype in (torch.bfloat16, torch.float16):
+        a, b = a.float(), b.float()
     if a.ndim <= 2 and b.ndim <= 2:
         return torch.matmul(a, b)
     return torch.tensordot(a, b, dims=([a.ndim - 1], [0]))

@@ -7,7 +7,9 @@ from .engine import (GenerationConfig, GenerationService, GenerationStepError,
 from .kv_cache import BlockAllocator, PagedKVCache, blocks_for
 from .prefix_cache import PrefixCacheIndex
 from .programs import GenerationPrograms
+from .speculative import DraftModel, propose_ngram
 
 __all__ = ["GenerationService", "GenerationConfig", "GenerationStream",
            "GenerationStepError", "PagedKVCache", "BlockAllocator",
-           "GenerationPrograms", "PrefixCacheIndex", "blocks_for"]
+           "GenerationPrograms", "PrefixCacheIndex", "blocks_for",
+           "DraftModel", "propose_ngram"]

@@ -1,23 +1,36 @@
-"""The generation engine's model step and block copy.
+"""The generation engine's model steps and block copy.
 
-PyTorch counterpart of ``mxnet_tpu/serving/generation/programs.py`` for
-the ``gen_prefill`` / ``gen_decode`` / ``gen_block_copy`` kinds.  ONE step
-function serves both phases — prefill (B=1, T=seq bucket) and decode
+PyTorch counterpart of ``mxnet_tpu/serving/generation/programs.py``.  ONE
+step function serves prefill (B=1, T=seq bucket) and decode
 (B=max_slots, T=1) — built from
 :func:`~mxnet_tpu_torch.parallel.transformer.transformer_lm_decode` with
-the paged-attention kernel, plus the per-row sampler of
-:mod:`mxnet_tpu_torch.ops.sampling`; :func:`_model_step_q` is its int8-pool
-variant.  :func:`block_copy_pools` is the copy-on-write primitive of
-prefix caching.
+the paged-attention kernel (over the float or the int8 pool), plus the
+per-row sampler of :mod:`mxnet_tpu_torch.ops.sampling`.  Two multi-token
+steps sit beside it:
 
-The port runs the step eagerly (no jit); the KV pools (and the int8
-pool's scales) are written in place.  It keeps the reference's
-per-signature bookkeeping — each distinct ``(kind, batch, chunk, table
-width)`` is a signature with hit/miss counts, the int8 pool's keys
-carrying ``("kv_dtype", "int8")`` — so
-:meth:`GenerationPrograms.compile_stats` still counts the finite
-step-shape set a warmed service runs (the set a CUDA-graph capture will
-key on in a later slice).
+- **verify** (:meth:`GenerationPrograms.run_verify`): one step over
+  ``[pending, d_1..d_s]`` per row (T = Tk, the paged kernels' multi-query
+  shapes) followed by :func:`~mxnet_tpu_torch.ops.sampling.
+  speculative_verify`;
+- **multi-step** (:meth:`GenerationPrograms.run_multistep`): k iterations
+  of exactly the T=1 decode math, tokens, positions and counters advanced
+  on the device, one host copy of the (S, k) tokens at the end.  On the
+  card it is captured once per (S, W, k, kv_dtype) key as a
+  ``torch.cuda.CUDAGraph`` over static input buffers (after one eager
+  warm-up that launches every kernel, so each is built and initialized
+  before capture) and replayed; a capture that fails raises.
+
+:func:`block_copy_pools` is the copy-on-write primitive of prefix caching.
+
+Steps run eagerly (or as graph replays); the KV pools (and the int8
+pool's scales) are written in place.  Each distinct ``(kind, batch,
+chunk, table width[, k])`` is a signature with hit/miss counts, the int8
+pool's keys carrying ``("kv_dtype", "int8")``, and every lookup is noted
+at its site (``gen_prefill``, ``gen_decode``, ``gen_verify``,
+``gen_multistep``, ``gen_block_copy``) in
+:mod:`mxnet_tpu_torch.observability.recompile` before the step runs: under
+``TPUMX_FREEZE_COMPILES=1`` after ``mark_warm()`` a new signature (and so
+a new graph capture) raises.
 """
 from __future__ import annotations
 
@@ -28,8 +41,11 @@ from typing import Dict
 import numpy as _np
 import torch
 
+from ...base import MXNetError
 from ...context import resolve_device
-from ...ops.sampling import sample_logits
+from ...observability import recompile as _recompile
+from ...ops.capture import add_counts, capture_graph, warm_up
+from ...ops.sampling import sample_logits, speculative_verify
 from ...parallel.transformer import transformer_lm_decode
 
 __all__ = ["GenerationPrograms", "block_copy_pools"]
@@ -62,37 +78,83 @@ def _last_valid(logits, lengths, T):
                   last_idx]
 
 
-def _model_step(params, k_pool, v_pool, tokens, positions, lengths,
-                block_tables, seeds, counters, temperature, top_k, top_p,
-                *, cfg):
-    logits, k_pool, v_pool = transformer_lm_decode(
-        params, tokens, positions, lengths, k_pool, v_pool, block_tables,
-        cfg, attention_kernel=KERNEL)
+def _decode(params, cache, tokens, positions, lengths, block_tables, cfg):
+    """``transformer_lm_decode`` over ``cache`` (its scales too, for the
+    int8 pool); the per-position logits."""
+    scales = ({"k_scale": cache.k_scale, "v_scale": cache.v_scale}
+              if cache.quantized else {})
+    return transformer_lm_decode(
+        params, tokens, positions, lengths, cache.k, cache.v, block_tables,
+        cfg, attention_kernel=KERNEL, **scales)[0]
+
+
+def _model_step(params, cache, tokens, positions, lengths, block_tables,
+                seeds, counters, temperature, top_k, top_p, *, cfg):
+    """One prefill or decode step: the token sampled at each row's last
+    valid position, and those logits."""
+    logits = _decode(params, cache, tokens, positions, lengths,
+                     block_tables, cfg)
     last = _last_valid(logits, lengths, tokens.shape[1])
     next_tokens = sample_logits(last, seeds, counters, temperature, top_k,
                                 top_p)
     return next_tokens, last
 
 
-def _model_step_q(params, k_pool, v_pool, k_scale, v_scale, tokens,
-                  positions, lengths, block_tables, seeds, counters,
-                  temperature, top_k, top_p, *, cfg):
-    """The int8-pool variant of :func:`_model_step`: the per-(layer,
-    block, head) scales ride as two extra pool operands."""
-    logits, *_ = transformer_lm_decode(
-        params, tokens, positions, lengths, k_pool, v_pool, block_tables,
-        cfg, attention_kernel=KERNEL, k_scale=k_scale, v_scale=v_scale)
-    last = _last_valid(logits, lengths, tokens.shape[1])
-    next_tokens = sample_logits(last, seeds, counters, temperature, top_k,
-                                top_p)
-    return next_tokens, last
+def _verify_step(params, cache, tokens, positions, lengths, block_tables,
+                 seeds, counters, temperature, top_k, top_p, *, cfg):
+    """Speculative verify: ONE cache-aware multi-query step over
+    ``[pending, d_1..d_s]`` per row, every valid position feeding the
+    sampler through ``speculative_verify``.  Returns per-position target
+    tokens and the leading accepted-draft count per row."""
+    logits = _decode(params, cache, tokens, positions, lengths,
+                     block_tables, cfg)
+    return speculative_verify(logits, tokens, seeds, counters, temperature,
+                              top_k, top_p, lengths)
+
+
+def _multistep(params, cache, tokens, positions, lengths, block_tables,
+               seeds, counters, temperature, top_k, top_p, *, k, cfg):
+    """``k`` decode iterations, each exactly the single-step decode math
+    (the same (S, 1) model call, the same ``(seed, position)`` sampler
+    keying, the same one-position scatter, so tokens and the int8 pool's
+    write pattern match the step-at-a-time path).  ``tokens`` /
+    ``positions`` / ``counters`` are the first iteration's (S,) values,
+    advanced here on the device; rows with ``lengths == 0`` stay inactive
+    throughout (null-block writes).  Returns (S, k) int64 tokens."""
+    tok, pos, ctr = tokens, positions, counters
+    out = []
+    for _ in range(k):
+        logits = _decode(params, cache, tok[:, None], pos[:, None], lengths,
+                         block_tables, cfg)
+        tok = sample_logits(logits[:, 0, :], seeds, ctr, temperature,
+                            top_k, top_p)
+        out.append(tok)
+        pos = pos + 1
+        ctr = ctr + 1
+    return torch.stack(out, dim=1)
+
+
+class _Capture:
+    """One captured multi-step program: its graph, the static input
+    buffers it reads, the output it writes, and the kernel launches one
+    replay makes (by wrapper counter)."""
+
+    __slots__ = ("graph", "inputs", "out", "launches")
 
 
 class GenerationPrograms:
-    """Owns the device-resident parameters, the step function and the
-    per-signature accounting.  ``kv_dtype="int8"`` runs
-    :func:`_model_step_q` against the cache's scales and keys every
-    signature with ``("kv_dtype", "int8")``."""
+    """Owns the device-resident parameters, the step functions, the
+    multi-step CUDA graphs and the per-signature accounting.
+    ``kv_dtype="int8"`` keys every signature with ``("kv_dtype",
+    "int8")`` (the steps read the cache's scales with its pools)."""
+
+    #: host dtypes of the step operands, in call order (tokens, positions,
+    #: lengths, block_tables, seeds, counters, temperature, top_k, top_p)
+    _OPERAND_DTYPES = (_np.int64, _np.int32, _np.int32, _np.int32,
+                       _np.int64, _np.int64, _np.float32, _np.int64,
+                       _np.float32)
+    _TORCH_DTYPES = {_np.int64: torch.int64, _np.int32: torch.int32,
+                     _np.float32: torch.float32}
 
     def __init__(self, params, cfg, compute_dtype=None, device=None,
                  kv_dtype=None):
@@ -104,10 +166,17 @@ class GenerationPrograms:
                         for k, v in params.items()}
         self._lock = threading.Lock()
         self._stats: Dict[tuple, Dict[str, int]] = {}
+        self._graphs: Dict[tuple, _Capture] = {}
+        self.captures = 0
 
     @property
     def device(self) -> torch.device:
         return self._device
+
+    @property
+    def kernel(self) -> str:
+        """The decode-attention implementation (``"paged"``)."""
+        return KERNEL
 
     def _family(self) -> tuple:
         """Key components every signature of this service shares: the
@@ -118,20 +187,37 @@ class GenerationPrograms:
         return fam
 
     def _key(self, kind: str, cache, tokens, block_tables) -> tuple:
-        sig = (("tokens", tuple(tokens.shape), "int32"),
-               ("block_tables", tuple(block_tables.shape), "int32"),
+        sig = (("tokens", tuple(_np.shape(tokens)), "int32"),
+               ("block_tables", tuple(_np.shape(block_tables)), "int32"),
                ("kv_pool", cache.shape, str(cache.k.dtype)))
         return (kind, sig + self._family())
 
-    def _note(self, key: tuple, seconds: float) -> None:
+    def _lookup(self, kind: str, key: tuple) -> None:
+        """Count the lookup and note it at its site (the reference's site
+        names: the kind, ``_paged`` for model steps, ``_int8`` for the
+        int8 pool) — before the step runs, so a frozen service raises
+        before any set-up work."""
         with self._lock:
             per = self._stats.get(key)
+            hit = per is not None
             if per is None:
-                self._stats[key] = {"hits": 0, "misses": 1,
-                                    "seconds": seconds}
-            else:
-                per["hits"] += 1
-                per["seconds"] += seconds
+                per = self._stats[key] = {"hits": 0, "misses": 0,
+                                          "seconds": 0.0}
+        site = kind if kind == "gen_block_copy" else f"{kind}_{KERNEL}"
+        if self._kv_dtype == "int8":
+            site = f"{site}_int8"
+        _recompile.note_cache(hit, (site, ("lm",)), key)
+        with self._lock:
+            per["hits" if hit else "misses"] += 1
+
+    def _account(self, key: tuple, seconds: float) -> None:
+        with self._lock:
+            self._stats[key]["seconds"] += seconds
+
+    def _put(self, arrays):
+        dev = self._device
+        return tuple(torch.from_numpy(_np.asarray(a, dt)).to(dev)
+                     for a, dt in zip(arrays, self._OPERAND_DTYPES))
 
     def run(self, kind: str, cache, tokens, positions, lengths,
             block_tables, seeds, counters, temperature, top_k, top_p):
@@ -140,27 +226,103 @@ class GenerationPrograms:
         place."""
         t0 = time.perf_counter()
         key = self._key(kind, cache, tokens, block_tables)
-        dev = self._device
-
-        def put(a, dtype):
-            return torch.from_numpy(_np.asarray(a, dtype)).to(dev)
-
-        args = (put(tokens, _np.int64), put(positions, _np.int32),
-                put(lengths, _np.int32), put(block_tables, _np.int32),
-                _np.asarray(seeds, _np.uint32),
-                _np.asarray(counters, _np.uint32),
-                put(temperature, _np.float32), put(top_k, _np.int64),
-                put(top_p, _np.float32))
-        if self._kv_dtype == "int8":
-            next_tokens, last = _model_step_q(
-                self._params, cache.k, cache.v, cache.k_scale, cache.v_scale,
-                *args, cfg=self._cfg)
-        else:
-            next_tokens, last = _model_step(self._params, cache.k, cache.v,
-                                            *args, cfg=self._cfg)
+        self._lookup(kind, key)
+        args = self._put((tokens, positions, lengths, block_tables, seeds,
+                          counters, temperature, top_k, top_p))
+        with torch.no_grad():
+            next_tokens, last = _model_step(self._params, cache, *args,
+                                            cfg=self._cfg)
         next_tokens = next_tokens.cpu().numpy()  # waits for the device
-        self._note(key, time.perf_counter() - t0)
+        self._account(key, time.perf_counter() - t0)
         return next_tokens, last
+
+    def run_verify(self, cache, tokens, positions, lengths, block_tables,
+                   seeds, counters, temperature, top_k, top_p):
+        """One speculative verify step: ``tokens`` (S, Tk) holds
+        ``[pending, d_1..d_s]`` per row (right-padded; ``lengths`` counts
+        the valid columns).  Returns ``(target np(S, Tk), accepted
+        np(S,))``.  Site ``gen_verify``."""
+        t0 = time.perf_counter()
+        key = self._key("gen_verify", cache, tokens, block_tables)
+        self._lookup("gen_verify", key)
+        args = self._put((tokens, positions, lengths, block_tables, seeds,
+                          counters, temperature, top_k, top_p))
+        with torch.no_grad():
+            target, accepted = _verify_step(self._params, cache, *args,
+                                            cfg=self._cfg)
+        out = torch.cat([target, accepted[:, None]], dim=1).cpu().numpy()
+        self._account(key, time.perf_counter() - t0)
+        return out[:, :-1], out[:, -1]
+
+    def run_multistep(self, k: int, cache, tokens, positions, lengths,
+                      block_tables, seeds, counters, temperature, top_k,
+                      top_p):
+        """``k`` decode iterations in one dispatch: on the card one replay
+        of the key's CUDA graph (captured at its first call), on the CPU
+        the same function eagerly.  ``tokens``/``positions``/``counters``
+        are the first iteration's (S,) values; returns np (S, k) tokens.
+        Each k is its own signature (``("k", k)``, site
+        ``gen_multistep``)."""
+        t0 = time.perf_counter()
+        k = int(k)
+        key = self._key("gen_multistep", cache, tokens, block_tables)
+        key = (key[0], key[1] + (("k", k),))
+        self._lookup("gen_multistep", key)
+        host = (tokens, positions, lengths, block_tables, seeds, counters,
+                temperature, top_k, top_p)
+        if self._device.type != "cuda":
+            with torch.no_grad():
+                toks = _multistep(self._params, cache, *self._put(host),
+                                  k=k, cfg=self._cfg)
+        else:
+            cap = self._graphs.get(key)
+            if cap is None:
+                cap = self._capture_multistep(key, k, cache,
+                                              _np.shape(block_tables))
+            for buf, a, dt in zip(cap.inputs, host, self._OPERAND_DTYPES):
+                buf.copy_(torch.from_numpy(_np.asarray(a, dt)))
+            cap.graph.replay()
+            add_counts(cap.launches)
+            toks = cap.out
+        out = toks.cpu().numpy()  # the one host copy; waits for the device
+        self._account(key, time.perf_counter() - t0)
+        return out
+
+    def _capture_multistep(self, key, k: int, cache, table_shape):
+        """Capture the (S, W, k) multi-step program as a CUDA graph over
+        static input buffers.  One eager warm-up on a side stream first
+        (all rows inactive: it writes only the null block) launches every
+        kernel, so each is built and its library state set up before
+        capture.  The launches recorded during capture are taken back;
+        each replay adds them."""
+        S, W = table_shape
+        dev = self._device
+        cap = _Capture()
+        shapes = ((S,), (S,), (S,), (S, W), (S,), (S,), (S,), (S,), (S,))
+        cap.inputs = [torch.zeros(s, dtype=self._TORCH_DTYPES[dt],
+                                  device=dev)
+                      for s, dt in zip(shapes, self._OPERAND_DTYPES)]
+        cap.inputs[-1].fill_(1.0)  # top_p 1: no nucleus filter
+
+        def program():
+            return _multistep(self._params, cache, *cap.inputs, k=k,
+                              cfg=self._cfg)
+
+        cap.graph = torch.cuda.CUDAGraph()
+        with torch.no_grad():
+            warm_up(program, dev)
+            try:
+                cap.out, cap.launches = capture_graph(
+                    cap.graph, program, capture_error_mode="thread_local")
+            except Exception as e:
+                raise MXNetError(
+                    f"multi-step decode (k={k}, S={S}, W={W}): the program "
+                    f"cannot be captured as a CUDA graph: {e}") from e
+            torch.cuda.synchronize(dev)
+        with self._lock:
+            self._graphs[key] = cap
+            self.captures += 1
+        return cap
 
     def copy_block(self, cache, src: int, dst: int) -> None:
         """Copy pool block ``src`` onto ``dst`` (scales included for the
@@ -170,9 +332,10 @@ class GenerationPrograms:
         key = ("gen_block_copy",
                (("kv_pool", cache.shape, str(cache.k.dtype)),)
                + self._family())
+        self._lookup("gen_block_copy", key)
         block_copy_pools(cache.k, cache.v, int(src), int(dst),
                          cache.k_scale, cache.v_scale)
-        self._note(key, time.perf_counter() - t0)
+        self._account(key, time.perf_counter() - t0)
 
     def compile_stats(self) -> Dict[tuple, Dict[str, int]]:
         """Per-signature ``{"hits", "misses", "seconds"}``: a signature's
@@ -183,7 +346,7 @@ class GenerationPrograms:
             return {k: dict(v) for k, v in self._stats.items()}
 
     def step_seconds(self) -> Dict[str, dict]:
-        """Steps run and their wall seconds, by kind (prefill / decode)."""
+        """Steps run and their wall seconds, by kind."""
         out: Dict[str, dict] = {}
         with self._lock:
             for (kind, _), per in self._stats.items():

@@ -343,8 +343,8 @@ def test_default_device_without_cuda_raises(params, monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(speculative=True), dict(multistep_k=4), dict(mp_devices=2),
-    dict(amp_dtype="float16")])
+    dict(mp_devices=2), dict(amp_dtype="float16"),
+    dict(shard_rules=[(".*", None)])])
 def test_unported_config_raises(kw):
     base = dict(GEN)
     base.update(kw)
@@ -354,7 +354,8 @@ def test_unported_config_raises(kw):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(preemption=True), dict(prefix_cache=True), dict(kv_dtype="int8")])
+    dict(preemption=True), dict(prefix_cache=True), dict(kv_dtype="int8"),
+    dict(speculative=True), dict(multistep_k=4)])
 def test_reference_features_construct_and_serve(params, kw):
     """Configurations the port refused before this slice construct with
     the reference's values and serve a greedy request like the oracle."""
