@@ -18,7 +18,8 @@ toolkit (``nvcc``) and PyTorch built for CUDA.  Phases, one JSON line each:
               1e9, bit for bit; timed at the largest gradient and summed
               over one step's), BatchNorm stats and normalize
               (ResNet-50's shapes, f32 and bf16, bitwise repeatable; and
-              BatchNorm's gradient through them), LayerNorm (forward, and its
+              BatchNorm's gradient through them), LayerNorm (forward at
+              M = 8, 512 and the LM training step's 8,192 rows, and its
               gradient — kernel forward plus autograd — at the training
               rows), paged attention over the float pool and over the int8
               pool (q in float32 and bfloat16; decode at block sizes 32
@@ -201,6 +202,34 @@ toolkit (``nvcc``) and PyTorch built for CUDA.  Phases, one JSON line each:
               the others' tokens equal the plain run's, a
               ``gen_quarantine`` dump names it); the generation gauges in
               ``to_prometheus()``, both replicas in ``health()``.
+19. ops_breadth — every op name of ``_breadth_cases`` (151 names) on
+              the card against the same call on the CPU: output
+              dtypes, outputs and gradients within rtol 1e-5 (an
+              absolute floor of 1e-5 x the largest magnitude), the
+              ``linalg_*`` decompositions by their reconstructions, the
+              sampling ops' tokens exactly, sort/topk ties as on the CPU;
+              a channels-last ``BatchNorm_v1`` launches kernels 3-4.
+              Then ``_contrib_flash_attention``/``flash_attention`` at
+              the LM training shape (B=8, T=1024, H=12, D=64), f32 and
+              bf16, causal and not: one launch of each flash kernel a
+              forward + backward (wrapper counts and kernel names), out
+              and gradients against the plain versions under ``TOL``.
+20. fcn_fit — FCN-32s (``symbol/fcnxs.py``: the public example's
+              ``get_fcn32s_symbol``, VGG-16 trunk, 21 classes) by
+              ``Module.fit``, f32 NCHW, B=8 at 500x500, ``fcn_xs.py``'s
+              SGD (lr 1e-10, momentum 0.99, wd 5e-4), labels with 255s
+              ignored: ``init.Bilinear`` on ``bigscore`` equal to the
+              numpy filter; one fused ``Module.fit`` step's loss and
+              every gradient card vs CPU at B=1, 224x224 (normwise
+              within 1e-3, or 3 x the card-vs-card floor where that is
+              larger, the tensors past 1e-3 listed; cuDNN
+              deterministic); two warm-up and ten timed batches from the
+              public init (``bigscore`` per class): images/s, median
+              step, the fused step alone and the host metric's update,
+              peak memory, a profiled step's idle share, and the
+              Deconvolution's own forward and backward ms; the fit must
+              lower the first batch's loss and move conv1_1.  No port
+              kernel on this path: its launch counts stay 0.
 
 Every ResNet phase also requires that the BatchNorm op copied no
 non-contiguous input (``batch_norm.noncontiguous_copies`` stays 0); no
@@ -212,7 +241,7 @@ An optional comma-separated argument (``kernels``, ``model``,
 also runs ``serving``, its float baseline — ``resnet_training``,
 ``resnet_compressed``, ``gluon_training``, ``module_fit``,
 ``gluon_hybrid``, ``rnn_lm``, ``bucketing_fit``, ``image_rec``,
-``serving_spec``, ``serving_fleet``, and
+``serving_spec``, ``serving_fleet``, ``ops_breadth``, ``fcn_fit``, and
 ``profile``, ``profile_training`` and ``profile_resnet``, which are not in
 the default run: the serving window, or two bf16 LM or ResNet training
 steps, once more under ``torch.profiler``)
@@ -254,6 +283,9 @@ BN_GRAD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 
 GPT2_SMALL = dict(vocab=50257, d_model=768, n_heads=12, n_layers=12,
                   d_ff=3072, max_len=1024)
+# LayerNorm's rows: a decode batch, a prefill chunk, and the LM training
+# step's B x T = 8 x 1024
+LN_ROWS = (8, 512, 8192)
 SEED = 0
 # flash attention shapes (B, T, H, D): the LM training step's, a T that is
 # no multiple of the kernels' 64-row tiles, and the other head dims (every
@@ -492,7 +524,7 @@ def _layer_norm_cases(dev):
     g = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
     C = GPT2_SMALL["d_model"]
-    for M in (8, 512):
+    for M in LN_ROWS:
         for dtype in (torch.float32, torch.bfloat16):
             for gelu in (False, True):
                 x = (torch.randn(M, C, generator=g, device=dev) * 2.0
@@ -5226,6 +5258,769 @@ def _bound_outputs(sym, vals, dev, mx=None):
     return [o.asnumpy() for o in ex.forward(is_train=False)]
 
 
+# -- phase 19: ops_breadth -----------------------------------------------------------
+
+# card against CPU: f32 values within rtol 1e-5, with an absolute floor of
+# 1e-5 x the CPU output's largest magnitude (a sum's last bits where it
+# cancels to ~0); integers and tokens exact
+BREADTH_RTOL = 1e-5
+# the flash op at the LM training shape, each dtype and mask
+BREADTH_FLASH_SHAPE = (8, 1024, 12, 64)
+
+
+def _breadth_cases():
+    """``(name, numpy inputs, attrs, compare)`` for every op name
+    ops_breadth runs but the flash op (the tensor, nn, Crop/SVMOutput,
+    update-rule and sampling names beyond those the model paths run;
+    ``tests/test_torch_ops_breadth.py`` holds their coverage of the
+    reference's registry): small inputs from a seed, in each op's domain; ``compare`` is "value" (outputs and gradients) or, for
+    the decompositions, a reconstruction check."""
+    rs = np.random.default_rng(SEED + 19)
+
+    def f32(*shape, lo=None, hi=None):
+        if lo is None:
+            return rs.standard_normal(shape).astype(np.float32)
+        return rs.uniform(lo, hi, shape).astype(np.float32)
+
+    def zeros_in(x):
+        x = x.copy()
+        x.flat[::3] = 0.0
+        return x
+
+    def spd(n):
+        a = f32(2, n, n)
+        return a @ a.transpose(0, 2, 1) + n * np.eye(n, dtype=np.float32)
+
+    pos, unit = dict(lo=0.5, hi=2.0), dict(lo=-0.9, hi=0.9)
+    dom = {"reciprocal": pos, "rsqrt": pos, "cbrt": pos, "rcbrt": pos,
+           "log1p": pos, "log2": pos, "log10": pos, "tan": unit,
+           "arcsin": unit, "arccos": unit, "arctanh": unit, "erfinv": unit,
+           "gamma": pos, "gammaln": pos, "arccosh": dict(lo=1.2, hi=3.0)}
+    cases = []
+    for n in ("floor", "ceil", "round", "rint", "fix", "trunc", "expm1",
+              "sin", "cos", "sinh", "cosh", "arcsinh", "arctan", "erf",
+              "degrees", "radians", "softsign", "hard_sigmoid") + tuple(dom):
+        cases.append((n, [f32(64, 33, **dom.get(n, {})) * (
+            3.0 if n in ("floor", "ceil", "round", "rint", "fix", "trunc")
+            else 1.0)], {}))
+    cases.append(("logical_not", [zeros_in(f32(64, 33))], {}))
+    for n in ("elemwise_hypot", "_hypot", "elemwise_logical_and",
+              "elemwise_logical_or", "elemwise_logical_xor", "_logical_and",
+              "_logical_or", "_logical_xor"):
+        cases.append((n, [zeros_in(f32(64, 33)), zeros_in(f32(64, 33))], {}))
+    for n in ("broadcast_hypot", "broadcast_logical_and",
+              "broadcast_logical_or", "broadcast_logical_xor"):
+        cases.append((n, [zeros_in(f32(64, 33)), zeros_in(f32(1, 33))], {}))
+    for n, s in (("_hypot_scalar", 1.5), ("_logical_and_scalar", 1.0),
+                 ("_logical_or_scalar", 0.0), ("_logical_xor_scalar", 1.0),
+                 ("_plus_scalar", 2.5), ("_minus_scalar", 2.5),
+                 ("_rminus_scalar", 2.5)):
+        cases.append((n, [zeros_in(f32(64, 33))], {"scalar": s}))
+    x = f32(16, 40)
+    for n in ("BlockGrad", "stop_gradient", "stop_gradient_identity",
+              "make_loss", "identity", "_copy", "IdentityAttachKLSparseReg"):
+        cases.append((n, [x], {}))
+    for n in ("add_n", "ElementWiseSum", "_grad_add_n"):
+        cases.append((n, [x, f32(16, 40), f32(16, 40)], {}))
+    cases += [("_grad_add", [x, f32(16, 40)], {}),
+              ("_identity_with_attr_like_rhs", [x, f32(16, 40)], {})]
+    xn = x.copy()
+    xn[0, 1] = np.nan
+    ties = np.round(f32(16, 40) * 2)       # many equal keys
+    cases += [
+        ("sort", [ties], {"axis": 1, "is_ascend": False}),
+        ("argsort", [ties], {"axis": 0}),
+        ("topk", [ties], {"axis": 1, "k": 5, "ret_typ": "both"}),
+        ("histogram", [x], {"bin_cnt": 7}),
+        ("_histogram", [x], {"bin_cnt": 4, "range": (-1.0, 1.0)}),
+        ("nansum", [xn], {"axis": 1}), ("nanprod", [xn * 0.1 + 1.0], {}),
+        ("argmax_channel", [x], {}),
+        ("_square_sum", [x], {"axis": 0, "keepdims": True})]
+    idx2 = np.stack([rs.integers(-16, 16, 20),
+                     rs.integers(0, 40, 20)]).astype(np.int32)
+    sl = {"begin": (0, 1), "end": (9, 40), "step": (1, 3)}
+    flat = rs.integers(0, 640, 30).astype(np.int32)
+    cases += [
+        ("gather_nd", [x, idx2], {}),
+        ("scatter_nd", [f32(20), np.abs(idx2) % np.array(
+            [[16], [40]], np.int32)], {"shape": (16, 40)}),
+        ("batch_take", [x, rs.integers(0, 40, 16).astype(np.int32)], {}),
+        ("slice_like", [x, f32(5, 7)], {"axes": (0, 1)}),
+        ("_slice_assign", [x, f32(9, 13)], sl),
+        ("_slice_assign_scalar", [x], dict(sl, scalar=7.0)),
+        ("ravel_multi_index", [np.stack([flat // 40, flat % 40])],
+         {"shape": (16, 40)}),
+        ("_ravel_multi_index", [np.stack([flat // 40, flat % 40]).astype(
+            np.float32)], {"shape": (16, 40)}),
+        ("unravel_index", [flat], {"shape": (16, 40)}),
+        ("_unravel_index", [flat.astype(np.float32)], {"shape": (16, 40)}),
+        ("diag", [x], {"k": 2}), ("roll", [x], {"shift": 3, "axis": 1}),
+        ("shape_array", [x], {}), ("size_array", [x], {}),
+        ("broadcast_axis", [x[:, :1].copy()], {"axis": 1, "size": 9}),
+        ("broadcast_axes", [x[None]], {"axis": (0,), "size": (3,)}),
+        ("_arange", [], {"start": 1.0, "stop": 40.0, "step": 0.7,
+                         "repeat": 2}),
+        ("_zeros", [], {"shape": (4, 5), "dtype": "int32"}),
+        ("_ones", [], {"shape": (4, 5)}),
+        ("_full", [], {"shape": (7,), "value": 2.5}),
+        ("_eye", [], {"N": 5, "M": 7, "k": 1}),
+        ("amp_cast", [x * 100], {"dtype": "int8"}),
+        ("_rnn_param_concat", [x, f32(16, 3)], {"dim": 1})]
+    x4 = f32(4, 16, 12, 10)
+    cases += [
+        ("pad", [x4], {"mode": "reflect",
+                       "pad_width": (0, 0, 0, 0, 1, 2, 2, 1)}),
+        ("Pad", [x4], {"mode": "edge", "pad_width": (0, 0, 0, 0, 1, 0, 0,
+                                                       2)}),
+        ("L2Normalization", [x4], {"mode": "channel"}),
+        ("smooth_l1", [x4 * 2], {"scalar": 1.5}),
+        ("depth_to_space", [x4], {"block_size": 2}),
+        ("space_to_depth", [x4], {"block_size": 2})]
+    low = np.linalg.cholesky(spd(6)).astype(np.float32)
+    cases += [
+        ("batch_dot", [f32(4, 8, 16), f32(4, 12, 16)],
+         {"transpose_b": True}),
+        ("khatri_rao", [f32(5, 3), f32(4, 3)], {}),
+        ("linalg_gemm", [f32(4, 8, 16), f32(4, 16, 5), f32(4, 8, 5)],
+         {"alpha": 0.5, "beta": 2.0}),
+        ("linalg_gemm2", [f32(4, 16, 8), f32(4, 16, 5)],
+         {"transpose_a": True, "alpha": 1.5}),
+        ("linalg_potrf", [spd(6)], {"compare": "potrf"}),
+        ("linalg_potri", [low], {"compare": "potri"}),
+        ("linalg_trsm", [low, f32(2, 6, 4)], {"transpose": True,
+                                              "alpha": 2.0}),
+        ("linalg_trmm", [low, f32(2, 4, 6)], {"rightside": True,
+                                              "lower": False}),
+        ("linalg_syrk", [f32(2, 6, 8)], {"transpose": True, "alpha": 0.5}),
+        ("linalg_syevd", [spd(6)], {"compare": "syevd"}),
+        ("linalg_gelqf", [f32(2, 6, 8)], {"compare": "gelqf"}),
+        ("linalg_sumlogdiag", [spd(6)], {}),
+        ("linalg_extractdiag", [f32(2, 6, 8)], {"offset": 1}),
+        ("linalg_makediag", [f32(2, 6)], {"offset": -1})]
+    xc = f32(4, 8, 15, 15)
+    cases += [
+        ("Deconvolution", [xc, f32(8, 3, 4, 4), f32(6)],
+         {"kernel": (4, 4), "stride": (2, 2), "pad": (1, 1), "adj": (1, 0),
+          "num_filter": 6, "num_group": 2}),
+        ("LRN", [xc], {"nsize": 3, "alpha": 0.01}),
+        ("UpSampling", [xc], {"scale": 2, "sample_type": "bilinear"}),
+        ("softmin", [xc], {"axis": 1}),
+        ("softmax_cross_entropy", [f32(16, 10), rs.integers(
+            0, 10, 16).astype(np.float32)], {}),
+        ("_contrib_AdaptiveAvgPooling2D", [xc], {"output_size": (4, 6)}),
+        ("_contrib_BilinearResize2D", [xc], {"height": 7, "width": 31}),
+        ("BatchNorm_v1", [xc, f32(8), f32(8), np.zeros(8, np.float32),
+                          np.ones(8, np.float32)],
+         {"fix_gamma": False, "output_mean_var": True}),
+        # channels-last: the BatchNorm op's kernels 3-4 on the card
+        ("BatchNorm_v1", [f32(8, 14, 14, 64), f32(64), f32(64),
+                          np.zeros(64, np.float32), np.ones(64, np.float32)],
+         {"fix_gamma": False, "axis": 3}),
+        ("Convolution_v1", [xc, f32(5, 8, 3, 3), f32(5)],
+         {"kernel": (3, 3), "num_filter": 5, "pad": (1, 1)}),
+        ("Pooling_v1", [xc], {"kernel": (3, 3), "stride": (2, 2),
+                              "pool_type": "avg",
+                              "pooling_convention": "full"}),
+        ("Crop", [f32(2, 3, 19, 18), f32(2, 1, 11, 9)], {"offset": (3, 5)}),
+        ("SVMOutput", [f32(16, 10), rs.integers(0, 10, 16).astype(
+            np.float32)], {"margin": 0.5, "regularization_coefficient": 2.0})]
+    w, g = f32(16, 40), f32(16, 40)
+    p = [f32(16, 40, lo=0.1, hi=1.0) for _ in range(3)]
+    m = [0.1 * f32(16, 40) for _ in range(3)]
+    cases += [
+        ("sgd_update", [w, g], {"lr": 0.1, "wd": 0.01, "clip_gradient": 0.5}),
+        ("sgd_mom_update", [w, g, m[0]], {"lr": 0.1, "momentum": 0.9}),
+        ("mp_sgd_update", [w, g, w.copy()], {"lr": 0.1}),
+        ("mp_sgd_mom_update", [w, g, m[0], w.copy()], {"lr": 0.1,
+                                                       "momentum": 0.9}),
+        ("adam_update", [w, g, m[0], p[0]], {"lr": 0.01, "wd": 0.1}),
+        ("ftrl_update", [w, g, m[0], p[0]], {"lr": 0.1, "lamda1": 0.05}),
+        ("ftml_update", [w, g, p[0], p[1], m[0]], {"lr": 0.01, "t": 2}),
+        ("rmsprop_update", [w, g, p[0]], {"lr": 0.01}),
+        ("rmspropalex_update", [w, g, p[0], m[0], m[1]], {"lr": 0.01}),
+        ("signsgd_update", [w, g], {"lr": 0.1, "wd": 0.1}),
+        ("signum_update", [w, g, m[0]], {"lr": 0.1, "momentum": 0.9}),
+        ("_sparse_adagrad_update", [w, g, p[0]], {"lr": 0.1})]
+    logits = f32(8, 50257)
+    for n, a in (("_sampling_greedy", {}), ("sample_greedy", {}),
+                 ("_sampling_temperature", {"temperature": 0.7}),
+                 ("sample_temperature", {"temperature": 1.3}),
+                 ("_sampling_top_k", {"k": 40, "temperature": 0.9}),
+                 ("sample_top_k", {"k": 0}),
+                 ("_sampling_top_p", {"p": 0.6, "temperature": 1.1}),
+                 ("sample_top_p", {"p": 0.95})):
+        cases.append((n, [logits], a))
+    return cases
+
+
+def _breadth_same(a, b):
+    """Card tensor ``a`` against CPU tensor ``b``: (ok, max abs error)."""
+    import torch
+
+    a = a.detach().cpu()
+    b = b.detach()
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False, float("inf")
+    if not b.dtype.is_floating_point:
+        return bool(torch.equal(a, b)), float((a.long() - b.long()).abs()
+                                               .max()) if b.numel() else 0.0
+    a, b = a.double(), b.double()
+    fin = torch.isfinite(b)
+    if not torch.equal(fin, torch.isfinite(a)):
+        return False, float("inf")
+    if not fin.any():
+        return True, 0.0
+    err = (a - b).abs()[fin]
+    scale = float(b[fin].abs().max())
+    ok = bool((err <= BREADTH_RTOL * (b.abs()[fin] + scale)).all())
+    return ok, float(err.max())
+
+
+def _breadth_recon(kind, ins, outs):
+    """The decompositions' checks on one device: (ok, max abs error) of
+    the reconstruction against the input (and the factor's own rule)."""
+    import torch
+
+    a = ins[0].double()
+    if kind == "potrf":
+        lo = outs[0].double()
+        err = (lo @ lo.mT - a).abs().max()
+        ok = bool(torch.equal(lo, torch.tril(lo)))
+    elif kind == "potri":
+        inv = outs[0].double()
+        err = (inv @ (a @ a.mT) - torch.eye(a.shape[-1], dtype=a.dtype,
+                                            device=a.device)).abs().max()
+        ok = True
+    elif kind == "syevd":
+        u, lam = (o.double() for o in outs)
+        err = (u.mT @ torch.diag_embed(lam) @ u - a).abs().max()
+        ok = bool((lam[..., 1:] >= lam[..., :-1]).all())
+    else:   # gelqf: A = L Q, Q's rows orthonormal, L lower, diagonal > 0
+        q, lo = (o.double() for o in outs)
+        err = (lo @ q - a).abs().max()
+        ok = bool(torch.equal(lo, torch.tril(lo))) and bool(
+            (torch.diagonal(lo, dim1=-2, dim2=-1) > 0).all())
+    err = float(err)
+    return ok and err < 1e-4 * max(1.0, float(a.abs().max())), err
+
+
+def _breadth_run(op, ins, attrs, dev, grad):
+    """The op on ``ins`` (numpy) placed on ``dev``: outputs, and the
+    gradients of ``sum(out * c)`` over the float outputs (``c`` random,
+    from a seed) with respect to the float inputs (None when there is
+    none)."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    ts = [torch.from_numpy(a).to(dev) for a in ins]
+    for t in ts:
+        if grad and t.dtype.is_floating_point:
+            t.requires_grad_(True)
+    kw = dict(attrs)
+    if op.rng:
+        kw["rng_key"] = torch.tensor([7, 1234], dtype=torch.int64,
+                                     device=dev)
+    if not ins:
+        kw["ctx"] = mx.gpu(0) if dev.type == "cuda" else mx.cpu()
+    outs = op.fn(*ts, **kw)
+    outs = list(outs) if isinstance(outs, (tuple, list)) else [outs]
+    leaves = [t for t in ts if t.requires_grad]
+    heads = [o for o in outs if o.dtype.is_floating_point and o.requires_grad]
+    grads = None
+    if grad and leaves and heads:
+        # random cotangents, the same on both devices (a constant one
+        # gives softmin's or BatchNorm's data gradient as pure rounding)
+        gen = torch.Generator().manual_seed(SEED + 192)
+        loss = sum((o * torch.randn(o.shape, generator=gen).to(dev)).sum()
+                   for o in heads)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(t) if gr is None else gr
+                 for gr, t in zip(grads, leaves)]
+    return ts, outs, grads
+
+
+def _breadth_flash(dev):
+    """``_contrib_flash_attention`` on the card at the LM training shape,
+    f32 and bf16, causal and not: the forward and backward through the
+    op launch the flash forward, dQ and dK/dV kernels (one each, by the
+    wrappers' counts and by kernel name), and out, dq, dk, dv hold to the
+    plain versions under TOL."""
+    import torch
+
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.ops.registry import OP_REGISTRY
+
+    B, T, H, D = BREADTH_FLASH_SHAPE
+    rows = []
+    for name, dname, causal in (("_contrib_flash_attention", "float32",
+                                 True),
+                                ("flash_attention", "float32", False),
+                                ("_contrib_flash_attention", "bfloat16",
+                                 True),
+                                ("flash_attention", "bfloat16", False)):
+        dtype = getattr(torch, dname)
+        g = torch.Generator(device=dev).manual_seed(SEED + 191)
+        q, k, v, go = (torch.randn(B, T, H, D, generator=g,
+                                   device=dev).to(dtype) for _ in range(4))
+        op = OP_REGISTRY[name]
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+
+        def run():
+            out = op.fn(*leaves, causal=causal)
+            grads = torch.autograd.grad(out, leaves, go)
+            return out, grads
+
+        _reset_launches()
+        out, grads = run()
+        torch.cuda.synchronize()
+        counts = _read_launches()
+        # empty kernels first: a session loses its first launches' records
+        names, sessions = _launched(
+            lambda: ([torch.cuda._sleep(0) for _ in range(PROFILE_LEAD)],
+                     run()), "flash_")
+        routed, other = _routed(names, FLASH_ROUTES[dname])
+        ref_out, lse = fa.flash_attention_forward_reference(q, k, v, causal)
+        ref = (ref_out,) + tuple(fa.flash_attention_backward_reference(
+            q, k, v, ref_out, lse, go, causal))
+        errs, within, ok = {}, {}, routed
+        for key, a, b in zip(("out", "dq", "dk", "dv"),
+                             (out,) + tuple(grads), ref):
+            good, err, _ = _close(a.detach(), b, dname)
+            errs[key], within[key] = err, good
+            ok = ok and good
+        launches = {kk: counts[kk] for kk in ("flash_attention_fwd",
+                                              "flash_attention_dq",
+                                              "flash_attention_dkv")}
+        ok = ok and all(c == 1 for c in launches.values())
+        rows.append({"name": name, "dtype": dname, "causal": causal,
+                     "shape": [B, T, H, D], "launches": launches,
+                     "kernels": names, "other": other,
+                     "profiler_sessions": sessions, "routed": routed,
+                     "max_abs_err": errs, "within_tol": within, "ok": ok})
+    return rows
+
+
+def phase_ops_breadth(dev):
+    """Every op name of ``_breadth_cases`` on the card
+    against the same call on the CPU: output dtypes, outputs and, where
+    the op is differentiable, the gradients (``BREADTH_RTOL``); the
+    decompositions by their reconstructions on each device; the sampling
+    ops' tokens exactly.  Then the flash op at the training shape through
+    kernels 6-8 (``_breadth_flash``)."""
+    import torch
+
+    from mxnet_tpu_torch.ops.registry import OP_REGISTRY
+
+    t0 = time.perf_counter()
+    cases = _breadth_cases()
+    names = {c[0] for c in cases} | {"_contrib_flash_attention",
+                                     "flash_attention"}
+    rows, bad = [], []
+    torch.manual_seed(SEED)
+    _reset_launches()
+    for name, ins, attrs in cases:
+        attrs = dict(attrs)
+        recon = attrs.pop("compare", None)
+        op = OP_REGISTRY[name]
+        grad = op.differentiable and recon is None
+        cpu_in, cpu_out, cpu_g = _breadth_run(op, ins, attrs,
+                                              torch.device("cpu"), grad)
+        card_in, card_out, card_g = _breadth_run(op, ins, attrs, dev, grad)
+        torch.cuda.synchronize()
+        row = {"name": name, "dtypes": [str(o.dtype).split(".")[-1]
+                                        for o in card_out]}
+        if recon is not None:
+            ok_c, err_c = _breadth_recon(recon, card_in, card_out)
+            ok_p, err_p = _breadth_recon(recon, cpu_in, cpu_out)
+            same_dt = [o.dtype for o in card_out] == \
+                [o.dtype for o in cpu_out]
+            row.update(ok=ok_c and ok_p and same_dt, recon_err=err_c,
+                       cpu_recon_err=err_p)
+        else:
+            checks = [_breadth_same(a, b) for a, b in zip(card_out, cpu_out)]
+            if card_g is not None or cpu_g is not None:
+                if card_g is None or cpu_g is None:
+                    checks.append((False, float("inf")))
+                else:
+                    checks += [_breadth_same(a, b)
+                               for a, b in zip(card_g, cpu_g)]
+            row.update(ok=len(card_out) == len(cpu_out)
+                       and all(c[0] for c in checks),
+                       max_abs_err=max(c[1] for c in checks),
+                       grads=card_g is not None)
+        rows.append(row)
+    loop = _read_launches()
+    # only the channels-last BatchNorm_v1 case reaches a kernel (3 and 4)
+    leaked = {k: v for k, v in loop.items()
+              if v and k not in ("bn_stats", "bn_normalize")}
+    flash = _breadth_flash(dev)
+    res = {"phase": "ops_breadth", "names": len(names),
+           "cases": len(rows), "rtol": BREADTH_RTOL,
+           "failed": [r for r in rows if not r["ok"]],
+           "worst": sorted((r for r in rows if "max_abs_err" in r),
+                           key=lambda r: -r["max_abs_err"])[:8],
+           "flash": flash, "launches_outside_flash": leaked,
+           "seconds": time.perf_counter() - t0,
+           "launches": {k: loop[k] + sum(r["launches"].get(k, 0)
+                                          for r in flash)
+                        for k in loop}}
+    emit(res)
+    if res["failed"]:
+        bad.append(f"card disagrees with the CPU: "
+                   f"{[r['name'] for r in res['failed']]}")
+    if leaked or not (loop["bn_stats"] and loop["bn_normalize"]):
+        bad.append(f"kernel launches outside the flash op: {loop} (only "
+                   f"channels-last BatchNorm_v1's kernels expected)")
+    bad += [f"flash op {r['name']} {r['dtype']} causal={r['causal']}: "
+            f"launches {r['launches']}, kernels {r['kernels']}, errors "
+            f"{r['max_abs_err']}" for r in flash if not r["ok"]]
+    if bad:
+        raise SystemExit("ops_breadth phase failed: " + "; ".join(bad))
+    return res
+
+
+# -- phase 20: fcn_fit ---------------------------------------------------------------
+
+# fcn_fit: FCN-32s (``symbol/fcnxs.py``, the public example's
+# get_fcn32s_symbol) at its published widths, 21 PASCAL VOC classes, f32
+# NCHW at B=8 on 500x500 images, fcn_xs.py's SGD (lr 1e-10, momentum
+# 0.99, wd 5e-4); two warm-up batches, then FCN_STEPS timed ones; the
+# card-vs-CPU Module.fit step at B=1 on a 224x224 crop; labels 255
+# (ignored) on a band of rows
+FCN_CLASSES, FCN_BATCH, FCN_HW, FCN_WARM, FCN_STEPS = 21, 8, 500, 2, 10
+FCN_LR, FCN_MOMENTUM, FCN_WD = 1e-10, 0.99, 5e-4
+FCN_CHECK_HW, FCN_CHECK_RTOL = 224, 1e-3
+
+
+def _fcn_symbol():
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.symbol.fcnxs import get_fcn32s_symbol
+
+    with mx.name.NameManager():
+        return get_fcn32s_symbol(mx.sym, numclass=FCN_CLASSES)
+
+
+def _fcn_images(n, hw, seed):
+    """n random images in [0, 1) and per-pixel labels in [0, 21), the
+    first eighth of each label image's rows 255 (ignored)."""
+    rs = np.random.default_rng(seed)
+    X = rs.random((n, 3, hw, hw), dtype=np.float32)
+    Y = rs.integers(0, FCN_CLASSES, (n, hw, hw)).astype(np.float32)
+    Y[:, :hw // 8, :] = 255.0
+    return X, Y
+
+
+def _fcn_loss(probs, label):
+    """Mean cross entropy over the pixels not labelled 255."""
+    import torch
+
+    lab = label.to(probs.device).long()
+    keep = lab != 255
+    p = probs.gather(1, torch.where(keep, lab, 0)[:, None])[:, 0]
+    return float(-torch.log(p.clamp_min(1e-30))[keep].mean())
+
+
+def _bilinear_filter(k):
+    f = np.ceil(k / 2.0)
+    c = (2 * f - 1 - f % 2) / (2.0 * f)
+    og = np.ogrid[:k, :k]
+    return ((1 - abs(og[0] / f - c)) * (1 - abs(og[1] / f - c))).astype(
+        np.float32)
+
+
+def _fcn_init():
+    import mxnet_tpu_torch as mx
+
+    return mx.init.Mixed(["bigscore_weight", ".*"],
+                         [mx.init.Bilinear(),
+                          mx.init.Xavier(rnd_type="gaussian",
+                                         factor_type="in", magnitude=2)])
+
+
+def _fcn_bigscore(shape):
+    """``bigscore_weight`` as the public ``init_fcnxs.py`` sets it: each
+    class upsampled from its own score plane.  ``init.Bilinear`` puts
+    the filter in every (in, out) plane, which gives every class the
+    same logit and the trunk a gradient of exactly 0."""
+    w = np.zeros(shape, np.float32)
+    w[range(shape[0]), range(shape[1])] = _bilinear_filter(shape[-1])
+    return w
+
+
+def _fcn_fit_kwargs():
+    return dict(num_epoch=1, optimizer="sgd",
+                optimizer_params={"learning_rate": FCN_LR,
+                                  "momentum": FCN_MOMENTUM, "wd": FCN_WD},
+                eval_metric="acc")
+
+
+def _fcn_card_vs_cpu(net):
+    """One ``Module.fit`` step (the fused step the timed run takes, with
+    its optimizer) at B=1 on a 224x224 crop, on the card and on the CPU
+    from the same numpy arguments (He-scaled random trunk, the per-class
+    bilinear ``bigscore``) and the same Dropout key: the loss and each
+    parameter's gradient, normwise.  Each must be within rtol
+    FCN_CHECK_RTOL or, where the card moves by more than that against
+    itself, within 3 x that floor (the card with the image moved by
+    ~2^-22, cuDNN deterministic); the tensors past the rtol are listed
+    with their floors.  Two card runs bitwise equal."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    hw = FCN_CHECK_HW
+    X, Y = _fcn_images(1, hw, SEED + 20)
+    shapes = dict(zip(net.list_arguments(),
+                      net.infer_shape(data=(1, 3, hw, hw))[0]))
+    rs = np.random.default_rng(SEED + 21)
+    params = {}
+    for n, s in shapes.items():
+        if n == "bigscore_weight":
+            params[n] = _fcn_bigscore(s)
+        elif n.endswith("bias"):
+            params[n] = (0.01 * rs.standard_normal(s)).astype(np.float32)
+        elif n not in ("data", "softmax_label"):
+            params[n] = (rs.standard_normal(s) * np.sqrt(
+                2.0 / np.prod(s[1:]))).astype(np.float32)
+    u = np.random.default_rng(SEED + 22).uniform(-1, 1, X.shape)
+    moved = (X * (1 + 2.0 ** -22 * u)).astype(np.float32)
+
+    def fit_step(ctx, image):
+        it = mx.io.NDArrayIter(image, Y, batch_size=1)
+        mod = mx.mod.Module(net, context=ctx)
+        got = {}
+
+        def grab(param):
+            got["loss"] = torch.tensor([_fcn_loss(
+                mod.get_outputs()[0]._data, torch.from_numpy(Y))])
+
+        mx.random.seed(SEED)   # the same Dropout masks on both devices
+        mod.fit(it, arg_params=params, batch_end_callback=grab,
+                **_fcn_fit_kwargs())
+        got.update({n: mod._exec.grad_dict[n]._data.detach().cpu()
+                    for n in mod._exec._grad_arg_names})
+        return got, mod._fused_step_count
+
+    # cuDNN deterministic (the same conv algorithms in every card run)
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        card, fused = fit_step(mx.gpu(0), X)
+        card_again, _ = fit_step(mx.gpu(0), X)
+        card_moved, _ = fit_step(mx.gpu(0), moved)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            det
+    cpu, cpu_fused = fit_step(mx.cpu(), X)
+    errs = {k: _rel(card[k], cpu[k]) for k in cpu}
+    floors = {k: _rel(card_moved[k], card[k]) for k in card}
+    repeat = all(torch.equal(card[k], card_again[k]) for k in card)
+    grad_norm = float(torch.linalg.vector_norm(cpu["conv1_1_weight"]))
+    worst = max(errs, key=errs.get)
+    over_rtol = {k: {"err": errs[k], "floor": floors[k]}
+                 for k in sorted(errs) if errs[k] > FCN_CHECK_RTOL}
+    # the trunk's lower gradients move by ~3e-3 when the image moves by
+    # 2^-22 (ReLU and max pooling's routing over a random trunk): the
+    # floor sets their limit where it exceeds the rtol
+    over = sorted(k for k in errs
+                  if errs[k] > max(FCN_CHECK_RTOL, 3 * floors[k]))
+    res = {"B": 1, "hw": hw, "route": "Module.fit, one fused step",
+           "fused_steps": [fused, cpu_fused], "tensors": len(errs),
+           "rtol": FCN_CHECK_RTOL,
+           "tolerance": "rtol, or 3 x floor where the floor is larger",
+           "over_rtol": over_rtol, "over_tolerance": over,
+           "card_bitwise_repeatable": repeat,
+           "loss_card": float(card["loss"][0]),
+           "loss_cpu": float(cpu["loss"][0]), "ln_21": float(np.log(21)),
+           "loss_rel_err": errs["loss"], "conv1_1_grad_norm": grad_norm,
+           "max_rel_err": errs[worst], "worst": worst,
+           "floor_of_worst": floors[worst],
+           "max_floor": max(floors.values()),
+           "rel_err": errs, "floor": floors}
+    bad = [f"FCN card vs CPU beyond max({FCN_CHECK_RTOL}, 3 x floor): "
+           f"{ {k: errs[k] for k in over} } (floors "
+           f"{ {k: floors[k] for k in over} })"] if over else []
+    if not repeat:
+        bad.append("FCN card step not bitwise repeatable (cuDNN "
+                   "deterministic)")
+    if [fused, cpu_fused] != [1, 1]:
+        bad.append(f"FCN check step not fused: {[fused, cpu_fused]}")
+    if not grad_norm > 0 or abs(res["loss_cpu"] - np.log(21)) < 0.01:
+        bad.append(f"FCN check step: conv1_1 gradient norm {grad_norm}, "
+                   f"loss {res['loss_cpu']} (ln 21 = {np.log(21)})")
+    return res, bad
+
+
+def _fcn_deconv_ms(dev):
+    """``bigscore``'s Deconvolution alone at the path's shape (B=8, 21
+    channels, 15x15 in, 543x543 out): forward ms, and the backward (data
+    and weight gradients) ms."""
+    import torch
+
+    from mxnet_tpu_torch.ops.nn import deconvolution
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    side = (FCN_HW + 198) // 32 - 6     # score's side: 15 at 500x500
+    x = torch.randn(FCN_BATCH, FCN_CLASSES, side, side, generator=g,
+                    device=dev, requires_grad=True)
+    w = torch.randn(FCN_CLASSES, FCN_CLASSES, 64, 64, generator=g,
+                    device=dev, requires_grad=True)
+    kw = dict(kernel=(64, 64), stride=(32, 32), adj=(31, 31),
+              num_filter=FCN_CLASSES, no_bias=True)
+    out = deconvolution(x, w, **kw)
+    go = torch.randn(out.shape, generator=g, device=dev)
+    fwd = _event_ms(lambda: deconvolution(x, w, **kw))
+    bwd = _event_ms(lambda: torch.autograd.grad(out, (x, w), go,
+                                                retain_graph=True))
+    return {"in": list(x.shape), "out": list(out.shape), "fwd_ms": fwd,
+            "bwd_ms": bwd}
+
+
+def phase_fcn_fit(dev, smi):
+    """FCN-32s by ``Module.fit`` at its published widths: ``init.Bilinear``
+    on ``bigscore`` against the numpy filter, the card-vs-CPU
+    ``Module.fit`` step, then FCN_WARM + FCN_STEPS batches at B=8,
+    500x500, f32 NCHW from the public example's init (``bigscore`` per
+    class); images/s, median step, peak memory, a profiled step's idle
+    share, the Deconvolution's own forward and backward ms.  The fit must
+    lower the first batch's loss (Dropout off) and move conv1_1.  The
+    path runs no port kernel (no BatchNorm, no LayerNorm): every launch
+    count stays 0."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    net = _fcn_symbol()
+    json_roundtrip = mx.sym.load_json(net.tojson()).tojson() == net.tojson()
+    # the bilinear init on the card
+    mod = mx.mod.Module(net, context=mx.gpu(0))
+    mod.bind(data_shapes=[("data", (1, 3, FCN_CHECK_HW, FCN_CHECK_HW))],
+             label_shapes=[("softmax_label",
+                            (1, FCN_CHECK_HW, FCN_CHECK_HW))])
+    mod.init_params(initializer=_fcn_init())
+    w = mod.get_params()[0]["bigscore_weight"].asnumpy()
+    bilinear_ok = bool(np.array_equal(
+        w, np.broadcast_to(_bilinear_filter(64), w.shape)))
+    del mod
+    check, bad = _fcn_card_vs_cpu(net)
+    torch.cuda.empty_cache()
+
+    B, n = FCN_BATCH, FCN_WARM + FCN_STEPS
+    X, Y = _fcn_images(n * B, FCN_HW, SEED + 23)
+    it = mx.io.NDArrayIter(X, Y, batch_size=B)
+    mod = mx.mod.Module(net, context=mx.gpu(0))
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    # the trunk by Xavier (He-scaled), bigscore per class (init_fcnxs.py)
+    mod.init_params(initializer=_fcn_init(), allow_missing=True,
+                    arg_params={"bigscore_weight": _fcn_bigscore(
+                        (FCN_CLASSES, FCN_CLASSES, 64, 64))})
+    held = next(iter(it))
+    it.reset()
+
+    def held_loss():
+        """The first batch's loss, Dropout off."""
+        mod.forward(held, is_train=False)
+        return _fcn_loss(mod.get_outputs()[0]._data, held.label[0]._data)
+
+    held_before = held_loss()
+    conv1_start = mod._exec.arg_dict["conv1_1_weight"]._data.clone()
+    marks, losses = [], []
+
+    def timing(param):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        if param.nbatch in (0, n - 1):
+            losses.append(_fcn_loss(mod.get_outputs()[0]._data,
+                                    param.locals["data_batch"].label[0]
+                                    ._data))
+
+    torch.manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    mod.fit(it, batch_end_callback=timing, **_fcn_fit_kwargs())
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = _read_launches()
+    fused_steps = mod._fused_step_count
+    held_after = held_loss()
+    # weight decay alone cannot move an f32 weight at lr 1e-10 (lr x wd
+    # = 5e-14 a step, under half an ulp): a change is the gradient's
+    conv1_moved = float((mod._exec.arg_dict["conv1_1_weight"]._data
+                         - conv1_start).abs().max() / conv1_start.abs().max())
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [(b - a) * 1e3 for a, b in zip([t0] + marks, marks)]
+    steady = float(np.median(step_ms[FCN_WARM:]))
+    it.reset()
+    batch = next(iter(it))
+    # the fused step alone on a batch already on the card, and the host
+    # metric's update over its outputs (what the fit loop adds)
+    alone, metric_ms = [], []
+    metric = mx.metric.create("acc")
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mod._try_fused_step(batch)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        mod.update_metric(metric, batch.label)
+        torch.cuda.synchronize()
+        alone.append((t2 - t1) * 1e3)
+        metric_ms.append((time.perf_counter() - t2) * 1e3)
+    prof = _profiled(lambda: mod._try_fused_step(batch))
+    deconv = _fcn_deconv_ms(dev)
+    res = {"phase": "fcn_fit", "card": smi,
+           "config": {"symbol": "mxnet_tpu_torch/symbol/fcnxs.py "
+                      "get_fcn32s_symbol (example/fcn-xs symbol_fcnxs.py)",
+                      "classes": FCN_CLASSES, "batch": B,
+                      "image": [3, FCN_HW, FCN_HW], "dtype": "float32",
+                      "layout": "NCHW", "optimizer": "sgd", "lr": FCN_LR,
+                      "momentum": FCN_MOMENTUM, "wd": FCN_WD,
+                      "initializer": "bigscore_weight: the bilinear filter "
+                                     "per class (init_fcnxs.py); the rest "
+                                     "Xavier(gaussian, in, 2)"},
+           "json_roundtrip": json_roundtrip, "bilinear_init": bilinear_ok,
+           "card_vs_cpu": check, "fit_s": fit_s, "step_ms": step_ms,
+           "steady_step_ms": steady, "images_per_s": B / (steady / 1e3),
+           "fused_step_alone_ms": alone,
+           "fused_step_alone_images_per_s": B / (
+               float(np.median(alone[1:])) / 1e3),
+           "metric_update_ms": metric_ms,
+           "peak_bytes": peak, "losses_first_last": losses,
+           "held_batch_loss": {"before": held_before, "after": held_after,
+                               "ln_21": float(np.log(21))},
+           "conv1_1_moved_rel": conv1_moved,
+           "fused_steps": fused_steps,
+           "profiled_step": {k: prof[k] for k in (
+               "wall_s", "device_busy_s", "idle_share", "kernels", "top")},
+           "deconvolution": deconv, "launches": launches}
+    emit(res)
+    if not json_roundtrip:
+        bad.append("load_json(tojson()) wrote other bytes")
+    if not bilinear_ok:
+        bad.append("init.Bilinear gave bigscore_weight another filter")
+    if not all(np.isfinite(losses)) or len(losses) != 2:
+        bad.append(f"losses {losses}")
+    # the labels are uniform random, so ln 21 is the least expected loss:
+    # training lowers a loss above it (the logits differ by class) toward it
+    if not (held_after < held_before and held_before - np.log(21) > 0.01):
+        bad.append(f"the first batch's loss {held_before} -> {held_after} "
+                   f"(ln 21 = {np.log(21)}): not lowered by the fit")
+    if not conv1_moved > 0:
+        bad.append("the fit left conv1_1_weight unchanged (no gradient)")
+    if fused_steps != n:
+        bad.append(f"fit took the fused step {fused_steps} times in {n} "
+                   f"batches")
+    if any(launches.values()):
+        bad.append(f"the FCN path launched port kernels: {launches}")
+    if bad:
+        raise SystemExit("fcn_fit phase failed: " + "; ".join(bad))
+    return res
+
+
 def _kernel_table(kern, runs):
     """One row per CUDA kernel: its times and bound from the kernels phase
     at the main path's shape (2-bit pack and unpack: the largest of
@@ -5318,6 +6113,13 @@ def _kernel_table(kern, runs):
         else:
             r = next(c for c in kern[name] if pick[name](c))
             err = max(c["max_abs_err"] for c in kern[name])
+            if name == "layer_norm":
+                # the training step's rows beside the decode row above
+                extra = {"M8192": {
+                    c["dtype"]: {k: c[k] for k in ("ms", "plain_ms",
+                                                   "library_ms", "bound_ms",
+                                                   "bound_by")}
+                    for c in kern[name] if c["M"] == 8192 and not c["gelu"]}}
             if name.startswith("paged"):
                 # the decode call's numbers above; the T=512 prefill
                 # chunk's beside them
@@ -5360,7 +6162,8 @@ def main(argv) -> int:
         "kernels", "model", "training", "serving", "serving_default",
         "serving_int8", "resnet_training", "resnet_compressed",
         "gluon_training", "module_fit", "gluon_hybrid", "rnn_lm",
-        "bucketing_fit", "image_rec", "serving_spec", "serving_fleet"}
+        "bucketing_fit", "image_rec", "serving_spec", "serving_fleet",
+        "ops_breadth", "fcn_fit"}
     if "serving_int8" in phases:
         phases.add("serving")   # its float baseline
     t_start = time.perf_counter()
@@ -5405,6 +6208,10 @@ def main(argv) -> int:
         runs["bucketing_fit"] = phase_bucketing_fit(dev)
     if "image_rec" in phases:
         runs["image_rec"] = phase_image_rec(dev, runs.get("module_fit"))
+    if "ops_breadth" in phases:
+        runs["ops_breadth"] = phase_ops_breadth(dev)
+    if "fcn_fit" in phases:
+        runs["fcn_fit"] = phase_fcn_fit(dev, smi)
     # the generation phases last, on the LM built again
     if phases & {"serving_spec", "serving_fleet"}:
         cfg, params = _model(dev)

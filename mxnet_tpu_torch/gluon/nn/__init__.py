@@ -1,6 +1,6 @@
-"""gluon.nn: the 2-D layers, activations, normalizations, Dropout,
-Embedding and the container and lambda blocks (PyTorch counterpart of
-``mxnet_tpu/gluon/nn/``)."""
+"""gluon.nn: the convolution, pooling and padding layers, activations,
+normalizations, Dropout, Embedding and the container and lambda blocks
+(PyTorch counterpart of ``mxnet_tpu/gluon/nn/``)."""
 from .activations import *  # noqa: F401,F403
 from .basic_layers import *  # noqa: F401,F403
 from .conv_layers import *  # noqa: F401,F403

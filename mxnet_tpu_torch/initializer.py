@@ -1,25 +1,34 @@
 """Weight initializers.
 
-PyTorch counterpart of ``mxnet_tpu/initializer.py`` (``Initializer``,
-``Uniform``, ``Normal``, ``Xavier``, ``Zero``, ``One``, ``Constant``,
-``create``).  Same name-pattern dispatch as the reference: arrays whose
-names end in ``bias``/``gamma``/``beta``/``running_*``/``moving_*`` get
-their fixed defaults, everything else the configured weight initializer.
+PyTorch counterpart of ``mxnet_tpu/initializer.py``, every initializer of
+it (``Uniform``, ``Normal``, ``Xavier``, ``Zero``, ``One``, ``Constant``,
+``Orthogonal``, ``MSRAPrelu``, ``Bilinear``, ``LSTMBias``, ``FusedRNN``,
+``Mixed``, ``create``).  Same name-pattern dispatch as the reference:
+arrays whose names end in ``bias``/``gamma``/``beta``/``running_*``/
+``moving_*`` get their fixed defaults, everything else the configured
+weight initializer.
 
-Random draws come from the ``torch.Generator`` the caller passes (the
-global torch generator when none), so they match the reference's
-distributions, not its bits; weights are carried across exactly by
-``gluon.block.params_from_jax``.
+``Uniform``, ``Normal`` and ``Xavier`` draw from the ``torch.Generator``
+the caller passes (the global torch generator when none), so they match
+the reference's distributions, not its bits; weights are carried across
+exactly by ``gluon.block.params_from_jax``.  ``Orthogonal``,
+``MSRAPrelu`` and ``FusedRNN`` draw, without a generator, from numpy's
+global stream as the reference does, so that after the same
+``np.random.seed`` they give the reference's bytes; ``Bilinear`` and
+``LSTMBias`` are not random.
 """
 from __future__ import annotations
 
 import json
 import math
+import re
 
+import numpy as np
 import torch
 
 __all__ = ["Initializer", "Uniform", "Normal", "Xavier", "Zero", "One",
-           "Constant", "InitDesc", "register", "create"]
+           "Constant", "Orthogonal", "MSRAPrelu", "Bilinear", "LSTMBias",
+           "FusedRNN", "Mixed", "InitDesc", "register", "create"]
 
 _REG = {}
 
@@ -188,8 +197,7 @@ class Xavier(Initializer):
         self.factor_type = factor_type
         self.magnitude = float(magnitude)
 
-    def _init_weight(self, desc, arr):
-        shape = arr.shape
+    def _scale(self, desc, shape):
         if len(shape) < 2:
             raise ValueError(f"Xavier requires ndim>=2, got {tuple(shape)} "
                              f"for {desc}")
@@ -198,13 +206,147 @@ class Xavier(Initializer):
         fan_out = shape[0] * hw_scale
         factor = {"avg": (fan_in + fan_out) / 2.0, "in": fan_in,
                   "out": fan_out}[self.factor_type]
-        scale = math.sqrt(self.magnitude / factor)
+        return math.sqrt(self.magnitude / factor)
+
+    def _init_weight(self, desc, arr):
+        scale = self._scale(desc, arr.shape)
         if self.rnd_type == "uniform":
             _sample(arr, self._gen,
                     lambda t, g: t.uniform_(-scale, scale, generator=g))
         else:
             _sample(arr, self._gen,
                     lambda t, g: t.normal_(0.0, scale, generator=g))
+
+
+def _set(arr, value):
+    """Copy the numpy ``value`` into ``arr`` (rounded to its dtype)."""
+    with torch.no_grad():
+        arr.copy_(torch.from_numpy(np.array(value, np.float32).reshape(
+            tuple(arr.shape))))
+
+
+def _draw(gen, shape, kind, a, b):
+    """float64 draws of ``shape``: numpy's global stream without a
+    generator (the reference's), else the generator's; ``kind`` uniform
+    on [a, b) or normal of mean a, deviation b."""
+    if gen is None:
+        if kind == "uniform":
+            return np.random.uniform(a, b, shape)
+        return np.random.normal(a, b, shape)
+    t = torch.empty(shape, dtype=torch.float64, device=gen.device)
+    if kind == "uniform":
+        t.uniform_(a, b, generator=gen)
+    else:
+        t.normal_(a, b, generator=gen)
+    return t.cpu().numpy()
+
+
+@register("orthogonal")
+class Orthogonal(Initializer):
+    """A (scaled) orthogonal matrix from the SVD of a random one, of the
+    weight's shape flattened to (out, in)."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, desc, arr):
+        nout = arr.shape[0]
+        nin = int(np.prod(arr.shape[1:]))
+        if self.rand_type == "uniform":
+            tmp = _draw(self._gen, (nout, nin), "uniform", -1.0, 1.0)
+        else:
+            tmp = _draw(self._gen, (nout, nin), "normal", 0.0, 1.0)
+        u, _, v = np.linalg.svd(tmp, full_matrices=False)
+        q = u if u.shape == tmp.shape else v
+        _set(arr, self.scale * q)
+
+
+@register("msraprelu")
+class MSRAPrelu(Xavier):
+    """He initialization for PReLU: Xavier's gaussian with magnitude
+    ``2 / (1 + slope^2)``."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2))
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+    def _init_weight(self, desc, arr):
+        if self._gen is not None:
+            return super()._init_weight(desc, arr)
+        _set(arr, np.random.normal(0, self._scale(desc, arr.shape),
+                                   tuple(arr.shape)))
+
+
+@register("bilinear")
+class Bilinear(Initializer):
+    """The bilinear upsampling filter in every (out, in) plane of a
+    Deconvolution weight: ``(1 - |x/f - c|) (1 - |y/f - c|)`` with ``f =
+    ceil(k/2)``, ``c = (2f - 1 - f % 2) / 2f``."""
+
+    def _init_weight(self, desc, arr):
+        shape = tuple(arr.shape)
+        f = np.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        x = np.arange(shape[3])[None, :]
+        y = np.arange(shape[2])[:, None]
+        plane = (1 - np.abs(x / f - c)) * (1 - np.abs(y / f - c))
+        _set(arr, np.broadcast_to(plane.astype(np.float32), shape))
+
+
+@register("lstmbias")
+class LSTMBias(Initializer):
+    """Zeros, with the forget gate's quarter (the second) at
+    ``forget_bias``."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, desc, arr):
+        b = np.zeros(tuple(arr.shape), dtype=np.float32)
+        num_hidden = arr.shape[0] // 4
+        b[num_hidden:2 * num_hidden] = self.forget_bias
+        _set(arr, b)
+
+    _init_bias = _init_weight
+    _init_default = _init_weight
+
+
+@register("fusedrnn")
+class FusedRNN(Initializer):
+    """A fused RNN parameter blob: U(-0.07, 0.07), as the reference draws
+    it (its ``init`` is kept, not used)."""
+
+    def __init__(self, init=None, num_hidden=0, num_layers=1, mode="lstm",
+                 bidirectional=False, forget_bias=1.0):
+        super().__init__(num_hidden=num_hidden, num_layers=num_layers,
+                         mode=mode)
+        self._init = init or Xavier()
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, desc, arr):
+        _set(arr, _draw(self._gen, tuple(arr.shape), "uniform", -0.07,
+                        0.07))
+
+    _init_default = _init_weight
+
+
+class Mixed:
+    """The first initializer whose pattern matches the array's name
+    (``re.match``) initializes it."""
+
+    def __init__(self, patterns, initializers):
+        self.map = list(zip([re.compile(p) for p in patterns],
+                            initializers))
+
+    def __call__(self, desc, arr, generator=None):
+        for pat, init in self.map:
+            if pat.match(desc):
+                init(desc, arr, generator)
+                return
+        raise ValueError(f"no initializer pattern matches {desc!r}")
 
 
 def create(name, **kwargs) -> Initializer:

@@ -99,7 +99,9 @@ def _make_wrapper(opname):
             for a in args)
 
     def wrapper(*args, out=None, **kwargs):
-        if out is None and not _has_nd(args):
+        # tensors in, tensors out; an op of no input (``_zeros``, the
+        # samplers) makes an NDArray, as the reference's does
+        if out is None and args and not _has_nd(args):
             if takes_training:
                 kwargs.setdefault("_training", autograd.is_training())
             if op.rng:

@@ -5,12 +5,12 @@ token-sampling functions of the generation engine, the random samplers
 (``random_ops``, bit for bit the reference's threefry draws), the fused
 recurrent ``RNN`` op (``rnn``, plain torch), the 2-bit gradient
 compression kernels (``twobit``) and the optimizers' update rules
-(``optimizer_ops``)."""
-from . import (batch_norm, flash_attention, layer_norm, nn, optimizer_ops,
-               paged_attention, random_ops, registry, rnn, sampling, tensor,
-               twobit)
+(``optimizer_ops``, also registered as ops), the legacy ``Crop`` and
+``SVMOutput`` (``spatial``) and the flash attention op (``contrib``)."""
+from . import (batch_norm, contrib, flash_attention, layer_norm, nn,
+               optimizer_ops, paged_attention, random_ops, registry, rnn,
+               sampling, spatial, tensor, twobit)
 
-__all__ = ["batch_norm", "flash_attention", "layer_norm", "nn",
+__all__ = ["batch_norm", "contrib", "flash_attention", "layer_norm", "nn",
            "optimizer_ops", "paged_attention", "random_ops", "registry",
-           "rnn", "sampling",
-           "tensor", "twobit"]
+           "rnn", "sampling", "spatial", "tensor", "twobit"]

@@ -1,12 +1,14 @@
-"""Neural-net ops the model zoo, the Gluon layers and losses and the
-symbolic API's loss heads need: FullyConnected, Convolution, Pooling
-(valid and full conventions), BatchNorm, LayerNorm, InstanceNorm,
-Activation, LeakyReLU, Dropout (a random op: it takes its key from the
-stream), softmax, log_softmax, SoftmaxActivation, and the heads
-SoftmaxOutput (alias Softmax), LinearRegressionOutput,
-MAERegressionOutput, LogisticRegressionOutput and MakeLoss.
+"""Neural-net ops: FullyConnected, Convolution and Deconvolution (1-, 2-
+and 3-D), Pooling (max, avg, sum; 1-, 2- and 3-D), the adaptive average
+pooling and bilinear resize, UpSampling, BatchNorm, LayerNorm,
+InstanceNorm, LRN, Activation, LeakyReLU, Dropout (a random op: it takes
+its key from the stream), softmax, log_softmax, softmin,
+SoftmaxActivation, softmax_cross_entropy, and the heads SoftmaxOutput
+(alias Softmax), LinearRegressionOutput, MAERegressionOutput,
+LogisticRegressionOutput and MakeLoss; the ``*_v1`` names are the same
+ops.
 
-PyTorch counterpart of ``mxnet_tpu/ops/nn.py`` (only these ops so far).
+PyTorch counterpart of ``mxnet_tpu/ops/nn.py``, every op of it.
 A head's backward is its own (a ``torch.autograd.Function``): the
 reference's custom vjp, which ignores the incoming cotangent unless
 ``out_grad``.
@@ -40,9 +42,10 @@ from ..base import MXNetError
 from .batch_norm import bn_train_fused
 from .layer_norm import layer_norm_fused
 from .random_ops import bernoulli_mask
-from .registry import register
+from .registry import alias, register
 
-__all__ = ["fully_connected", "is_channels_last", "convolution", "pooling",
+__all__ = ["fully_connected", "is_channels_last", "convolution",
+           "deconvolution", "pooling",
            "batch_norm", "activation", "softmax", "log_softmax",
            "softmax_activation", "softmax_output", "make_loss", "attr_bool",
            "layer_norm", "instance_norm", "leaky_relu", "dropout"]
@@ -70,7 +73,7 @@ def fully_connected(data, weight, bias=None, num_hidden=None, no_bias=False,
 
 
 # ---------------------------------------------------------------------------
-# Convolution (src/operator/nn/convolution.cc)
+# Convolution / Deconvolution (convolution.cc, deconvolution.cc)
 # ---------------------------------------------------------------------------
 
 def is_channels_last(layout):
@@ -79,94 +82,206 @@ def is_channels_last(layout):
     return bool(layout) and layout[1] != "C"
 
 
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_DECONV = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+_LAYOUTS = {1: ("NCW", "NWC"), 2: ("NCHW", "NHWC"), 3: ("NCDHW", "NDHWC")}
+
+
+def _spatial(data, layout, what):
+    nd = data.ndim - 2
+    if nd not in _CONV:
+        raise MXNetError(f"{what}: {nd}-D data (1-D, 2-D or 3-D)")
+    if layout not in (None,) + _LAYOUTS[nd]:
+        raise MXNetError(f"{what}: unsupported layout {layout!r} for "
+                         f"{nd}-D data")
+    return nd
+
+
+def _conv_args(nd, kernel, stride, dilate, pad):
+    k = len(kernel) if kernel else nd
+    return (_pair(stride, k) if stride else (1,) * k,
+            _pair(pad, k) if pad else (0,) * k,
+            _pair(dilate, k) if dilate else (1,) * k)
+
+
 @register("Convolution")
 def convolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
                 pad=(), num_filter=0, num_group=1, no_bias=False, layout=None,
                 cudnn_tune=None, cudnn_off=False, workspace=1024):
-    """2-D convolution (reference: src/operator/nn/convolution.cc): NCHW
-    data with OIHW weights, or NHWC data with OHWI weights for
-    ``layout="NHWC"``.  cudnn_* / workspace attrs are accepted and
-    ignored."""
-    if data.ndim != 4:
-        raise MXNetError(f"Convolution: only 2-D convolution is ported, got "
-                         f"{data.ndim - 2}-D data")
-    if layout not in (None, "NCHW", "NHWC"):
-        raise MXNetError(f"Convolution: unsupported layout {layout!r}")
-    k = len(kernel) if kernel else 2
-    stride = _pair(stride, k) if stride else (1,) * k
-    dilate = _pair(dilate, k) if dilate else (1,) * k
-    pad = _pair(pad, k) if pad else (0,) * k
+    """1-, 2- or 3-D convolution (reference: src/operator/nn/
+    convolution.cc): channels-first data with ``(O, I, *k)`` weights, or
+    for a channels-last ``layout`` (``NWC``, ``NHWC``, ``NDHWC``)
+    channels-last data with ``(O, *k, I)`` weights.  float16 computes in
+    float32, as the reference does.  cudnn_* / workspace attrs are
+    accepted and ignored."""
+    nd = _spatial(data, layout, "Convolution")
+    stride, pad, dilate = _conv_args(nd, kernel, stride, dilate, pad)
     b = None if no_bias else bias
-    if layout == "NHWC":
-        out = F.conv2d(data.permute(0, 3, 1, 2), weight.permute(0, 3, 1, 2),
-                       b, stride, pad, dilate, int(num_group))
-        return out.permute(0, 2, 3, 1)
-    return F.conv2d(data, weight, b, stride, pad, dilate, int(num_group))
+    in_dtype = data.dtype
+    if in_dtype == torch.float16:
+        data, weight = data.float(), weight.float()
+        b = None if b is None else b.float()
+    conv = _CONV[nd]
+    if is_channels_last(layout):
+        out = conv(data.movedim(-1, 1), weight.movedim(-1, 1), b, stride,
+                   pad, dilate, int(num_group)).movedim(1, -1)
+    else:
+        out = conv(data, weight, b, stride, pad, dilate, int(num_group))
+    return out.to(in_dtype)
+
+
+def _deconv_pads(data, weight, nd, stride, pad, dilate, adj, target_shape):
+    """``(pad, adj)``; a ``target_shape`` sets both as MXNet's
+    ``DeconvolutionParam::InferPad`` does: the total padding that gives
+    that output size, split with its odd unit in ``adj``."""
+    if not target_shape or not any(int(t) for t in target_shape):
+        return pad, adj
+    pads, adjs = [], []
+    for i in range(nd):
+        eff_k = (weight.shape[2 + i] - 1) * dilate[i] + 1
+        total = stride[i] * (data.shape[2 + i] - 1) + eff_k \
+            - int(target_shape[i])
+        adjs.append(total % 2)
+        pads.append((total + 1) // 2)
+    return tuple(pads), tuple(adjs)
+
+
+@register("Deconvolution")
+def deconvolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
+                  pad=(), adj=(), num_filter=0, num_group=1, no_bias=False,
+                  layout=None, target_shape=None, cudnn_tune=None,
+                  cudnn_off=False, workspace=1024):
+    """Transposed convolution (reference: src/operator/nn/
+    deconvolution.cc): channels-first data, weights ``(in, out/group,
+    *k)``, output ``(in - 1) * stride - 2 * pad + dilated kernel + adj``.
+    Half-precision input computes in float32 and is cast back, as the
+    reference does.  A ``target_shape`` sets ``pad`` and ``adj`` (MXNet's
+    rule; the reference ignores it)."""
+    if is_channels_last(layout):
+        raise MXNetError("Deconvolution: channels-last layout is not "
+                         "supported (the reference refuses it too); use NC*")
+    nd = _spatial(data, layout, "Deconvolution")
+    stride, pad, dilate = _conv_args(nd, kernel, stride, dilate, pad)
+    adj = _pair(adj, nd) if adj else (0,) * nd
+    pad, adj = _deconv_pads(data, weight, nd, stride, pad, dilate, adj,
+                            target_shape)
+    in_dtype = data.dtype
+    if in_dtype in (torch.float16, torch.bfloat16):
+        data, weight = data.float(), weight.float()
+    out = _DECONV[nd](data, weight, None, stride, pad, adj, int(num_group),
+                      dilate).to(in_dtype)
+    if not no_bias and bias is not None:
+        out = out + bias.reshape((1, -1) + (1,) * nd)
+    return out
 
 
 # ---------------------------------------------------------------------------
 # Pooling (src/operator/nn/pooling.cc)
 # ---------------------------------------------------------------------------
 
+def _pool_nd(x, k, s, pads, pool_type, count_include_pad):
+    """Channels-first pooling of ``x`` with explicit ``(lo, hi)`` pads
+    per spatial dim: max pads with -inf, avg and sum with zeros; avg
+    divides by the whole window, or with ``count_include_pad=False`` by
+    the window's count of real entries.  1-D runs as 2-D over a trailing
+    axis of one."""
+    nd = len(k)
+    if nd == 1:
+        out = _pool_nd(x.unsqueeze(-1), k + (1,), s + (1,),
+                       list(pads) + [(0, 0)], pool_type, count_include_pad)
+        return out.squeeze(-1)
+    if pool_type != "sum" and all(lo == hi and 2 * lo <= kk
+                                  for (lo, hi), kk in zip(pads, k)):
+        # symmetric pads within half the window: torch's own padding
+        # computes the same (-inf for max, zeros or no count for avg)
+        p = tuple(lo for lo, _ in pads)
+        if pool_type == "max":
+            return (F.max_pool2d if nd == 2 else F.max_pool3d)(x, k, s, p)
+        return (F.avg_pool2d if nd == 2 else F.avg_pool3d)(
+            x, k, s, p, count_include_pad=bool(count_include_pad))
+    flat = [v for pr in reversed(pads) for v in pr]
+    if pool_type == "max":
+        xp = F.pad(x, flat, value=float("-inf")) if any(flat) else x
+        return (F.max_pool2d if nd == 2 else F.max_pool3d)(xp, k, s)
+    avg = F.avg_pool2d if nd == 2 else F.avg_pool3d
+    xp = F.pad(x, flat) if any(flat) else x
+    if pool_type == "avg" and count_include_pad:
+        return avg(xp, k, s)
+    summed = avg(xp, k, s, divisor_override=1)
+    if pool_type == "sum":
+        return summed
+    ones = F.pad(torch.ones_like(x[:1, :1]), flat)
+    return summed / avg(ones, k, s, divisor_override=1)
+
+
 @register("Pooling")
 def pooling(data, kernel=(), pool_type="max", global_pool=False, stride=(),
             pad=(), pooling_convention="valid", cudnn_off=False,
             count_include_pad=True, layout=None):
-    """2-D max/avg pooling, global or windowed (``pooling_convention=
-    "valid"``: floor division), channels-first or channels-last."""
-    if data.ndim != 4:
-        raise MXNetError(f"Pooling: only 2-D pooling is ported, got "
-                         f"{data.ndim - 2}-D data")
-    if pool_type not in ("max", "avg"):
-        raise MXNetError(f"Pooling: pool_type {pool_type!r} is not ported "
-                         f"(max, avg)")
+    """Max, avg or sum pooling over the spatial dims of 1-, 2- or 3-D
+    data, channels-first or channels-last; global, or windowed with the
+    ``"full"`` convention (ceil division: the high side padded further)
+    or any other (``"valid"``, ``"same"``: floor division), as the
+    reference reads them.  Data of no spatial dim (a 2-D array, the
+    default kernel ``()``) pools windows of one entry: itself."""
+    nd = data.ndim - 2
+    if pool_type not in ("max", "avg", "sum"):
+        raise ValueError(f"unsupported pool_type {pool_type}")
     channels_last = is_channels_last(layout)
+    sp0 = 1 if channels_last else 2
+    spatial = tuple(range(sp0, sp0 + nd))
     if global_pool:
-        spatial = (1, 2) if channels_last else (2, 3)
+        if not spatial:
+            return data.clone()
         if pool_type == "max":
             return data.amax(dim=spatial, keepdim=True)
         return data.mean(dim=spatial, keepdim=True)
-    if pooling_convention not in ("valid", "full"):
-        raise MXNetError(f"Pooling: pooling_convention "
-                         f"{pooling_convention!r} is not ported (valid, "
-                         f"full)")
-    k = _pair(kernel, 2)
+    k = _pair(kernel, nd)
     # reference PoolingParamParser defaults stride to 1 (pooling.cc:43-54)
-    s = _pair(stride, 2) if stride else (1, 1)
-    p = _pair(pad, 2) if pad else (0, 0)
+    s = _pair(stride, nd) if stride else (1,) * nd
+    p = _pair(pad, nd) if pad else (0,) * nd
     if any(v < 1 for v in s):
         raise MXNetError(f"Pooling stride must be >= 1, got {s}")
-    sp0 = 1 if channels_last else 2
-    for i in range(2):
+    for i in range(nd):
         if k[i] > data.shape[sp0 + i] + 2 * p[i]:
             raise MXNetError(
                 f"Pooling kernel {k} exceeds padded input "
-                f"{tuple(data.shape[sp0:sp0 + 2])} (pad {p})")
-    x = data.permute(0, 3, 1, 2) if channels_last else data
-    if pooling_convention == "full":
-        # ceil mode as the reference computes it: the high side padded
-        # until the ceil division is met, and an average still divided by
-        # the whole window
-        extra = []
-        for i in range(2):
-            size = x.shape[2 + i] + 2 * p[i]
+                f"{tuple(data.shape[sp0:sp0 + nd])} (pad {p})")
+    if nd == 0:
+        return data.clone() if pool_type != "avg" else data / 1.0
+    pads = []
+    for i in range(nd):
+        extra = 0
+        if pooling_convention == "full":
+            size = data.shape[sp0 + i] + 2 * p[i]
             out_sz = -(-(size - k[i]) // s[i]) + 1
-            extra.append(max(0, (out_sz - 1) * s[i] + k[i] - size))
-        fill = float("-inf") if pool_type == "max" else 0.0
-        pads = (p[1], p[1] + extra[1], p[0], p[0] + extra[0])
-        if pool_type == "max" or count_include_pad:
-            xp = F.pad(x, pads, value=fill)
-            out = F.max_pool2d(xp, k, s) if pool_type == "max" else \
-                F.avg_pool2d(xp, k, s)
-        else:
-            ones = F.pad(torch.ones_like(x[:1, :1]), pads)
-            out = F.avg_pool2d(F.pad(x, pads), k, s, divisor_override=1) \
-                / F.avg_pool2d(ones, k, s, divisor_override=1)
-    elif pool_type == "max":
-        out = F.max_pool2d(x, k, s, p)
-    else:
-        out = F.avg_pool2d(x, k, s, p, count_include_pad=count_include_pad)
-    return out.permute(0, 2, 3, 1) if channels_last else out
+            extra = max(0, (out_sz - 1) * s[i] + k[i] - size)
+        pads.append((p[i], p[i] + extra))
+    x = data.movedim(-1, 1) if channels_last else data
+    out = _pool_nd(x, k, s, pads, pool_type, count_include_pad)
+    return out.movedim(1, -1) if channels_last else out
+
+
+@register("_contrib_AdaptiveAvgPooling2D")
+def adaptive_avg_pooling(data, output_size=(1, 1)):
+    """Mean over equal blocks when the output size divides the input's;
+    otherwise the reference's linear resize (``jax.image.resize``,
+    antialiased)."""
+    oh, ow = _pair(output_size, 2)
+    n, c, h, w = data.shape
+    if h % oh == 0 and w % ow == 0:
+        return data.reshape(n, c, oh, h // oh, ow, w // ow).mean(dim=(3, 5))
+    return _resize_linear(data, oh, ow)
+
+
+def _resize_linear(data, height, width):
+    """``jax.image.resize(method="linear")``: a triangle filter at half-
+    pixel centres, widened when shrinking (antialias), its weights
+    renormalized at the border."""
+    out = F.interpolate(data.float(), size=(int(height), int(width)),
+                        mode="bilinear", align_corners=False, antialias=True)
+    return out.to(data.dtype) if data.dtype.is_floating_point else out
 
 
 # ---------------------------------------------------------------------------
@@ -319,6 +434,18 @@ def instance_norm(data, gamma, beta, eps=1e-3):
     return out * gamma.reshape(shape) + beta.reshape(shape)
 
 
+@register("LRN")
+def lrn(data, nsize=5, alpha=1e-4, beta=0.75, knorm=2.0):
+    """Local response normalization across channels (NCHW): ``x / (knorm
+    + alpha / nsize * sum of x^2 over nsize channels) ** beta``
+    (reference lrn-inl.h: ``salpha = alpha / nsize``)."""
+    n = int(nsize)
+    half = n // 2
+    sq = F.pad(torch.square(data), (0, 0, 0, 0, half, half))
+    win = sq.unfold(1, n, 1).sum(dim=-1)
+    return data / torch.pow(knorm + (alpha / n) * win, beta)
+
+
 # ---------------------------------------------------------------------------
 # Softmax family (softmax.cc)
 # ---------------------------------------------------------------------------
@@ -341,6 +468,20 @@ def log_softmax(data, axis=-1, temperature=None):
     data = _inexact(data)
     x = data if temperature in (None, 1.0) else data / temperature
     return torch.log_softmax(x, dim=int(axis))
+
+
+@register("softmin")
+def softmin(data, axis=-1, temperature=None):
+    return softmax(-data, axis=axis, temperature=temperature)
+
+
+@register("softmax_cross_entropy")
+def softmax_cross_entropy(data, label):
+    """The summed cross entropy of ``softmax(data)`` rows against integer
+    labels, a 0-d result."""
+    logp = torch.log_softmax(_inexact(data), dim=-1)
+    lab = label.to(torch.int32).long()
+    return -torch.gather(logp, -1, lab[:, None]).sum()
 
 
 @register("SoftmaxActivation")
@@ -460,7 +601,7 @@ def softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
     cfg = (float(grad_scale), float(ignore_label), bool(multi_output),
            bool(use_ignore), str(normalization), float(smooth_alpha),
            attr_bool(out_grad))
-    return _SoftmaxOutputFn.apply(data, label, cfg)
+    return _SoftmaxOutputFn.apply(_inexact(data), label, cfg)
 
 
 class _RegressionFn(torch.autograd.Function):
@@ -493,6 +634,36 @@ def _regression(kind):
 register("LinearRegressionOutput")(_regression("linear"))
 register("MAERegressionOutput")(_regression("mae"))
 register("LogisticRegressionOutput")(_regression("logistic"))
+
+
+@register("UpSampling")
+def upsampling(data, *weights, scale=2, sample_type="nearest", num_filter=0,
+               multi_input_mode="concat", num_args=1, workspace=512):
+    """NCHW upsampling by ``scale``: nearest repeats each pixel, bilinear
+    is the reference's linear resize (its weight inputs are ignored, as
+    the reference ignores them)."""
+    s = int(scale)
+    if sample_type == "nearest":
+        return torch.repeat_interleave(torch.repeat_interleave(data, s, 2),
+                                       s, 3)
+    n, c, h, w = data.shape
+    return _resize_linear(data, h * s, w * s)
+
+
+@register("_contrib_BilinearResize2D")
+def bilinear_resize(data, height=1, width=1, scale_height=None,
+                    scale_width=None):
+    n, c, h, w = data.shape
+    if scale_height is not None:
+        height, width = int(h * scale_height), int(w * scale_width)
+    return _resize_linear(data, int(height), int(width))
+
+
+# the pre-NNVM names of three ops (reference: batch_norm_v1.cc,
+# convolution_v1.cc, pooling_v1.cc): the same functions
+alias("BatchNorm_v1", "BatchNorm")
+alias("Convolution_v1", "Convolution")
+alias("Pooling_v1", "Pooling")
 
 
 @register("MakeLoss")

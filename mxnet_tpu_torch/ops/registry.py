@@ -11,7 +11,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Optional
 
-__all__ = ["Op", "register", "get_op", "list_ops", "OP_REGISTRY"]
+__all__ = ["Op", "register", "alias", "get_op", "list_ops", "OP_REGISTRY"]
 
 
 class Op:
@@ -87,3 +87,12 @@ def get_op(name: str) -> Op:
 
 def list_ops():
     return sorted(set(op.name for op in OP_REGISTRY.values()))
+
+
+def alias(new: str, existing: str) -> None:
+    """Register ``new`` as one more name of the op ``existing``: its node
+    keeps the canonical name, and ``existing``'s ``aliases`` stay as they
+    were, as the reference's ``_alias`` leaves them."""
+    if new in OP_REGISTRY:
+        raise ValueError(f"op alias {new!r} already registered")
+    OP_REGISTRY[new] = OP_REGISTRY[existing]

@@ -21,6 +21,10 @@ reproduced here in integer torch ops (int64 masked to 32 bits) — so a
 request's sampled tokens depend only on its seed and position, and match
 the JAX package's for the same logits.
 
+The reference's op forms (``_sampling_greedy``, ``_temperature``,
+``_top_k``, ``_top_p`` and their ``sample_*`` names) are registered here:
+int32 tokens, the random ones drawing one key from the stream per call.
+
 Seeds and counters may be numpy arrays or tensors already on the logits'
 device; with device tensors every function here runs without a host copy,
 so the multi-step decode program can be captured as a CUDA graph.
@@ -30,9 +34,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .registry import register
+
 __all__ = ["temperature_scale", "top_k_mask", "top_p_mask", "sample_logits",
            "speculative_verify", "fold_keys", "threefry2x32", "gumbel",
-           "NEG_INF"]
+           "gumbel_of_key", "NEG_INF"]
 
 #: the finite -inf stand-in the attention masks use
 NEG_INF = -1e30
@@ -133,13 +139,28 @@ def gumbel(keys, n: int):
     two words, mantissa trick to a uniform in [tiny, 1), then
     ``-log(-log(u))``.  Returns (B, n) float32."""
     idx = torch.arange(n, device=keys.device, dtype=torch.int64)[None, :]
-    b0, b1 = threefry2x32(keys[:, :1], keys[:, 1:], torch.zeros_like(idx),
-                          idx)
+    return _gumbel_of(*threefry2x32(keys[:, :1], keys[:, 1:],
+                                    torch.zeros_like(idx), idx))
+
+
+def _gumbel_of(b0, b1):
+    """Gumbel noise from the two threefry output words: the mantissa
+    trick to a uniform in [tiny, 1), then ``-log(-log(u))``."""
     bits = (((b0 ^ b1) >> 9) | 0x3F800000).to(torch.int32)
     floats = bits.view(torch.float32) - 1.0
-    tiny = torch.full((), _TINY, dtype=torch.float32, device=keys.device)
+    tiny = torch.full((), _TINY, dtype=torch.float32, device=b0.device)
     u = torch.maximum(tiny, floats * (1.0 - tiny) + tiny)
     return -torch.log(-torch.log(u))
+
+
+def gumbel_of_key(rng_key, shape):
+    """``jax.random.gumbel(key, shape)`` for one key (an int64 tensor of
+    two uint32 words): the bits of each element ``hash(key, (hi, lo) of
+    its flat index)``."""
+    idx = torch.arange(int(np.prod(shape)), device=rng_key.device,
+                       dtype=torch.int64)
+    b0, b1 = threefry2x32(rng_key[0], rng_key[1], idx >> 32, idx & _M32)
+    return _gumbel_of(b0, b1).reshape(shape)
 
 
 def sample_logits(logits, seeds, counters, temperature, top_k, top_p):
@@ -206,3 +227,43 @@ def speculative_verify(logits, fed_tokens, seeds, counters, temperature,
         < (_rows(lengths, row, torch.int64) - 1)[:, None]
     ok = (match & valid).long()
     return target, torch.cumprod(ok, dim=1).sum(dim=1)
+
+
+# -- the op forms (scalar attributes, one key per call) ----------------------
+
+@register("_sampling_greedy", differentiable=False,
+          aliases=("sample_greedy",))
+def sampling_greedy(logits):
+    """Greedy decoding: per-row argmax token ids (int32)."""
+    return torch.argmax(logits.float(), dim=-1).to(torch.int32)
+
+
+@register("_sampling_temperature", rng=True, differentiable=False,
+          aliases=("sample_temperature",))
+def sampling_temperature(logits, rng_key=None, temperature=1.0):
+    """Gumbel-max over ``logits / temperature``; ``temperature <= 0`` is
+    greedy."""
+    logits = logits.float()
+    if float(temperature) <= 0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    scaled = temperature_scale(logits, float(temperature))
+    return torch.argmax(scaled + gumbel_of_key(rng_key, logits.shape),
+                        dim=-1).to(torch.int32)
+
+
+@register("_sampling_top_k", rng=True, differentiable=False,
+          aliases=("sample_top_k",))
+def sampling_top_k(logits, rng_key=None, k=0, temperature=1.0):
+    """The k largest logits per row kept, then temperature sampling
+    (``k <= 0`` keeps all)."""
+    return sampling_temperature(top_k_mask(logits, int(k)), rng_key=rng_key,
+                                temperature=temperature)
+
+
+@register("_sampling_top_p", rng=True, differentiable=False,
+          aliases=("sample_top_p",))
+def sampling_top_p(logits, rng_key=None, p=1.0, temperature=1.0):
+    """The smallest probability prefix of mass >= p kept, then
+    temperature sampling (``p >= 1`` keeps all)."""
+    return sampling_temperature(top_p_mask(logits, float(p)),
+                                rng_key=rng_key, temperature=temperature)

@@ -1,23 +1,32 @@
-"""Tensor ops: elementwise arithmetic and comparisons (with the
+"""Tensor ops: elementwise math and comparisons (with the
 ``broadcast_*``, ``elemwise_*``, ``_*`` and ``_*_scalar`` names the
-reference's NDArray operators map to), ``where``, the reductions, the
-shape ops (``reshape`` with the reference's special codes, ``transpose``,
-``swapaxes``, ``expand_dims``, ``squeeze``, slicing, ``split``, ``concat``, ``stack``,
-``tile``, ``repeat``, ``flip``, the ``broadcast_*`` shapes), ``dot``,
-``take``/``pick``/``one_hot``, ``Embedding``, the ``Sequence*`` ops
-(``SequenceMask``, ``SequenceLast``, ``SequenceReverse``), ``cast`` and the
-``*_like`` fills.
+reference's NDArray operators map to), ``where``, the reductions, sorting
+(``sort``, ``argsort``, ``topk``, ``histogram``), the shape ops
+(``reshape`` with the reference's special codes, ``transpose``, slicing
+and slice assignment, ``split``, ``concat``, ``pad``, the ``broadcast_*``
+shapes, ``depth_to_space``...), ``dot``/``batch_dot`` and the
+``linalg_*`` family, the indexing ops (``take``, ``pick``, ``gather_nd``,
+``scatter_nd``, ``Embedding``...), the ``Sequence*`` ops, the creation ops
+(``_zeros``, ``_arange``...), ``cast`` and the identity family
+(``BlockGrad``, ``make_loss``...).
 
-PyTorch counterpart of ``mxnet_tpu/ops/tensor.py`` (only these ops so
-far).  Comparisons return 0/1 in the first input's dtype, and
-``argmax``/``argmin`` float32 indices, as the reference's do.
+PyTorch counterpart of ``mxnet_tpu/ops/tensor.py``, every op of it.
+Comparisons return 0/1 in the first input's dtype, and index outputs
+(``argmax``, ``argsort``, ``topk``) float32, as the reference's do.  The
+reference computes integer and half-precision inputs where torch has no
+kernel for them (``erfinv`` of int32, say): those ops compute in float32
+and return the dtype the reference returns.
 """
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..base import torch_dtype
-from .registry import register
+from .registry import alias, register
 
 __all__ = ["where", "norm", "reshape", "reshape_like", "pick", "flatten",
            "transpose"]
@@ -39,21 +48,128 @@ def _scalar_like(x, scalar):
 # elementwise unary (reference: src/operator/tensor/elemwise_unary_op_basic.cc)
 # ---------------------------------------------------------------------------
 
+def _half(f):
+    """``f`` computed in float32 for integer and half-precision input and
+    returned in the reference's dtype (float32 for an integer, the input's
+    own for a float), where torch's kernel would refuse the dtype."""
+    def impl(x):
+        if x.dtype in (torch.float32, torch.float64):
+            return f(x)
+        out = f(x.to(torch.float32))
+        return out if not x.dtype.is_floating_point else out.to(x.dtype)
+
+    return impl
+
+
+def _int_kept(f):
+    """``f`` for floats; integer input returned as it is (a copy): the
+    rounding functions keep an integer as jnp does."""
+    def impl(x):
+        return f(x) if x.dtype.is_floating_point else x.clone()
+
+    return impl
+
+
+def _inexact(f):
+    """``f`` with integer input taken as float32 (jnp's promotion)."""
+    def impl(x):
+        return f(x if x.dtype.is_floating_point else x.to(torch.float32))
+
+    return impl
+
+
+def _cbrt(x):
+    return torch.sign(x) * torch.abs(x).pow(1.0 / 3.0)
+
+
 _UNARY = {
     "negative": torch.neg,
     "abs": torch.abs,
     "sign": torch.sign,
+    "rint": _inexact(torch.round),   # half to even; an integer is float32
+    "round": _int_kept(torch.round),
+    "ceil": _int_kept(torch.ceil),
+    "floor": _int_kept(torch.floor),
+    "trunc": _int_kept(torch.trunc),
+    "fix": _int_kept(torch.trunc),
     "square": torch.square,
-    "sqrt": torch.sqrt,
-    "exp": torch.exp,
-    "log": torch.log,
-    "tanh": torch.tanh,
-    "sigmoid": torch.sigmoid,
+    "sqrt": _inexact(torch.sqrt),
+    "rsqrt": _inexact(torch.rsqrt),
+    "cbrt": _half(_cbrt),
+    "rcbrt": _half(lambda x: 1.0 / _cbrt(x)),
+    "exp": _inexact(torch.exp),
+    "log": _inexact(torch.log),
+    "log10": _inexact(torch.log10),
+    "log2": _inexact(torch.log2),
+    "log1p": _inexact(torch.log1p),
+    "expm1": _inexact(torch.expm1),
+    "sin": _inexact(torch.sin),
+    "cos": _inexact(torch.cos),
+    "tan": _inexact(torch.tan),
+    "arcsin": _inexact(torch.arcsin),
+    "arccos": _inexact(torch.arccos),
+    "arctan": _inexact(torch.arctan),
+    "sinh": _inexact(torch.sinh),
+    "cosh": _inexact(torch.cosh),
+    "tanh": _inexact(torch.tanh),
+    "arcsinh": _inexact(torch.arcsinh),
+    "arccosh": _inexact(torch.arccosh),
+    "arctanh": _inexact(torch.arctanh),
+    "degrees": _inexact(lambda x: x * (180.0 / math.pi)),
+    "radians": _inexact(lambda x: x * (math.pi / 180.0)),
+    "reciprocal": _inexact(torch.reciprocal),
+    # exp(log|gamma|), as the reference computes it
+    "gamma": _half(lambda x: torch.exp(torch.lgamma(x))),
+    "gammaln": _half(torch.lgamma),
+    "erf": _half(torch.erf),
+    "erfinv": _half(torch.erfinv),
+    "sigmoid": _inexact(torch.sigmoid),
     "relu": torch.relu,
+    "softsign": _inexact(F.softsign),
+    "logical_not": lambda x: (x == 0).to(x.dtype),
 }
 
 for _name, _f in _UNARY.items():
-    register(_name)((lambda f: lambda x: f(x))(_f))
+    register(_name, differentiable=_name != "logical_not")(
+        (lambda f: lambda x: f(x))(_f))
+
+
+@register("hard_sigmoid")
+def hard_sigmoid(x, alpha=0.2, beta=0.5):
+    if not x.dtype.is_floating_point:
+        x = x.to(torch.float32)
+    return torch.clamp(alpha * x + beta, 0.0, 1.0)
+
+
+@register("identity", aliases=("_copy", "stop_gradient_identity"))
+def identity(x):
+    """``x`` itself (the reference's ``_copy`` and
+    ``stop_gradient_identity`` are this op: the gradient passes)."""
+    return x
+
+
+@register("BlockGrad", aliases=("stop_gradient",))
+def block_grad(x):
+    return x.detach()
+
+
+@register("make_loss")
+def make_loss_op(data, grad_scale=1.0, valid_thresh=0.0,
+                 normalization="null"):
+    """The identity marking a loss head (reference: make_loss.cc); the
+    head's gradient is the incoming cotangent."""
+    return data
+
+
+@register("_identity_with_attr_like_rhs")
+def identity_with_attr_like_rhs(lhs, rhs):
+    return lhs
+
+
+@register("IdentityAttachKLSparseReg")
+def identity_attach_kl_sparse_reg(data, sparseness_target=0.1,
+                                  penalty=0.001, momentum=0.9):
+    return data
 
 
 @register("cast", aliases=("Cast",))
@@ -73,6 +189,13 @@ def cast(x, dtype="float32"):
     return x.to(dt)
 
 
+@register("amp_cast")
+def amp_cast(x, dtype="float32"):
+    """The cast AMP inserts: ``cast`` under its own name, so that the
+    casts a policy added can be told from a user's own."""
+    return cast(x, dtype)
+
+
 @register("clip")
 def clip(x, a_min=None, a_max=None):
     if a_min is None and a_max is None:
@@ -85,7 +208,20 @@ def clip(x, a_min=None, a_max=None):
 # ---------------------------------------------------------------------------
 
 def _mod(a, b):
-    return torch.remainder(a, b)   # numpy/jnp mod: the sign of the divisor
+    """numpy/jnp mod: the sign of the divisor.  An integer modulo 0 is 0,
+    as jnp computes it (the divisor 0 replaced by 1)."""
+    if not a.dtype.is_floating_point and not (
+            isinstance(b, torch.Tensor) and b.dtype.is_floating_point):
+        b = torch.where(b == 0, torch.ones_like(b), b)
+    return torch.remainder(a, b)
+
+
+def _hypot(a, b):
+    dt = torch.promote_types(a.dtype, b.dtype)
+    if dt in (torch.float32, torch.float64):
+        return torch.hypot(a.to(dt), b.to(dt))
+    out = torch.hypot(a.to(torch.float32), b.to(torch.float32))
+    return out.to(dt) if dt.is_floating_point else out
 
 
 _BINARY = {
@@ -97,16 +233,20 @@ _BINARY = {
     "power": torch.pow,
     "maximum": torch.maximum,
     "minimum": torch.minimum,
+    "hypot": _hypot,
     "equal": torch.eq,
     "not_equal": torch.ne,
     "greater": torch.gt,
     "greater_equal": torch.ge,
     "lesser": torch.lt,
     "lesser_equal": torch.le,
+    "logical_and": lambda a, b: (a != 0) & (b != 0),
+    "logical_or": lambda a, b: (a != 0) | (b != 0),
+    "logical_xor": lambda a, b: (a != 0) ^ (b != 0),
 }
 
 _CMP = {"equal", "not_equal", "greater", "greater_equal", "lesser",
-        "lesser_equal"}
+        "lesser_equal", "logical_and", "logical_or", "logical_xor"}
 
 
 def _binary_impl(f, cmp):
@@ -133,6 +273,24 @@ for _name in ("sub", "div", "power", "mod"):
     register("_r" + _name + "_scalar")(
         (lambda f: lambda x, scalar=0.0: f(_scalar_like(x, scalar), x))(
             _BINARY[_name]))
+
+# the reference's other spellings of three scalar ops
+alias("_plus_scalar", "_add_scalar")
+alias("_minus_scalar", "_sub_scalar")
+alias("_rminus_scalar", "_rsub_scalar")
+
+
+@register("add_n", aliases=("ElementWiseSum", "_grad_add_n"))
+def add_n(*args):
+    out = args[0]
+    for a in args[1:]:
+        out = out + a
+    return out
+
+
+@register("_grad_add")
+def grad_add(a, b):
+    return a + b
 
 
 @register("where")
@@ -240,6 +398,107 @@ def _arg(fn):
 
 register("argmax", differentiable=False)(_arg(torch.argmax))
 register("argmin", differentiable=False)(_arg(torch.argmin))
+
+
+def _nan_to(x, fill):
+    if not x.dtype.is_floating_point:
+        return x
+    return torch.where(torch.isnan(x), torch.full((), fill, dtype=x.dtype,
+                                                  device=x.device), x)
+
+
+register("nansum")(_reduce(lambda x, dim, keepdim: _sum(_nan_to(x, 0.0),
+                                                       dim, keepdim)))
+register("nanprod")(_reduce(lambda x, dim, keepdim: _prod(_nan_to(x, 1.0),
+                                                         dim, keepdim)))
+
+
+@register("_square_sum")
+def square_sum(data, axis=None, keepdims=False):
+    return _reduce(_sum)(torch.square(data), axis=axis, keepdims=keepdims)
+
+
+@register("argmax_channel", differentiable=False)
+def argmax_channel(data):
+    return torch.argmax(data, dim=1).to(data.dtype)
+
+
+def _sorted(x, axis, descending):
+    """Stable sort along ``axis`` (None: the flattened array), ascending,
+    then reversed for ``descending`` as the reference flips its ascending
+    order (equal keys come out in reversed index order)."""
+    if axis is None:
+        x, ax = x.reshape(-1), 0
+    else:
+        ax = int(axis)
+    r = torch.sort(x, dim=ax, stable=True)
+    if descending:
+        return r.values.flip(ax), r.indices.flip(ax)
+    return r.values, r.indices
+
+
+@register("sort")
+def sort(x, axis=-1, is_ascend=True):
+    return _sorted(x, axis, not is_ascend)[0]
+
+
+@register("argsort", differentiable=False)
+def argsort(x, axis=-1, is_ascend=True):
+    return _sorted(x, axis, not is_ascend)[1].to(torch.float32)
+
+
+@register("topk", differentiable=False,
+          num_outputs=lambda attrs: 2 if attrs.get("ret_typ") == "both"
+          else 1)
+def topk(x, axis=-1, k=1, ret_typ="indices", is_ascend=False,
+         dtype="float32"):
+    """The ``k`` largest (smallest with ``is_ascend``) entries along
+    ``axis`` (None: the flattened array) as ``lax.top_k`` orders them:
+    equal values by rising index.  ``ret_typ`` is ``"indices"`` (float32),
+    ``"value"``, ``"both"`` or ``"mask"`` (0/1 in ``x``'s dtype)."""
+    xm = x.reshape(-1) if axis is None else x.movedim(int(axis), -1)
+    r = torch.sort(xm, dim=-1, descending=not is_ascend, stable=True)
+    vals, idx = r.values[..., :int(k)], r.indices[..., :int(k)]
+    if ret_typ == "mask":
+        mask = torch.zeros_like(xm).scatter(-1, idx, 1)
+        return mask.reshape(x.shape) if axis is None else \
+            mask.movedim(-1, int(axis))
+    if axis is not None:
+        vals, idx = vals.movedim(-1, int(axis)), idx.movedim(-1, int(axis))
+    idx = idx.to(torch.float32)
+    if ret_typ == "value":
+        return vals
+    if ret_typ == "both":
+        return vals, idx
+    return idx
+
+
+@register("histogram", num_outputs=2, differentiable=False)
+def histogram(data, bin_cnt=10, range=None):
+    """``(counts, edges)`` as ``jnp.histogram`` computes them: ``bin_cnt +
+    1`` edges ``linspace(lo, hi)`` (lo, hi: ``range`` or the data's min and
+    max), each value counted in the bin ``searchsorted(edges, v, right) -
+    1``, the top edge in the last bin.  Counts are int32 (the reference
+    runs without 64-bit types), edges float32."""
+    x = data.reshape(-1)
+    x = x if x.dtype.is_floating_point else x.to(torch.float32)
+    n = int(bin_cnt)
+    if range is not None:
+        lo = torch.full((), float(range[0]), device=x.device)
+        hi = torch.full((), float(range[1]), device=x.device)
+    else:
+        lo, hi = x.min().float(), x.max().float()
+    steps = torch.arange(n + 1, device=x.device, dtype=torch.float32)
+    # jnp.linspace: start + step * i, the last edge exactly ``hi``
+    edges = lo + steps * ((hi - lo) / n)
+    edges = torch.cat([edges[:-1], hi.reshape(1)]).to(x.dtype)
+    b = torch.searchsorted(edges, x.contiguous(), right=True)
+    b = torch.where(x == edges[-1], torch.full_like(b, n), b)
+    counts = torch.bincount(b, minlength=n + 2)[1:n + 1]
+    return counts.to(torch.int32), edges.to(torch.float32)
+
+
+alias("_histogram", "histogram")
 
 
 # ---------------------------------------------------------------------------
@@ -381,6 +640,9 @@ def concat(*args, dim=1):
     return torch.cat(args, dim=int(dim))
 
 
+alias("_rnn_param_concat", "concat")
+
+
 @register("stack")
 def stack(*args, axis=0):
     return torch.stack(args, dim=int(axis))
@@ -448,6 +710,412 @@ def dot(a, b, transpose_a=False, transpose_b=False):
     return torch.tensordot(a, b, dims=([a.ndim - 1], [0]))
 
 
+def _half_acc(a, b):
+    """bfloat16/float16 operands as float32: the product accumulates and
+    returns float32, as the reference's ``preferred_element_type``."""
+    if a.dtype in (torch.bfloat16, torch.float16):
+        return a.float(), b.float()
+    return a, b
+
+
+@register("batch_dot")
+def batch_dot(a, b, transpose_a=False, transpose_b=False):
+    if transpose_a:
+        a = a.transpose(-1, -2)
+    if transpose_b:
+        b = b.transpose(-1, -2)
+    a, b = _half_acc(a, b)
+    return torch.matmul(a, b)
+
+
+@register("khatri_rao")
+def khatri_rao(*args):
+    """Column-wise Kronecker product (reference: la_op khatri_rao)."""
+    out = args[0]
+    for m in args[1:]:
+        out = (out[:, None, :] * m[None, :, :]).reshape(-1, out.shape[1])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# linear algebra (la_op.cc): plain torch, as the reference is plain XLA
+# ---------------------------------------------------------------------------
+
+@register("linalg_gemm2")
+def linalg_gemm2(a, b, transpose_a=False, transpose_b=False, alpha=1.0):
+    r = batch_dot(a, b, transpose_a, transpose_b)
+    return r if alpha == 1.0 else alpha * r
+
+
+@register("linalg_gemm")
+def linalg_gemm(a, b, c, transpose_a=False, transpose_b=False, alpha=1.0,
+                beta=1.0):
+    """``alpha * op(A) op(B) + beta * C``."""
+    return alpha * batch_dot(a, b, transpose_a, transpose_b) + beta * c
+
+
+def _linalg_float(x):
+    return x if x.dtype in (torch.float32, torch.float64) else x.float()
+
+
+@register("linalg_potrf")
+def linalg_potrf(a):
+    """The lower Cholesky factor."""
+    return torch.linalg.cholesky(_linalg_float(a))
+
+
+def _solve_tri(a, b, lower, transpose, right=False):
+    """``op(A) X = B`` (``X op(A) = B`` when ``right``), A triangular,
+    ``op(A) = A^T`` when ``transpose``."""
+    if transpose:
+        a, lower = a.transpose(-1, -2), not lower
+    return torch.linalg.solve_triangular(a, b, upper=not lower,
+                                         left=not right)
+
+
+@register("linalg_trsm")
+def linalg_trsm(a, b, transpose=False, rightside=False, lower=True,
+                alpha=1.0):
+    a, b = _linalg_float(a), _linalg_float(b)
+    return alpha * _solve_tri(a, b, lower, transpose, right=rightside)
+
+
+@register("linalg_trmm")
+def linalg_trmm(a, b, transpose=False, rightside=False, lower=True,
+                alpha=1.0):
+    """``alpha * op(A) B`` (``B op(A)`` when ``rightside``), A's
+    triangle only."""
+    tri = torch.tril(a) if lower else torch.triu(a)
+    if transpose:
+        tri = tri.transpose(-1, -2)
+    return alpha * (torch.matmul(b, tri) if rightside else
+                    torch.matmul(tri, b))
+
+
+@register("linalg_syrk")
+def linalg_syrk(a, transpose=False, alpha=1.0):
+    at = a.transpose(-1, -2)
+    return alpha * (torch.matmul(at, a) if transpose else torch.matmul(a, at))
+
+
+@register("linalg_potri")
+def linalg_potri(a, lower=True):
+    """``A^-T A^-1`` from the Cholesky factor A: ``(A A^T)^-1`` for a lower
+    A, by two triangular solves as the reference does."""
+    a = _linalg_float(a)
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device).expand(
+        a.shape)
+    inv_a = _solve_tri(a, eye, lower, False)
+    return _solve_tri(a, inv_a, lower, True)
+
+
+@register("linalg_gelqf", num_outputs=2)
+def linalg_gelqf(a):
+    """LQ factorization ``A = L Q`` with row-orthonormal Q, returned as
+    ``(Q, L)``: QR of ``A^T`` with L's diagonal made positive."""
+    a = _linalg_float(a)
+    q, r = torch.linalg.qr(a.transpose(-1, -2), mode="reduced")
+    d = torch.sign(torch.diagonal(r, dim1=-2, dim2=-1))
+    d = torch.where(d == 0, torch.ones_like(d), d)
+    q = q * d[..., None, :]
+    r = r * d[..., :, None]
+    return q.transpose(-1, -2), r.transpose(-1, -2)
+
+
+@register("linalg_syevd", num_outputs=2)
+def linalg_syevd(a):
+    """Symmetric eigendecomposition ``(U, L)``: ``U A = diag(L) U``,
+    eigenvalues ascending."""
+    w, v = torch.linalg.eigh(_linalg_float(a))
+    return v.transpose(-1, -2), w
+
+
+@register("linalg_sumlogdiag")
+def linalg_sumlogdiag(a):
+    d = torch.diagonal(a, dim1=-2, dim2=-1)
+    d = d if d.dtype.is_floating_point else d.to(torch.float32)
+    return torch.sum(torch.log(d), dim=-1)
+
+
+@register("linalg_makediag")
+def linalg_makediag(a, offset=0):
+    k = int(offset)
+    n = a.shape[-1] + abs(k)
+    return torch.diag_embed(a, offset=k) if n > 0 else \
+        a.new_zeros(a.shape[:-1] + (0, 0))
+
+
+@register("linalg_extractdiag")
+def linalg_extractdiag(a, offset=0):
+    return torch.diagonal(a, offset=int(offset), dim1=-2, dim2=-1)
+
+
+@register("diag")
+def diag(x, k=0):
+    if x.ndim == 1:
+        return torch.diag(x, int(k))
+    return torch.diagonal(x, offset=int(k), dim1=-2, dim2=-1)
+
+
+# ---------------------------------------------------------------------------
+# layers and losses written as tensor ops (matrix_op.cc, l2_normalization,
+# smooth_l1, pad.cc)
+# ---------------------------------------------------------------------------
+
+@register("L2Normalization")
+def l2_normalization(x, eps=1e-10, mode="instance"):
+    if mode == "instance":
+        n = torch.sqrt(torch.sum(torch.square(x.reshape(x.shape[0], -1)),
+                                 dim=1) + eps)
+        return x / n.reshape((-1,) + (1,) * (x.ndim - 1))
+    if mode == "channel":
+        return x / torch.sqrt(torch.sum(torch.square(x), dim=1,
+                                        keepdim=True) + eps)
+    red = tuple(range(2, x.ndim))
+    return x / torch.sqrt(torch.sum(torch.square(x), dim=red, keepdim=True)
+                          + eps)
+
+
+@register("smooth_l1")
+def smooth_l1(x, scalar=1.0):
+    if not x.dtype.is_floating_point:
+        x = x.to(torch.float32)
+    s2 = scalar * scalar
+    return torch.where(torch.abs(x) < 1.0 / s2, 0.5 * s2 * torch.square(x),
+                       torch.abs(x) - 0.5 / s2)
+
+
+@register("pad", aliases=("Pad",))
+def pad(x, mode="constant", pad_width=(), constant_value=0.0):
+    """``jnp.pad`` with the reference's ``pad_width`` (before, after per
+    axis): ``constant``, ``edge`` or ``reflect`` (numpy's: the edge value
+    not repeated)."""
+    pw = [int(v) for v in pad_width]
+    pairs = [(pw[i], pw[i + 1]) for i in range(0, len(pw), 2)]
+    pairs += [(0, 0)] * (x.ndim - len(pairs))
+    if mode == "constant":
+        flat = [v for pr in reversed(pairs) for v in pr]
+        return F.pad(x, flat, value=constant_value)
+    if mode not in ("edge", "reflect"):
+        raise KeyError(mode)
+    # torch pads only the trailing 1-3 dims of a batched tensor in these
+    # modes: pad the padded dims trailing, with the rest folded in front
+    dims = [d for d, pr in enumerate(pairs) if pr != (0, 0)]
+    if not dims:
+        return x.clone()
+    lead = [d for d in range(x.ndim) if d not in dims]
+    xt = x.permute(*lead, *dims)
+    shp = xt.shape
+    xt = xt.reshape((1, -1) + tuple(shp[len(lead):]))
+    flat = [v for d in reversed(dims) for v in pairs[d]]
+    tmode = "replicate" if mode == "edge" else "reflect"
+    low = xt.dtype not in (torch.float32, torch.float64)
+    out = F.pad(xt.float() if low else xt, flat, mode=tmode)
+    out = out.to(x.dtype) if low else out
+    out = out.reshape(tuple(shp[:len(lead)]) + tuple(out.shape[2:]))
+    return out.permute(*np.argsort(lead + dims).tolist())
+
+
+@register("depth_to_space")
+def depth_to_space(data, block_size=1):
+    b = int(block_size)
+    n, c, h, w = data.shape
+    x = data.reshape(n, b, b, c // (b * b), h, w)
+    x = x.permute(0, 3, 4, 1, 5, 2)
+    return x.reshape(n, c // (b * b), h * b, w * b)
+
+
+@register("space_to_depth")
+def space_to_depth(data, block_size=1):
+    b = int(block_size)
+    n, c, h, w = data.shape
+    x = data.reshape(n, c, h // b, b, w // b, b)
+    x = x.permute(0, 3, 5, 1, 2, 4)
+    return x.reshape(n, c * b * b, h // b, w // b)
+
+
+# ---------------------------------------------------------------------------
+# shapes, slices and indices (matrix_op.cc, ravel.cc, indexing_op.cc)
+# ---------------------------------------------------------------------------
+
+@register("slice_like")
+def slice_like(x, like, axes=()):
+    axes = tuple(axes) if axes else tuple(range(min(x.ndim, like.ndim)))
+    sl = [slice(None)] * x.ndim
+    for a in axes:
+        sl[int(a)] = slice(0, like.shape[int(a)])
+    return x[tuple(sl)]
+
+
+def _slice_key(shape, begin, end, step):
+    """The reference's ``_slice_index`` as an index for ``x[...] = v``.
+    With a negative step anywhere (torch slices take none) every axis
+    becomes an index tensor, combined as an outer product."""
+    step = step if step else (1,) * len(begin)
+    key = [slice(None if b is None else int(b),
+                 None if e is None else int(e), int(st) if st else 1)
+           for b, e, st in zip(begin, end, step)]
+    if all(k.step > 0 for k in key):
+        return tuple(key)
+    key += [slice(None)] * (len(shape) - len(key))
+    idx = [torch.tensor(list(range(n)[k]), dtype=torch.long)
+           for n, k in zip(shape, key)]
+    return torch.meshgrid(*idx, indexing="ij")
+
+
+@register("_slice_assign")
+def slice_assign(lhs, rhs, begin=(), end=(), step=()):
+    out = lhs.clone()
+    out[_slice_key(lhs.shape, begin, end, step)] = rhs.to(lhs.dtype)
+    return out
+
+
+@register("_slice_assign_scalar")
+def slice_assign_scalar(data, scalar=0.0, begin=(), end=(), step=()):
+    out = data.clone()
+    out[_slice_key(data.shape, begin, end, step)] = scalar
+    return out
+
+
+@register("ravel_multi_index", differentiable=False,
+          aliases=("_ravel_multi_index",))
+def ravel_multi_index(data, shape=None):
+    """(ndim, N) indices to flat ids, in ``data``'s dtype."""
+    dims = tuple(int(d) for d in shape)
+    strides = [int(np.prod(dims[i + 1:])) for i in range(len(dims))]
+    st = torch.tensor(strides, dtype=data.dtype, device=data.device)
+    return torch.sum(data * st[:, None], dim=0).to(data.dtype)
+
+
+@register("unravel_index", differentiable=False,
+          aliases=("_unravel_index",))
+def unravel_index(data, shape=None):
+    """Flat ids to (ndim, N) indices, in ``data``'s dtype."""
+    dims = tuple(int(d) for d in shape)
+    rem = data.to(torch.int32).long()
+    out = []
+    for d in reversed(dims):
+        out.append(rem % d)
+        rem = rem // d
+    return torch.stack(list(reversed(out)), dim=0).to(data.dtype)
+
+
+@register("roll")
+def roll(x, shift=0, axis=None):
+    ax = _axis_arg(axis)
+    sh = tuple(int(v) for v in shift) if isinstance(shift, (list, tuple)) \
+        else int(shift)
+    if ax is None:
+        return torch.roll(x, sh)
+    return torch.roll(x, sh, ax)
+
+
+@register("shape_array", differentiable=False)
+def shape_array(data):
+    """The shape as int32 (the reference runs without 64-bit types)."""
+    return torch.tensor(tuple(data.shape), dtype=torch.int32,
+                        device=data.device)
+
+
+@register("size_array", differentiable=False)
+def size_array(data):
+    return torch.tensor([data.numel()], dtype=torch.int32,
+                        device=data.device)
+
+
+@register("broadcast_axis", aliases=("broadcast_axes",))
+def broadcast_axis(x, axis=(), size=()):
+    axis = (axis,) if isinstance(axis, int) else tuple(axis)
+    size = (size,) if isinstance(size, int) else tuple(size)
+    target = list(x.shape)
+    for a, n in zip(axis, size):
+        target[int(a)] = int(n)
+    return torch.broadcast_to(x, tuple(target))
+
+
+def _wrap_clip(idx, n):
+    """Negative indices from the end, then clamped into range (jnp's
+    gather for ``x[idx]``)."""
+    idx = torch.where(idx < 0, idx + n, idx)
+    return idx.clamp(0, n - 1)
+
+
+@register("gather_nd")
+def gather_nd(data, indices):
+    idx = indices.to(torch.int32).long()
+    key = tuple(_wrap_clip(idx[i], data.shape[i])
+                for i in range(idx.shape[0]))
+    return data[key]
+
+
+@register("scatter_nd")
+def scatter_nd(data, indices, shape=()):
+    """Zeros of ``shape`` with ``data`` added at ``indices`` (repeated
+    indices accumulate, as ``.at[].add``)."""
+    out = torch.zeros(tuple(int(v) for v in shape), dtype=data.dtype,
+                      device=data.device)
+    idx = indices.to(torch.int32).long()
+    key = tuple(idx[i] for i in range(idx.shape[0]))
+    return out.index_put(key, data, accumulate=True)
+
+
+@register("batch_take")
+def batch_take(a, indices):
+    idx = _wrap_clip(indices.to(torch.int32).long(), a.shape[1])
+    return torch.gather(a, 1, idx[:, None]).squeeze(1)
+
+
+# ---------------------------------------------------------------------------
+# creation (init_op.cc): on ``ctx``, else the current context
+# ---------------------------------------------------------------------------
+
+def _ctx_device(ctx):
+    from ..ndarray.ndarray import _device
+
+    return _device(ctx)
+
+
+def _shape_arg(shape):
+    return (int(shape),) if isinstance(shape, int) else \
+        tuple(int(v) for v in shape)
+
+
+@register("_zeros", differentiable=False)
+def zeros_op(shape=(), dtype="float32", ctx=None):
+    return torch.zeros(_shape_arg(shape), dtype=torch_dtype(dtype),
+                       device=_ctx_device(ctx))
+
+
+@register("_ones", differentiable=False)
+def ones_op(shape=(), dtype="float32", ctx=None):
+    return torch.ones(_shape_arg(shape), dtype=torch_dtype(dtype),
+                      device=_ctx_device(ctx))
+
+
+@register("_full", differentiable=False)
+def full_op(shape=(), value=0.0, dtype="float32", ctx=None):
+    return torch.full(_shape_arg(shape), value, dtype=torch_dtype(dtype),
+                      device=_ctx_device(ctx))
+
+
+@register("_eye", differentiable=False)
+def eye_op(N=0, M=0, k=0, dtype="float32", ctx=None):
+    out = torch.from_numpy(np.eye(int(N), int(M) if M else None, int(k)))
+    return out.to(torch_dtype(dtype)).to(_ctx_device(ctx))
+
+
+@register("_arange", differentiable=False)
+def arange_op(start=0.0, stop=None, step=1.0, repeat=1, dtype="float32",
+              ctx=None, infer_range=False):
+    """numpy's ``arange`` computed in float64 and cast, as the reference
+    computes it."""
+    out = torch.from_numpy(np.arange(start, stop, step)).to(
+        torch_dtype(dtype))
+    if int(repeat) != 1:
+        out = torch.repeat_interleave(out, int(repeat))
+    return out.to(_ctx_device(ctx))
+
+
 @register("take")
 def take(a, indices, axis=0, mode="clip"):
     ax = int(axis) % a.ndim
@@ -458,15 +1126,35 @@ def take(a, indices, axis=0, mode="clip"):
     return out.reshape(a.shape[:ax] + idx.shape + a.shape[ax + 1:])
 
 
+def _fill_value(dtype):
+    """``jnp.take``'s fill for an index out of range: NaN for floats, the
+    least value of a signed integer, the largest of an unsigned one."""
+    if dtype.is_floating_point:
+        return float("nan")
+    if dtype == torch.bool:
+        return True
+    info = torch.iinfo(dtype)
+    return info.max if dtype in _UNSIGNED else info.min
+
+
 @register("Embedding")
 def embedding(data, weight, input_dim=None, output_dim=None, dtype="float32",
               sparse_grad=False):
     """Reference: src/operator/tensor/indexing_op.cc Embedding: rows of
-    ``weight`` gathered by ``data`` (cast to int32); the gradient is a
-    dense scatter-add."""
+    ``weight`` gathered by ``data`` (cast to int32), as ``jnp.take``
+    gathers them: an index in ``[-n, 0)`` counts from the end, any other
+    index out of range gives a row of the fill value (NaN for floats).
+    The gradient is a dense scatter-add (none to a filled row)."""
+    n = weight.shape[0]
     idx = data.to(torch.int32).long()
-    return weight.index_select(0, idx.reshape(-1)).reshape(
+    idx = torch.where(idx < 0, idx + n, idx)
+    valid = (idx >= 0) & (idx < n)
+    rows = weight.index_select(0, idx.clamp(0, n - 1).reshape(-1)).reshape(
         tuple(idx.shape) + tuple(weight.shape[1:]))
+    fill = torch.full((), _fill_value(weight.dtype), dtype=weight.dtype,
+                      device=weight.device)
+    return torch.where(valid.reshape(valid.shape + (1,) * (weight.ndim - 1)),
+                       rows, fill)
 
 
 def _lengths(sequence_length):

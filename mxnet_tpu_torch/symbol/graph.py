@@ -29,6 +29,7 @@ __all__ = ["Node", "SymbolEntry", "OP_EXTRA_INPUTS", "attr_bool",
 OP_EXTRA_INPUTS: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {
     "FullyConnected": (("weight", "bias"), ()),
     "Convolution": (("weight", "bias"), ()),
+    "Deconvolution": (("weight", "bias"), ()),
     "BatchNorm": (("gamma", "beta"), ("moving_mean", "moving_var")),
     "LayerNorm": (("gamma", "beta"), ()),
     "InstanceNorm": (("gamma", "beta"), ()),
@@ -41,7 +42,7 @@ OP_EXTRA_INPUTS: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {
 def _active_extra_inputs(opname: str, attrs: dict
                          ) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
     params, aux = OP_EXTRA_INPUTS.get(opname, ((), ()))
-    if opname in ("FullyConnected", "Convolution") \
+    if opname in ("FullyConnected", "Convolution", "Deconvolution") \
             and attr_bool(attrs.get("no_bias")):
         params = tuple(p for p in params if p != "bias")
     if opname == "LeakyReLU" and attrs.get("act_type", "leaky") != "prelu":

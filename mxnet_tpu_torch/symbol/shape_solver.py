@@ -50,6 +50,14 @@ def _param_shape_rule(op_name: str, slot: str, attrs: dict,
                 return (nf,) + kernel + (cin // ng,)
             return (nf, cin // ng) + kernel
         return (nf,)
+    if op_name == "Deconvolution":
+        nf = int(attrs["num_filter"])
+        kernel = tuple(int(k) for k in attrs["kernel"])
+        ng = int(attrs.get("num_group", 1))
+        if slot == "weight":
+            # (in_channels, num_filter / num_group, *kernel)
+            return (data[1], nf // ng) + kernel
+        return (nf,)
     if op_name in ("BatchNorm", "InstanceNorm"):
         ax = int(attrs.get("axis", 1))
         return (data[ax],)
@@ -80,12 +88,15 @@ def _label_shape(op_name: str, attrs: dict,
         if attr_bool(attrs.get("preserve_shape")):
             return tuple(data[:-1])
         return (data[0],)
+    if op_name == "SVMOutput":
+        return (data[0],)
     # regression heads: label congruent with data
     return tuple(data)
 
 
-_LABEL_OPS = ("SoftmaxOutput", "Softmax", "LinearRegressionOutput",
-              "MAERegressionOutput", "LogisticRegressionOutput")
+_LABEL_OPS = ("SoftmaxOutput", "Softmax", "SVMOutput",
+              "LinearRegressionOutput", "MAERegressionOutput",
+              "LogisticRegressionOutput")
 
 
 def _invert_data_shape(op_name: str, attrs: dict, partial: Tuple[int, ...],

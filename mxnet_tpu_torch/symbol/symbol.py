@@ -549,6 +549,7 @@ def ones(shape, dtype="float32", **kwargs):
 _DECLARED_DATA_INPUTS = {
     "FullyConnected": ["data"],
     "Convolution": ["data"],
+    "Deconvolution": ["data"],
     "BatchNorm": ["data"],
     "LayerNorm": ["data"],
     "InstanceNorm": ["data"],

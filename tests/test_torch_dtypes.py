@@ -11,8 +11,12 @@ every test asserts the dtype and the value.
   ``nd.save`` of such an array writes the reference's bytes.
 - ``dot`` of bfloat16/float16 accumulates and returns float32.
 - A sweep over every op name both registries share, called with default
-  attributes on float32, bfloat16 and int32 inputs: wherever both
-  packages compute a result, its dtypes agree.
+  attributes on float32, bfloat16 and int32 inputs: wherever the
+  reference computes a result the port computes one too (a refusal is
+  listed by name), and its dtypes agree.
+- The four cases that sweep once found the port raising on: ``Pooling``
+  with its default kernel, ``Embedding`` past its table, ``_mod_scalar``
+  of int32 by 0 and ``SoftmaxOutput`` of int32.
 """
 import numpy as np
 import pytest
@@ -154,14 +158,19 @@ def _as_torch(a, dtype):
     return t.to(torch.bfloat16) if dtype == "bfloat16" else t
 
 
+# (name, dtype) pairs where the reference computes and the port raises,
+# each a refusal ROADMAP.md names; none today
+REFUSED_IN_PORT = []
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32"])
 def test_registry_output_dtypes(dtype):
     """Every op name both registries share (random ops aside), with one or
     two (3, 4) inputs and default attributes: where the reference computes
-    a result at the smaller arity and the port does too, the output dtypes
-    agree."""
+    a result at the smaller arity, the port computes one too (or the name
+    is in ``REFUSED_IN_PORT``), and the output dtypes agree."""
     names = sorted({op.name for op in TREG.values()} & set(JREG))
-    compared, mismatched = 0, []
+    compared, mismatched, raised = 0, [], []
     for name in names:
         jop, top = JREG[name], TREG[name]
         if jop.rng or top.rng:
@@ -175,7 +184,8 @@ def test_registry_output_dtypes(dtype):
             try:
                 with torch.no_grad():
                     got = top.fn(*[_as_torch(a, dtype) for a in xs])
-            except Exception:  # noqa: BLE001 — refused in the port
+            except Exception as e:  # noqa: BLE001 — collected below
+                raised.append((name, n, f"{type(e).__name__}: {e}"[:120]))
                 break
             want = want if isinstance(want, (tuple, list)) else [want]
             got = got if isinstance(got, (tuple, list)) else [got]
@@ -186,4 +196,50 @@ def test_registry_output_dtypes(dtype):
                 mismatched.append((name, n, wd, gd))
             break
     assert not mismatched, mismatched
+    assert [(nm, dtype) for nm, _, _ in raised] == \
+        [r for r in REFUSED_IN_PORT if r[1] == dtype], raised
     assert compared >= 80, compared
+
+
+def _sweep_fault_inputs():
+    rs = np.random.RandomState(0)
+    a = (np.abs(rs.randn(3, 4)) + 0.5).astype(np.float32)
+    return a, (a * 3).astype(np.int32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+def test_pooling_default_kernel(dtype):
+    """``Pooling`` with its default kernel ``()`` on data of no spatial
+    dim pools windows of one entry, as the reference computes it."""
+    a = _sweep_fault_inputs()[dtype == "int32"]
+    _same(jnd.Pooling(jnd.array(a)), tnd.Pooling(tnd.array(a)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+def test_embedding_index_out_of_range(dtype):
+    """An index in [-n, 0) counts from the end; any other index out of
+    the table gives a row of jnp.take's fill (NaN, or int32's least
+    value), as the reference gathers it."""
+    w = np.arange(12, dtype=np.float32).reshape(3, 4).astype(dtype)
+    ids = np.array([[0, 3, -1], [5, -4, 2]], np.float32)
+    want = jnd.Embedding(jnd.array(ids), jnd.array(w), input_dim=3,
+                         output_dim=4)
+    got = tnd.Embedding(tnd.array(ids), tnd.array(w), input_dim=3,
+                        output_dim=4)
+    assert str(want.asnumpy().dtype) == str(got.asnumpy().dtype)
+    np.testing.assert_array_equal(got.asnumpy(), want.asnumpy())
+
+
+def test_mod_scalar_int32_by_zero():
+    a = _sweep_fault_inputs()[1]
+    _same(jnd._mod_scalar(jnd.array(a)), tnd._mod_scalar(tnd.array(a)))
+    b = np.array([[0, 2, 0, 3]] * 3, np.int32)
+    _same(jnd.elemwise_mod(jnd.array(a), jnd.array(b)),
+          tnd.elemwise_mod(tnd.array(a), tnd.array(b)))
+
+
+def test_softmax_output_int32():
+    a = _sweep_fault_inputs()[1]
+    lab = np.array([0, 3, 1], np.float32)
+    _same(jnd.SoftmaxOutput(jnd.array(a), jnd.array(lab)),
+          tnd.SoftmaxOutput(tnd.array(a), tnd.array(lab)))

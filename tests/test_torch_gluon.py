@@ -95,11 +95,17 @@ def test_pooling_matches_jax(layout, pool_type, global_pool, kernel, stride,
 
 
 def test_pooling_refuses_what_is_not_ported():
+    """What the reference refuses too: an unknown pool type, a kernel past
+    the padded input.  Its "same" convention is floor division ("valid"),
+    computed."""
     x = torch.zeros(1, 3, 4, 4)
-    with pytest.raises(MXNetError, match="pooling_convention"):
-        tnn.pooling(x, kernel=(2, 2), pooling_convention="same")
+    with pytest.raises(ValueError, match="pool_type"):
+        tnn.pooling(x, kernel=(2, 2), pool_type="lp")
     with pytest.raises(MXNetError, match="exceeds padded input"):
         tnn.pooling(x, kernel=(5, 5))
+    assert torch.equal(tnn.pooling(x, kernel=(3, 3), stride=(2, 2),
+                                   pooling_convention="same"),
+                       tnn.pooling(x, kernel=(3, 3), stride=(2, 2)))
 
 
 @pytest.mark.parametrize("flatten", [True, False])

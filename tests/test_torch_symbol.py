@@ -196,8 +196,8 @@ def test_infer_shape_errors():
         with pytest.raises(pkg.base.MXNetError, match="unknown shape"):
             fc.infer_shape()
     with tmx.name.NameManager():
-        pool = tmx.sym.Pooling(tmx.sym.Variable("data"), kernel=(2, 2),
-                               pooling_convention="same", name="p")
+        pool = tmx.sym.Pooling(tmx.sym.Variable("data"), kernel=(7, 7),
+                               name="p")
     # an op that raises inside inference reports the reference's error
     with pytest.raises(MXNetError, match="infer_shape failed at op 'p'"):
         pool.infer_shape(data=(1, 1, 5, 5))
