@@ -1,0 +1,491 @@
+#!/usr/bin/env python3
+"""The port's multi-process paths over NCCL on four NVIDIA GPUs of one host.
+
+    python3 chip_multicard.py              # a machine with four cards
+    python3 chip_multicard.py --rehearse   # the same workers over gloo on
+                                           # the CPU, at small sizes
+
+Run from the repository root.  The script builds the kernels, then starts
+itself four times through ``tools/launch.py -n 4`` (``--worker``); worker
+r trains on ``cuda:r``, and ``make_mesh`` joins the four into one NCCL
+world.  Each worker checks, against the same work done on its own card
+alone (the inputs are the same on every rank, from seeds):
+
+1. collectives over ``sp=4``: psum, all_gather and its gradient (NCCL's
+   reduce_scatter), reduce_scatter, all_to_all, ppermute and broadcast,
+   against the sums and blocks of the whole inputs;
+2. attention over ``sp=4`` at the LM's training shape (B=8, T=1024, H=12,
+   D=64, causal): the ring (f32), Ulysses dense (f32) and Ulysses-flash
+   (f32 and bf16: the flash kernels at T=1024, H=3 a rank) against
+   ``local_attention`` and ``flash_attention`` over the whole sequence
+   on one card, outputs and q, k, v gradients under ``chip_smoke.TOL``
+   (bitwise reported);
+3. ``make_sharded_train_step`` at ``dp=2 x sp=2``, GPT-2 width, B=8,
+   T=1024: ring, ulysses and ulysses_flash in f32 against ``train_step``
+   on one card with the whole sequence's attention (loss 1e-5 relative,
+   every gradient 1e-4 normwise), ulysses_flash in bf16 (loss 2e-2);
+   step ms of each beside the one-card step;
+4. ``DataParallelTrainer`` over ``dp_mesh(4)``: a BatchNorm MLP in f32,
+   three plain steps against the mesh-less trainer on the whole batch
+   (losses, parameters and running statistics rtol 1e-5), three 2-bit
+   steps leaving every rank's parameters bitwise equal; ResNet-50 v1
+   channels-last: one f32 plain step at B=32 (8 a card, cuDNN
+   deterministic) against the mesh-less trainer's on the whole batch,
+   every gradient and running statistic within chip_smoke's floor rule
+   (``_tolerance``: the one-card step again with the images moved by
+   ~2^-22); then bf16 at B=128 (32 a card), plain and 2-bit, ten steps
+   each beside the mesh-less trainer's B=128 on one card, every step
+   launching 53 of each BatchNorm kernel (and with 2-bit 193 packs and
+   193 unpacks) and one more step profiled for the same counts by
+   kernel name: images/s, losses, launches a step.
+
+Prints each worker's results as one JSON line, the card's name and power
+limit, and last ``{"ok": true, "device": {...}}``.  Any failed check, a
+worker that fails or hangs, or fewer than four cards: exit non-zero and
+no result line.
+"""
+from __future__ import annotations
+
+import json
+import os
+import signal
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+SEED = 0
+WORKERS = 4
+TIMEOUT = 1200
+# card sizes, and the rehearsal's (the same code at widths a CPU runs)
+SIZES = {
+    "card": dict(lm=dict(vocab=50257, d_model=768, n_heads=12, n_layers=12,
+                         d_ff=3072, max_len=1024), B=8, T=1024,
+                 attn=(8, 1024, 12, 64), resnet_hw=224, resnet_batch=128,
+                 resnet_check_batch=32, resnet_steps=10),
+    "rehearse": dict(lm=dict(vocab=256, d_model=32, n_heads=4, n_layers=2,
+                             d_ff=64, max_len=64), B=4, T=16,
+                     attn=(2, 16, 4, 8), resnet_hw=64, resnet_batch=8,
+                     resnet_check_batch=8, resnet_steps=2),
+}
+
+
+def _digest(tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _collectives(m4, dev, bad):
+    """Each collective over sp=4 against the whole inputs."""
+    import torch
+
+    from mxnet_tpu_torch.parallel import collectives as C
+
+    r = m4.axis_index("sp")
+    g = torch.Generator().manual_seed(SEED)
+    X = torch.randn(4, 8, 16, generator=g).to(dev)
+    cot = torch.randn(32, 16, generator=g).to(dev)
+    x = X[r].clone()
+    xl = x.clone().requires_grad_()
+    with C.spmd(m4):
+        got = {"psum": (C.allreduce(x, "sp"), X.sum(0)),
+               "all_gather": (C.allgather(x, "sp", axis=0),
+                              X.reshape(32, 16)),
+               "reduce_scatter": (C.reduce_scatter(x, "sp", axis=0),
+                                  X.sum(0)[2 * r:2 * r + 2]),
+               "all_to_all": (C.all_to_all(x, "sp", 0, 1),
+                              torch.cat([X[j][2 * r:2 * r + 2]
+                                         for j in range(4)], 1)),
+               "ppermute": (C.ppermute(x, "sp", [(j, (j + 1) % 4)
+                                                 for j in range(4)]),
+                            X[(r - 1) % 4]),
+               "broadcast": (C.broadcast(x, "sp", src=2), X[2])}
+        # every rank's cotangent is the same: its block summed 4 times
+        (gx,) = torch.autograd.grad(
+            (C.allgather(xl, "sp", axis=0) * cot).sum(), xl)
+        got["all_gather_grad"] = (gx, 4 * cot[8 * r:8 * r + 8])
+    out = {}
+    for name, (a, b) in got.items():
+        err = (a.detach() - b).abs().max().item()
+        out[name] = err
+        if not torch.allclose(a.detach(), b, rtol=1e-5, atol=1e-5):
+            bad.append(f"{name}: max error {err:.3g}")
+    return out
+
+
+def _attention(m4, dev, size, bad):
+    """Ring, Ulysses and Ulysses-flash over sp=4 against the whole
+    sequence on this card."""
+    import torch
+
+    import chip_smoke as cs
+    from mxnet_tpu_torch.ops.flash_attention import flash_attention
+    from mxnet_tpu_torch.parallel import collectives as C
+    from mxnet_tpu_torch.parallel.mesh import (NamedSharding, PartitionSpec,
+                                               gather, shard)
+    from mxnet_tpu_torch.parallel.ring_attention import (local_attention,
+                                                         ring_attention)
+    from mxnet_tpu_torch.parallel.sequence_parallel import ulysses_attention
+
+    B, T, H, D = size["attn"]
+    spec = NamedSharding(m4, PartitionSpec(None, "sp"))
+    legs = (("ring", "float32"), ("ulysses", "float32"),
+            ("ulysses_flash", "float32"), ("ulysses_flash", "bfloat16"))
+    out = {}
+    for impl, dname in legs:
+        dtype = getattr(torch, dname)
+        g = torch.Generator().manual_seed(SEED + 1)
+        q, k, v, go = (torch.randn(B, T, H, D, generator=g).to(dev, dtype)
+                       for _ in range(4))
+        leaves = [shard(t, spec).requires_grad_() for t in (q, k, v)]
+        with C.spmd(m4):
+            if impl == "ring":
+                o = ring_attention(*leaves, axis_name="sp", causal=True)
+            else:
+                o = ulysses_attention(
+                    *leaves, axis_name="sp", causal=True,
+                    impl="flash" if impl == "ulysses_flash" else "dense")
+            grads = torch.autograd.grad(o, leaves, shard(go, spec))
+            got = [gather(t.detach(), spec) for t in (o, *grads)]
+        whole = [t.clone().requires_grad_() for t in (q, k, v)]
+        ref_o = (flash_attention if impl == "ulysses_flash"
+                 else local_attention)(*whole, causal=True)
+        ref = [ref_o.detach(), *torch.autograd.grad(ref_o, whole, go)]
+        errs = {}
+        for name, a, b in zip(("out", "dq", "dk", "dv"), got, ref):
+            ok, err, _ = cs._close(a, b, dname)
+            errs[name] = err
+            if not ok:
+                bad.append(f"{impl} {dname} {name}: {err:.3g}")
+        errs["bitwise"] = all(bool(torch.equal(a, b))
+                              for a, b in zip(got, ref))
+        out[f"{impl}_{dname}"] = errs
+    return out
+
+
+def _timed(fn, dev, reps=3):
+    times, res = [], None
+    for _ in range(reps):
+        _sync(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        _sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return res, times
+
+
+def _lm(m22, dev, size, bad):
+    """The dp=2 x sp=2 LM step against train_step on this card alone."""
+    import functools
+
+    import torch
+
+    import chip_smoke as cs
+    from mxnet_tpu_torch.ops.flash_attention import flash_attention
+    from mxnet_tpu_torch.parallel.ring_attention import local_attention
+    from mxnet_tpu_torch.parallel.transformer import (
+        TransformerConfig, make_sharded_train_step, shard_batch, train_step,
+        transformer_lm_init)
+
+    cfg = TransformerConfig(**size["lm"])
+    B, T = size["B"], size["T"]
+    params = transformer_lm_init(cfg, seed=SEED, device=dev)
+    zeros = {k: torch.zeros_like(v) for k, v in params.items()}
+    tokens = np.random.RandomState(SEED).randint(0, cfg.vocab, (B, T))
+    labels = np.roll(tokens, -1, 1)
+    batch = shard_batch(m22, tokens, labels, np.arange(T))
+    whole = [torch.as_tensor(a, device=dev) for a in (tokens, labels)] \
+        + [torch.arange(T, device=dev)]
+    attn = {"ring": functools.partial(local_attention, causal=True),
+            "ulysses": functools.partial(local_attention, causal=True),
+            "ulysses_flash": functools.partial(flash_attention,
+                                               causal=True)}
+    out = {}
+    for impl, dname in (("ring", "float32"), ("ulysses", "float32"),
+                        ("ulysses_flash", "float32"),
+                        ("ulysses_flash", "bfloat16")):
+        dt = None if dname == "float32" else torch.bfloat16
+        step = make_sharded_train_step(m22, cfg, sp_impl=impl,
+                                       compute_dtype=dt)
+        (loss, _, mom), ms = _timed(lambda: step(params, zeros, *batch), dev)
+        (ref_loss, _, ref_m), ref_ms = _timed(lambda: train_step(
+            params, zeros, *whole, cfg, attention=attn[impl],
+            compute_dtype=dt), dev)
+        rel = cs._grad_rel_errors(mom, ref_m, zeros, 0.9)
+        worst = max(rel, key=rel.get)
+        loss_rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+        out[f"{impl}_{dname}"] = {
+            "loss": loss.item(), "one_card_loss": ref_loss.item(),
+            "loss_rel_err": loss_rel, "grad_rel_err_max": rel[worst],
+            "grad_rel_err_worst": worst, "step_ms": ms,
+            "one_card_step_ms": ref_ms,
+            "tokens_per_s": B * T / (float(np.median(ms[1:])) / 1e3)}
+        if dname == "float32" and (loss_rel > 1e-5 or rel[worst] > 1e-4):
+            bad.append(f"{impl} f32: loss {loss_rel:.3g}, gradient of "
+                       f"{worst} {rel[worst]:.3g}")
+        if dname == "bfloat16" and loss_rel > 2e-2:
+            bad.append(f"{impl} bf16: loss {loss_rel:.3g}")
+        del mom, ref_m
+    return out
+
+
+def _dp(d4, dev, size, bad):
+    """The mesh DataParallelTrainer over dp=4 against the mesh-less one."""
+    import torch
+    import torch.distributed as dist
+
+    import chip_smoke as cs
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+
+    r = np.random.RandomState(SEED + 2)
+    X = (r.rand(64, 32) * 2 + 1.5).astype(np.float32)
+    Y = r.randint(0, 10, 64).astype(np.float32)
+
+    def mlp():
+        net = gluon.nn.HybridSequential()
+        net.add(gluon.nn.Dense(64, in_units=32), gluon.nn.BatchNorm(),
+                gluon.nn.Activation("relu"), gluon.nn.Dense(10, in_units=64))
+        net.initialize(ctx=mx.current_context())
+        net(torch.as_tensor(X[:4], device=dev))
+        w = np.random.RandomState(SEED + 3)
+        for p in net.collect_params().values():
+            p.set_data(mx.nd.array((w.rand(*p.shape) * 0.2 + 0.4)
+                                   .astype(np.float32)))
+        return net
+
+    out = {}
+    kw = dict(lr=0.1, momentum=0.9, weight_decay=1e-3)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    from mxnet_tpu_torch.parallel import DataParallelTrainer
+
+    mesh_tr = DataParallelTrainer(mlp(), loss_fn, mesh=d4, **kw)
+    one_tr = DataParallelTrainer(mlp(), loss_fn, **kw)
+    losses = [(mesh_tr.step(X, Y).item(), one_tr.step(X, Y).item())
+              for _ in range(3)]
+    # the two nets' parameters in creation order (their names differ)
+    pairs = list(zip([*mesh_tr.params.values(), *mesh_tr.aux.values()],
+                     [*one_tr.params.values(), *one_tr.aux.values()]))
+    err = max((a - b).abs().max().item() for a, b in pairs)
+    out["mlp_plain"] = {"losses": losses, "max_abs_err": err}
+    if not all(torch.allclose(a, b, rtol=1e-5, atol=1e-6) for a, b in pairs) \
+            or not np.allclose(*zip(*losses), rtol=1e-5):
+        bad.append(f"mesh MLP against the one-card trainer: {losses}, "
+                   f"parameters {err:.3g}")
+    tr = DataParallelTrainer(mlp(), loss_fn, mesh=d4, compression_params={
+        "type": "2bit", "threshold": 0.05}, **kw)
+    for _ in range(3):
+        tr.step(X, Y)
+    digests = [None] * dist.get_world_size()
+    dist.all_gather_object(digests, _digest(tr.params.values()))
+    out["mlp_2bit_replicated"] = len(set(digests)) == 1
+    if len(set(digests)) != 1:
+        bad.append("2-bit mesh trainer: the ranks' parameters differ")
+    # ResNet-50 v1: the synced BatchNorm's step against one card's, f32
+    hw = size["resnet_hw"]
+    net = cs._resnet(dev, hw=hw)[0]
+    x, y = cs._resnet_batch(dev, size["resnet_check_batch"], hw=hw)
+    u = torch.rand(x.shape, generator=torch.Generator(device=dev)
+                   .manual_seed(SEED + 4), device=dev) * 2 - 1
+    state = {}
+    for name, mesh, xx in (("mesh", d4, x), ("one_card", None, x),
+                           ("moved", None, x * (1 + 2.0 ** -22 * u))):
+        tr = cs._trainer(net, mesh=mesh)
+        tr.step(xx, y)
+        # the momenta from zero are the step's gradients
+        state[name] = {**tr.momenta, **tr.aux}
+        del tr
+    errs = {k: cs._rel(state["mesh"][k], state["one_card"][k])
+            for k in state["one_card"]}
+    floors = {k: cs._rel(state["moved"][k], state["one_card"][k])
+              for k in state["one_card"]}
+
+    def flat(t):
+        return torch.cat([state[t][k].flatten() for k in sorted(errs)])
+
+    glob = cs._rel(flat("mesh"), flat("one_card"))
+    glob_floor = cs._rel(flat("moved"), flat("one_card"))
+    over = cs._tolerance(errs, floors)
+    worst = max(errs, key=errs.get)
+    out["resnet_f32_step_vs_one_card"] = {
+        "global": glob, "floor_global": glob_floor, "worst": worst,
+        "max_tensor": errs[worst], "floor_of_worst": floors[worst],
+        "over_tolerance": over}
+    if over or glob > max(1e-4, 3 * glob_floor):
+        bad.append(f"ResNet f32 mesh step against one card's: global "
+                   f"{glob:.3g} (floor {glob_floor:.3g}), beyond tolerance "
+                   f"{over[:8]}")
+    del state
+    # bf16, images/s over four cards beside one, and the kernels it ran
+    x, y = cs._resnet_batch(dev, size["resnet_batch"], hw=hw)
+    comp2 = {"type": "2bit", "threshold": cs.TWOBIT_THRESHOLD}
+    n_params = sum(1 for p in net.collect_params().values()
+                   if p.grad_req != "null")
+    on_card = dev.type == "cuda"
+    for name, mesh, comp in (("one_card", None, None), ("mesh", d4, None),
+                             ("mesh_2bit", d4, comp2)):
+        tr = cs._trainer(net, compute_dtype=torch.bfloat16, mesh=mesh,
+                         compression_params=comp)
+        coded = n_params if comp is not None and on_card else 0
+        want = dict.fromkeys(cs._read_launches(), 0)
+        want.update(bn_stats=cs.RESNET_BNS if on_card else 0,
+                    bn_normalize=cs.RESNET_BNS if on_card else 0,
+                    twobit_pack=coded, twobit_unpack=coded)
+        losses, ms, launches = [], [], []
+        for _ in range(size["resnet_steps"]):
+            cs._reset_launches()
+            _sync(dev)
+            t0 = time.perf_counter()
+            losses.append(tr.step(x, y).item())
+            _sync(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            launches.append(cs._read_launches())
+        off = [c for c in launches if c != want]
+        if off:
+            bad.append(f"ResNet {name}: {len(off)} steps launched other "
+                       f"counts than {want}, the first {off[0]}")
+        steady = float(np.median(ms[1:]))
+        out[f"resnet_{name}"] = {
+            "losses": losses, "step_ms": ms, "steady_step_ms": steady,
+            "images_per_s": size["resnet_batch"] / (steady / 1e3),
+            "launches_per_step": launches[-1]}
+        if on_card:
+            fam = cs._profiled(lambda: tr.step(x, y), families=(
+                "twobit_pack_kernel", "twobit_unpack_kernel",
+                "bn_stats_final", "bn_normalize"))["families"]
+            out[f"resnet_{name}"]["profiled_families"] = fam
+            if fam != {"twobit_pack_kernel": coded,
+                       "twobit_unpack_kernel": coded,
+                       "bn_stats_final": cs.RESNET_BNS,
+                       "bn_normalize": cs.RESNET_BNS}:
+                bad.append(f"ResNet {name} profiled step: {fam}")
+        if not np.isfinite(losses).all():
+            bad.append(f"ResNet {name}: non-finite loss {losses}")
+        del tr
+    return out
+
+
+def worker(out_dir, rehearse):
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.parallel import mesh as pmesh
+
+    rank = int(os.environ["MXTPU_PROC_ID"])
+    ctx = mx.cpu() if rehearse else mx.gpu(rank)
+    dev = ctx.torch_device
+    if not rehearse:
+        torch.cuda.set_device(rank)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    size = SIZES["rehearse" if rehearse else "card"]
+    res, bad = {"rank": rank, "device": str(dev)}, []
+    with ctx:
+        # none installed: the one-card trainers must not adopt one
+        m22 = pmesh.make_mesh(dp=2, sp=2, install=False, device=dev)
+        try:
+            m4 = pmesh.make_mesh(sp=4, install=False, device=dev)
+            d4 = pmesh.dp_mesh(4, device=dev)
+            res["backend"] = m22.backend
+            res["collectives"] = _collectives(m4, dev, bad)
+            res["attention"] = _attention(m4, dev, size, bad)
+            res["lm"] = _lm(m22, dev, size, bad)
+            res["dp"] = _dp(d4, dev, size, bad)
+        finally:
+            pmesh.shutdown()
+    res["bad"] = bad
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 1 if bad else 0
+
+
+def main(argv) -> int:
+    rehearse = "--rehearse" in argv
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, "build", "multicard")
+    if "--worker" in argv:
+        return worker(out_dir, rehearse)
+    try:
+        import torch
+    except ImportError:
+        print("chip_multicard: torch is not installed", file=sys.stderr)
+        return 2
+    smi = None
+    if not rehearse:
+        if not torch.cuda.is_available() or \
+                torch.cuda.device_count() < WORKERS:
+            print(f"chip_multicard: needs {WORKERS} CUDA devices",
+                  file=sys.stderr)
+            return 2
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip().splitlines()
+        from mxnet_tpu_torch.ops import _build
+
+        _build.build_all()   # the workers load what this built
+    os.makedirs(out_dir, exist_ok=True)
+    for f in os.listdir(out_dir):
+        os.remove(os.path.join(out_dir, f))
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("MXTPU_", "DMLC_"))}
+    env["PYTHONPATH"] = root
+    cmd = [sys.executable, os.path.join(root, "tools", "launch.py"), "-n",
+           str(WORKERS), "--coordinator", f"127.0.0.1:{port}", "--",
+           sys.executable, os.path.abspath(__file__), "--worker"] \
+        + (["--rehearse"] if rehearse else [])
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, cwd=root, start_new_session=True)
+    try:
+        rc = proc.wait(timeout=TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        print(f"chip_multicard: the workers hung past {TIMEOUT} s",
+              file=sys.stderr)
+        return 1
+    results = []
+    for rank in range(WORKERS):
+        path = os.path.join(out_dir, f"rank{rank}.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                results.append(json.load(f))
+    for res in results:
+        print(json.dumps(res), flush=True)
+    print(json.dumps({"phase": "total", "workers_wall_s":
+                      time.perf_counter() - t0}), flush=True)
+    bad = [b for res in results for b in res["bad"]]
+    if rc != 0 or len(results) != WORKERS or bad:
+        print(f"chip_multicard failed (launcher {rc}, {len(results)} "
+              f"results): {bad}", file=sys.stderr)
+        return 1
+    if rehearse:
+        return 0
+    print(smi[0], flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))

@@ -231,6 +231,39 @@ toolkit (``nvcc``) and PyTorch built for CUDA.  Phases, one JSON line each:
               lower the first batch's loss and move conv1_1.  No port
               kernel on this path: its launch counts stay 0.
 
+21. spmd_lm — ``make_sharded_train_step`` over a world of one process on
+              NCCL (``make_mesh(dp=1, sp=1)``; NCCL refuses two ranks on
+              one card) at GPT-2 width, B=8, T=1024: ulysses_flash in f32
+              and bf16, ulysses and ring in f32, each step against
+              ``train_step`` with the same attention callable (loss 1e-5,
+              gradients 1e-4); 12 launches of each flash kernel a
+              ulysses_flash step (wrapper counts and kernel names), NCCL's
+              96 all-to-alls on the device timeline of the profiled step
+              (at one rank NCCL copies and launches no kernel of its
+              own); the flash kernels through
+              Ulysses against their plain versions; step ms of each.
+22. dp_mesh — ``DataParallelTrainer(mesh=dp_mesh(1))`` over the world of
+              one on resnet_compressed's net (B=128, bf16): ten steps
+              plain (BatchNorm synced over dp, the path of any world
+              size), ten with 2-bit at t = 0.5; the first step of each
+              bit for bit against the mesh-less trainer's; 53 + 53
+              BatchNorm launches a step, and 193 + 193 2-bit launches with
+              compression (also by kernel name); the 2-bit kernels on the
+              step's largest gradient against their plain versions.
+23. dist_kvstore — ``tools/launch.py -n 2`` starts two worker processes
+              on the one card (the parameter server in rank 0's): five
+              ``gluon.Trainer(kvstore="dist_sync")`` steps of
+              ``resnet50_v1`` f32 with 2-bit pushes (SGD on the server),
+              then one ``Module.fit`` epoch of the cifar ResNet-20 symbol
+              over ``dist_sync``; both workers' parameters bitwise equal
+              after every step, the loss falls, 193 packs a step a worker
+              and 2 x 193 server unpacks a step in rank 0's process; the
+              first two steps' pushes bitwise the plain pack on the plain
+              residual chain, and the server's values after them against
+              their recomputation from the codes sent; the fit's first
+              step against the same job on the CPU; wall ms a
+              step and its parts, bytes pushed and pulled a step.
+
 Every ResNet phase also requires that the BatchNorm op copied no
 non-contiguous input (``batch_norm.noncontiguous_copies`` stays 0); no
 port kernel runs on the three sequence and RecordIO paths, so their
@@ -241,7 +274,8 @@ An optional comma-separated argument (``kernels``, ``model``,
 also runs ``serving``, its float baseline — ``resnet_training``,
 ``resnet_compressed``, ``gluon_training``, ``module_fit``,
 ``gluon_hybrid``, ``rnn_lm``, ``bucketing_fit``, ``image_rec``,
-``serving_spec``, ``serving_fleet``, ``ops_breadth``, ``fcn_fit``, and
+``serving_spec``, ``serving_fleet``, ``ops_breadth``, ``fcn_fit``,
+``spmd_lm``, ``dp_mesh``, ``dist_kvstore``, and
 ``profile``, ``profile_training`` and ``profile_resnet``, which are not in
 the default run: the serving window, or two bf16 LM or ResNet training
 steps, once more under ``torch.profiler``)
@@ -2547,7 +2581,9 @@ def _profiled(fn, families=()):
     events = list(prof.events())
     kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and "spin_kernel" not in e.name]
+               and "spin_kernel" not in e.name
+               # the window's own annotation, recorded on the device too
+               and e.name != "profiled_fn"]
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy_us, end = 0.0, float("-inf")
     for s, e in spans:   # union of kernel intervals (one stream: ~the sum)
@@ -2665,10 +2701,11 @@ def phase_profile_training(dev, cfg, params):
 
 
 # -- phase 9 ------------------------------------------------------------------------
-def _resnet(dev):
+def _resnet(dev, hw=RESNET_HW):
     """``resnet50_v1(classes=1000, layout="NHWC")``, Gluon's default
-    initializer drawing from seed 0, shapes resolved by one eager forward;
-    with ``block_train_fn``'s function and initial tensors."""
+    initializer drawing from seed 0, shapes resolved by one eager forward
+    at ``hw`` x ``hw``; with ``block_train_fn``'s function and initial
+    tensors."""
     import torch
 
     from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
@@ -2678,7 +2715,7 @@ def _resnet(dev):
     net.initialize(ctx=dev,
                    generator=torch.Generator(device=dev).manual_seed(SEED))
     with torch.no_grad():
-        net(torch.zeros(1, RESNET_HW, RESNET_HW, 3, device=dev))
+        net(torch.zeros(1, hw, hw, 3, device=dev))
     return net, *block_train_fn(net, is_train=True)
 
 
@@ -2709,12 +2746,12 @@ def _resnet_step(apply_fn, params, momenta, aux, x, y, dtype=None):
     return loss.detach(), params, momenta, new_aux, grads
 
 
-def _resnet_batch(dev, B):
-    """B random NHWC images and labels, from seed 1."""
+def _resnet_batch(dev, B, hw=RESNET_HW):
+    """B random NHWC ``hw`` x ``hw`` images and labels, from seed 1."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    x = torch.randn(B, RESNET_HW, RESNET_HW, 3, generator=g, device=dev)
+    x = torch.randn(B, hw, hw, 3, generator=g, device=dev)
     y = torch.randint(0, RESNET_CLASSES, (B,), generator=g, device=dev)
     return x, y
 
@@ -6021,6 +6058,874 @@ def phase_fcn_fit(dev, smi):
     return res
 
 
+# -- phases 21-23: several processes --------------------------------------------------
+def _ulysses_flash_cases(dev, mesh):
+    """Kernels 6-8 through ``ulysses_attention(impl="flash")`` at the
+    sharded step's shape (B=8, T=1024, H=12, D=64, causal; float32 and
+    bfloat16) against their plain versions on the same q, k, v and output
+    gradient under ``TOL``: out and lse against the plain forward's, dq,
+    dk and dv against the plain backward's from the kernel forward's out
+    and lse (as ``_flash_cases`` holds each kernel alone)."""
+    import torch
+
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.parallel.collectives import spmd
+    from mxnet_tpu_torch.parallel.sequence_parallel import ulysses_attention
+
+    B, T, H, D = FLASH_SHAPES["training"]
+    rows, bad = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        g = torch.Generator(device=dev).manual_seed(SEED + 41)
+        q, k, v, go = (torch.randn(B, T, H, D, generator=g, device=dev)
+                       .to(dtype) for _ in range(4))
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        with spmd(mesh):
+            out = ulysses_attention(*leaves, axis_name="sp", causal=True,
+                                    impl="flash")
+            grads = torch.autograd.grad(out, leaves, go)
+        with torch.no_grad():
+            k_out, k_lse = fa.flash_attention_forward(q, k, v, causal=True)
+            ref_out, ref_lse = fa.flash_attention_forward_reference(
+                q, k, v, causal=True)
+            ref_grads = fa.flash_attention_backward_reference(
+                q, k, v, k_out, k_lse, go, causal=True)
+        row = {"dtype": dname, "max_abs_err": {}}
+        for name, a, b, tol in (("out", out.detach(), ref_out, dname),
+                                ("lse", k_lse, ref_lse, "float32"),
+                                *((n, g_, r_, dname) for n, g_, r_ in zip(
+                                    ("dq", "dk", "dv"), grads, ref_grads))):
+            ok, err, _ = _close(a, b, tol)
+            row["max_abs_err"][name] = err
+            if not ok:
+                bad.append(f"ulysses flash {dname} {name}: {err:.3g}")
+        rows.append(row)
+        del leaves, out, grads, ref_grads
+    return rows, bad
+
+
+def phase_spmd_lm(dev, cfg, params):
+    """``make_sharded_train_step`` over a world of one process on NCCL
+    (``make_mesh(dp=1, sp=1)``: NCCL refuses two ranks on one card, so
+    the rotation and the all-to-all across ranks are held by the CPU
+    tests over gloo) at GPT-2 width, B=8, T=1024, lr 0.1, momentum 0.9.
+
+    The main path, each step counted from 0: the sharded step with
+    ``sp_impl="ulysses_flash"`` in f32 and in bf16 compute, then
+    ``"ulysses"`` and ``"ring"`` in f32, each from the same params and
+    zero momenta — per step 12 launches of each flash kernel (ulysses_flash)
+    and 25 LayerNorms.  Each against ``train_step`` with the same attention
+    callable on the card: loss within 1e-5 relative and every gradient
+    (the new momenta) within 1e-4 normwise (the training phase's
+    tolerances; bitwise reported).  One bf16 ulysses_flash step profiled:
+    the flash kernels by name, and NCCL's 96 all-to-alls on the device
+    timeline (at one rank NCCL copies, and launches no kernel of its
+    own; its kernels and the copies are counted beside).
+    Kernels 6-8 through Ulysses against their plain versions.  Step ms of
+    each against ``train_step``'s (medians of three calls each, in
+    turns)."""
+    import functools
+
+    import torch
+
+    from mxnet_tpu_torch.parallel import mesh as pmesh
+    from mxnet_tpu_torch.parallel.collectives import spmd
+    from mxnet_tpu_torch.parallel.ring_attention import ring_attention
+    from mxnet_tpu_torch.parallel.sequence_parallel import ulysses_attention
+    from mxnet_tpu_torch.parallel.transformer import (make_sharded_train_step,
+                                                      shard_batch,
+                                                      train_step)
+
+    B, T, lr, momentum = 8, 1024, 0.1, 0.9
+    rs = np.random.RandomState(SEED)
+    tokens_np = rs.randint(0, cfg.vocab, (B, T))
+    mesh = pmesh.make_mesh(dp=1, sp=1, device=dev, install=False)
+    attn = {"ulysses_flash": functools.partial(
+                ulysses_attention, axis_name="sp", causal=True,
+                impl="flash"),
+            "ulysses": functools.partial(ulysses_attention, axis_name="sp",
+                                         causal=True, impl="dense"),
+            "ring": functools.partial(ring_attention, axis_name="sp",
+                                      causal=True)}
+    legs = (("ulysses_flash", "float32"), ("ulysses_flash", "bfloat16"),
+            ("ulysses", "float32"), ("ring", "float32"))
+    n = cfg.n_layers
+    bad = []
+    try:
+        batch = shard_batch(mesh, tokens_np, np.roll(tokens_np, -1, 1),
+                            np.arange(T))
+        zeros = {k: torch.zeros_like(v) for k, v in params.items()}
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t0) * 1e3
+
+        steps, legs_out = {}, {}
+        _reset_launches()
+        for impl, dname in legs:
+            dt = None if dname == "float32" else getattr(torch, dname)
+            steps[impl, dname] = make_sharded_train_step(
+                mesh, cfg, lr=lr, momentum=momentum, sp_impl=impl,
+                compute_dtype=dt)
+            before = _read_launches()
+            (loss, _, mom), ms = timed(lambda: steps[impl, dname](
+                params, zeros, *batch))
+            after = _read_launches()
+            legs_out[impl, dname] = {
+                "loss": loss.item(), "momenta": mom, "first_step_ms": ms,
+                "launches": {k: after[k] - before[k] for k in after}}
+        launches = _read_launches()
+        rows = []
+        for impl, dname in legs:
+            leg = legs_out[impl, dname]
+            dt = None if dname == "float32" else getattr(torch, dname)
+            with spmd(mesh):
+                (ref_loss, _, ref_m), ref_first = timed(lambda: train_step(
+                    params, zeros, *batch, cfg, lr=lr, momentum=momentum,
+                    attention=attn[impl], compute_dtype=dt))
+                # in turns, three each: one call can catch a host stall
+                ref_runs, runs = [], []
+                for _ in range(3):
+                    ref_runs.append(timed(lambda: train_step(
+                        params, zeros, *batch, cfg, lr=lr,
+                        momentum=momentum, attention=attn[impl],
+                        compute_dtype=dt))[1])
+                    runs.append(timed(lambda: steps[impl, dname](
+                        params, zeros, *batch))[1])
+            ref_ms, ms = float(np.median(ref_runs)), float(np.median(runs))
+            rel = _grad_rel_errors(leg["momenta"], ref_m, zeros, momentum)
+            worst = max(rel, key=rel.get)
+            loss_rel = abs(leg["loss"] - ref_loss.item()) \
+                / abs(ref_loss.item())
+            bitwise = leg["loss"] == ref_loss.item() and all(
+                torch.equal(leg["momenta"][k], ref_m[k]) for k in ref_m)
+            want = {k: 0 for k in leg["launches"]}
+            want["layer_norm"] = 2 * n + 1
+            if impl == "ulysses_flash":
+                want.update(flash_attention_fwd=n, flash_attention_dq=n,
+                            flash_attention_dkv=n)
+            row = {"sp_impl": impl, "compute_dtype": dname,
+                   "loss": leg["loss"], "train_step_loss": ref_loss.item(),
+                   "loss_rel_err": loss_rel,
+                   "grad_rel_err_max": rel[worst],
+                   "grad_rel_err_worst": worst, "bitwise": bitwise,
+                   "step_ms": ms, "step_ms_runs": runs,
+                   "first_step_ms": leg["first_step_ms"],
+                   "train_step_ms": ref_ms, "train_step_ms_runs": ref_runs,
+                   "train_step_first_ms": ref_first,
+                   "tokens_per_s": B * T / (ms / 1e3),
+                   "launches": leg["launches"]}
+            rows.append(row)
+            if loss_rel > 1e-5 or rel[worst] > 1e-4:
+                bad.append(f"{impl} {dname}: loss {loss_rel:.3g}, "
+                           f"gradient of {worst} {rel[worst]:.3g}")
+            if leg["launches"] != want:
+                bad.append(f"{impl} {dname} launched {leg['launches']}, "
+                           f"not {want}")
+            del leg["momenta"], ref_m
+        # NCCL marks each collective on the device's timeline
+        # ("nccl:all_to_all"); at one rank it launches no kernel of its
+        # own, its all-to-all is a device-to-device copy
+        prof = _profiled(lambda: steps["ulysses_flash", "bfloat16"](
+            params, zeros, *batch), families=(
+                "flash_fwd", "flash_dq", "flash_dkv", "nccl:", "ncclDevKernel",
+                "Memcpy DtoD"))
+        fam = prof["families"]
+        if [fam["flash_fwd"], fam["flash_dq"], fam["flash_dkv"]] != [n] * 3:
+            bad.append(f"profiled bf16 step: flash kernels by name {fam}")
+        # q, k, v and out, forward and backward, in every layer
+        if fam["nccl:"] != 8 * n:
+            bad.append(f"{fam['nccl:']} NCCL collectives on the device in "
+                       f"the profiled step, not {8 * n}: "
+                       f"{prof['family_names']['nccl:']}")
+        cases, case_bad = _ulysses_flash_cases(dev, mesh)
+        bad += case_bad
+    finally:
+        pmesh.shutdown()
+    res = {"phase": "spmd_lm", "config": dataclasses.asdict(cfg), "B": B,
+           "T": T, "lr": lr, "momentum": momentum,
+           "world": {"backend": "nccl", "size": 1, "mesh": {"dp": 1,
+                                                            "sp": 1}},
+           "legs": rows, "tolerance": {"loss_rel": 1e-5, "grad_rel": 1e-4},
+           "profiled_bf16_step": {
+               "families": fam, "family_names": prof["family_names"],
+               "idle_share": prof["idle_share"],
+               "device_busy_s": prof["device_busy_s"],
+               "wall_s": prof["wall_s"],
+               "lost_records": prof["lost_records"], "top": prof["top"]},
+           "flash_through_ulysses": cases,
+           "launches": launches}
+    emit(res)
+    if bad:
+        raise SystemExit("spmd_lm phase failed: " + "; ".join(bad))
+    return res
+
+
+def phase_dp_mesh(dev):
+    """``DataParallelTrainer(mesh=dp_mesh(1))`` over a world of one process
+    on NCCL, on the resnet_compressed net (``resnet50_v1`` channels-last
+    224x224, bf16 compute, Gluon's ``SoftmaxCrossEntropyLoss``, SGD lr 0.1
+    momentum 0.9) at B=128: ten steps plain, then ten
+    with ``{"type": "2bit", "threshold": 0.5}``, each step counted from 0 (53
+    launches of each BatchNorm kernel, and with 2-bit one pack and one
+    unpack per trainable parameter).  The plain step's BatchNorm is the
+    synced one of any world size (each rank's statistics gathered over
+    ``dp`` and combined), which at one rank must change no bit: the first
+    step of each, cuDNN deterministic, is held bit for bit against the
+    mesh-less trainer's step from the same state (loss, parameters,
+    momenta, running statistics, residuals); the rest run as
+    resnet_compressed's do.  One more step of each profiled (the
+    BatchNorm kernels by name, 53 each, and with 2-bit the pack and unpack
+    kernels, 193 each; top kernels, idle share); the pack and unpack kernels
+    against their plain versions on that step's gradients.  Step ms of
+    each."""
+    import torch
+
+    from mxnet_tpu_torch.ops import twobit as tb
+    from mxnet_tpu_torch.parallel import mesh as pmesh
+
+    net, _, params, _ = _resnet(dev)
+    n_params = len(params)
+    del params
+    x, y = _resnet_batch(dev, RESNET_BATCH)
+    comp2 = {"type": "2bit", "threshold": TWOBIT_THRESHOLD}
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    bad, legs = [], {}
+    try:
+        mesh = pmesh.dp_mesh(1, device=dev)
+        for name, comp in (("plain", None), ("2bit", comp2)):
+            # the first step against the mesh-less trainer's
+            ref = _trainer(net, compute_dtype=torch.bfloat16,
+                           compression_params=comp)
+            tr = _trainer(net, compute_dtype=torch.bfloat16, mesh=mesh,
+                          compression_params=comp)
+            ref_loss = ref.step(x, y)
+            state_ref = (ref.params, ref.momenta, ref.aux, ref.residuals)
+            del ref
+            losses, step_ms, per_step = [], [], []
+            for i in range(COMPRESSED_STEPS):
+                if i == 1:
+                    # the rest timed as resnet_compressed times them
+                    torch.backends.cudnn.deterministic, \
+                        torch.backends.cudnn.benchmark = det
+                torch.cuda.synchronize()
+                _reset_launches()
+                t0 = time.perf_counter()
+                losses.append(tr.step(x, y))
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                per_step.append(_read_launches())
+                if i == 0:
+                    mine = (tr.params, tr.momenta, tr.aux, tr.residuals)
+                    unequal = [f"{part}:{k}" for part, a, b in zip(
+                        ("params", "momenta", "aux", "residuals"),
+                        mine, state_ref) if a is not None
+                        for k in a if not torch.equal(a[k], b[k])]
+                    bitwise = torch.equal(losses[0], ref_loss) \
+                        and not unequal
+                    del mine, state_ref
+            losses = [v.item() for v in losses]
+            want = {k: 0 for k in per_step[0]}
+            want.update(bn_stats=RESNET_BNS, bn_normalize=RESNET_BNS)
+            if comp is not None:
+                want.update(twobit_pack=n_params, twobit_unpack=n_params)
+            off = [c for c in per_step if c != want]
+            legs[name] = {"losses": losses, "step_ms": step_ms,
+                          "steady_step_ms": float(np.median(step_ms[1:])),
+                          "images_per_s": RESNET_BATCH / (float(np.median(
+                              step_ms[1:])) / 1e3),
+                          "first_step_bitwise": bitwise,
+                          "first_step_unequal": unequal[:8],
+                          "launches_per_step": per_step[0],
+                          "expected_per_step": want}
+            if not bitwise:
+                bad.append(f"{name}: first step differs from the mesh-less "
+                           f"trainer's: loss {ref_loss.item()} vs "
+                           f"{losses[0]}, {unequal[:4]}")
+            if off:
+                bad.append(f"{name}: {len(off)} steps launched other counts "
+                           f"than {want}, the first {off[0]}")
+            if not all(np.isfinite(losses)):
+                bad.append(f"{name}: non-finite loss {losses}")
+            prof = _profiled(lambda: tr.step(x, y), families=(
+                "twobit_pack_kernel", "twobit_unpack_kernel",
+                "bn_stats_final", "bn_normalize"))
+            legs[name]["profiled_step"] = {
+                k: prof[k] for k in ("families", "idle_share", "wall_s",
+                                     "device_busy_s", "lost_records",
+                                     "top", "backward_nodes_ms")}
+            fam = prof["families"]
+            if fam != {"twobit_pack_kernel": 0 if comp is None else n_params,
+                       "twobit_unpack_kernel":
+                       0 if comp is None else n_params,
+                       "bn_stats_final": RESNET_BNS,
+                       "bn_normalize": RESNET_BNS}:
+                bad.append(f"profiled {name} step: {fam}")
+            if comp is not None:
+                # the kernels on this step's gradients: the largest one
+                _, grads, _ = tr._loss_and_grads(x, y)
+                key = max(grads, key=lambda k: grads[k].numel())
+                gk = grads[key].float().contiguous()
+                rk = tr.residuals[key][0]
+                pk, nr = tb.twobit_pack(gk, rk, TWOBIT_THRESHOLD)
+                pr, nrr = tb.twobit_pack_reference(gk, rk, TWOBIT_THRESHOLD)
+                uk = tb.twobit_unpack(pk, gk.shape, TWOBIT_THRESHOLD)
+                ur = tb.twobit_unpack_reference(pr, gk.shape,
+                                                TWOBIT_THRESHOLD)
+                legs[name]["kernels_vs_plain"] = {
+                    "gradient": key, "shape": list(gk.shape),
+                    "pack_bitwise": bool(torch.equal(
+                        pk.view(torch.int32), pr.view(torch.int32))
+                        and torch.equal(nr, nrr)),
+                    "unpack_bitwise": bool(torch.equal(uk, ur))}
+                if not (legs[name]["kernels_vs_plain"]["pack_bitwise"]
+                        and legs[name]["kernels_vs_plain"]["unpack_bitwise"]):
+                    bad.append(f"2-bit kernels vs plain on {key}: "
+                               f"{legs[name]['kernels_vs_plain']}")
+                del grads
+            del tr
+            torch.backends.cudnn.deterministic, \
+                torch.backends.cudnn.benchmark = True, False
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = det
+        pmesh.shutdown()
+    total = {}
+    for leg in legs.values():
+        for k, v in leg["launches_per_step"].items():
+            total[k] = total.get(k, 0) + COMPRESSED_STEPS * v
+    res = {"phase": "dp_mesh",
+           "config": {"model": "resnet50_v1", "layout": "NHWC",
+                      "image": [RESNET_HW, RESNET_HW, 3], "B": RESNET_BATCH,
+                      "compute_dtype": "bfloat16",
+                      "trainable_parameters": n_params,
+                      "threshold": TWOBIT_THRESHOLD},
+           "world": {"backend": "nccl", "size": 1, "mesh": {"dp": 1}},
+           **legs,
+           "compression_overhead_ms": legs["2bit"]["steady_step_ms"]
+           - legs["plain"]["steady_step_ms"],
+           "launches": total}
+    emit(res)
+    if bad:
+        raise SystemExit("dp_mesh phase failed: " + "; ".join(bad))
+    return res
+
+
+# dist_kvstore: two worker processes on the one card through
+# tools/launch.py; ResNet-50 v1 f32 channels-last, 32 images a worker,
+# five Trainer steps over dist_sync with 2-bit pushes (the server runs the
+# SGD), then one Module.fit epoch of the cifar ResNet-20 symbol
+DIST_WORKERS, DIST_BATCH, DIST_STEPS, DIST_TIMEOUT = 2, 32, 5, 420
+# the server's SGD step: with 2-bit pushes every coded element moves by
+# lr * t * (its code sum) / 64, a sign-like step; 0.01 keeps five of them
+# on a repeated batch descending
+DIST_LR = 0.01
+DIST_FIT_BATCH, DIST_FIT_BATCHES = 16, 4
+# the Trainer steps whose pushes are held against the plain versions
+DIST_HELD_STEPS = 2
+DIST_WORKER = r"""
+import hashlib, json, os, sys, time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, {repo!r})
+import chip_smoke as cs
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch import autograd, gluon
+from mxnet_tpu_torch import kvstore_dist as kd
+from mxnet_tpu_torch.ops import _build
+from mxnet_tpu_torch.ops import twobit as tb
+from mxnet_tpu_torch.parallel import compression
+
+rank = int(os.environ["MXTPU_PROC_ID"])
+num = int(os.environ["MXTPU_NUM_PROCS"])
+ctx = mx.cpu() if {cpu!r} else mx.gpu(0)
+dev = ctx.torch_device
+out = {{"rank": rank, "device": str(dev)}}
+log = open(os.path.join({out!r}, f"{{{tag!r}}}_rank{{rank}}.jsonl"), "w")
+
+
+def digest(net):
+    # the trainable parameters' bytes (the running statistics are each
+    # worker's own, as in the reference)
+    h = hashlib.sha256()
+    for p in net.collect_params().values():
+        if p.grad_req != "null":
+            h.update(p.data()._data.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def sync():
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+# time inside the step: the worker's quantize, the server's dequantize and
+# update (rank 0's process)
+spent = {{"quantize_s": 0.0, "server_dequantize_s": 0.0,
+          "server_update_s": 0.0}}
+q_real = compression.GradientCompression.quantize
+apply_real = kd.KVStoreDistServer._apply
+handle_real = kd.KVStoreDistServer._handle
+push_real = kd.KVStoreDist.push
+# a held step's pushes: key -> (gradient, residual in, codes, residual out)
+held = {{"on": False, "key": None, "calls": {{}}}}
+
+
+def push(self, key, value, priority=0):
+    held["key"] = key
+    return push_real(self, key, value, priority)
+
+
+def quantize(self, grad, residual=None):
+    sync(); t0 = time.perf_counter()
+    r = q_real(self, grad, residual)
+    sync(); spent["quantize_s"] += time.perf_counter() - t0
+    if held["on"]:
+        held["calls"][str(held["key"])] = (
+            grad.clone(), None if residual is None else residual.clone(),
+            r[0].clone(), r[1].clone())
+    return r
+
+
+def apply(self, st, key, merged):
+    t0 = time.perf_counter()
+    apply_real(self, st, key, merged)
+    spent["server_update_s"] += time.perf_counter() - t0
+
+
+def handle(self, msg):
+    t0 = time.perf_counter()
+    r = handle_real(self, msg)
+    if msg[0] == "push_c":
+        spent["server_dequantize_s"] += time.perf_counter() - t0
+    return r
+
+
+compression.GradientCompression.quantize = quantize
+kd.KVStoreDistServer._apply = apply
+kd.KVStoreDistServer._handle = handle
+kd.KVStoreDist.push = push
+
+
+def trained(trainer):
+    # kvstore key -> the trainable parameter's value
+    return {{str(trainer._param2idx[p.name]): p.data()._data.detach().cpu()
+             .numpy() for p in trainer._params if p.grad_req != "null"}}
+
+with ctx:
+    if {part!r} in ("all", "trainer"):
+        from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+
+        net = resnet50_v1(classes=cs.RESNET_CLASSES, layout="NHWC")
+        net.initialize(ctx=ctx, generator=torch.Generator(device=dev)
+                       .manual_seed(cs.SEED))
+        with torch.no_grad():
+            net(torch.zeros(1, cs.RESNET_HW, cs.RESNET_HW, 3, device=dev))
+        g = torch.Generator(device=dev).manual_seed(cs.SEED + 10 + rank)
+        x = mx.nd.NDArray(torch.randn(cs.DIST_BATCH, cs.RESNET_HW,
+                                      cs.RESNET_HW, 3, generator=g,
+                                      device=dev))
+        y = mx.nd.NDArray(torch.randint(0, cs.RESNET_CLASSES,
+                                        (cs.DIST_BATCH,), generator=g,
+                                        device=dev).float())
+        trainer = gluon.Trainer(
+            net.collect_params(), "sgd",
+            {{"learning_rate": cs.DIST_LR, "momentum": cs.RESNET_MOMENTUM,
+             "rescale_grad": 1.0 / (cs.DIST_BATCH * num)}},
+            kvstore="dist_sync",
+            compression_params={{"type": "2bit",
+                                "threshold": cs.TWOBIT_THRESHOLD}})
+        loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+        out["trainable"] = sum(1 for p in net.collect_params().values()
+                               if p.grad_req != "null")
+        steps = []
+        # the plain version's residual of each key, its own chain
+        chain = {{}}
+        cs._reset_launches()
+        for s in range({steps}):
+            if rank == 0 and s == 0:
+                np.savez(os.path.join({out!r}, f"{{{tag!r}}}_w0.npz"),
+                         **trained(trainer))
+            held["on"], held["calls"] = s < cs.DIST_HELD_STEPS, {{}}
+            kv = trainer._kvstore
+            b0 = (kv.bytes_sent, kv.bytes_received) if kv else (0, 0)
+            before = cs._read_launches()
+            spent.update(dict.fromkeys(spent, 0.0))
+            sync(); t0 = time.perf_counter()
+            with autograd.record():
+                L = loss_fn(net(x), y)
+            L.backward()
+            sync(); t1 = time.perf_counter()
+            trainer.step(cs.DIST_BATCH)
+            sync(); t2 = time.perf_counter()
+            kv = trainer._kvstore
+            after = cs._read_launches()
+            steps.append({{"loss": float(L.mean().asscalar()),
+                          "compute_ms": (t1 - t0) * 1e3,
+                          "kvstore_ms": (t2 - t1) * 1e3,
+                          "step_ms": (t2 - t0) * 1e3,
+                          **{{k[:-2] + "_ms": v * 1e3
+                              for k, v in spent.items()}},
+                          "bytes_sent": kv.bytes_sent - b0[0],
+                          "bytes_received": kv.bytes_received - b0[1],
+                          "launches": {{k: after[k] - before[k]
+                                       for k in after}},
+                          "digest": digest(net)}})
+            if held["on"]:
+                # each push against the plain pack on the same gradient
+                # and the plain residual chain; the codes sent, for the
+                # server's update to be recomputed from
+                off = []
+                for key, (g, r_in, codes, r_out) in held["calls"].items():
+                    want, want_r = tb.twobit_pack_reference(
+                        g, chain.get(key, torch.zeros_like(g)),
+                        cs.TWOBIT_THRESHOLD)
+                    if r_in is not None and not torch.equal(r_in,
+                                                            chain[key]):
+                        off.append(f"{{key}}: residual in")
+                    if not (torch.equal(codes.view(torch.int32),
+                                        want.view(torch.int32))
+                            and torch.equal(r_out, want_r)):
+                        off.append(f"{{key}}: codes or residual out")
+                    chain[key] = want_r
+                steps[-1]["held"] = {{"pushes": len(held["calls"]),
+                                     "off_plain": off[:8]}}
+                np.savez(os.path.join({out!r},
+                                      f"{{{tag!r}}}_codes{{s}}_rank{{rank}}.npz"),
+                         **{{k: v[2].cpu().numpy()
+                            for k, v in held["calls"].items()}})
+                held["calls"] = {{}}
+                if rank == 0:
+                    np.savez(os.path.join({out!r},
+                                          f"{{{tag!r}}}_w{{s + 1}}.npz"),
+                             **trained(trainer))
+            log.write(json.dumps({{"step": s, **steps[-1]}}) + "\n")
+            log.flush()
+        # every push of the last step is merged before its pull returns
+        trainer._kvstore.barrier()
+        out["trainer"] = steps
+        out["unpack_total"] = cs._read_launches()["twobit_unpack"]
+        out["built_seconds"] = {{k: v["seconds"]
+                                for k, v in _build.build_info.items()}}
+        trainer._kvstore.close()
+    if {part!r} in ("all", "fit"):
+        host = os.environ["MXTPU_COORDINATOR"].rsplit(":", 1)[0]
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        sym = cs._example_resnet_symbol(10, 20, "3,32,32")
+        shape = (cs.DIST_FIT_BATCH, 3, 32, 32)
+        values, aux_values = cs._random_values(sym, shape, cs.SEED + 6, 10)
+        out["fit"] = {{}}
+        for i, (fit_tag, moved) in enumerate({fits!r}):
+            # a store of its own each, on a port of its own
+            os.environ["MXTPU_COORDINATOR"] = f"{{host}}:{{{fit_ports!r}[i]}}"
+            args = {{k: mx.nd.array(v, ctx=ctx) for k, v in values.items()
+                    if k not in ("data", "softmax_label")}}
+            aux = {{k: mx.nd.array(v, ctx=ctx) for k, v in aux_values.items()}}
+            # the epoch's batches, of which this job fits the first ones
+            rs = np.random.default_rng(cs.SEED + 20 + rank)
+            n = cs.DIST_FIT_BATCH * cs.DIST_FIT_BATCHES
+            images = rs.standard_normal((n, 3, 32, 32), dtype=np.float32)
+            labels = rs.integers(0, 10, n).astype(np.float32)
+            n = cs.DIST_FIT_BATCH * {fit_batches}
+            images, labels = images[:n], labels[:n]
+            if moved:   # by ~2^-22: the card's own noise floor
+                u = np.random.default_rng(cs.SEED + 7).uniform(
+                    -1, 1, images.shape)
+                images = (images * (1 + 2.0 ** -22 * u)).astype(np.float32)
+            it = mx.io.NDArrayIter(
+                images, labels, batch_size=cs.DIST_FIT_BATCH,
+                label_name="softmax_label")
+            mod = mx.mod.Module(sym, context=ctx)
+            fit = {{"digests": []}}
+
+            def end(param, mod=mod, fit=fit, fit_tag=fit_tag):
+                a, _ = mod.get_params()
+                if param.nbatch == 0:
+                    np.savez(os.path.join({out!r},
+                                          f"{{fit_tag}}_fit_rank{{rank}}.npz"),
+                             **{{k: v.asnumpy() for k, v in a.items()}})
+                h = hashlib.sha256()
+                for k in sorted(a):
+                    h.update(a[k].asnumpy().tobytes())
+                fit["digests"].append(h.hexdigest())
+
+            t0 = time.perf_counter()
+            mod.fit(it, num_epoch=1, kvstore="dist_sync", optimizer="sgd",
+                    optimizer_params={{"learning_rate": 0.05,
+                                      "momentum": 0.9}},
+                    arg_params=args, aux_params=aux, eval_metric="acc",
+                    batch_end_callback=end)
+            sync()
+            fit["seconds"] = time.perf_counter() - t0
+            fit["update_on_kvstore"] = bool(mod._update_on_kvstore)
+            out["fit"][fit_tag] = fit
+            mod._kvstore.close()
+json.dump(out, open(os.path.join({out!r}, f"{{{tag!r}}}_rank{{rank}}.json"),
+                    "w"))
+"""
+
+
+def _free_ports(n):
+    """``n`` distinct ports that were free at once."""
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def _dist_start(tag, cpu, part, steps, fits, fit_batches, ports):
+    """Start DIST_WORKER as ``tools/launch.py -n DIST_WORKERS`` in a session
+    of its own (so that a hung job's workers die with it).  ``ports``: the
+    coordinator's (the Trainer's store's one server), then one for each
+    fit's store."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(root, "build", "dist_kvstore")
+    os.makedirs(out, exist_ok=True)
+    script = os.path.join(out, f"worker_{tag}.py")
+    with open(script, "w") as f:
+        f.write(DIST_WORKER.format(repo=root, cpu=cpu, out=out, tag=tag,
+                                   part=part, steps=steps, fits=fits,
+                                   fit_batches=fit_batches,
+                                   fit_ports=ports[1:]))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("MXTPU_", "DMLC_"))}
+    env["PYTHONPATH"] = root
+    # a dead peer fails the job in two minutes, not the default 630 s a try
+    env.update(TPUMX_KV_TIMEOUT="120", TPUMX_KV_RETRIES="0")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(root, "tools", "launch.py"), "-n",
+         str(DIST_WORKERS), "--coordinator", f"127.0.0.1:{ports[0]}", "--",
+         sys.executable, script], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env, cwd=root,
+        start_new_session=True)
+    return tag, proc, time.perf_counter(), out
+
+
+def _dist_finish(job):
+    """Wait for a started job (a worker that fails or hangs fails it):
+    each worker's result and the job's wall seconds."""
+    import os
+
+    tag, proc, t0, out = job
+    try:
+        stdout, stderr = proc.communicate(timeout=DIST_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        stdout, stderr = proc.communicate()
+        raise SystemExit(f"dist_kvstore {tag} job hung past {DIST_TIMEOUT} "
+                         f"s: {stdout[-1500:]} {stderr[-3000:]}")
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SystemExit(f"dist_kvstore {tag} job failed ({proc.returncode})"
+                         f": {stdout[-1500:]} {stderr[-4000:]}")
+    results = []
+    for rank in range(DIST_WORKERS):
+        with open(os.path.join(out, f"{tag}_rank{rank}.json")) as f:
+            results.append(json.load(f))
+    return results, wall
+
+
+def _dist_server_check(out):
+    """The server's values after each held Trainer step against the same
+    update recomputed on the host from the codes the two workers sent:
+    the plain unpack of each, their sum, and the optimizer's SGD in plain
+    ops (``g = rescale * sum``; ``m = momentum * m - lr * g``; ``w += m``)
+    from the server's values before the step.  Each key's update within
+    1e-4 normwise; how many keys agree bit for bit."""
+    import torch
+
+    from mxnet_tpu_torch.ops import twobit as tb
+
+    w = {k: torch.from_numpy(v) for k, v in
+         np.load(f"{out}/card_w0.npz").items()}
+    mom = {k: torch.zeros_like(v) for k, v in w.items()}
+    steps = []
+    for s in range(DIST_HELD_STEPS):
+        codes = [np.load(f"{out}/card_codes{s}_rank{r}.npz")
+                 for r in range(DIST_WORKERS)]
+        got = {k: torch.from_numpy(v) for k, v in
+               np.load(f"{out}/card_w{s + 1}.npz").items()}
+        errs, bitwise = {}, 0
+        for k in w:
+            merged = sum(tb.twobit_unpack_reference(
+                torch.from_numpy(c[k].view(np.int32)), tuple(w[k].shape),
+                TWOBIT_THRESHOLD) for c in codes)
+            g = torch.mul(merged, 1.0 / (DIST_BATCH * DIST_WORKERS))
+            mom[k].mul_(RESNET_MOMENTUM)
+            mom[k].sub_(torch.mul(g, DIST_LR))
+            want = w[k] + mom[k]
+            errs[k] = _rel(got[k] - w[k], want - w[k])
+            bitwise += bool(torch.equal(got[k], want))
+        worst = max(errs, key=errs.get)
+        steps.append({"keys": len(errs), "bitwise_keys": bitwise,
+                      "worst": worst, "max_rel_err": errs[worst]})
+        w = got
+    return {"steps": steps, "tolerance": 1e-4,
+            "over_tolerance": [st for st in steps
+                               if st["max_rel_err"] > 1e-4]}
+
+
+def phase_dist_kvstore(dev):
+    """The parameter server between processes: ``tools/launch.py -n 2
+    --coordinator 127.0.0.1:<free port>`` starts two workers on the one
+    card (the kernels built by this process already; rank 0 hosts the
+    server in-process, its SGD updates on the card).  Each trains
+    ``resnet50_v1`` channels-last, f32, on 32 images of its own for five
+    steps through ``gluon.Trainer("sgd", lr 0.1, momentum 0.9, rescale
+    1/64, kvstore="dist_sync", compression_params={"type": "2bit",
+    "threshold": 0.5})`` and then runs one ``Module.fit`` epoch (4
+    batches of 16) of the cifar ResNet-20 symbol over ``dist_sync``
+    uncompressed (SGD on the server).  Checks: both workers' parameters
+    bitwise equal after every step and every fit batch; the repeated
+    batch's loss falls; each worker 193 pack launches a step, rank 0's
+    process 2 x 193 unpacks a step (its server); the first two steps'
+    pushes, each against the plain pack of the same gradient on the plain
+    residual chain (bitwise), and the server's values after them against
+    their recomputation from the codes sent (``_dist_server_check``);
+    Module.fit's first step,
+    run alone on the card, against the same two-worker job on the CPU
+    from the same state (each
+    weight's update normwise within max(1e-4, 10 x its floor), all of
+    them within max(1e-4, 3 x the global floor); the floor is the card
+    job again with the images moved by ~2^-22, module_fit's rule); no
+    worker built a kernel.  Wall ms a step and its parts, bytes pushed and pulled a
+    step."""
+    import torch
+
+    # every store's port, taken at once: two jobs run side by side below
+    ports = _free_ports(7)
+    job = _dist_start("card", False, "all", DIST_STEPS, [("card", False)],
+                      DIST_FIT_BATCHES, ports[:2])
+    out = job[3]
+    card, wall = _dist_finish(job)
+    # the card-vs-CPU check: one fit step alone on the card (and again
+    # with the images moved by ~2^-22) while the CPU job runs beside it
+    jobs = [_dist_start("cpu", True, "fit", 0, [("cpu", False)], 1,
+                        ports[2:4]),
+            _dist_start("cardfit", False, "fit", 0,
+                        [("cardfit", False), ("moved", True)], 1,
+                        ports[4:7])]
+    (cpu, cpu_wall), (cardfit, _) = [_dist_finish(j) for j in jobs]
+    bad = []
+    n_params = card[0]["trainable"]
+    tr = [w["trainer"] for w in card]
+    for s in range(DIST_STEPS):
+        if tr[0][s]["digest"] != tr[1][s]["digest"]:
+            bad.append(f"workers' parameters differ after step {s}")
+    for job in (card, cardfit, cpu):
+        for t in job[0]["fit"]:
+            if job[1]["fit"][t]["digests"] != job[0]["fit"][t]["digests"]:
+                bad.append(f"the workers' {t} fit parameters differ")
+    for w in card:
+        if any(v for v in w["built_seconds"].values()):
+            bad.append(f"rank {w['rank']} built kernels "
+                       f"{w['built_seconds']}")
+    losses = [[st["loss"] for st in steps] for steps in tr]
+    for rank, ls in enumerate(losses):
+        if not all(np.isfinite(ls)) or not ls[-1] < ls[0]:
+            bad.append(f"rank {rank}'s loss did not fall: {ls}")
+    packs = [[st["launches"]["twobit_pack"] for st in steps] for steps in tr]
+    if any(p != n_params for ps in packs for p in ps):
+        bad.append(f"pack launches a step {packs}, not {n_params}")
+    unpacks = [w["unpack_total"] for w in card]
+    want_unpacks = [DIST_STEPS * DIST_WORKERS * n_params, 0]
+    if unpacks != want_unpacks:
+        bad.append(f"unpack launches {unpacks}, not {want_unpacks}")
+    for rank, steps in enumerate(tr):
+        for s in range(DIST_HELD_STEPS):
+            h = steps[s]["held"]
+            if h["pushes"] != n_params or h["off_plain"]:
+                bad.append(f"rank {rank} step {s}: {h['pushes']} pushes, "
+                           f"against the plain pack {h['off_plain']}")
+    server = _dist_server_check(out)
+    if server["over_tolerance"]:
+        bad.append(f"the server's 2-bit SGD against its recomputation from "
+                   f"the codes sent: {server}")
+    # Module.fit's first step: card against CPU, from the same state
+    base = _random_values(_example_resnet_symbol(10, 20, "3,32,32"),
+                          (DIST_FIT_BATCH, 3, 32, 32), SEED + 6, 10)[0]
+    # the updates, card against CPU, held as module_fit's cifar check
+    # holds its gradients: against the card's own floor (its images moved
+    # by ~2^-22)
+    steps_of = {t: {k: torch.from_numpy(v - base[k]) for k, v in np.load(
+        f"{out}/{t}_fit_rank0.npz").items()}
+        for t in ("card", "cardfit", "cpu", "moved")}
+    keys = sorted(steps_of["cpu"])
+    upd = {k: _rel(steps_of["cardfit"][k], steps_of["cpu"][k])
+           for k in keys}
+    floors = {k: _rel(steps_of["moved"][k], steps_of["cardfit"][k])
+              for k in keys}
+
+    def flat(t):
+        return torch.cat([steps_of[t][k].flatten() for k in keys])
+
+    glob = _rel(flat("cardfit"), flat("cpu"))
+    glob_floor = _rel(flat("moved"), flat("cardfit"))
+    # the fit that ran after the Trainer in the same processes
+    after_trainer = {"vs_cpu": _rel(flat("card"), flat("cpu")),
+                     "vs_fit_alone": _rel(flat("card"), flat("cardfit"))}
+    over = _tolerance(upd, floors)
+    if over or glob > max(1e-4, 3 * glob_floor):
+        bad.append(f"Module.fit's first step card vs CPU: global "
+                   f"{glob:.3g} (floor {glob_floor:.3g}), beyond tolerance "
+                   f"{over}")
+    per = {k: float(np.median([st[k] for steps in tr for st in steps[1:]]))
+           for k in ("step_ms", "compute_ms", "kvstore_ms", "quantize_ms",
+                     "bytes_sent", "bytes_received")}
+    server_ms = {k: float(np.median([st[k] for st in tr[0][1:]]))
+                 for k in ("server_dequantize_ms", "server_update_ms")}
+    launches = {k: sum(st["launches"][k] for steps in tr for st in steps)
+                for k in tr[0][0]["launches"]}
+    launches["twobit_unpack"] = unpacks[0]
+    res = {"phase": "dist_kvstore",
+           "config": {"workers": DIST_WORKERS, "model": "resnet50_v1",
+                      "layout": "NHWC", "dtype": "float32",
+                      "B_per_worker": DIST_BATCH, "steps": DIST_STEPS,
+                      "threshold": TWOBIT_THRESHOLD, "kvstore": "dist_sync",
+                      "fit": {"symbol": "resnet-20 cifar",
+                              "B": DIST_FIT_BATCH,
+                              "batches": DIST_FIT_BATCHES}},
+           "job_wall_s": wall, "cpu_job_wall_s": cpu_wall,
+           "losses": losses, "steps": tr[0], "median_step": per,
+           "server_median_ms": server_ms,
+           "server_update_vs_plain": server,
+           "fit": {"seconds": [w["fit"]["card"]["seconds"] for w in card],
+                   "cpu_seconds": [w["fit"]["cpu"]["seconds"] for w in cpu],
+                   "update_on_kvstore":
+                   card[0]["fit"]["card"]["update_on_kvstore"],
+                   "first_step_card_vs_cpu": {
+                       "global": glob, "floor_global": glob_floor,
+                       "max_tensor": max(upd.values()),
+                       "worst": max(upd, key=upd.get),
+                       "floor_of_worst": floors[max(upd, key=upd.get)],
+                       "over_tolerance": over,
+                       "fit_after_trainer": after_trainer,
+                       "tolerance": {"each": "max(1e-4, 10 x floor)",
+                                     "global": "max(1e-4, 3 x floor)"}}},
+           "pack_launches": packs, "unpack_launches": unpacks,
+           "launches": launches}
+    emit(res)
+    if bad:
+        raise SystemExit("dist_kvstore phase failed: " + "; ".join(bad))
+    return res
+
+
 def _kernel_table(kern, runs):
     """One row per CUDA kernel: its times and bound from the kernels phase
     at the main path's shape (2-bit pack and unpack: the largest of
@@ -6163,7 +7068,7 @@ def main(argv) -> int:
         "serving_int8", "resnet_training", "resnet_compressed",
         "gluon_training", "module_fit", "gluon_hybrid", "rnn_lm",
         "bucketing_fit", "image_rec", "serving_spec", "serving_fleet",
-        "ops_breadth", "fcn_fit"}
+        "ops_breadth", "fcn_fit", "spmd_lm", "dp_mesh", "dist_kvstore"}
     if "serving_int8" in phases:
         phases.add("serving")   # its float baseline
     t_start = time.perf_counter()
@@ -6172,12 +7077,14 @@ def main(argv) -> int:
     kern = phase_kernels(dev) if "kernels" in phases else None
     runs = {}
     if phases & {"model", "training", "serving", "serving_default",
-                 "serving_int8", "profile", "profile_training"}:
+                 "serving_int8", "profile", "profile_training", "spmd_lm"}:
         cfg, params = _model(dev)
         if "model" in phases:
             phase_model(dev, cfg, params)
         if "training" in phases:
             runs["training"] = phase_training(dev, cfg, params)
+        if "spmd_lm" in phases:
+            runs["spmd_lm"] = phase_spmd_lm(dev, cfg, params)
         if "serving" in phases:
             runs["serving"] = phase_serving(dev, cfg, params)
         if "serving_default" in phases:
@@ -6196,6 +7103,10 @@ def main(argv) -> int:
         runs["resnet_training"] = phase_resnet_training(dev)
     if "resnet_compressed" in phases:
         runs["resnet_compressed"] = phase_resnet_compressed(dev)
+    if "dp_mesh" in phases:
+        runs["dp_mesh"] = phase_dp_mesh(dev)
+    if "dist_kvstore" in phases:
+        runs["dist_kvstore"] = phase_dist_kvstore(dev)
     if "gluon_training" in phases:
         runs["gluon_training"] = phase_gluon_training(dev)
     if "module_fit" in phases:

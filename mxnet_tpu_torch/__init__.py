@@ -21,7 +21,12 @@ metrics, callbacks, data iterators, learning-rate schedulers and
 checkpoint files; sequence models: the fused ``RNN`` op, ``mx.rnn``
 cells with ``BucketSentenceIter``, ``BucketingModule``,
 ``SequentialModule``, ``Monitor`` and ``gluon.rnn``; and the RecordIO
-image feed (``recordio``, ``io.ImageRecordIter``).  Entry points run on ``cuda`` (``mx.gpu()``, the default
+image feed (``recordio``, ``io.ImageRecordIter``); and training over
+several processes: named meshes over ``torch.distributed`` (NCCL on the
+cards, gloo on the CPU) with differentiable collectives, the mesh
+``DataParallelTrainer``, ring and Ulysses sequence parallelism in the
+dp x sp LM step, and the ``dist_sync``/``dist_async`` parameter server
+(``kvstore_dist``, ``kvstore_server``).  Entry points run on ``cuda`` (``mx.gpu()``, the default
 context) unless the caller passes the CPU (``ctx=mx.cpu()``,
 ``context=mx.cpu()`` or ``device="cpu"``).
 """
@@ -41,6 +46,7 @@ from .symbol import Symbol
 from .base import MXNetError
 from .context import (Context, cpu, current_context, gpu, num_devices,
                       resolve_device, tpu)
+from . import kvstore_server
 
 random._install_samplers()
 
@@ -49,7 +55,8 @@ __version__ = "0.1.0"
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "current_context",
            "num_devices", "resolve_device", "attribute", "autograd", "base",
            "callback", "context", "engine", "executor", "fault", "gluon",
-           "init", "initializer", "observability", "profiler",
+           "init", "initializer", "kvstore_server", "observability",
+           "profiler",
            "io", "kv", "kvstore", "lr_scheduler", "metric", "mod", "model",
            "module", "Module", "monitor", "name", "nd", "ndarray", "ops",
            "optimizer", "parallel", "random", "recordio", "rnn", "serving",

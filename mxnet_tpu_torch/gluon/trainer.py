@@ -10,6 +10,10 @@ kvstore (push, then pull back into each ``Parameter.grad()``; 2-bit
 compressed with ``compression_params``) and applies the optimizer.
 Parameters whose deferred shapes resolve after the Trainer was made are
 ``kvstore.init``-ed on the next call, as the reference re-checks them.
+Over a ``dist_*`` store the update runs on the parameter server by
+default (``update_on_kvstore``): the optimizer is pickled to it when the
+store is made, so its ``rescale_grad`` is the one given then, as in the
+reference.
 
 The port pushes and pulls all of a step's gradients as one list and
 applies the update through ``Updater(index_list, grad_list,

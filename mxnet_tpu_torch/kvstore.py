@@ -27,9 +27,10 @@ kernels on the card).
 ``tpu_sync`` (alias ``nccl``) is the ``device`` store of one process under
 the reference's name for its collective store: no update runs on it
 (``Module`` keeps the update off the store), and a Module may take the
-fused train step over it (``_fused_step_ok``).  Across processes it would
-be an all-reduce; ``dist_*`` stores and several processes are not ported
-(ROADMAP.md, Queue 1, item 5).
+fused train step over it (``_fused_step_ok``).  ``dist_sync``,
+``dist_async`` and the ``dist_*_device`` names are the parameter server
+between processes (``kvstore_dist.KVStoreDist``), as the reference maps
+them.
 """
 from __future__ import annotations
 
@@ -235,8 +236,8 @@ class KVStoreTPUSync(KVStoreLocal):
 
 
 def create(name: str = "local") -> KVStore:
-    """``local``, ``device`` or ``tpu_sync``/``nccl`` (reference:
-    src/kvstore/kvstore.cc)."""
+    """``local``, ``device``, ``tpu_sync``/``nccl`` or ``dist_*``
+    (reference: src/kvstore/kvstore.cc)."""
     name = name.lower()
     if name == "local" or name.startswith("local_"):
         return KVStoreLocal()
@@ -245,7 +246,7 @@ def create(name: str = "local") -> KVStore:
     if name in ("tpu_sync", "nccl"):
         return KVStoreTPUSync()
     if name.startswith("dist"):
-        raise MXNetError(f"kvstore {name!r} is not ported yet (ROADMAP.md, "
-                         f"Queue 1, item 5: multi-process distributed); "
-                         f"use 'local', 'device' or 'tpu_sync'")
+        from .kvstore_dist import KVStoreDist
+
+        return KVStoreDist(name)
     raise MXNetError(f"unknown kvstore type {name!r}")

@@ -10,7 +10,9 @@ optimizer's update in one call) whenever the reference would
 ``update`` through the ``Updater`` (and the kvstore's push and pull where
 one is made).  Optimizer state lives in the ``Updater``'s slots on both
 routes, so ``save_optimizer_states``/``load_optimizer_states`` see one
-layout.
+layout.  Over a ``dist_*`` store the legacy route pushes gradients and
+pulls weights, the update on the server; a ``dist_sync`` store's
+``rescale_grad`` covers every worker's batch.
 
 Not ported, each refused with ``MXNetError``: several contexts or a
 ``TPUMX_DP_DEVICES``/``TPUMX_MP_DEVICES``/``TPUMX_PP_DEVICES`` width above
@@ -267,6 +269,8 @@ class Module(BaseModule):
             kvstore, len(self._context),
             {n: self._exec.arg_dict[n] for n in self._param_names})
         batch_size = self._data_shapes[0][1][0] if self._data_shapes else 1
+        if kv and "dist" in kv.type and "_sync" in kv.type:
+            batch_size *= kv.num_workers
         rescale_grad = 1.0 / batch_size
         if isinstance(optimizer, str):
             # the updater indexes params as i*num_device+k

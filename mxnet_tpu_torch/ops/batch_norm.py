@@ -23,6 +23,15 @@ recomputed from the saved ``x, gamma, beta`` for all three outputs.  There
 is no backward kernel, as the reference has none.  The Function is taken
 only when grad mode is on and an input requires grad.
 
+Over the ranks of a data-parallel batch, ``sync`` (a differentiable
+function that stacks every rank's tensor on a new dim 0) makes the
+statistics the whole batch's: each rank takes its block's from the stats
+kernel, the ranks' ``(mean, var)`` are gathered and combined by Chan's
+formula for equal counts (an exact identity at one rank, value and
+gradient), and the normalize kernel applies the result.  The plain
+version does the same between its statistics and its normalize, so the
+backward stays its vjp.
+
 The reference gates its kernels behind ``MXTPU_BN_PALLAS=1``, ``C % 128 ==
 0`` and ``M % 8 == 0`` (TPU lane and tiling rules); none of those carries
 over: every channels-last training BatchNorm on a CUDA tensor runs the
@@ -91,11 +100,23 @@ def bn_normalize_reference(x2d, scale, shift):
     return (x2d.float() * scale + shift).to(x2d.dtype)
 
 
-def bn_train_reference(x, gamma, beta, eps: float = 1e-5):
+def _combine(mean, var, sync):
+    """The whole batch's f32 ``(mean, var)`` from each rank's, by Chan's
+    combination of equal counts: the mean of the means, and the mean of
+    ``var + (mean - whole mean)**2``.  ``sync(t)`` stacks every rank's
+    ``t`` on a new dim 0."""
+    g = sync(torch.stack([mean, var]))
+    whole = g[:, 0].mean(0)
+    return whole, (g[:, 1] + (g[:, 0] - whole).square()).mean(0)
+
+
+def bn_train_reference(x, gamma, beta, eps: float = 1e-5, sync=None):
     """Plain PyTorch train-mode BatchNorm over the last axis of ``x`` (any
     rank): ``(out, mean, var)``, ``_bn_train_reference``'s arithmetic —
     f32 pivot one-pass statistics, ``out`` in ``x``'s dtype.  The pivot is
-    a constant for the gradient (``stop_gradient`` in the reference)."""
+    a constant for the gradient (``stop_gradient`` in the reference).
+    With ``sync`` the statistics are combined over the ranks (module
+    doc)."""
     xf = x.float()
     red = tuple(range(x.ndim - 1))
     pivot = xf[(0,) * (x.ndim - 1)].detach()
@@ -103,6 +124,8 @@ def bn_train_reference(x, gamma, beta, eps: float = 1e-5):
     mean_c = xc.mean(dim=red)
     var = ((xc * xc).mean(dim=red) - mean_c * mean_c).clamp_min(0.0)
     mean = mean_c + pivot
+    if sync is not None:
+        mean, var = _combine(mean, var, sync)
     inv = torch.rsqrt(var + eps)
     out = ((xf - mean) * (gamma.float() * inv) + beta.float()).to(x.dtype)
     return out, mean, var
@@ -187,10 +210,13 @@ def bn_normalize(x2d, scale, shift):
 bn_normalize.launches = 0
 
 
-def _launch(x, gamma, beta, eps: float):
-    """The two kernels: ``_bn_fused_fwd``'s forward."""
+def _launch(x, gamma, beta, eps: float, sync=None):
+    """The two kernels: ``_bn_fused_fwd``'s forward, with ``sync`` the
+    statistics combined over the ranks in between."""
     x2d = x.view(-1, x.shape[-1])
     mean, var = bn_stats(x2d)
+    if sync is not None:
+        mean, var = _combine(mean, var, sync)
     scale = gamma.float() * torch.rsqrt(var + eps)
     shift = beta.float() - mean * scale
     return bn_normalize(x2d, scale, shift).view(x.shape), mean, var
@@ -201,22 +227,22 @@ class _BatchNormFn(torch.autograd.Function):
     all three outputs."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, eps):
+    def forward(ctx, x, gamma, beta, eps, sync=None):
         ctx.save_for_backward(x, gamma, beta)
-        ctx.eps = eps
-        return _launch(x, gamma, beta, eps)
+        ctx.eps, ctx.sync = eps, sync
+        return _launch(x, gamma, beta, eps, sync)
 
     @staticmethod
     def backward(ctx, g_out, g_mean, g_var):
         leaves = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
         with torch.enable_grad():
-            outs = bn_train_reference(*leaves, ctx.eps)
+            outs = bn_train_reference(*leaves, ctx.eps, ctx.sync)
         dx, dgamma, dbeta = torch.autograd.grad(outs, leaves,
                                                 (g_out, g_mean, g_var))
-        return dx, dgamma, dbeta, None
+        return dx, dgamma, dbeta, None, None
 
 
-def bn_train_fused(x, gamma, beta, eps: float = 1e-5):
+def bn_train_fused(x, gamma, beta, eps: float = 1e-5, sync=None):
     """Train-mode BatchNorm over the LAST axis of a contiguous ``x`` (any
     rank, float32 or bfloat16) with ``(C,)`` ``gamma``/``beta`` (any float
     dtype, used in f32): ``(out, mean, var)`` — ``out`` in ``x``'s dtype,
@@ -224,7 +250,8 @@ def bn_train_fused(x, gamma, beta, eps: float = 1e-5):
     ``gamma`` and ``beta``.
 
     CUDA tensors run the stats and normalize kernels; CPU tensors
-    :func:`bn_train_reference`."""
+    :func:`bn_train_reference`.  ``sync`` makes the statistics those of
+    every rank's batch (module doc)."""
     if x.device.type not in ("cpu", "cuda"):
         raise MXNetError(f"bn_train_fused: unsupported device {x.device}")
     if x.ndim < 1:
@@ -240,11 +267,11 @@ def bn_train_fused(x, gamma, beta, eps: float = 1e-5):
         raise MXNetError("bn_train_fused: x must be contiguous with "
                          "channels last")
     if x.device.type == "cpu":
-        return bn_train_reference(x, gamma, beta, eps)
+        return bn_train_reference(x, gamma, beta, eps, sync)
     if x.dtype not in _DTYPES:
         raise MXNetError(f"bn_train_fused: dtype {x.dtype} not supported "
                          f"(float32, bfloat16)")
     if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad
                                     or beta.requires_grad):
-        return _BatchNormFn.apply(x, gamma, beta, float(eps))
-    return _launch(x, gamma, beta, float(eps))
+        return _BatchNormFn.apply(x, gamma, beta, float(eps), sync)
+    return _launch(x, gamma, beta, float(eps), sync)

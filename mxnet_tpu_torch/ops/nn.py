@@ -32,8 +32,20 @@ The reference's ``MXTPU_BN_PALLAS`` gate and its ``C % 128`` and
 ``M % 8`` conditions are TPU lane and tiling rules and are not carried
 over.  Channels-first training and inference-mode BatchNorm stay plain
 torch ops, as the reference has no kernel for them.
+
+Inside :func:`batch_norm_sync` (the mesh ``DataParallelTrainer``'s plain
+step) a training BatchNorm normalizes with the statistics of the whole
+data-parallel batch, as the reference's one program over the global
+batch does: ``bn_train_fused`` with the given gather, each rank's
+statistics from the kernels combined over the ranks.  Channels-first
+data goes there too, moved to channels-last.  The op is reached through
+the user's block, where no argument of the step can go, so the scope
+carries the gather.
 """
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -48,7 +60,8 @@ __all__ = ["fully_connected", "is_channels_last", "convolution",
            "deconvolution", "pooling",
            "batch_norm", "activation", "softmax", "log_softmax",
            "softmax_activation", "softmax_output", "make_loss", "attr_bool",
-           "layer_norm", "instance_norm", "leaky_relu", "dropout"]
+           "layer_norm", "instance_norm", "leaky_relu", "dropout",
+           "batch_norm_sync"]
 
 
 def _pair(v, n=2):
@@ -288,6 +301,22 @@ def _resize_linear(data, height, width):
 # BatchNorm (src/operator/nn/batch_norm.cc)
 # ---------------------------------------------------------------------------
 
+_bn_sync = threading.local()
+
+
+@contextlib.contextmanager
+def batch_norm_sync(sync):
+    """Training BatchNorm inside takes its statistics over every rank's
+    batch: ``sync(t)``, differentiable, stacks every rank's ``t`` on a new
+    dim 0 (``ops.batch_norm.bn_train_fused``)."""
+    prev = getattr(_bn_sync, "sync", None)
+    _bn_sync.sync = sync
+    try:
+        yield
+    finally:
+        _bn_sync.sync = prev
+
+
 @register("BatchNorm",
           num_outputs=lambda attrs: 3 if attrs.get("output_mean_var") else 1)
 def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
@@ -299,12 +328,16 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     layer to update, never mutated here."""
     ax = int(axis) % data.ndim
     g = torch.ones_like(gamma) if fix_gamma else gamma
+    sync = getattr(_bn_sync, "sync", None)
     if _training and not use_global_stats:
-        if ax == data.ndim - 1:
-            if not data.is_contiguous():
-                data = data.contiguous()
-                batch_norm.noncontiguous_copies += 1
-            out, mean, var = bn_train_fused(data, g, beta, float(eps))
+        if ax == data.ndim - 1 or sync is not None:
+            x = data.movedim(ax, -1)
+            if not x.is_contiguous():
+                x = x.contiguous()
+                if ax == data.ndim - 1:
+                    batch_norm.noncontiguous_copies += 1
+            out, mean, var = bn_train_fused(x, g, beta, float(eps), sync)
+            out = out.movedim(-1, ax)
             if output_mean_var:
                 return out, mean, var
             return out

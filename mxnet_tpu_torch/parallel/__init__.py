@@ -1,20 +1,57 @@
-"""Model code of the port: the decoder-only transformer LM, its
-single-device attention, and its training loss and step; pure functions
-of a Gluon block's parameters and the mesh-less ``DataParallelTrainer``
-(``data_parallel``) with its 2-bit gradient compression
-(``compression``)."""
-from . import compression, data_parallel, ring_attention, transformer
+"""Parallelism and distribution of the port.
+
+PyTorch counterpart of ``mxnet_tpu/parallel/``, one process per device
+over ``torch.distributed``:
+
+- mesh.py            named meshes over the world's ranks (NCCL on the
+                     card, gloo on the CPU), the spec records that cut and
+                     gather arrays
+- collectives.py     differentiable named-axis collectives
+- data_parallel.py   ``DataParallelTrainer``, with or without a mesh, and
+                     the pure functions of a Gluon block's parameters
+- compression.py     2-bit gradient compression with error feedback
+- ring_attention.py  ring attention over the sequence axis, and the
+                     single-device attention
+- sequence_parallel.py  Ulysses attention (dense or flash)
+- transformer.py     the decoder LM, its single-device step and the dp x sp
+                     sharded step
+
+Model parallelism (``partition_rules``, ``pipeline``, ``moe``) is not
+ported yet: its names raise ``MXNetError``.
+"""
+from ..base import MXNetError
+from . import (collectives, compression, data_parallel, mesh, ring_attention,
+               sequence_parallel, transformer)
 from .compression import GradientCompression
 from .data_parallel import (DataParallelTrainer, block_apply_fn,
                             block_train_fn)
-from .ring_attention import local_attention
-from .transformer import (TransformerConfig, lm_loss, params_from_jax,
-                          train_step, transformer_lm_apply,
-                          transformer_lm_decode, transformer_lm_init)
+from .mesh import MeshConfig, dp_mesh, get_mesh, local_mesh, make_mesh
+from .ring_attention import (local_attention, ring_attention,
+                             ring_attention_sharded)
+from .sequence_parallel import ulysses_attention, ulysses_attention_sharded
+from .transformer import (TransformerConfig, lm_loss, make_sharded_train_step,
+                          params_from_jax, shard_batch, train_step,
+                          transformer_lm_apply, transformer_lm_decode,
+                          transformer_lm_init)
 
-__all__ = ["compression", "data_parallel", "ring_attention", "transformer",
+__all__ = ["MeshConfig", "get_mesh", "make_mesh", "local_mesh", "dp_mesh",
+           "mesh", "collectives", "compression", "data_parallel",
+           "ring_attention", "sequence_parallel", "transformer",
            "GradientCompression", "DataParallelTrainer", "block_apply_fn",
-           "block_train_fn", "local_attention",
+           "block_train_fn", "ring_attention_sharded", "local_attention",
+           "ulysses_attention", "ulysses_attention_sharded",
            "TransformerConfig", "params_from_jax", "transformer_lm_apply",
            "transformer_lm_decode", "transformer_lm_init", "lm_loss",
-           "train_step"]
+           "train_step", "make_sharded_train_step", "shard_batch"]
+
+# the model-parallel half of multi-process distribution
+_NEXT_SLICE = ("partition_rules", "match_partition_rules", "make_param_specs",
+               "make_shard_and_gather_fns", "pipeline", "moe")
+
+
+def __getattr__(name):
+    if name in _NEXT_SLICE:
+        raise MXNetError(
+            f"parallel.{name}: model parallelism is not ported yet "
+            f"(ROADMAP.md, Queue 1, item 5: partition rules, pipeline, MoE)")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,5 +1,5 @@
-"""Data-parallel training on one device, and pure functions of a Gluon
-block's parameters.
+"""Data-parallel training, and pure functions of a Gluon block's
+parameters.
 
 PyTorch counterpart of ``mxnet_tpu/parallel/data_parallel.py``:
 
@@ -11,12 +11,24 @@ PyTorch counterpart of ``mxnet_tpu/parallel/data_parallel.py``:
   parameters); the state writes layers make in the forward come back as
   ``new_aux``, so the caller threads aux through its steps as the
   reference does.
-- ``DataParallelTrainer`` without a mesh: the reference's fused step
-  (forward, backward, SGD with momentum and weight decay, or a user
-  ``update_fn``) and its 2-bit compressed variant, which quantizes and
-  dequantizes every float32 gradient against an error-feedback residual
-  (``GradientCompression``, the CUDA pack and unpack kernels on the card)
-  before the update.  Meshes come with the distributed slice.
+- ``DataParallelTrainer``: the reference's fused step (forward, backward,
+  SGD with momentum and weight decay, or a user ``update_fn``) and its
+  2-bit compressed variant, which quantizes and dequantizes every float32
+  gradient against an error-feedback residual (``GradientCompression``,
+  the CUDA pack and unpack kernels on the card) before the update.
+  Without a mesh it runs on the block's device.  Over a mesh (one process
+  per rank, ``parallel.mesh``) every rank passes the whole batch and
+  trains on its block of the ``dp`` axis:
+
+  - plain: the step of the whole batch, as the reference's one program
+    over it is.  The loss and gradients are the ``pmean`` of the ranks'
+    local means, and BatchNorm takes its statistics over the whole batch
+    (``ops.nn.batch_norm_sync``: each rank's from the kernels, gathered
+    and combined), so the running statistics agree on every rank;
+  - 2-bit: the reference's ``shard_map`` step.  Each rank's BatchNorm
+    sees its own block; each rank quantizes its local mean gradient
+    against its own residual and dequantizes it, and the dequantized
+    gradients, the loss and the new aux state are ``pmean``'d.
 """
 from __future__ import annotations
 
@@ -30,7 +42,10 @@ from ..base import MXNetError
 from ..gluon.block import Block
 from ..gluon.cached_op import program_scope
 from ..gluon.parameter import capture_writes
+from ..ops.nn import batch_norm_sync
+from .collectives import allgather, psum_flat, spmd
 from .compression import GradientCompression
+from .mesh import Mesh, get_mesh
 
 __all__ = ["DataParallelTrainer", "block_apply_fn", "block_train_fn"]
 
@@ -118,7 +133,8 @@ class DataParallelTrainer:
     gradient, in f32, against its residual in ``residuals[name][0]`` before
     the update, so only ``+-t`` or 0 reaches the optimizer and the rest is
     carried to the next step.  ``residuals`` has a leading device axis of
-    1, as the reference's mesh-less trainer has.
+    1: the reference's (dp, ...) array is one block a rank, and each rank
+    holds its own.
 
     ``dp_axis`` and ``donate`` are accepted for the reference's
     signature.  There ``donate`` lets XLA reuse the step's input buffers;
@@ -127,7 +143,11 @@ class DataParallelTrainer:
     block's is ever written: :meth:`write_back` copies the trained values
     into the block.
 
-    ``mesh`` must be ``None``: meshes are not ported yet.
+    ``mesh``: a :class:`.mesh.Mesh` with ``dp_axis``; ``None`` adopts the
+    installed mesh when it has that axis, else trains on one device.  Over
+    a mesh, ``step`` takes the whole batch (its size a multiple of the
+    axis's) and trains on this rank's block; ``params``, ``momenta`` and
+    ``aux`` are replicated.
     """
 
     def __init__(self, block: Block, loss_fn: Callable, lr: float = 0.1,
@@ -135,11 +155,19 @@ class DataParallelTrainer:
                  mesh=None, dp_axis: str = "dp", compute_dtype=None,
                  update_fn: Optional[Callable] = None, donate: bool = True,
                  compression_params: Optional[Dict] = None):
-        if mesh is not None:
-            raise MXNetError(
-                "DataParallelTrainer: a mesh is not ported yet (ROADMAP.md, "
-                "Queue 1, item 5: multi-process distributed); pass "
-                "mesh=None")
+        if mesh is None:
+            ambient = get_mesh()
+            # only an installed mesh that has the axis: a leftover mesh of
+            # other work (say an ep-only one) is not this trainer's
+            if ambient is not None and dp_axis in ambient.shape:
+                mesh = ambient
+        if mesh is not None and (not isinstance(mesh, Mesh)
+                                 or dp_axis not in mesh.shape):
+            raise MXNetError(f"DataParallelTrainer: mesh must be a "
+                             f"parallel.mesh.Mesh with axis {dp_axis!r}, "
+                             f"got {mesh!r}")
+        self._mesh = mesh
+        self._axis = dp_axis
         self._block = block
         if isinstance(loss_fn, Block):
             _loss_block = loss_fn
@@ -172,12 +200,33 @@ class DataParallelTrainer:
         first = next(iter({**self.params, **self.aux}.values()), None)
         self._device = first.device if first is not None \
             else torch.device("cpu")
+        if self._mesh is not None and self._mesh.shape[dp_axis] > 1:
+            # replicated from the axis's first rank, whatever each
+            # process's block was initialized to
+            # (copies: the block's own tensors are never written)
+            group = self._mesh.group(dp_axis)
+            src = torch.distributed.get_process_group_ranks(group)[0]
+            self.params = {k: v.clone() for k, v in self.params.items()}
+            self.aux = {k: v.clone() for k, v in self.aux.items()}
+            for t in {**self.params, **self.aux}.values():
+                torch.distributed.broadcast(t, src, group=group)
 
     def _input(self, a):
         """A numpy array or tensor on the block's device; float64 numpy
-        input becomes float32, as the reference's default dtype is."""
+        input becomes float32, as the reference's default dtype is.  Over
+        a mesh, this rank's block of the batch (dim 0 split over the dp
+        axis)."""
         if isinstance(a, np.ndarray) and a.dtype == np.float64:
             a = a.astype(np.float32)
+        if self._mesh is not None:
+            n = self._mesh.shape[self._axis]
+            if a.shape[0] % n:
+                raise MXNetError(f"DataParallelTrainer: batch of "
+                                 f"{a.shape[0]} does not split over "
+                                 f"{self._axis!r} of size {n}")
+            b = a.shape[0] // n
+            i = self._mesh.axis_index(self._axis)
+            a = a[i * b:(i + 1) * b]
         return torch.as_tensor(a, device=self._device)
 
     def _loss_and_grads(self, x, y):
@@ -227,14 +276,41 @@ class DataParallelTrainer:
         ``rng`` is accepted for the reference's signature: nothing in the
         step draws random numbers."""
         x, y = self._input(x), self._input(y)
-        loss, grads, new_aux = self._loss_and_grads(x, y)
+        if self._mesh is None:
+            loss, grads, new_aux = self._loss_and_grads(x, y)
+            with torch.no_grad():
+                if self._compression is not None:
+                    grads, self.residuals = self._compress(grads)
+        else:
+            loss, grads, new_aux = self._mesh_grads(x, y)
         with torch.no_grad():
-            if self._compression is not None:
-                grads, self.residuals = self._compress(grads)
             self.params, self.momenta = self._apply_update(
                 self.params, self.momenta, grads)
         self.aux = new_aux
         return loss
+
+    def _mesh_grads(self, x, y):
+        """The loss, the gradients the update takes and the new aux state
+        of one step over the mesh (module doc)."""
+        mesh, axis = self._mesh, self._axis
+        n = mesh.shape[axis]
+        with spmd(mesh):
+            if self._compression is not None:
+                loss, grads, new_aux = self._loss_and_grads(x, y)
+                with torch.no_grad():
+                    grads, self.residuals = self._compress(grads)
+                mean = [t / n for t in psum_flat(
+                    [loss, *grads.values(), *new_aux.values()], axis)]
+                g = len(grads)
+                return (mean[0], dict(zip(grads, mean[1:1 + g])),
+                        dict(zip(new_aux, mean[1 + g:])))
+            # the mesh named: the backward of a CUDA step runs on autograd's
+            # device thread, outside this thread's spmd scope
+            with batch_norm_sync(lambda t: allgather(t, axis, tiled=False,
+                                                     mesh=mesh)):
+                loss, grads, new_aux = self._loss_and_grads(x, y)
+            mean = [t / n for t in psum_flat([loss, *grads.values()], axis)]
+            return mean[0], dict(zip(grads, mean[1:])), new_aux
 
     def write_back(self):
         """Copy the trained params and aux state into the block's

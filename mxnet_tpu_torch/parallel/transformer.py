@@ -1,10 +1,14 @@
 """Decoder-only Transformer LM of the port.
 
-PyTorch counterpart of ``mxnet_tpu/parallel/transformer.py`` on one
-device: the config, the initializer, the full-sequence forward
+PyTorch counterpart of ``mxnet_tpu/parallel/transformer.py``: the
+config, the initializer, the full-sequence forward
 (:func:`transformer_lm_apply`, the generation oracle), the cache-aware
-model step (:func:`transformer_lm_decode`) over a paged KV pool, and the
-training loss and SGD-momentum step (:func:`lm_loss`, :func:`train_step`).
+model step (:func:`transformer_lm_decode`) over a paged KV pool, the
+training loss and SGD-momentum step (:func:`lm_loss`, :func:`train_step`),
+and the dp x sp step over a mesh (:func:`make_sharded_train_step`, each
+rank on its blocks of the batch as :func:`shard_batch` cuts them, ring
+or Ulysses attention over ``sp``).  The model-parallel step
+(``make_partitioned_train_step``, the partition rules) is not ported.
 
 Parameters are a flat dict of tensors with the JAX package's keys and
 layouts (``x @ W``, ``d_model``-major, tied input/output embeddings), so
@@ -43,11 +47,13 @@ from ..context import resolve_device
 from ..ops.layer_norm import layer_norm_fused
 from ..ops.paged_attention import (attention_scale, paged_attention,
                                    paged_attention_reference)
-from .ring_attention import local_attention
+from .collectives import psum_flat, spmd
+from .mesh import NamedSharding, PartitionSpec as P, shard
+from .ring_attention import local_attention, ring_attention
 
 __all__ = ["TransformerConfig", "transformer_lm_init", "params_from_jax",
            "transformer_lm_apply", "transformer_lm_decode", "lm_loss",
-           "train_step"]
+           "train_step", "make_sharded_train_step", "shard_batch"]
 
 Params = Dict[str, torch.Tensor]
 
@@ -356,3 +362,75 @@ def train_step(params: Params, momenta: Params, tokens, labels, positions,
                  for k, g in zip(leaves, grads)}
         new_p = {k: params[k] - lr * new_m[k] for k in leaves}
     return loss.detach(), new_p, new_m
+
+
+def make_sharded_train_step(mesh, cfg: TransformerConfig, lr=0.1,
+                            momentum=0.9, sp_impl: str = "ring",
+                            compute_dtype=None):
+    """The dp x sp training step (reference: ``make_sharded_train_step``).
+
+    Each rank calls ``step(params, momenta, tokens, labels, positions)``
+    with the replicated params and momenta and its own blocks of the
+    batch, as :func:`shard_batch` cuts them: tokens and labels by
+    ``P("dp", "sp")``, positions by ``P("sp")``.  Attention over ``sp`` is
+    the causal ring (``sp_impl="ring"``) or Ulysses (``"ulysses"``: dense,
+    ``"ulysses_flash"``: the flash kernels between the two all-to-alls;
+    both need ``n_heads % sp == 0``).  The local mean loss is divided by
+    the number of shards and its gradient summed explicitly over
+    (``dp``, ``sp``), as the reference does under ``check=False``: the
+    attention collectives' backwards carry the cotangents across ranks and
+    sum nothing.  Returns ``(loss, params, momenta)``, replicated: the
+    global mean loss (f32, detached) and new dicts, the inputs untouched.
+    """
+    axes = ("dp", "sp")
+    if sp_impl in ("ulysses", "ulysses_flash"):
+        from .sequence_parallel import ulysses_attention
+
+        if cfg.n_heads % mesh.shape["sp"]:
+            raise ValueError(
+                f"ulysses needs n_heads ({cfg.n_heads}) divisible by "
+                f"sp ({mesh.shape['sp']})")
+        attn_fn = functools.partial(
+            ulysses_attention,
+            impl="flash" if sp_impl == "ulysses_flash" else "dense")
+    elif sp_impl == "ring":
+        attn_fn = ring_attention
+    else:
+        raise ValueError(f"unknown sp_impl {sp_impl!r}")
+    attention = functools.partial(attn_fn, axis_name="sp", causal=True)
+    n_shards = mesh.shape["dp"] * mesh.shape["sp"]
+
+    def step(params, momenta, tokens, labels, positions):
+        with spmd(mesh):
+            leaves = {k: v.detach().requires_grad_(True)
+                      for k, v in params.items()}
+            loss = lm_loss(leaves, tokens, labels, positions, cfg,
+                           attention=attention,
+                           compute_dtype=compute_dtype) / n_shards
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+            with torch.no_grad():
+                *grads, loss = psum_flat([*grads, loss.detach()], axes)
+                new_m = {k: momentum * momenta[k] + g
+                         for k, g in zip(leaves, grads)}
+                new_p = {k: params[k] - lr * new_m[k] for k in leaves}
+        return loss, new_p, new_m
+
+    return step
+
+
+def shard_batch(mesh, tokens, labels, positions):
+    """This rank's blocks of the host arrays, with the layout
+    :func:`make_sharded_train_step` expects, on the mesh's device."""
+    data = NamedSharding(mesh, P("dp", "sp"))
+    pos = NamedSharding(mesh, P("sp"))
+    return shard(tokens, data), shard(labels, data), shard(positions, pos)
+
+
+def __getattr__(name):
+    if name in ("make_partitioned_train_step", "transformer_partition_rules"):
+        from ..base import MXNetError
+
+        raise MXNetError(
+            f"transformer.{name}: model parallelism is not ported yet "
+            f"(ROADMAP.md, Queue 1, item 5: partition rules, pipeline, MoE)")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -12,6 +12,8 @@ compressed reduce (threshold 0.5, three rounds of error feedback) is
 bit-exact against the reference's, whose pack and unpack Pallas kernels
 run through the interpreter.
 """
+import socket
+
 import numpy as np
 import pytest
 import torch
@@ -151,10 +153,26 @@ def test_compressed_reduce_bit_exact():
             np.asarray(jres[key]).view(np.uint32))
 
 
-def test_refusals():
+def test_refusals(monkeypatch):
+    # the dist stores are ported (tests/test_torch_kvstore_dist.py): one
+    # worker of its own, on a free port
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    monkeypatch.setenv("MXTPU_COORDINATOR", f"127.0.0.1:{port}")
+    for var in ("MXTPU_PROC_ID", "MXTPU_NUM_PROCS", "MXTPU_NUM_SERVERS"):
+        monkeypatch.delenv(var, raising=False)
     for name in ("dist_sync", "dist_async"):
-        with pytest.raises(MXNetError, match="Queue 1, item 5"):
-            tmx.kvstore.create(name)
+        with tmx.cpu():
+            kv = tmx.kvstore.create(name)
+        try:
+            assert kv.type == name and kv.num_workers == 1
+            assert not kv._fused_step_ok()
+        finally:
+            kv.close()
+    with pytest.raises(MXNetError, match="unknown kvstore"):
+        tmx.kvstore.create("nonsense")
     # tpu_sync (alias nccl) is the one-process collective store now
     for name in ("tpu_sync", "nccl"):
         kv = tmx.kvstore.create(name)
