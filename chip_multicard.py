@@ -4,6 +4,8 @@
     python3 chip_multicard.py              # a machine with four cards
     python3 chip_multicard.py --rehearse   # the same workers over gloo on
                                            # the CPU, at small sizes
+    python3 chip_multicard.py --legs=mp    # some legs only: sp (1-3),
+                                           # dp (4), mp (5-8)
 
 Run from the repository root.  The script builds the kernels, then starts
 itself four times through ``tools/launch.py -n 4`` (``--worker``); worker
@@ -37,7 +39,28 @@ alone (the inputs are the same on every rank, from seeds):
    each beside the mesh-less trainer's B=128 on one card, every step
    launching 53 of each BatchNorm kernel (and with 2-bit 193 packs and
    193 unpacks) and one more step profiled for the same counts by
-   kernel name: images/s, losses, launches a step.
+   kernel name: images/s, losses, launches a step;
+5. ``make_partitioned_train_step`` at ``mp=4`` and ``dp=2 x mp=2``, both
+   routes (compute: tensor parallelism; storage: FSDP), f32, GPT-2
+   width, B=8, T=1024, three chained steps against three ``train_step``s
+   on one card: loss 1e-5 relative, the first step's gradients and
+   ``gather_fn`` of the params and momenta after the third 1e-4
+   normwise; step ms beside the one-card step and each rank's stored
+   bytes of params + momenta beside the whole; the LM head's two
+   choices priced alone at mp=4 (the ``tok_emb`` all-gather the step
+   runs, the (B, T, V) logits all-reduce it avoids);
+6. ``pipeline_apply_sharded`` at ``pp=4``: the 12 GPT-2 blocks as 4
+   stages of 3, 8 microbatches of (1, 1024, 768), outputs and gradients
+   against the sequential stack on one card (1e-5 normwise);
+7. ``moe_apply_sharded`` at ``ep=4``: one Switch FFN expert (768 -> 3072
+   -> 768) a card, 8,192 tokens, against the dense oracle: outputs 1e-5,
+   gradients 1e-4 normwise;
+8. ``GenerationService`` at ``mp_devices=4`` (3 heads a rank) under the
+   reference's default config with chip_smoke's ``serving_default``
+   traffic, greedy, float and int8 pools: rank 0's tokens identical to
+   one card's ``mp_devices=1`` service, the paged kernel (9 or 10)
+   launched on every rank by wrapper and by name; tokens/s and each
+   rank's pool bytes beside one card's.
 
 Prints each worker's results as one JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Any failed check, a
@@ -63,11 +86,17 @@ SIZES = {
     "card": dict(lm=dict(vocab=50257, d_model=768, n_heads=12, n_layers=12,
                          d_ff=3072, max_len=1024), B=8, T=1024,
                  attn=(8, 1024, 12, 64), resnet_hw=224, resnet_batch=128,
-                 resnet_check_batch=32, resnet_steps=10),
+                 resnet_check_batch=32, resnet_steps=10, mp_steps=3,
+                 pp_blocks=12, mp_micro=8, moe_tokens=8192,
+                 serve_lm=dict(vocab=50257, d_model=768, n_heads=12,
+                               n_layers=12, d_ff=3072, max_len=1024)),
     "rehearse": dict(lm=dict(vocab=256, d_model=32, n_heads=4, n_layers=2,
                              d_ff=64, max_len=64), B=4, T=16,
                      attn=(2, 16, 4, 8), resnet_hw=64, resnet_batch=8,
-                     resnet_check_batch=8, resnet_steps=2),
+                     resnet_check_batch=8, resnet_steps=2, mp_steps=3,
+                     pp_blocks=4, mp_micro=8, moe_tokens=64,
+                     serve_lm=dict(vocab=256, d_model=32, n_heads=4,
+                                   n_layers=2, d_ff=64, max_len=1024)),
 }
 
 
@@ -377,7 +406,329 @@ def _dp(d4, dev, size, bad):
     return out
 
 
-def worker(out_dir, rehearse):
+def _rel_err(a, b) -> float:
+    return float((a.float() - b.float()).norm()
+                 / b.float().norm().clamp_min(1e-30))
+
+
+def _partitioned(meshes, dev, size, bad):
+    """``make_partitioned_train_step`` at mp=4 and dp=2 x mp=2, both
+    routes, f32, three chained steps against three ``train_step``s on this
+    card alone: the first loss within 1e-5 relative, the first step's
+    gradients within 1e-4 normwise, and ``gather_fn`` of the params and
+    momenta after the third step within 1e-4 normwise; step ms (medians of
+    steps 2-3) beside the one-card step, and this rank's stored bytes of
+    params + momenta beside the whole."""
+    import torch
+
+    import chip_smoke as cs
+    from mxnet_tpu_torch.parallel.mesh import shard, sharding_for
+    from mxnet_tpu_torch.parallel.partition_rules import max_bytes_per_device
+    from mxnet_tpu_torch.parallel.transformer import (
+        TransformerConfig, make_partitioned_train_step, train_step,
+        transformer_lm_init)
+
+    cfg = TransformerConfig(**size["lm"])
+    B, T = size["B"], size["T"]
+    params = transformer_lm_init(cfg, seed=SEED, device=dev)
+    zeros = {k: torch.zeros_like(v) for k, v in params.items()}
+    tokens = np.random.RandomState(SEED).randint(0, cfg.vocab, (B, T))
+    labels = np.roll(tokens, -1, 1)
+    pos = torch.arange(T, device=dev)
+    whole = [torch.as_tensor(a, device=dev) for a in (tokens, labels)]
+    steps = size["mp_steps"]
+    p, m, ref_ms, ref_loss = params, zeros, [], []
+    for i in range(steps):
+        _sync(dev)
+        t0 = time.perf_counter()
+        loss, p, m = train_step(p, m, *whole, pos, cfg)
+        _sync(dev)
+        ref_ms.append((time.perf_counter() - t0) * 1e3)
+        ref_loss.append(loss.item())
+        if i == 0:
+            ref_m0 = m
+    ref_p, ref_m = p, m
+    whole_bytes = 2 * sum(v.numel() * v.element_size()
+                          for v in params.values())
+    out = {"one_card": {"step_ms": ref_ms, "losses": ref_loss,
+                        "params_momenta_bytes": whole_bytes}}
+    for name, mesh in meshes.items():
+        data = sharding_for(mesh, "dp")
+        mine = [shard(a, data) for a in (tokens, labels)]
+        for route in ("compute", "storage"):
+            step, shard_fn, gather_fn = make_partitioned_train_step(
+                mesh, cfg, mp_compute=route == "compute")
+            p, m = shard_fn(params), shard_fn(zeros)
+            ms, losses = [], []
+            for i in range(steps):
+                _sync(dev)
+                t0 = time.perf_counter()
+                loss, p, m = step(p, m, *mine, pos)
+                _sync(dev)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(loss.item())
+                if i == 0:
+                    g0 = cs._grad_rel_errors(gather_fn(m), ref_m0, zeros, 0.9)
+            gp, gm = gather_fn(p), gather_fn(m)
+            errs = {"loss0": abs(losses[0] - ref_loss[0]) / abs(ref_loss[0]),
+                    "grad0": max(g0.values()),
+                    "params": max(_rel_err(gp[k], ref_p[k]) for k in gp),
+                    "momenta": max(_rel_err(gm[k], ref_m[k]) for k in gm)}
+            stored = max_bytes_per_device([p, m])
+            out[f"{name}_{route}"] = {
+                "losses": losses, "rel_err": errs,
+                "grad0_worst": max(g0, key=g0.get), "step_ms": ms,
+                "steady_step_ms": float(np.median(ms[1:])),
+                "one_card_steady_step_ms": float(np.median(ref_ms[1:])),
+                "stored_bytes": stored, "whole_bytes": whole_bytes}
+            if errs["loss0"] > 1e-5 or max(
+                    errs["grad0"], errs["params"], errs["momenta"]) > 1e-4:
+                bad.append(f"partitioned {name} {route}: {errs}")
+            del p, m, gp, gm
+    out["lm_head"] = _lm_head_costs(meshes["mp4"], params["tok_emb"], B, T,
+                                    dev)
+    return out
+
+
+def _lm_head_costs(mesh, tok_emb, B, T, dev):
+    """The compute route's two choices for the LM head over mp=4, each
+    collective alone (medians of five, ms): all-gather the column-blocked
+    ``tok_emb`` (what the step does) against all-reduce the (B, T, V) f32
+    partial logits a row-parallel head would need."""
+    import torch
+    import torch.distributed as dist
+
+    from mxnet_tpu_torch.parallel.mesh import gather, shard, sharding_for
+
+    spec = sharding_for(mesh, None, "mp")
+    block = shard(tok_emb, spec)
+    partial = torch.zeros(B, T, tok_emb.shape[0], device=dev)
+
+    def median_ms(fn):
+        times = []
+        for _ in range(6):
+            _sync(dev)
+            t0 = time.perf_counter()
+            fn()
+            _sync(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times[1:]))
+
+    return {"gather_tok_emb_ms": median_ms(lambda: gather(block, spec)),
+            "gather_bytes": tok_emb.numel() * tok_emb.element_size(),
+            "allreduce_logits_ms": median_ms(lambda: dist.all_reduce(
+                partial, group=mesh.group("mp"))),
+            "allreduce_bytes": partial.numel() * partial.element_size()}
+
+
+def _pipeline(mesh, dev, size, bad):
+    """``pipeline_apply_sharded`` at pp=4: GPT-2 blocks as 4 stages,
+    ``mp_micro`` microbatches of (1, T, D), outputs and gradients (the
+    stacked blocks', the input's) against the sequential stack on this
+    card (1e-5 normwise); forward + backward ms of each."""
+    import torch
+
+    import chip_smoke as cs
+    from mxnet_tpu_torch.parallel.pipeline import pipeline_apply_sharded
+    from mxnet_tpu_torch.parallel.transformer import (TransformerConfig,
+                                                      transformer_lm_init)
+
+    cfg = TransformerConfig(**dict(size["lm"], n_layers=size["pp_blocks"]))
+    params = transformer_lm_init(cfg, seed=SEED + 5, device=dev)
+    stage = cs._mp_stage_fn(cfg)
+    g = torch.Generator().manual_seed(SEED + 6)
+    M, T = size["mp_micro"], size["T"]
+    x = torch.randn(M, 1, T, cfg.d_model, generator=g).to(dev)
+    c = torch.randn(x.shape, generator=g).to(dev)
+
+    def run(fn, stacked):
+        leaves = {k: v.clone().requires_grad_() for k, v in stacked.items()}
+        xl = x.clone().requires_grad_()
+        _sync(dev)
+        t0 = time.perf_counter()
+        y = fn(leaves, xl)
+        grads = torch.autograd.grad((y * c).sum(), [xl, *leaves.values()])
+        _sync(dev)
+        return y.detach(), grads, (time.perf_counter() - t0) * 1e3
+
+    stacked = cs._mp_stacked(params, cfg, 4)
+    times = []
+    for _ in range(size["mp_steps"]):
+        y, grads, ms = run(lambda p, xl: pipeline_apply_sharded(
+            stage, p, xl, mesh=mesh), stacked)
+        times.append(ms)
+    flat = cs._mp_stacked(params, cfg, 1)
+    seq_times = []
+    for _ in range(size["mp_steps"]):
+        ys, gs, ms = run(lambda p, xl: torch.stack(
+            [stage({k: v[0] for k, v in p.items()}, xl[i])
+             for i in range(M)]), flat)
+        seq_times.append(ms)
+    errs = {"out": _rel_err(y, ys), "grad_x": _rel_err(grads[0], gs[0]),
+            "grad_params": max(_rel_err(a.reshape(b.shape), b)
+                               for a, b in zip(grads[1:], gs[1:]))}
+    if max(errs.values()) > 1e-5:
+        bad.append(f"pipeline pp=4 against the sequential stack: {errs}")
+    return {"stages": 4, "blocks": size["pp_blocks"], "microbatches": M,
+            "rel_err": errs, "fwd_bwd_ms": times,
+            "one_card_fwd_bwd_ms": seq_times}
+
+
+def _moe(mesh, dev, size, bad):
+    """``moe_apply_sharded`` at ep=4, one Switch FFN expert (D -> d_ff ->
+    D, GELU) a card, ``moe_tokens`` tokens: outputs (1e-5 normwise) and
+    gradients (1e-4) against the dense oracle on this card; forward +
+    backward ms."""
+    import torch
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.parallel.moe import moe_apply_sharded
+
+    D, Fd, N = size["lm"]["d_model"], size["lm"]["d_ff"], size["moe_tokens"]
+    g = torch.Generator().manual_seed(SEED + 7)
+    x = torch.randn(N, D, generator=g).to(dev)
+    c = torch.randn(N, D, generator=g).to(dev)
+    rw = torch.randn(D, 4, generator=g).to(dev)
+    w_in = (torch.randn(4, D, Fd, generator=g) / D ** 0.5).to(dev)
+    w_out = (torch.randn(4, Fd, D, generator=g) / Fd ** 0.5).to(dev)
+
+    def expert(p, h):
+        return F.gelu(h @ p["w_in"], approximate="tanh") @ p["w_out"]
+
+    def dense(x_, r_, a, b):
+        gate, e = torch.softmax(x_ @ r_, dim=-1).max(dim=-1)
+        y = x_.new_zeros(x_.shape)
+        for j in range(4):   # each token through its argmax expert
+            sel = (e == j).nonzero()[:, 0]
+            y = y.index_add(0, sel, gate[sel, None] * expert(
+                {"w_in": a[j], "w_out": b[j]}, x_[sel]))
+        return y
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_() for t in (x, rw, w_in, w_out)]
+        _sync(dev)
+        t0 = time.perf_counter()
+        y = fn(*leaves)
+        grads = torch.autograd.grad((y * c).sum(), leaves)
+        _sync(dev)
+        return y.detach(), grads, (time.perf_counter() - t0) * 1e3
+
+    times, dense_times = [], []
+    # capacity factor 4: no token over capacity, so the oracle is exact
+    for _ in range(size["mp_steps"]):
+        y, grads, ms = run(lambda x_, r_, a, b: moe_apply_sharded(
+            x_, r_, {"w_in": a, "w_out": b}, expert, mesh=mesh,
+            capacity_factor=4.0))
+        times.append(ms)
+        yd, gd, ms = run(dense)
+        dense_times.append(ms)
+    errs = {"out": _rel_err(y, yd)}
+    for n, a, b in zip(("x", "router", "w_in", "w_out"), grads, gd):
+        errs["grad_" + n] = _rel_err(a, b)
+    # the gradients sum 8,192 tokens' terms in another order than the
+    # oracle's: the LM step's gradient tolerance
+    if errs["out"] > 1e-5 or max(errs.values()) > 1e-4:
+        bad.append(f"MoE ep=4 against the dense oracle: {errs}")
+    return {"experts": 4, "tokens": N, "d_model": D, "d_ff": Fd,
+            "rel_err": errs, "fwd_bwd_ms": times,
+            "one_card_dense_fwd_bwd_ms": dense_times}
+
+
+def _serving(coord, dev, size, bad):
+    """``GenerationService`` at ``mp_devices=4`` under the reference's
+    default config (preemption, prefix cache) on chip_smoke's
+    ``serving_default`` traffic (16 greedy requests in two waves, 32 new
+    tokens each), float and int8 pools: rank 0's tokens against one
+    card's ``mp_devices=1`` service, every rank's paged kernel (9 float,
+    10 int8) by wrapper and by name on its 3 heads; tokens/s and each
+    rank's pool bytes beside one card's."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from mxnet_tpu_torch.ops.paged_attention import paged_attention
+    from mxnet_tpu_torch.parallel.transformer import (TransformerConfig,
+                                                      transformer_lm_init)
+    from mxnet_tpu_torch.serving.generation import (GenerationConfig,
+                                                    GenerationService)
+
+    cfg = TransformerConfig(**size["serve_lm"])
+    params = transformer_lm_init(cfg, seed=SEED, device=dev)
+    waves = cs._default_traffic(cfg)
+    rank = dist.get_rank()
+    out = {}
+
+    def serve(svc):
+        svc.warmup()
+        outs, n, t0 = [], 0, time.perf_counter()
+        for wave in waves:
+            streams = [svc.submit(p) for p in wave]
+            got = [st.result(timeout=600) for st in streams]
+            outs += got
+            n += sum(len(o) for o in got)
+        _sync(dev)
+        return outs, n / (time.perf_counter() - t0)
+
+    for kv in (None, "int8"):
+        tag = kv or "float"
+        gen = dict(max_slots=8, block_size=32,
+                   num_blocks=cs.DEFAULT_POOL_BLOCKS,
+                   seq_buckets=[64, 128, 256, 512], max_new_tokens=32,
+                   kv_dtype=kv)
+        svc = GenerationService(params, cfg, GenerationConfig(
+            mp_devices=4, **gen), device=dev)
+        heads = svc._cache.k.shape[3]
+        pool_bytes = svc._cache.nbytes()
+        cs._reset_launches()
+        _sync(dev)
+        with profile(activities=[ProfilerActivity.CUDA if dev.type == "cuda"
+                                 else ProfilerActivity.CPU]) as prof:
+            if rank == 0:
+                outs, tps = serve(svc)
+            svc.stop()
+            _sync(dev)
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "paged_" in e.name]
+        key = "paged_attention_int8" if kv else "paged_attention"
+        launched = getattr(paged_attention, "launches_int8" if kv
+                           else "launches")
+        row = {"heads_a_rank": heads, "pool_bytes": pool_bytes,
+               "param_bytes": sum(t.numel() * t.element_size() for t in
+                                  svc._programs._params.values()),
+               "launches": cs._read_launches(),
+               "paged_kernels_by_name": len(names),
+               "paged_kernel_names": sorted(set(names))}
+        if heads != cfg.n_heads // 4 or (dev.type == "cuda" and (
+                not launched or not names)):
+            bad.append(f"mp=4 serving {tag} on rank {rank}: {heads} heads, "
+                       f"{launched} {key} launches, {len(names)} paged "
+                       f"kernels by name")
+        del svc
+        if rank == 0:
+            one = GenerationService(params, cfg, GenerationConfig(**gen),
+                                    device=dev)
+            try:
+                ref, ref_tps = serve(one)
+                row.update(tokens_per_s=tps, one_card_tokens_per_s=ref_tps,
+                           one_card_pool_bytes=one._cache.nbytes(),
+                           tokens=sum(len(o) for o in outs),
+                           same_tokens=outs == ref,
+                           mismatched_requests=sum(
+                               a != b for a, b in zip(outs, ref)))
+            finally:
+                one.stop()
+            if outs != ref:
+                bad.append(f"mp=4 serving {tag}: tokens differ from one "
+                           f"card's in {row['mismatched_requests']} "
+                           f"requests")
+        dist.barrier(group=coord)
+        out[tag] = row
+    return out
+
+
+def worker(out_dir, rehearse, legs):
     import torch
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -393,6 +744,22 @@ def worker(out_dir, rehearse):
     torch.backends.cudnn.benchmark = False
     size = SIZES["rehearse" if rehearse else "card"]
     res, bad = {"rank": rank, "device": str(dev)}, []
+    try:
+        _legs(res, bad, ctx, dev, size, legs)
+    finally:
+        res["bad"] = bad
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    return 1 if bad else 0
+
+
+def _legs(res, bad, ctx, dev, size, legs):
+    """Run the chosen legs into ``res``; an exception is also noted in
+    ``bad`` (the worker writes what the finished legs measured)."""
+    import traceback
+
+    from mxnet_tpu_torch.parallel import mesh as pmesh
+
     with ctx:
         # none installed: the one-card trainers must not adopt one
         m22 = pmesh.make_mesh(dp=2, sp=2, install=False, device=dev)
@@ -400,24 +767,42 @@ def worker(out_dir, rehearse):
             m4 = pmesh.make_mesh(sp=4, install=False, device=dev)
             d4 = pmesh.dp_mesh(4, device=dev)
             res["backend"] = m22.backend
-            res["collectives"] = _collectives(m4, dev, bad)
-            res["attention"] = _attention(m4, dev, size, bad)
-            res["lm"] = _lm(m22, dev, size, bad)
-            res["dp"] = _dp(d4, dev, size, bad)
+            if "sp" in legs:
+                res["collectives"] = _collectives(m4, dev, bad)
+                res["attention"] = _attention(m4, dev, size, bad)
+                res["lm"] = _lm(m22, dev, size, bad)
+            if "dp" in legs:
+                res["dp"] = _dp(d4, dev, size, bad)
+            if "mp" in legs:
+                import torch.distributed as dist
+
+                meshes = {"mp4": pmesh.make_mesh(dp=1, mp=4, install=False,
+                                                 device=dev),
+                          "dp2mp2": pmesh.make_mesh(dp=2, mp=2,
+                                                    install=False,
+                                                    device=dev)}
+                res["partitioned"] = _partitioned(meshes, dev, size, bad)
+                res["pipeline"] = _pipeline(pmesh.make_mesh(
+                    pp=4, install=False, device=dev), dev, size, bad)
+                res["moe"] = _moe(pmesh.make_mesh(
+                    ep=4, install=False, device=dev), dev, size, bad)
+                res["serving"] = _serving(dist.new_group(backend="gloo"),
+                                          dev, size, bad)
+        except BaseException:
+            bad.append(traceback.format_exc()[-2000:])
+            raise
         finally:
             pmesh.shutdown()
-    res["bad"] = bad
-    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-        json.dump(res, f)
-    return 1 if bad else 0
 
 
 def main(argv) -> int:
     rehearse = "--rehearse" in argv
     root = os.path.dirname(os.path.abspath(__file__))
     out_dir = os.path.join(root, "build", "multicard")
+    legs = next((a.split("=", 1)[1].split(",") for a in argv
+                 if a.startswith("--legs=")), ["sp", "dp", "mp"])
     if "--worker" in argv:
-        return worker(out_dir, rehearse)
+        return worker(out_dir, rehearse, legs)
     try:
         import torch
     except ImportError:
@@ -451,8 +836,8 @@ def main(argv) -> int:
     env["PYTHONPATH"] = root
     cmd = [sys.executable, os.path.join(root, "tools", "launch.py"), "-n",
            str(WORKERS), "--coordinator", f"127.0.0.1:{port}", "--",
-           sys.executable, os.path.abspath(__file__), "--worker"] \
-        + (["--rehearse"] if rehearse else [])
+           sys.executable, os.path.abspath(__file__), "--worker",
+           "--legs=" + ",".join(legs)] + (["--rehearse"] if rehearse else [])
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, env=env, cwd=root, start_new_session=True)
     try:

@@ -264,6 +264,20 @@ toolkit (``nvcc``) and PyTorch built for CUDA.  Phases, one JSON line each:
               step against the same job on the CPU; wall ms a
               step and its parts, bytes pushed and pulled a step.
 
+24. model_parallel — model parallelism over a world of one on NCCL at
+              GPT-2 width: ``make_partitioned_train_step`` (dp=1 x mp=1,
+              f32, B=8, T=1024) by the compute (tensor-parallel) and
+              storage (FSDP) routes against ``train_step`` (loss 1e-5,
+              gradients 1e-4), 25 LayerNorms a step by wrapper and by
+              kernel name; ``pipeline_apply_sharded`` at pp=1 (the 12
+              blocks as one stage, 8 microbatches) against the
+              sequential blocks; ``moe_apply_sharded`` at ep=1 (a Switch
+              FFN over 8,192 tokens) against its dense oracle;
+              ``paged_attention_sharded`` at mp=1 bitwise
+              ``paged_attention`` (decode and prefill, float and int8
+              pools; kernels by name).  The four-card legs are
+              ``chip_multicard.py``'s.
+
 Every ResNet phase also requires that the BatchNorm op copied no
 non-contiguous input (``batch_norm.noncontiguous_copies`` stays 0); no
 port kernel runs on the three sequence and RecordIO paths, so their
@@ -275,7 +289,7 @@ also runs ``serving``, its float baseline — ``resnet_training``,
 ``resnet_compressed``, ``gluon_training``, ``module_fit``,
 ``gluon_hybrid``, ``rnn_lm``, ``bucketing_fit``, ``image_rec``,
 ``serving_spec``, ``serving_fleet``, ``ops_breadth``, ``fcn_fit``,
-``spmd_lm``, ``dp_mesh``, ``dist_kvstore``, and
+``spmd_lm``, ``dp_mesh``, ``dist_kvstore``, ``model_parallel``, and
 ``profile``, ``profile_training`` and ``profile_resnet``, which are not in
 the default run: the serving window, or two bf16 LM or ResNet training
 steps, once more under ``torch.profiler``)
@@ -4861,10 +4875,29 @@ def _bk_batches(mx):
     return [got[k] for k in BK_BUCKETS]
 
 
+def _bk_seeded_params(shapes):
+    """Parameters of the bucket model drawn from ``SEED`` as the fit's
+    initializer draws them (Xavier, uniform, fan-in, magnitude 2.34;
+    vectors 0), in name order: the card-vs-CPU check starts from these,
+    not from the fitted weights, which the card does not reproduce bit
+    for bit from run to run."""
+    rs = np.random.RandomState(SEED)
+    out = {}
+    for name in sorted(shapes):
+        shape = tuple(shapes[name])
+        if len(shape) < 2:
+            out[name] = np.zeros(shape, np.float32)
+            continue
+        bound = np.sqrt(3.0 * 2.34 / int(np.prod(shape[1:])))
+        out[name] = rs.uniform(-bound, bound, shape).astype(np.float32)
+    return out
+
+
 def _bk_card_vs_cpu(mx, arg_params):
     """One forward_backward per bucket on a card and on a CPU
-    ``BucketingModule`` from the same parameters: the loss and every
-    gradient within 1e-4 (relative to each gradient's largest entry)."""
+    ``BucketingModule`` from the same seeded parameters
+    (:func:`_bk_seeded_params`): the loss and every gradient within 1e-4
+    (relative to each gradient's largest entry)."""
     import torch
 
     rows, bad = [], []
@@ -4958,7 +4991,8 @@ def phase_bucketing_fit(dev):
     f32 on the default context.  Checks: every bucket bound, perplexity
     lower in epoch 2 than in epoch 1, no fused step (the reference's
     route); a bucket switch sees the trained weights; one step per bucket
-    card vs CPU (loss, gradients 1e-4); a FusedRNNCell against its
+    card vs CPU from seeded weights (loss, gradients 1e-4); a FusedRNNCell
+    against its
     unfused cells on the card.  Numbers: sentences/s, step ms per bucket
     (median), the executor's host ms a forward per bucket, peak memory."""
     import gc
@@ -5017,7 +5051,8 @@ def phase_bucketing_fit(dev):
         fwd_host[k] = {"ms": float(np.median(host)),
                        "op_nodes": sum(1 for n in ex._order
                                        if n.kind == "op")}
-    arg_params = {n: v.asnumpy() for n, v in mod.get_params()[0].items()}
+    arg_params = _bk_seeded_params({n: v.shape for n, v in
+                                    mod.get_params()[0].items()})
     same, bad = _bk_switch_check(mx, mod, _bk_batches(mx))
     del mod
     gc.collect()
@@ -6926,6 +6961,314 @@ def phase_dist_kvstore(dev):
     return res
 
 
+# -- phase 24: model_parallel --------------------------------------------------------
+
+MP_PIPE_MICRO = 8       # microbatches of (1, T, D) through the pipeline
+MP_MOE_TOKENS = 8192    # Switch FFN tokens (D = 768, d_ff = 3072)
+
+
+def _mp_stage_fn(cfg):
+    """One pipeline stage: the GPT-2 blocks whose parameters its slice of
+    the stacked dict holds (``(L, ...)`` per block parameter), causal
+    ``local_attention`` on all heads."""
+    import functools
+
+    from mxnet_tpu_torch.parallel.ring_attention import local_attention
+    from mxnet_tpu_torch.parallel.transformer import _block
+
+    attend = functools.partial(local_attention, causal=True)
+
+    def stage(p, x):
+        for j in range(next(iter(p.values())).shape[0]):
+            x = _block(x, {f"l0_{k}": v[j] for k, v in p.items()}, 0,
+                       cfg.d_head, lambda i, q, k, v: attend(q, k, v))
+        return x
+    return stage
+
+
+def _mp_stacked(params, cfg, stages):
+    """The GPT-2 blocks' parameters stacked (stages, blocks a stage, ...)
+    under their names without the ``l{i}_`` prefix."""
+    import torch
+
+    per = cfg.n_layers // stages
+    names = [k[3:] for k in params if k.startswith("l0_")]
+    return {n: torch.stack([torch.stack([params[f"l{s * per + j}_{n}"]
+                                         for j in range(per)])
+                            for s in range(stages)]) for n in names}
+
+
+def _rel_err(a, b) -> float:
+    return float((a - b).float().norm() / b.float().norm().clamp_min(1e-30))
+
+
+def phase_model_parallel(dev, cfg, params):
+    """Model parallelism over a world of one process on NCCL (NCCL refuses
+    two ranks on one card; the four-card legs are ``chip_multicard.py``'s
+    and the gloo CPU tests'), at GPT-2 width.
+
+    The main path, counted from 0: ``make_partitioned_train_step`` at
+    dp=1 x mp=1, f32, B=8, T=1024, by the compute route (tensor
+    parallelism) and the storage route (FSDP), each one step against
+    ``train_step`` (loss within 1e-5 relative, every gradient within 1e-4
+    normwise), 25 LayerNorms a step by wrapper and by kernel name;
+    ``pipeline_apply_sharded`` at pp=1 over the 12 GPT-2 blocks as one
+    stage, 8 microbatches of (1, 1024, 768), outputs and gradients (of
+    the stacked blocks and the input) against the sequential blocks
+    (1e-5 normwise); ``moe_apply_sharded`` at ep=1, a Switch FFN (768 ->
+    3072 -> 768, GELU) over 8,192 tokens, outputs and gradients against
+    the dense oracle (1e-5); ``paged_attention_sharded`` at mp=1 on the
+    serving decode and prefill shapes, float and int8 pools, bitwise
+    ``paged_attention``, its kernels by name.  Step ms of each route
+    beside ``train_step``'s (medians of three, in turns), pipeline and
+    MoE forward + backward ms."""
+    import torch
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops.paged_attention import (paged_attention,
+                                                     paged_attention_sharded)
+    from mxnet_tpu_torch.parallel import mesh as pmesh
+    from mxnet_tpu_torch.parallel.moe import moe_apply_sharded
+    from mxnet_tpu_torch.parallel.partition_rules import max_bytes_per_device
+    from mxnet_tpu_torch.parallel.pipeline import pipeline_apply_sharded
+    from mxnet_tpu_torch.parallel.transformer import (
+        make_partitioned_train_step, train_step)
+
+    B, T, lr, momentum = 8, 1024, 0.1, 0.9
+    rs = np.random.RandomState(SEED)
+    tokens_np = rs.randint(0, cfg.vocab, (B, T))
+    tokens = torch.as_tensor(tokens_np, device=dev)
+    labels = torch.as_tensor(np.roll(tokens_np, -1, 1), device=dev)
+    positions = torch.arange(T, device=dev)
+    zeros = {k: torch.zeros_like(v) for k, v in params.items()}
+    n = cfg.n_layers
+    bad = []
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    mesh = pmesh.make_mesh(dp=1, mp=1, device=dev, install=False)
+    try:
+        # -- the partitioned LM step, both routes --------------------------
+        _reset_launches()
+        routes, steps = {}, {}
+        for route in ("compute", "storage"):
+            step, shard_fn, gather_fn = make_partitioned_train_step(
+                mesh, cfg, lr=lr, momentum=momentum,
+                mp_compute=route == "compute")
+            blocks, mblocks = shard_fn(params), shard_fn(zeros)
+            before = _read_launches()
+            (loss, p1, m1), first_ms = timed(lambda: step(
+                blocks, mblocks, tokens, labels, positions))
+            after = _read_launches()
+            steps[route] = (step, blocks, mblocks)
+            routes[route] = {
+                "loss": loss.item(), "momenta": gather_fn(m1),
+                "first_step_ms": first_ms,
+                "stored_bytes": max_bytes_per_device([p1, m1]),
+                "launches": {k: after[k] - before[k] for k in after}}
+            del p1, m1
+        (ref_loss, _, ref_m), ref_first = timed(lambda: train_step(
+            params, zeros, tokens, labels, positions, cfg, lr=lr,
+            momentum=momentum))
+        rows = []
+        for route, leg in routes.items():
+            step, blocks, mblocks = steps[route]
+            ref_runs, runs = [], []
+            for _ in range(3):
+                ref_runs.append(timed(lambda: train_step(
+                    params, zeros, tokens, labels, positions, cfg, lr=lr,
+                    momentum=momentum))[1])
+                runs.append(timed(lambda: step(blocks, mblocks, tokens,
+                                               labels, positions))[1])
+            rel = _grad_rel_errors(leg["momenta"], ref_m, zeros, momentum)
+            worst = max(rel, key=rel.get)
+            loss_rel = abs(leg["loss"] - ref_loss.item()) \
+                / abs(ref_loss.item())
+            want = {k: 0 for k in leg["launches"]}
+            want["layer_norm"] = 2 * n + 1
+            prof = _profiled(lambda: step(blocks, mblocks, tokens, labels,
+                                          positions),
+                             families=("layer_norm_kernel",))
+            ms = float(np.median(runs))
+            rows.append({
+                "route": route, "loss": leg["loss"],
+                "train_step_loss": ref_loss.item(), "loss_rel_err": loss_rel,
+                "grad_rel_err_max": rel[worst], "grad_rel_err_worst": worst,
+                "step_ms": ms, "step_ms_runs": runs,
+                "first_step_ms": leg["first_step_ms"],
+                "train_step_ms": float(np.median(ref_runs)),
+                "train_step_ms_runs": ref_runs,
+                "train_step_first_ms": ref_first,
+                "tokens_per_s": B * T / (ms / 1e3),
+                "stored_bytes": leg["stored_bytes"],
+                "launches": leg["launches"],
+                "layer_norm_by_name": prof["families"]["layer_norm_kernel"],
+                "idle_share": prof["idle_share"],
+                "lost_records": prof["lost_records"]})
+            if loss_rel > 1e-5 or rel[worst] > 1e-4:
+                bad.append(f"partitioned {route}: loss {loss_rel:.3g}, "
+                           f"gradient of {worst} {rel[worst]:.3g}")
+            if leg["launches"] != want:
+                bad.append(f"partitioned {route} launched "
+                           f"{leg['launches']}, not {want}")
+            if prof["families"]["layer_norm_kernel"] != 2 * n + 1:
+                bad.append(f"partitioned {route}: "
+                           f"{prof['families']['layer_norm_kernel']} "
+                           f"LayerNorm kernels by name, not {2 * n + 1}")
+            leg.pop("momenta")
+        del ref_m, steps
+
+        # -- the pipeline at pp=1 ---------------------------------------------
+        pp = pmesh.make_mesh(pp=1, device=dev, install=False)
+        stage = _mp_stage_fn(cfg)
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        x = torch.randn(MP_PIPE_MICRO, 1, T, cfg.d_model, generator=g,
+                        device=dev)
+        c = torch.randn(x.shape, generator=g, device=dev)
+        stacked = {k: v.clone().requires_grad_()
+                   for k, v in _mp_stacked(params, cfg, 1).items()}
+        xg = x.clone().requires_grad_()
+        before = _read_launches()
+
+        def piped():
+            y = pipeline_apply_sharded(stage, stacked, xg, mesh=pp)
+            return (y.detach(), *torch.autograd.grad(
+                (y * c).sum(), [xg, *stacked.values()]))
+
+        (y, *gp), pipe_ms = timed(piped)
+        pipe_launches = {k: v - before[k]
+                         for k, v in _read_launches().items()}
+        seq_st = {k: v.detach()[0].clone().requires_grad_()
+                  for k, v in stacked.items()}
+        xs = x.clone().requires_grad_()
+
+        def sequential():
+            ys = torch.stack([stage(seq_st, xs[i])
+                              for i in range(MP_PIPE_MICRO)])
+            return (ys.detach(), *torch.autograd.grad(
+                (ys * c).sum(), [xs, *seq_st.values()]))
+
+        (ys, *gs), seq_ms = timed(sequential)
+        pipe_err = {"out": _rel_err(y, ys), "grad_x": _rel_err(gp[0], gs[0]),
+                    "grad_params": max(_rel_err(a[0], b) for a, b in
+                                       zip(gp[1:], gs[1:]))}
+        if max(pipe_err.values()) > 1e-5:
+            bad.append(f"pipeline at pp=1 against the sequential blocks: "
+                       f"{pipe_err}")
+        if pipe_launches["layer_norm"] != 2 * n * MP_PIPE_MICRO:
+            bad.append(f"pipeline: {pipe_launches['layer_norm']} "
+                       f"LayerNorms, not {2 * n * MP_PIPE_MICRO}")
+        del stacked, seq_st, gp, gs, y, ys
+
+        # -- Switch MoE at ep=1 ---------------------------------------------------
+        ep = pmesh.make_mesh(ep=1, device=dev, install=False)
+        D, Fd = cfg.d_model, cfg.d_ff
+        xm = torch.randn(MP_MOE_TOKENS, D, generator=g, device=dev)
+        cm = torch.randn(MP_MOE_TOKENS, D, generator=g, device=dev)
+        w = {"w_in": torch.randn(1, D, Fd, generator=g, device=dev)
+             / D ** 0.5,
+             "w_out": torch.randn(1, Fd, D, generator=g, device=dev)
+             / Fd ** 0.5}
+        rw = torch.randn(D, 1, generator=g, device=dev)
+
+        def expert(p, h):
+            return F.gelu(h @ p["w_in"], approximate="tanh") @ p["w_out"]
+
+        def moe_run(fn):
+            leaves = [t.clone().requires_grad_() for t in
+                      (xm, rw, w["w_in"], w["w_out"])]
+            out = fn(*leaves)
+            return (out.detach(), *torch.autograd.grad(
+                (out * cm).sum(), leaves, allow_unused=True))
+
+        (ym, *gm), moe_ms = timed(lambda: moe_run(
+            lambda x_, r_, a, b: moe_apply_sharded(
+                x_, r_, {"w_in": a, "w_out": b}, expert, mesh=ep,
+                capacity_factor=2.0)))
+
+        def dense(x_, r_, a, b):
+            gate = torch.softmax(x_ @ r_, dim=-1).max(dim=-1).values
+            return gate[:, None] * expert({"w_in": a[0], "w_out": b[0]}, x_)
+
+        (yd, *gd), dense_ms = timed(lambda: moe_run(dense))
+        moe_err = {"out": _rel_err(ym, yd)}
+        for nm, a, b in zip(("x", "router", "w_in", "w_out"), gm, gd):
+            moe_err["grad_" + nm] = 0.0 if b is None or not b.abs().max() \
+                else _rel_err(a, b)
+        if max(moe_err.values()) > 1e-5:
+            bad.append(f"MoE at ep=1 against the dense oracle: {moe_err}")
+        del gm, gd
+
+        # -- paged attention per head at mp=1 ----------------------------------
+        mp1 = pmesh.make_mesh(mp=1, device=dev, install=False)
+        paged = []
+        for case in _paged_cases():
+            if case[0] not in ("decode", "prefill"):
+                continue
+            for int8 in (False, True):
+                q, kp, vp, ks, vs, tables, pos, mpos = _paged_inputs(
+                    dev, torch.float32, int8, case, rotate=False)
+                before = _read_launches()
+
+                def sharded():
+                    return paged_attention_sharded(
+                        q, kp, vp, tables[0], pos, mpos, mp1, k_scale=ks,
+                        v_scale=vs)
+
+                got = sharded()
+                counted = {k: v - before[k]
+                           for k, v in _read_launches().items()}
+                want = paged_attention(q, kp, vp, tables[0], pos, mpos,
+                                       k_scale=ks, v_scale=vs)
+                # by name in a session opened with PROFILE_LEAD empty
+                # kernels: late in a long process, a bare session can
+                # come back without the first records (_profiled)
+                names = _profiled(sharded, families=("paged_",))[
+                    "family_names"]["paged_"]
+                ok, other = _routed(names, PAGED_ROUTES[case[0]])
+                same = torch.equal(got, want)
+                key = "paged_attention_int8" if int8 else "paged_attention"
+                paged.append({"case": case[0],
+                              "kv": "int8" if int8 else "float32",
+                              "bitwise": same, "launches": counted[key],
+                              "kernels": names, "routes_ok": ok})
+                if not same or counted[key] != 1 or not ok:
+                    bad.append(f"paged_attention_sharded {case[0]} "
+                               f"{'int8' if int8 else 'float'}: bitwise "
+                               f"{same}, {counted[key]} launches, kernels "
+                               f"{names}")
+        launches = _read_launches()
+    finally:
+        pmesh.shutdown()
+    res = {"phase": "model_parallel", "config": dataclasses.asdict(cfg),
+           "B": B, "T": T, "lr": lr, "momentum": momentum,
+           "world": {"backend": "nccl", "size": 1},
+           "partitioned": rows,
+           "tolerance": {"loss_rel": 1e-5, "grad_rel": 1e-4,
+                         "pipeline_moe_rel": 1e-5},
+           "pipeline": {"stages": 1, "blocks_a_stage": n,
+                        "microbatches": MP_PIPE_MICRO,
+                        "microbatch": [1, T, cfg.d_model],
+                        "rel_err": pipe_err, "fwd_bwd_ms": pipe_ms,
+                        "sequential_fwd_bwd_ms": seq_ms,
+                        "launches": pipe_launches},
+           "moe": {"experts": 1, "tokens": MP_MOE_TOKENS, "d_model": D,
+                   "d_ff": Fd, "capacity_factor": 2.0, "rel_err": moe_err,
+                   "fwd_bwd_ms": moe_ms, "dense_fwd_bwd_ms": dense_ms},
+           "paged_attention_sharded": paged,
+           "launches": launches}
+    emit(res)
+    if bad:
+        raise SystemExit("model_parallel phase failed: " + "; ".join(bad))
+    return res
+
+
+
 def _kernel_table(kern, runs):
     """One row per CUDA kernel: its times and bound from the kernels phase
     at the main path's shape (2-bit pack and unpack: the largest of
@@ -7068,7 +7411,8 @@ def main(argv) -> int:
         "serving_int8", "resnet_training", "resnet_compressed",
         "gluon_training", "module_fit", "gluon_hybrid", "rnn_lm",
         "bucketing_fit", "image_rec", "serving_spec", "serving_fleet",
-        "ops_breadth", "fcn_fit", "spmd_lm", "dp_mesh", "dist_kvstore"}
+        "ops_breadth", "fcn_fit", "spmd_lm", "dp_mesh", "dist_kvstore",
+        "model_parallel"}
     if "serving_int8" in phases:
         phases.add("serving")   # its float baseline
     t_start = time.perf_counter()
@@ -7077,7 +7421,8 @@ def main(argv) -> int:
     kern = phase_kernels(dev) if "kernels" in phases else None
     runs = {}
     if phases & {"model", "training", "serving", "serving_default",
-                 "serving_int8", "profile", "profile_training", "spmd_lm"}:
+                 "serving_int8", "profile", "profile_training", "spmd_lm",
+                 "model_parallel"}:
         cfg, params = _model(dev)
         if "model" in phases:
             phase_model(dev, cfg, params)
@@ -7085,6 +7430,8 @@ def main(argv) -> int:
             runs["training"] = phase_training(dev, cfg, params)
         if "spmd_lm" in phases:
             runs["spmd_lm"] = phase_spmd_lm(dev, cfg, params)
+        if "model_parallel" in phases:
+            runs["model_parallel"] = phase_model_parallel(dev, cfg, params)
         if "serving" in phases:
             runs["serving"] = phase_serving(dev, cfg, params)
         if "serving_default" in phases:

@@ -47,7 +47,8 @@ from ..base import MXNetError
 from . import _build
 
 __all__ = ["paged_attention", "paged_attention_reference",
-           "paged_attention_plain", "attention_scale"]
+           "paged_attention_plain", "paged_attention_sharded",
+           "attention_scale"]
 
 _NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -222,3 +223,36 @@ def paged_attention(q, k_pool, v_pool, block_tables, positions, max_pos,
 
 paged_attention.launches = 0
 paged_attention.launches_int8 = 0
+
+
+def paged_attention_sharded(q, k_pool, v_pool, block_tables, positions,
+                            max_pos, mesh, axis: str = "mp", scale=None,
+                            k_scale=None, v_scale=None):
+    """:func:`paged_attention` partitioned PER HEAD over a model-parallel
+    mesh axis: whole arrays in on every rank (q and the pools with heads
+    at dim 2, the int8 pool's ``(num_blocks, H)`` scales with heads at
+    dim 1), each rank runs the unchanged kernel on its head slice, and
+    the whole (B, T, H, D) output comes back on every rank (all-gathered
+    over the heads).  Heads are independent in the kernel, so a head's
+    output is bitwise the unsharded call's.  ``H % mesh.shape[axis] != 0``
+    raises ``MXNetError``.  Tensor-parallel decode
+    (``parallel.transformer.transformer_lm_decode_tp``) runs the per-rank
+    part of this on the head slice its pool holds."""
+    from ..parallel.mesh import gather, sharding_for
+
+    H = q.shape[2]
+    n = int(mesh.shape[axis])
+    if H % n:
+        raise MXNetError(
+            f"paged_attention_sharded: {H} heads not divisible by mesh "
+            f"axis {axis!r} of size {n}")
+    if scale is None:
+        scale = attention_scale(q.shape[3])
+    h = H // n
+    first = mesh.axis_index(axis) * h
+    heads = lambda t, dim: None if t is None else \
+        t.narrow(dim, first, h).contiguous()  # noqa: E731
+    out = paged_attention(heads(q, 2), heads(k_pool, 2), heads(v_pool, 2),
+                          block_tables, positions, max_pos, scale=scale,
+                          k_scale=heads(k_scale, 1), v_scale=heads(v_scale, 1))
+    return gather(out, sharding_for(mesh, None, None, axis, None))

@@ -13,19 +13,23 @@ over ``torch.distributed``:
 - ring_attention.py  ring attention over the sequence axis, and the
                      single-device attention
 - sequence_parallel.py  Ulysses attention (dense or flash)
-- transformer.py     the decoder LM, its single-device step and the dp x sp
-                     sharded step
-
-Model parallelism (``partition_rules``, ``pipeline``, ``moe``) is not
-ported yet: its names raise ``MXNetError``.
+- transformer.py     the decoder LM, its single-device step, the dp x sp
+                     sharded step, its tensor-parallel forward and the
+                     dp x mp partitioned step
+- partition_rules.py regex -> PartitionSpec sharding rules of named
+                     parameters (tensor-parallel and FSDP storage)
+- pipeline.py        GPipe pipeline parallelism over a ``pp`` axis
+- moe.py             Switch-style top-1 mixture of experts over ``ep``
 """
-from ..base import MXNetError
-from . import (collectives, compression, data_parallel, mesh, ring_attention,
-               sequence_parallel, transformer)
+from . import (collectives, compression, data_parallel, mesh, moe,
+               partition_rules, pipeline, ring_attention, sequence_parallel,
+               transformer)
 from .compression import GradientCompression
 from .data_parallel import (DataParallelTrainer, block_apply_fn,
                             block_train_fn)
 from .mesh import MeshConfig, dp_mesh, get_mesh, local_mesh, make_mesh
+from .partition_rules import (make_param_specs, make_shard_and_gather_fns,
+                              match_partition_rules)
 from .ring_attention import (local_attention, ring_attention,
                              ring_attention_sharded)
 from .sequence_parallel import ulysses_attention, ulysses_attention_sharded
@@ -42,16 +46,6 @@ __all__ = ["MeshConfig", "get_mesh", "make_mesh", "local_mesh", "dp_mesh",
            "ulysses_attention", "ulysses_attention_sharded",
            "TransformerConfig", "params_from_jax", "transformer_lm_apply",
            "transformer_lm_decode", "transformer_lm_init", "lm_loss",
-           "train_step", "make_sharded_train_step", "shard_batch"]
-
-# the model-parallel half of multi-process distribution
-_NEXT_SLICE = ("partition_rules", "match_partition_rules", "make_param_specs",
-               "make_shard_and_gather_fns", "pipeline", "moe")
-
-
-def __getattr__(name):
-    if name in _NEXT_SLICE:
-        raise MXNetError(
-            f"parallel.{name}: model parallelism is not ported yet "
-            f"(ROADMAP.md, Queue 1, item 5: partition rules, pipeline, MoE)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+           "train_step", "make_sharded_train_step", "shard_batch",
+           "partition_rules", "match_partition_rules", "make_param_specs",
+           "make_shard_and_gather_fns", "pipeline", "moe"]

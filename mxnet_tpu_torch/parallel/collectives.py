@@ -12,7 +12,14 @@ transpose the reference's ``shard_map(check=False)`` takes: ``psum`` ->
 the inverse ``all_to_all``, ``ppermute`` -> the inverse permutation.  So a
 loss built from collectives differentiates as the reference's does, and
 a train step that wants the gradient of a global mean sums the local
-gradients itself, as ``make_sharded_train_step`` does.
+gradients itself, as ``make_sharded_train_step`` does.  For a consumer
+replicated over the axis, :func:`psum_bcast` (psum, identity backward),
+:func:`pcopy` (identity, psum backward) and :func:`allgather_bcast`
+(all-gather, this rank's block of the cotangent) are tensor
+parallelism's reduce, copy and gather and the pipeline's broadcast.
+Autograd runs on each rank alone, so every rank must run the same
+collectives' backwards in the same order: :func:`anchor` keeps a
+collective result a rank discards in its graph.
 
 ``all_to_all`` runs one ``all_to_all_single`` over a contiguous buffer
 (gloo has no list form) and ``ppermute`` one ``batch_isend_irecv`` (a ring
@@ -37,7 +44,7 @@ from .mesh import Mesh, NamedSharding, PartitionSpec, gather, get_mesh, shard
 __all__ = ["allreduce", "allgather", "reduce_scatter", "broadcast",
            "all_to_all", "ppermute", "psum_flat", "allreduce_tree",
            "allreduce_grads_spmd", "shard_map_compat", "spmd", "axis_size",
-           "axis_index"]
+           "axis_index", "psum_bcast", "pcopy", "allgather_bcast", "anchor"]
 
 _scope = threading.local()
 
@@ -162,6 +169,70 @@ class _AllReduce(torch.autograd.Function):
         return _psum(g, ctx.group), None
 
 
+class _PsumBcast(torch.autograd.Function):
+    """psum forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _psum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Pcopy(torch.autograd.Function):
+    """Identity forward; backward: one psum of every cotangent, summed as
+    one flat buffer (a single collective however many tensors, so every
+    rank runs it once, in the same place of its backward)."""
+
+    @staticmethod
+    def forward(ctx, group, *xs):
+        ctx.group = group
+        ctx.meta = [(x.shape, x.dtype, x.device) for x in xs]
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        gs = [torch.zeros(sh, dtype=dt, device=dv) if g is None else g
+              for g, (sh, dt, dv) in zip(gs, ctx.meta)]
+        flat = _psum(torch.cat([g.reshape(-1) for g in gs]), ctx.group)
+        return (None, *(part.view(g.shape).to(g.dtype) for part, g in zip(
+            flat.split([g.numel() for g in gs]), gs)))
+
+
+class _Anchor(torch.autograd.Function):
+    """``out`` unchanged, with ``extras`` tied into its graph: their
+    cotangents are zeros.  Keeps a collective whose result this rank
+    discards in its backward, so every rank runs the transpose."""
+
+    @staticmethod
+    def forward(ctx, out, *extras):
+        ctx.meta = [(e.shape, e.dtype, e.device) for e in extras]
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g, *(torch.zeros(sh, dtype=dt, device=dv)
+                     for sh, dt, dv in ctx.meta))
+
+
+class _GatherBcast(torch.autograd.Function):
+    """All-gather forward; backward keeps this rank's block of the
+    cotangent (no sum)."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, me, axis):
+        ctx.args = (me, axis, x.shape[axis])
+        return _gather_front(x.movedim(axis, 0), group, n).movedim(
+            0, axis).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        me, axis, b = ctx.args
+        return g.narrow(axis, me * b, b), None, None, None, None
+
+
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, n, me, axis):
@@ -277,6 +348,51 @@ def ppermute(x, axis_name: str, perm: Sequence, mesh=None):
     m = _mesh(axis_name, mesh)
     return _Permute.apply(x, m.group(axis_name), m.axis_index(axis_name),
                           [tuple(p) for p in perm])
+
+
+def psum_bcast(x, axis_name, mesh=None):
+    """psum over the named axis whose backward is the IDENTITY: replicates
+    a value that only one member (or each member in part) holds, for a
+    consumer that is replicated over the axis.  The row-parallel reduce of
+    tensor parallelism and the pipeline's last-stage broadcast: every
+    member's downstream cotangent is the same, so passing it through
+    unsummed is exact (the reference's ``pipeline.psum_bcast``)."""
+    m = _mesh(axis_name, mesh)
+    for a in _axes(axis_name):
+        x = _PsumBcast.apply(x, m.group(a))
+    return x
+
+
+def pcopy(x, axis_name, mesh=None):
+    """Identity whose backward is a psum over the named axis: a replicated
+    value entering computation that each member does on its own part (the
+    column-parallel input of tensor parallelism), whose cotangents are
+    partial and must be summed.  ``x`` may be a list or tuple of tensors:
+    a tuple comes back, their cotangents summed by one collective."""
+    m = _mesh(axis_name, mesh)
+    many = isinstance(x, (list, tuple))
+    xs = tuple(x) if many else (x,)
+    for a in _axes(axis_name):
+        xs = _Pcopy.apply(m.group(a), *xs)
+    return xs if many else xs[0]
+
+
+def anchor(out, extras):
+    """``out``, with the tensors ``extras`` (results of collectives this
+    rank does not use) tied into its graph with zero cotangents: a
+    backward then runs their transposes on every rank, as SPMD needs."""
+    extras = [e for e in extras if e.requires_grad]
+    return _Anchor.apply(out, *extras) if extras else out
+
+
+def allgather_bcast(x, axis_name: str, axis: int = 0, mesh=None):
+    """Every member's block of ``x`` concatenated along ``axis`` for a
+    replicated consumer: the backward keeps this member's block of the
+    (replicated) cotangent, where :func:`allgather`'s sums the members'
+    cotangents first."""
+    m = _mesh(axis_name, mesh)
+    return _GatherBcast.apply(x, m.group(axis_name), m.shape[axis_name],
+                              m.axis_index(axis_name), axis % x.dim())
 
 
 def psum_flat(tensors: Sequence[torch.Tensor], axis_name, mesh=None):

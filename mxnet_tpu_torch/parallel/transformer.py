@@ -53,7 +53,10 @@ from .ring_attention import local_attention, ring_attention
 
 __all__ = ["TransformerConfig", "transformer_lm_init", "params_from_jax",
            "transformer_lm_apply", "transformer_lm_decode", "lm_loss",
-           "train_step", "make_sharded_train_step", "shard_batch"]
+           "train_step", "make_sharded_train_step", "shard_batch",
+           "transformer_partition_rules", "param_shapes", "tp_params",
+           "transformer_lm_apply_tp", "transformer_lm_decode_tp",
+           "make_partitioned_train_step"]
 
 Params = Dict[str, torch.Tensor]
 
@@ -130,11 +133,31 @@ def _ln(x, g, b, eps=1e-5):
     return layer_norm_fused(x, g, b, eps=eps)
 
 
-def _mlp(x, params, i):
+def _identity(x):
+    return x
+
+
+def _block(x, params, i, d_head, attend, enter=_identity, reduce=_identity):
+    """Decoder block ``i``: pre-LN attention, then the GELU MLP, each with
+    its residual add.  ``attend(i, q, k, v)`` maps (B, T, h, d_head) heads
+    to the attention output.  ``enter``/``reduce`` are the tensor-parallel
+    collectives (identity on one device): ``enter`` takes the replicated
+    normed input into the column-parallel matmuls (QKV, MLP-in), whose
+    input cotangents are partial; ``reduce`` sums the row-parallel ones'
+    partial outputs (attention-out, MLP-out).  Under tensor parallelism
+    ``params`` holds this rank's compute blocks (:func:`tp_params`), QKV
+    as head-aligned columns, so the same code computes this rank's
+    heads."""
+    B, T, _ = x.shape
+    h = _ln(x, params[f"l{i}_ln1_g"], params[f"l{i}_ln1_b"])
+    q, k, v = (enter(h) @ params[f"l{i}_wqkv"]).chunk(3, dim=-1)
+    heads = lambda t: t.reshape(B, T, -1, d_head)  # noqa: E731
+    o = attend(i, heads(q), heads(k), heads(v))
+    x = x + reduce(o.reshape(B, T, -1) @ params[f"l{i}_wo"])
     h = _ln(x, params[f"l{i}_ln2_g"], params[f"l{i}_ln2_b"])
-    a = F.gelu(h @ params[f"l{i}_w1"] + params[f"l{i}_b1"],
+    a = F.gelu(enter(h) @ params[f"l{i}_w1"] + params[f"l{i}_b1"],
                approximate="tanh")
-    return x + a @ params[f"l{i}_w2"] + params[f"l{i}_b2"]
+    return x + reduce(a @ params[f"l{i}_w2"]) + params[f"l{i}_b2"]
 
 
 def transformer_lm_apply(params: Params, tokens, positions,
@@ -146,16 +169,11 @@ def transformer_lm_apply(params: Params, tokens, positions,
     causal :func:`local_attention`.  Returns (B, T, vocab)."""
     if attention is None:
         attention = functools.partial(local_attention, causal=True)
-    tokens = tokens.long()
-    B, T = tokens.shape
-    x = params["tok_emb"][tokens] + params["pos_emb"][positions.long()][None]
+    x = params["tok_emb"][tokens.long()] \
+        + params["pos_emb"][positions.long()][None]
     for i in range(cfg.n_layers):
-        h = _ln(x, params[f"l{i}_ln1_g"], params[f"l{i}_ln1_b"])
-        q, k, v = (h @ params[f"l{i}_wqkv"]).split(cfg.d_model, dim=-1)
-        to_heads = lambda t: t.reshape(B, T, cfg.n_heads, cfg.d_head)  # noqa: E731
-        o = attention(to_heads(q), to_heads(k), to_heads(v))
-        x = x + o.reshape(B, T, cfg.d_model) @ params[f"l{i}_wo"]
-        x = _mlp(x, params, i)
+        x = _block(x, params, i, cfg.d_head,
+                   lambda i, q, k, v: attention(q, k, v))
     x = _ln(x, params["lnf_g"], params["lnf_b"])
     return x @ params["tok_emb"].T
 
@@ -249,6 +267,27 @@ def transformer_lm_decode(params: Params, tokens, positions, lengths,
     Parameters and float pools share one dtype: the caller casts once (the
     service's ``amp_dtype``) where the reference takes a per-call
     ``compute_dtype``."""
+    attend, tokens, pos64 = _decode_setup(
+        tokens, positions, lengths, k_pool, v_pool, block_tables, cfg,
+        attention_kernel, k_scale, v_scale)
+    x = params["tok_emb"][tokens] + params["pos_emb"][pos64]
+    for i in range(cfg.n_layers):
+        x = _block(x, params, i, cfg.d_head, attend)
+    x = _ln(x, params["lnf_g"], params["lnf_b"])
+    logits = x @ params["tok_emb"].T
+    if k_scale is not None:
+        return logits.float(), k_pool, v_pool, k_scale, v_scale
+    return logits.float(), k_pool, v_pool
+
+
+def _decode_setup(tokens, positions, lengths, k_pool, v_pool, block_tables,
+                  cfg, attention_kernel=None, k_scale=None, v_scale=None):
+    """The cache side of :func:`transformer_lm_decode`: the write
+    coordinates every layer shares, and ``attend(i, q, k, v)``, which
+    scatters the chunk's K/V into layer ``i``'s pool (quantizing for the
+    int8 pool) and attends over it.  The heads are the pool's: under
+    tensor parallelism each rank's pool holds its own head slice.
+    Returns ``(attend, tokens (B, T) int64, positions (B, T) int64)``."""
     dev = k_pool.device
     as_i32 = lambda a: torch.as_tensor(a, device=dev).to(torch.int32)  # noqa: E731
     tokens = torch.as_tensor(tokens, device=dev).long()
@@ -290,13 +329,8 @@ def transformer_lm_decode(params: Params, tokens, positions, lengths,
                 * pool_scale[tables.long()][:, :, None, :, None]
         return ctx.reshape(B, W * block_size, n_heads, d_head)
 
-    x = params["tok_emb"][tokens] + params["pos_emb"][pos64]
-    for i in range(cfg.n_layers):
-        h = _ln(x, params[f"l{i}_ln1_g"], params[f"l{i}_ln1_b"])
-        q, k, v = (h @ params[f"l{i}_wqkv"]).split(cfg.d_model, dim=-1)
-        q = q.reshape(B, T, n_heads, d_head).contiguous()
-        k = k.reshape(B, T, n_heads, d_head)
-        v = v.reshape(B, T, n_heads, d_head)
+    def attend(i, q, k, v):
+        q = q.contiguous()
         ks = k_scale[i] if quantized else None
         vs = v_scale[i] if quantized else None
         if quantized:
@@ -308,19 +342,14 @@ def transformer_lm_decode(params: Params, tokens, positions, lengths,
             k_pool[i].index_put_((phys, offs), k.to(k_pool.dtype))
             v_pool[i].index_put_((phys, offs), v.to(v_pool.dtype))
         if kernel == "paged":
-            o = paged_attention(q, k_pool[i], v_pool[i], tables, positions,
-                                max_pos, scale=scale, k_scale=ks, v_scale=vs)
-        else:
-            o = paged_attention_reference(q, gather_ctx(k_pool[i], ks),
-                                          gather_ctx(v_pool[i], vs),
-                                          attn_mask, scale)
-        x = x + o.reshape(B, T, cfg.d_model) @ params[f"l{i}_wo"]
-        x = _mlp(x, params, i)
-    x = _ln(x, params["lnf_g"], params["lnf_b"])
-    logits = x @ params["tok_emb"].T
-    if quantized:
-        return logits.float(), k_pool, v_pool, k_scale, v_scale
-    return logits.float(), k_pool, v_pool
+            return paged_attention(q, k_pool[i], v_pool[i], tables,
+                                   positions, max_pos, scale=scale,
+                                   k_scale=ks, v_scale=vs)
+        return paged_attention_reference(q, gather_ctx(k_pool[i], ks),
+                                         gather_ctx(v_pool[i], vs),
+                                         attn_mask, scale)
+
+    return attend, tokens, pos64
 
 
 def lm_loss(params: Params, tokens, labels, positions,
@@ -337,6 +366,13 @@ def lm_loss(params: Params, tokens, labels, positions,
     logits = transformer_lm_apply(params, torch.as_tensor(tokens, device=dev),
                                   torch.as_tensor(positions, device=dev),
                                   cfg, attention)
+    return _nll_mean(logits, labels, mask)
+
+
+def _nll_mean(logits, labels, mask=None):
+    """Mean next-token cross-entropy of (B, T, V) logits, log-softmax in
+    f32; ``mask`` (B, T) excludes positions from the mean."""
+    dev = logits.device
     logp = F.log_softmax(logits.float(), dim=-1)
     labels = torch.as_tensor(labels, device=dev).long()
     nll = -logp.gather(-1, labels[..., None])[..., 0]
@@ -426,11 +462,340 @@ def shard_batch(mesh, tokens, labels, positions):
     return shard(tokens, data), shard(labels, data), shard(positions, pos)
 
 
-def __getattr__(name):
-    if name in ("make_partitioned_train_step", "transformer_partition_rules"):
-        from ..base import MXNetError
+# -- tensor parallelism and the partition rules -------------------------------------
+def transformer_partition_rules(mp_axis: str = "mp"):
+    """The transformer LM's Megatron-style placement over the model axis
+    as a rule set (``partition_rules``): the QKV and MLP-in projections
+    shard their OUTPUT features (column-parallel), attention-out and
+    MLP-out their INPUT features (row-parallel), the embeddings their
+    feature dim; LayerNorm gains/biases and the MLP biases replicate."""
+    return (
+        (r"wqkv$|w1$", (None, mp_axis)),     # column-parallel (out features)
+        (r"wo$|w2$", (mp_axis, None)),       # row-parallel (in features)
+        (r"tok_emb$|pos_emb$", (None, mp_axis)),
+        (r"ln\w*_[gb]$|_b1$|_b2$", ()),      # norms + biases replicate
+    )
 
+
+def param_shapes(cfg: TransformerConfig) -> Dict[str, tuple]:
+    """Name -> shape of :func:`transformer_lm_init`'s parameters."""
+    d, f = cfg.d_model, cfg.d_ff
+    out = {"tok_emb": (cfg.vocab, d), "pos_emb": (cfg.max_len, d),
+           "lnf_g": (d,), "lnf_b": (d,)}
+    for i in range(cfg.n_layers):
+        out.update({f"l{i}_ln1_g": (d,), f"l{i}_ln1_b": (d,),
+                    f"l{i}_wqkv": (d, 3 * d), f"l{i}_wo": (d, d),
+                    f"l{i}_ln2_g": (d,), f"l{i}_ln2_b": (d,),
+                    f"l{i}_w1": (d, f), f"l{i}_b1": (f,),
+                    f"l{i}_w2": (f, d), f"l{i}_b2": (d,)})
+    return out
+
+
+def _tp_layout(name: str, shape, cfg: TransformerConfig, r: int, n: int,
+               embed_full: bool):
+    """How tensor-parallel compute reads parameter ``name`` on rank ``r``
+    of ``n``: ``None`` (the whole array) or ``(dim, index, block)`` — the
+    indices this rank takes along ``dim``, ``block`` True when they are
+    the plain r-th contiguous block.  QKV takes each of q, k and v's
+    r-th column block (its heads), which a contiguous column split of
+    the (D, 3D) weight does not give."""
+    if n == 1:
+        return None
+
+    def blk(dim):
+        b = shape[dim] // n
+        return dim, torch.arange(r * b, (r + 1) * b), True
+
+    if name.endswith("_wqkv"):
+        d = cfg.d_model // n
+        cols = torch.cat([torch.arange(j * cfg.d_model + r * d,
+                                       j * cfg.d_model + (r + 1) * d)
+                          for j in range(3)])
+        return 1, cols, False
+    if name.endswith(("_wo", "_w2")):
+        return blk(0)
+    if name.endswith("_w1"):
+        return blk(1)
+    if name.endswith("_b1"):
+        return blk(0)
+    if name in ("tok_emb", "pos_emb") and not embed_full:
+        return blk(1)
+    return None
+
+
+def _tp_check(cfg: TransformerConfig, n: int, what: str) -> None:
+    from ..base import MXNetError
+
+    if cfg.n_heads % n or cfg.d_ff % n:
         raise MXNetError(
-            f"transformer.{name}: model parallelism is not ported yet "
-            f"(ROADMAP.md, Queue 1, item 5: partition rules, pipeline, MoE)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+            f"{what}: tensor parallelism over mp={n} needs n_heads "
+            f"({cfg.n_heads}) and d_ff ({cfg.d_ff}) divisible by {n}")
+
+
+def _mp_coords(mesh, axis: str):
+    if mesh is None or axis not in mesh.shape:
+        return 0, 1
+    return mesh.axis_index(axis), mesh.shape[axis]
+
+
+def _live_spec(spec, mesh) -> tuple:
+    """``spec`` without the axes of size 1 (a dim split once is whole)."""
+    out = []
+    for e in spec or ():
+        axes = [a for a in (e if isinstance(e, tuple) else (e,))
+                if a is not None and mesh.shape.get(a, 1) > 1]
+        out.append(None if not axes else axes[0] if len(axes) == 1
+                   else tuple(axes))
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+def _same_block(spec, layout, axis: str) -> bool:
+    """Whether a stored block (resolved ``spec``, size-1 axes dropped)
+    already is the compute block ``layout`` describes."""
+    if layout is None:
+        return not any(e is not None for e in spec)
+    dim, _, block = layout
+    return block and tuple(spec) in ((None,) * dim + (axis,),
+                                     (None,) * dim + (axis, None))
+
+
+def tp_params(params: Params, cfg: TransformerConfig, mesh, specs=None,
+              axis: str = "mp", embed_full: bool = False) -> Params:
+    """This rank's tensor-parallel compute blocks from its stored blocks
+    ``params`` (each cut by its resolved spec in ``specs``; a name
+    without one is whole).  A block already in its compute layout is kept;
+    any other is all-gathered whole and cut again (QKV under
+    :func:`transformer_partition_rules`: its column blocks are not
+    head-aligned).  ``embed_full`` keeps the embeddings whole (training:
+    the LM head runs against the whole ``tok_emb``); otherwise they are
+    column blocks (serving: the head's partial logits are summed).  Not
+    differentiable: the train step maps gradients back itself."""
+    from .mesh import gather, sharding_for
+
+    specs = specs or {}
+    r, n = _mp_coords(mesh, axis)
+    _tp_check(cfg, n, "tp_params")
+    shapes = param_shapes(cfg)
+    out = {}
+    with torch.no_grad():
+        for k, v in params.items():
+            lay = _tp_layout(k, shapes.get(k, v.shape), cfg, r, n,
+                             embed_full)
+            spec = _live_spec(specs.get(k, ()), mesh)
+            if _same_block(spec, lay, axis):
+                out[k] = v
+                continue
+            whole = gather(v, sharding_for(mesh, *spec)) if spec else v
+            out[k] = whole if lay is None else whole.index_select(
+                lay[0], lay[1].to(whole.device)).contiguous()
+    return out
+
+
+def _tp_grads_to_storage(grads: Params, cfg: TransformerConfig, mesh,
+                         specs, axis: str, embed_full: bool) -> Params:
+    """Gradients in the compute layout -> this rank's stored blocks: a
+    compute block of another layout is scattered into the whole shape and
+    summed over ``axis`` (each rank holds only its part), a replicated
+    one is already whole on every rank; then this rank's stored block is
+    cut."""
+    from .collectives import _psum
+    from .mesh import shard, sharding_for
+
+    r, n = _mp_coords(mesh, axis)
+    shapes = param_shapes(cfg)
+    out = {}
+    for k, g in grads.items():
+        lay = _tp_layout(k, shapes[k], cfg, r, n, embed_full)
+        spec = _live_spec(specs.get(k, ()), mesh)
+        if _same_block(spec, lay, axis):
+            out[k] = g
+            continue
+        if lay is not None:
+            whole = g.new_zeros(shapes[k])
+            whole.index_copy_(lay[0], lay[1].to(g.device), g)
+            g = _psum(whole, mesh.group(axis))
+        out[k] = shard(g, sharding_for(mesh, *spec)) if spec else g
+    return out
+
+
+def _tp_ops(mesh, axis: str):
+    """(enter, reduce, gather) of tensor parallelism over ``axis``: the
+    identity on a mesh without it."""
+    from .collectives import allgather_bcast, pcopy, psum_bcast
+
+    if _mp_coords(mesh, axis)[1] == 1:
+        return _identity, _identity, _identity
+    return (functools.partial(pcopy, axis_name=axis, mesh=mesh),
+            functools.partial(psum_bcast, axis_name=axis, mesh=mesh),
+            functools.partial(allgather_bcast, axis_name=axis, axis=-1,
+                              mesh=mesh))
+
+
+def _tp_embed(params, tok_idx, pos_rows, cfg, gather):
+    x = params["tok_emb"][tok_idx] + pos_rows
+    return x if x.shape[-1] == cfg.d_model else gather(x)
+
+
+def _tp_logits(x, params, cfg, mesh, axis, enter, reduce):
+    """x @ tok_emb.T: against the whole table, or (a column block of
+    it) this rank's slice of the features, the partial logits summed."""
+    emb = params["tok_emb"]
+    if emb.shape[1] == cfg.d_model:
+        return x @ emb.T
+    d = emb.shape[1]
+    xl = enter(x).narrow(-1, mesh.axis_index(axis) * d, d)
+    return reduce(xl @ emb.T)
+
+
+def transformer_lm_apply_tp(params: Params, tokens, positions,
+                            cfg: TransformerConfig, mesh, axis: str = "mp",
+                            attention=None):
+    """The tensor-parallel counterpart of :func:`transformer_lm_apply`:
+    every rank calls it with its compute blocks (:func:`tp_params`) and
+    the same ``tokens``/``positions``; the logits come out whole and
+    equal on every rank.  Column-parallel QKV and MLP-in, row-parallel
+    attention-out and MLP-out with one all-reduce each, attention over
+    this rank's heads (default causal :func:`local_attention`).
+    Differentiable: gradients reach each rank's blocks (those of the
+    whole-array leaves are the same on every rank)."""
+    if attention is None:
+        attention = functools.partial(local_attention, causal=True)
+    enter, reduce, gather = _tp_ops(mesh, axis)
+    x = _tp_embed(params, tokens.long(),
+                  params["pos_emb"][positions.long()][None], cfg, gather)
+    for i in range(cfg.n_layers):
+        x = _block(x, params, i, cfg.d_head,
+                   lambda i, q, k, v: attention(q, k, v), enter, reduce)
+    x = _ln(x, params["lnf_g"], params["lnf_b"])
+    return _tp_logits(x, params, cfg, mesh, axis, enter, reduce)
+
+
+def transformer_lm_decode_tp(params: Params, tokens, positions, lengths,
+                             k_pool, v_pool, block_tables,
+                             cfg: TransformerConfig, mesh, rows,
+                             axis: str = "mp", k_scale=None, v_scale=None):
+    """The tensor-parallel counterpart of :func:`transformer_lm_decode`
+    (paged kernel): each rank runs it with its compute blocks
+    (:func:`tp_params`, column-block embeddings) over its head slice of
+    the pool, ``(n_layers, num_blocks, block_size, n_heads / mp,
+    d_head)`` (and of the int8 scales), written in place.  Every other
+    operand is the same on every rank.  ``rows`` (B,) picks the position
+    of each row whose logits are wanted (the sampled one) before the LM
+    head, so the head's partial logits summed over ranks are (B, vocab);
+    returns them f32, whole on every rank."""
+    enter, reduce, gather = _tp_ops(mesh, axis)
+    attend, tokens, pos64 = _decode_setup(
+        tokens, positions, lengths, k_pool, v_pool, block_tables, cfg,
+        "paged", k_scale, v_scale)
+    x = _tp_embed(params, tokens, params["pos_emb"][pos64], cfg, gather)
+    for i in range(cfg.n_layers):
+        x = _block(x, params, i, cfg.d_head, attend, enter, reduce)
+    x = _ln(x, params["lnf_g"], params["lnf_b"])
+    x = x[torch.arange(x.shape[0], device=x.device), rows.long()]
+    return _tp_logits(x, params, cfg, mesh, axis, enter, reduce).float()
+
+
+def make_partitioned_train_step(mesh, cfg: TransformerConfig, rules=None,
+                                lr=0.1, momentum=0.9, compute_dtype=None,
+                                mp_compute: Optional[bool] = None):
+    """The dp x mp training step whose params and momenta are STORED
+    sharded per partition rules (default
+    :func:`transformer_partition_rules`).  Returns ``(step, shard_fn,
+    gather_fn)``: ``shard_fn(whole)`` cuts this rank's blocks of a whole
+    param dict (numpy or tensors), ``gather_fn(blocks)`` gives the whole
+    dict back on every rank, and ``step(params, momenta, tokens, labels,
+    positions) -> (loss, params, momenta)`` takes this rank's blocks of
+    the params and momenta and of the batch (tokens and labels cut by
+    ``P("dp")``; positions (T,) whole), and returns the global mean loss
+    (f32, detached, the same on every rank) and this rank's new blocks
+    (new tensors; the inputs untouched).
+
+    Two routes, as in the reference:
+
+    - **storage** (FSDP; ``mp_compute=False``, or a rule set carrying
+      the ``FSDP`` sentinel): each rank all-gathers every sharded leaf,
+      runs :func:`lm_loss` on its dp block, sums the gradients over
+      ``dp`` only and keeps its own block.  ``mp`` carries shards, never
+      replicas.
+    - **compute** (tensor parallelism; the default when the rule set is
+      compute-partitionable and ``TPUMX_MP_COMPUTE`` is not ``0``): each
+      rank computes with its blocks through
+      :func:`transformer_lm_apply_tp` (explicit differentiable
+      collectives), its stored blocks moved into the compute layout
+      first (:func:`tp_params`: QKV's columns all-gathered and cut again
+      head-aligned, the embeddings gathered whole for the LM head), and
+      the gradients moved back.  Needs ``n_heads`` and ``d_ff``
+      divisible by ``mp``.
+
+    The attention is :func:`lm_loss`'s default, as in the reference."""
+    from .collectives import psum_flat
+    from .mesh import gather, shard, sharding_for
+    from .partition_rules import (make_param_specs,
+                                  make_shard_and_gather_fns,
+                                  mp_compute_enabled,
+                                  rules_compute_partitionable)
+
+    if rules is None:
+        rules = transformer_partition_rules()
+    if mp_compute is None:
+        mp_compute = (mp_compute_enabled()
+                      and rules_compute_partitionable(rules))
+    shapes = param_shapes(cfg)
+    specs = make_param_specs(rules, shapes, mesh, mp_axis="mp")
+    shard_fn, gather_fn = make_shard_and_gather_fns(specs, mesh)
+    dp = mesh.shape.get("dp", 1)
+    dp_axes = ("dp",) if "dp" in mesh.shape else ()
+    if mp_compute:
+        _tp_check(cfg, _mp_coords(mesh, "mp")[1],
+                  "make_partitioned_train_step")
+
+    def update(params, momenta, grads):
+        new_m = {k: momentum * momenta[k] + g for k, g in grads.items()}
+        new_p = {k: params[k] - lr * new_m[k] for k in grads}
+        return new_p, new_m
+
+    live = {k: _live_spec(s, mesh) for k, s in specs.items()}
+    live = {k: s for k, s in live.items() if s}
+
+    def storage_step(params, momenta, tokens, labels, positions):
+        with torch.no_grad():
+            whole = {k: gather(v, sharding_for(mesh, *live[k]))
+                     if k in live else v for k, v in params.items()}
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in whole.items()}
+        loss = lm_loss(leaves, tokens, labels, positions, cfg,
+                       compute_dtype=compute_dtype) / dp
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        with torch.no_grad():
+            if dp_axes:
+                *grads, loss = psum_flat([*grads, loss.detach()], dp_axes,
+                                         mesh)
+            grads = {k: shard(g, sharding_for(mesh, *live[k]))
+                     if k in live else g for k, g in zip(leaves, grads)}
+            new_p, new_m = update(params, momenta, grads)
+        return loss.detach(), new_p, new_m
+
+    def compute_step(params, momenta, tokens, labels, positions):
+        comp = tp_params(params, cfg, mesh, specs, embed_full=True)
+        leaves = {k: v.detach().requires_grad_(True) for k, v in comp.items()}
+        p = leaves if compute_dtype is None else {
+            k: v.to(compute_dtype) for k, v in leaves.items()}
+        dev = comp["tok_emb"].device
+        logits = transformer_lm_apply_tp(
+            p, torch.as_tensor(tokens, device=dev),
+            torch.as_tensor(positions, device=dev), cfg, mesh)
+        loss = _nll_mean(logits, labels) / dp
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        with torch.no_grad():
+            if dp_axes:
+                *grads, loss = psum_flat([*grads, loss.detach()], dp_axes,
+                                         mesh)
+            grads = _tp_grads_to_storage(dict(zip(leaves, grads)), cfg, mesh,
+                                         specs, "mp", embed_full=True)
+            new_p, new_m = update(params, momenta, grads)
+        return loss.detach(), new_p, new_m
+
+    return (compute_step if mp_compute else storage_step), shard_fn, \
+        gather_fn

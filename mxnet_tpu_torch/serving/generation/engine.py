@@ -57,7 +57,7 @@ import numpy as _np
 import torch
 
 from ... import observability as _obs
-from ...base import getenv
+from ...base import MXNetError, getenv
 from ...fault.inject import FaultInjectedError
 from ...fault.inject import injector as _fault_injector
 from ...observability import flight_recorder as _flight
@@ -91,9 +91,9 @@ _AMP_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 class GenerationConfig:
     """Knobs for :class:`GenerationService`, with the reference's names,
     defaults, ``TPUMX_GEN_*`` environment variables and validation.
-    Refused with ``NotImplementedError``: ``mp_devices > 1`` (with its
-    ``shard_rules``) and any ``amp_dtype`` but float32/bfloat16 (the
-    dtypes the port's kernels take)."""
+    Refused: any ``amp_dtype`` but float32/bfloat16 (the dtypes the
+    port's kernels take; ``NotImplementedError``), and speculative or
+    multi-step decode under ``mp_devices > 1`` (``MXNetError``)."""
 
     def __init__(self, max_slots: Optional[int] = None,
                  block_size: Optional[int] = None,
@@ -172,18 +172,13 @@ class GenerationConfig:
         self.chunked_prefill = bool(
             chunked_prefill if chunked_prefill is not None
             else getenv("TPUMX_GEN_CHUNKED_PREFILL", 1))
-        # model-parallel serving (not ported: refused below)
+        # model-parallel serving: one process per device, the params
+        # sharded per shard_rules (default: the transformer's rules)
         self.mp_devices = int(mp_devices if mp_devices is not None
                               else getenv("TPUMX_GEN_MP_DEVICES", 1))
         if self.mp_devices < 1:
             raise ValueError("mp_devices must be >= 1")
         self.shard_rules = shard_rules
-        if self.mp_devices != 1 or shard_rules is not None:
-            raise NotImplementedError(
-                f"GenerationConfig mp_devices={self.mp_devices!r}"
-                f"{'' if shard_rules is None else ', shard_rules'}: "
-                f"model-parallel serving is not ported yet (ROADMAP.md "
-                f"Queue 1, item 5); pass mp_devices=1")
         # incremental KV allocation + victim preemption: admission takes
         # the blocks the context needs, decode grows the table at block
         # boundaries, pool pressure preempts the newest-admitted
@@ -264,6 +259,15 @@ class GenerationConfig:
                                else getenv("TPUMX_GEN_MULTISTEP_K", 1))
         if self.multistep_k < 1:
             raise ValueError("multistep_k must be >= 1")
+        modes = [m for m, on in (
+            ("speculative=True", self.speculative),
+            (f"multistep_k={self.multistep_k}", self.multistep_k > 1)) if on]
+        if self.mp_devices > 1 and modes:
+            raise MXNetError(
+                f"GenerationConfig mp_devices={self.mp_devices} with "
+                f"{' and '.join(modes)}: speculative and multi-step decode "
+                f"are not served under model parallelism yet (ROADMAP.md, "
+                f"Queue 1, item 5)")
 
     def __repr__(self):
         return (f"GenerationConfig(max_slots={self.max_slots}, "
@@ -543,6 +547,19 @@ class GenerationService:
         (a ``transformer_lm_init`` layout with the target's vocabulary).
     device : the device the model and KV pool live on (default ``cuda``;
         pass ``"cpu"`` to run the plain versions on the CPU).
+
+    **Model parallelism** (``config.mp_devices > 1``): every process of a
+    world of ``mp_devices`` ranks (``tools/launch.py -n <mp>`` or
+    torchrun; one process per device) builds the same service from the
+    same whole params.  Rank 0 is the LEADER: it schedules, samples and
+    takes requests; its signatures and :meth:`stats` keys are the
+    reference's.  The other ranks are FOLLOWERS: from construction a
+    thread of theirs runs each device step the leader announces on its
+    own head slice (``programs.py``).  On a follower :meth:`submit` (and
+    so :meth:`generate`) raises ``MXNetError`` naming rank 0,
+    :meth:`warmup` and :meth:`start` do nothing (the leader's drive it),
+    and :meth:`stop` waits until the leader stops (or the group breaks,
+    then it raises the failure).
     """
 
     _TPS_WINDOW = 5.0  # seconds of token timestamps behind the tokens/sec gauge
@@ -558,13 +575,16 @@ class GenerationService:
         self._programs = GenerationPrograms(params, model_cfg,
                                             compute_dtype=compute_dtype,
                                             device=device,
-                                            kv_dtype=cfg.kv_dtype)
+                                            kv_dtype=cfg.kv_dtype,
+                                            mp_devices=cfg.mp_devices,
+                                            shard_rules=cfg.shard_rules)
         self._device = self._programs.device
+        # under mp each rank holds its head slice of the pool
         self._cache = PagedKVCache(
             model_cfg.n_layers, model_cfg.n_heads, model_cfg.d_head,
             cfg.num_blocks, cfg.block_size,
             dtype=compute_dtype or torch.float32, device=self._device,
-            kv_dtype=cfg.kv_dtype)
+            kv_dtype=cfg.kv_dtype, mp=cfg.mp_devices)
         self._cache.allocator.set_watermarks(cfg.watermark_high,
                                              cfg.watermark_low)
         # the chain-hash index over resident full blocks; None with the
@@ -634,6 +654,12 @@ class GenerationService:
         self._worker: Optional[threading.Thread] = None
         self._worker_lock = threading.Lock()
         self._autostart = bool(start)
+        self._follower_error: Optional[BaseException] = None
+        if self._programs.mp_rank != 0:
+            self._worker = threading.Thread(
+                target=self._follow, name="tpumx-torch-generation-follower",
+                daemon=True)
+            self._worker.start()
 
         self._counts = {"submitted": 0, "finished": 0, "cancelled": 0,
                         "failed": 0, "rejected": 0, "expired": 0,
@@ -739,6 +765,11 @@ class GenerationService:
         thread's context (or a fresh trace) is used.
         """
         cfg = self._config
+        if not self.is_leader:
+            raise MXNetError(
+                f"GenerationService.submit: this process is rank "
+                f"{self._programs.mp_rank} of a model-parallel service; "
+                f"requests go to rank 0, which schedules for every rank")
         if self._closed:
             raise ServingClosedError("generation service is shut down")
         prompt = _np.asarray(prompt, dtype=_np.int64).ravel()
@@ -851,8 +882,19 @@ class GenerationService:
         self._autostart = True
         self._ensure_worker()
 
+    @property
+    def is_leader(self) -> bool:
+        """True unless this process is a model-parallel follower."""
+        return self._programs.mp_rank == 0
+
+    def _follow(self) -> None:
+        try:
+            self._programs.follow(self._cache)
+        except BaseException as e:  # noqa: BLE001 — raised by stop()
+            self._follower_error = e
+
     def _ensure_worker(self) -> None:
-        if self._killed:
+        if self._killed or not self.is_leader:
             return  # a crashed replica never restarts itself
         if self._worker is not None and self._worker.is_alive():
             return
@@ -877,6 +919,8 @@ class GenerationService:
         any later new signature raises.  Returns the number of new
         signatures."""
         cfg = self._config
+        if not self.is_leader:
+            return 0  # the leader's warmup runs every step here too
         before = self._programs.compiled_signatures()
         S = cfg.max_slots
         zeros_s = _np.zeros(S, _np.int32)
@@ -943,7 +987,23 @@ class GenerationService:
         ``reject_queued=True`` (with ``drain=True``) is the graceful
         PREEMPTION mode: requests already decoding in slots run to
         completion, WAITING ones are rejected with a clear shutdown error
-        — bounded work without abandoning accepted streams."""
+        — bounded work without abandoning accepted streams.  A
+        model-parallel leader then tells its followers to stop; a
+        follower waits (up to ``timeout``) for that and raises the
+        failure that ended its loop, if one did."""
+        if not self.is_leader:
+            self._worker.join(timeout)
+            self._closed = True
+            if self._follower_error is not None:
+                raise MXNetError(
+                    f"model-parallel follower rank "
+                    f"{self._programs.mp_rank} failed: "
+                    f"{self._follower_error!r}") from self._follower_error
+            if self._worker.is_alive():
+                raise MXNetError(
+                    f"model-parallel follower rank {self._programs.mp_rank}"
+                    f": rank 0 did not stop within {timeout} s")
+            return
         started = self._worker is not None and self._worker.is_alive()
         with self._lock:
             self._closed = True
@@ -959,6 +1019,7 @@ class GenerationService:
             self._not_full.notify_all()
         if started:
             self._worker.join(timeout)
+        self._programs.close()
         if self._prefix is not None:
             # release the cache's own block references (blocks still held
             # by live requests merely lose their shared status)
@@ -1049,6 +1110,20 @@ class GenerationService:
             with self._lock:
                 if self._killed:
                     return  # crashed-replica simulation: vanish, no cleanup
+                if self._programs.broken is not None:
+                    # a model-parallel peer failed: no step can run again
+                    err = ServingError(
+                        f"model-parallel group failed: "
+                        f"{self._programs.broken!r}")
+                    while self._waiting:
+                        self._finish_locked(self._waiting.popleft(),
+                                            error=err)
+                    for i, r in enumerate(self._slots):
+                        if r is not None:
+                            self._release_slot_locked(i, error=err)
+                    self._closed = True
+                    self._update_gauges_locked()
+                    return
                 self._purge_waiting_locked()
                 self._evict_locked()
                 if self._closed and not self._drain:
@@ -2001,6 +2076,8 @@ class GenerationService:
                 return
             except Exception as exc:  # noqa: BLE001 — isolate below
                 self._note_step_failure(exc)
+                if self._programs.broken is not None:
+                    return  # the loop fails every request next
                 for r in running:  # attributed per request (wide event)
                     r.n_retries += 1
         self._bisect_decode(running)
@@ -2008,7 +2085,7 @@ class GenerationService:
     def _bisect_decode(self, group: List[_GenRequest],
                        cause: Optional[BaseException] = None) -> None:
         group = [r for r in group if r.state == _RUNNING]
-        if not group:
+        if not group or self._programs.broken is not None:
             return
         if len(group) == 1:
             r = group[0]

@@ -173,19 +173,30 @@ class PagedKVCache:
     ``kv_dtype="int8"`` stores K/V as int8 with ``(n_layers, num_blocks,
     n_heads)`` f32 scales, initialised to 1: unwritten blocks dequantize
     to bounded values, and the first real write recomputes a block's
-    scale from scratch."""
+    scale from scratch.
+
+    ``mp > 1`` (model-parallel serving): this process holds only its
+    rank's head slice of the pool, ``(n_layers, num_blocks, block_size,
+    n_heads / mp, d_head)``, and of the scales, ``(n_layers, num_blocks,
+    n_heads / mp)`` — 1/mp of the cache a card; :attr:`shape` stays the
+    whole pool's."""
 
     def __init__(self, n_layers: int, n_heads: int, d_head: int,
                  num_blocks: int, block_size: int,
                  dtype: torch.dtype = torch.float32, device=None,
-                 kv_dtype: Optional[str] = None):
+                 kv_dtype: Optional[str] = None, mp: int = 1):
         if kv_dtype not in (None, "int8"):
             raise ValueError(
                 f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
+        if int(n_heads) % int(mp):
+            raise ValueError(f"{n_heads} heads do not split over mp={mp}")
         self.num_blocks = int(num_blocks)
         self.block_size = int(block_size)
         self.dtype = dtype
         self.kv_dtype = kv_dtype
+        self._shape = (int(n_layers), self.num_blocks, self.block_size,
+                       int(n_heads), int(d_head))
+        n_heads = int(n_heads) // int(mp)
         shape = (int(n_layers), self.num_blocks, self.block_size,
                  int(n_heads), int(d_head))
         store = torch.int8 if kv_dtype == "int8" else dtype
@@ -208,7 +219,14 @@ class PagedKVCache:
 
     @property
     def shape(self):
-        return tuple(self.k.shape)
+        """The whole pool's shape (a model-parallel rank holds a head
+        slice of it: ``k.shape``)."""
+        return self._shape
+
+    def nbytes(self) -> int:
+        """Bytes this process stores: K, V and the int8 pool's scales."""
+        ts = [self.k, self.v, self.k_scale, self.v_scale]
+        return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
     def blocks_for(self, n_positions: int) -> int:
         return blocks_for(n_positions, self.block_size)

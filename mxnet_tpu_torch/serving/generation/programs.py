@@ -22,6 +22,26 @@ steps sit beside it:
 
 :func:`block_copy_pools` is the copy-on-write primitive of prefix caching.
 
+**Model-parallel serving** (``mp_devices > 1``): one process per device,
+every rank of a ``{"mp": mp_devices}`` mesh (the whole world) building the
+same service.  The parameters are cut per the partition rules
+(``shard_rules``, else ``transformer_partition_rules()``) and moved into
+the tensor-parallel compute layout once
+(``parallel.transformer.tp_params``); each rank holds its head slice of
+the KV pool, and the model step is
+``parallel.transformer.transformer_lm_decode_tp``: the paged kernels on
+this rank's heads, one all-reduce after attention-out and one after
+MLP-out, the LM head's partial logits summed for each row's sampled
+position, so the logits are whole on every rank.  Rank 0 (the leader)
+schedules and samples; before each device step it broadcasts the step's
+host operands over a gloo control group (:class:`_ModelParallel`), and
+the other ranks (followers) run the same step on their slices from a
+thread of their own (:meth:`GenerationPrograms.follow`).  Any failure
+after a command went out marks the group broken on that rank: the leader
+then fails every step, its peers' pending collectives end when its
+process exits or at the groups' timeout.  Speculative and multi-step
+decode are refused under mp (``GenerationConfig``).
+
 Steps run eagerly (or as graph replays); the KV pools (and the int8
 pool's scales) are written in place.  Each distinct ``(kind, batch,
 chunk, table width[, k])`` is a signature with hit/miss counts, the int8
@@ -36,7 +56,8 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Dict
+from datetime import timedelta
+from typing import Dict, Optional
 
 import numpy as _np
 import torch
@@ -46,7 +67,8 @@ from ...context import resolve_device
 from ...observability import recompile as _recompile
 from ...ops.capture import add_counts, capture_graph, warm_up
 from ...ops.sampling import sample_logits, speculative_verify
-from ...parallel.transformer import transformer_lm_decode
+from ...parallel.transformer import (transformer_lm_decode,
+                                      transformer_lm_decode_tp)
 
 __all__ = ["GenerationPrograms", "block_copy_pools"]
 
@@ -134,6 +156,123 @@ def _multistep(params, cache, tokens, positions, lengths, block_tables,
     return torch.stack(out, dim=1)
 
 
+def _model_step_tp(params, cache, tokens, positions, lengths, block_tables,
+                   seeds, counters, temperature, top_k, top_p, *, cfg, mesh,
+                   sample):
+    """:func:`_model_step` of one model-parallel rank: this rank's heads,
+    the logits of each row's last valid position whole after the head's
+    all-reduce; only the leader samples (``sample``)."""
+    scales = ({"k_scale": cache.k_scale, "v_scale": cache.v_scale}
+              if cache.quantized else {})
+    T = tokens.shape[1]
+    rows = (lengths.long() - 1).clamp(0, T - 1)
+    last = transformer_lm_decode_tp(
+        params, tokens, positions, lengths, cache.k, cache.v, block_tables,
+        cfg, mesh, rows, **scales)
+    if not sample:
+        return None, last
+    return sample_logits(last, seeds, counters, temperature, top_k,
+                         top_p), last
+
+
+#: seconds a control-group operation may wait: a follower idles in one
+#: between the leader's commands (the heartbeat keeps it short of this)
+_MP_TIMEOUT_S = 120.0
+
+
+class _ModelParallel:
+    """The control plane of a model-parallel service: its mesh, this
+    rank's place in it, and the gloo group (timeout ``_MP_TIMEOUT_S``)
+    that carries the leader's commands — ``("run", kind, operands)``, ``("copy", src,
+    dst)``, ``("noop",)`` and ``("stop",)``.  The leader sends a no-op
+    when no command went out for ``heartbeat`` seconds (a fifth of the
+    timeout, at most 5), so idle followers never time out and a dead
+    follower is seen within that time.  Every command and the step it
+    starts run under one lock; a failure after the send marks the group
+    :attr:`broken`."""
+
+    def __init__(self, mesh):
+        import torch.distributed as dist
+
+        self.mesh = mesh
+        self.rank = mesh.axis_index("mp")
+        self.leader = self.rank == 0
+        ranks = dist.get_process_group_ranks(mesh.group("mp"))
+        self.group = dist.new_group(
+            ranks, backend="gloo", timeout=timedelta(seconds=_MP_TIMEOUT_S))
+        self.src = ranks[0]
+        self.heartbeat = min(5.0, _MP_TIMEOUT_S / 5)
+        self.lock = threading.Lock()
+        self.broken: Optional[BaseException] = None
+        self.closed = False
+        self._last = time.monotonic()
+        self._beat: Optional[threading.Thread] = None
+        if self.leader:
+            self._beat = threading.Thread(target=self._beat_loop,
+                                          name="tpumx-torch-mp-heartbeat",
+                                          daemon=True)
+            self._beat.start()
+
+    def _send(self, cmd) -> None:
+        import torch.distributed as dist
+
+        dist.broadcast_object_list([cmd], src=self.src, group=self.group)
+        self._last = time.monotonic()
+
+    def receive(self):
+        import torch.distributed as dist
+
+        box = [None]
+        dist.broadcast_object_list(box, src=self.src, group=self.group)
+        return box[0]
+
+    def command(self, cmd, fn):
+        """Send ``cmd`` to the followers, then run ``fn`` (this rank's part
+        of the step); returns ``fn()``."""
+        with self.lock:
+            if self.broken is not None:
+                raise MXNetError(
+                    f"model-parallel serving: the mp group is broken "
+                    f"({self.broken!r})") from self.broken
+            if self.closed:
+                raise MXNetError("model-parallel serving: the service "
+                                 "has stopped")
+            try:
+                self._send(cmd)
+                return fn()
+            except BaseException as e:
+                self.broken = e
+                raise
+
+    def _beat_loop(self) -> None:
+        while True:
+            time.sleep(self.heartbeat / 2)
+            with self.lock:
+                if self.closed or self.broken is not None:
+                    return
+                if time.monotonic() - self._last < self.heartbeat:
+                    continue
+                try:
+                    self._send(("noop",))
+                except BaseException as e:  # a follower is gone
+                    self.broken = e
+                    return
+
+    def close(self) -> None:
+        """Leader: tell the followers to stop (once)."""
+        with self.lock:
+            if self.closed:
+                return
+            self.closed = True
+            if self.leader and self.broken is None:
+                try:
+                    self._send(("stop",))
+                except BaseException as e:
+                    self.broken = e
+        if self._beat is not None:
+            self._beat.join(self.heartbeat)
+
+
 class _Capture:
     """One captured multi-step program: its graph, the static input
     buffers it reads, the output it writes, and the kernel launches one
@@ -157,17 +296,67 @@ class GenerationPrograms:
                      _np.float32: torch.float32}
 
     def __init__(self, params, cfg, compute_dtype=None, device=None,
-                 kv_dtype=None):
+                 kv_dtype=None, mp_devices: int = 1, shard_rules=None):
         self._cfg = cfg
         self._kv_dtype = kv_dtype
-        self._device = resolve_device(device)
-        self._params = {k: torch.as_tensor(v, dtype=compute_dtype,
-                                           device=self._device)
-                        for k, v in params.items()}
+        self._mp: Optional[_ModelParallel] = None
+        if int(mp_devices) > 1:
+            self._params = self._place_mp(params, cfg, compute_dtype,
+                                          device, int(mp_devices),
+                                          shard_rules)
+        else:
+            self._device = resolve_device(device)
+            self._params = {k: torch.as_tensor(v, dtype=compute_dtype,
+                                               device=self._device)
+                            for k, v in params.items()}
         self._lock = threading.Lock()
         self._stats: Dict[tuple, Dict[str, int]] = {}
         self._graphs: Dict[tuple, _Capture] = {}
         self.captures = 0
+
+    def _place_mp(self, params, cfg, compute_dtype, device, mp, rules):
+        """The model-parallel set-up: the ``{"mp": mp}`` mesh over the
+        world (started from the launcher's variables if need be), the
+        whole params cut per the rules and moved into the tensor-parallel
+        compute layout, the control group.  Heads (and d_ff) that do not
+        split over mp raise ``MXNetError``: there is no gather route."""
+        from ...parallel.mesh import make_mesh
+        from ...parallel.partition_rules import (make_param_specs,
+                                                 shard_params,
+                                                 validate_rule_axes)
+        from ...parallel.transformer import (tp_params,
+                                             transformer_partition_rules)
+
+        if cfg.n_heads % mp or cfg.d_ff % mp:
+            raise MXNetError(
+                f"model-parallel serving: n_heads ({cfg.n_heads}) and d_ff "
+                f"({cfg.d_ff}) must divide mp_devices={mp}: each rank runs "
+                f"the paged kernels on its own heads, and the port has no "
+                f"dense gather route (ROADMAP.md, Queue 3)")
+        mesh = make_mesh({"mp": mp}, install=False,
+                         device=resolve_device(device))
+        self._device = mesh.device
+        rules = rules or transformer_partition_rules()
+        validate_rule_axes(rules, mesh)
+        specs = make_param_specs(
+            rules, {k: tuple(_np.shape(v)) for k, v in params.items()},
+            mesh, mp_axis="mp")
+        blocks = {k: v.to(compute_dtype) if compute_dtype else v
+                  for k, v in shard_params(params, specs, mesh).items()}
+        out = tp_params(blocks, cfg, mesh, specs)
+        self._mp = _ModelParallel(mesh)
+        return out
+
+    @property
+    def mp_rank(self) -> int:
+        """This process's rank on the mp axis (0 without model
+        parallelism)."""
+        return 0 if self._mp is None else self._mp.rank
+
+    @property
+    def broken(self) -> Optional[BaseException]:
+        """The failure that broke the model-parallel group, if any."""
+        return None if self._mp is None else self._mp.broken
 
     @property
     def device(self) -> torch.device:
@@ -227,14 +416,50 @@ class GenerationPrograms:
         t0 = time.perf_counter()
         key = self._key(kind, cache, tokens, block_tables)
         self._lookup(kind, key)
-        args = self._put((tokens, positions, lengths, block_tables, seeds,
-                          counters, temperature, top_k, top_p))
-        with torch.no_grad():
-            next_tokens, last = _model_step(self._params, cache, *args,
-                                            cfg=self._cfg)
+        host = (tokens, positions, lengths, block_tables, seeds, counters,
+                temperature, top_k, top_p)
+        if self._mp is None:
+            next_tokens, last = self._step(cache, host)
+        else:
+            next_tokens, last = self._mp.command(
+                ("run", kind, host), lambda: self._step(cache, host))
         next_tokens = next_tokens.cpu().numpy()  # waits for the device
         self._account(key, time.perf_counter() - t0)
         return next_tokens, last
+
+    def _step(self, cache, host, sample: bool = True):
+        args = self._put(host)
+        with torch.no_grad():
+            if self._mp is None:
+                return _model_step(self._params, cache, *args,
+                                   cfg=self._cfg)
+            return _model_step_tp(self._params, cache, *args, cfg=self._cfg,
+                                  mesh=self._mp.mesh, sample=sample)
+
+    def follow(self, cache) -> None:
+        """A follower's loop (model-parallel ranks other than 0): receive
+        the leader's commands and run each on this rank's slice of
+        ``cache`` until ``("stop",)``.  A failure is raised after marking
+        the group broken."""
+        mp = self._mp
+        while True:
+            cmd = mp.receive()
+            if cmd[0] == "stop":
+                return
+            try:
+                if cmd[0] == "run":
+                    self._step(cache, cmd[2], sample=False)
+                elif cmd[0] == "copy":
+                    block_copy_pools(cache.k, cache.v, cmd[1], cmd[2],
+                                     cache.k_scale, cache.v_scale)
+            except BaseException as e:
+                mp.broken = e
+                raise
+
+    def close(self) -> None:
+        """The leader's stop: the followers' loops end."""
+        if self._mp is not None:
+            self._mp.close()
 
     def run_verify(self, cache, tokens, positions, lengths, block_tables,
                    seeds, counters, temperature, top_k, top_p):
@@ -333,8 +558,13 @@ class GenerationPrograms:
                (("kv_pool", cache.shape, str(cache.k.dtype)),)
                + self._family())
         self._lookup("gen_block_copy", key)
-        block_copy_pools(cache.k, cache.v, int(src), int(dst),
-                         cache.k_scale, cache.v_scale)
+        src, dst = int(src), int(dst)
+        copy = lambda: block_copy_pools(  # noqa: E731
+            cache.k, cache.v, src, dst, cache.k_scale, cache.v_scale)
+        if self._mp is None:
+            copy()
+        else:
+            self._mp.command(("copy", src, dst), copy)
         self._account(key, time.perf_counter() - t0)
 
     def compile_stats(self) -> Dict[tuple, Dict[str, int]]:

@@ -343,14 +343,24 @@ def test_default_device_without_cuda_raises(params, monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mp_devices=2), dict(amp_dtype="float16"),
-    dict(shard_rules=[(".*", None)])])
+    dict(mp_devices=2, speculative=True), dict(amp_dtype="float16"),
+    dict(shard_rules=[(".*", None)], mp_devices=2, multistep_k=4)])
 def test_unported_config_raises(kw):
+    """What stays refused: an amp dtype the kernels do not take, and
+    speculative or multi-step decode under model parallelism (which
+    itself, with or without shard_rules, now constructs)."""
     base = dict(GEN)
     base.update(kw)
     name = next(iter(kw))
-    with pytest.raises(NotImplementedError, match=name):
+    err = NotImplementedError if name == "amp_dtype" else MXNetError
+    with pytest.raises(err, match=name if err is NotImplementedError
+                       else "mp_devices=2 with"):
         tg.GenerationConfig(**base)
+    if err is MXNetError:
+        del base["speculative" if "speculative" in kw else "multistep_k"]
+        cfg = tg.GenerationConfig(**base)
+        assert cfg.mp_devices == 2
+        assert cfg.shard_rules == kw.get("shard_rules")
 
 
 @pytest.mark.parametrize("kw", [

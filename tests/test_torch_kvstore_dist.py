@@ -24,6 +24,7 @@ import socket
 import subprocess
 import sys
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -308,21 +309,38 @@ def test_dist_sync_compressed_push_two_servers(monkeypatch):
         assert sorted(frames_t[rank]) == sorted(frames_j[rank])
 
 
+def _first_heartbeat(kv, within=JOIN_S / 2):
+    """Wait until the server has acknowledged this worker's first
+    heartbeat (its thread starts with the store and beats at once; under
+    a loaded host it may not have run yet); the wait in seconds."""
+    t0 = time.monotonic()
+    while kv._last_hb_ok is None and time.monotonic() - t0 < within:
+        time.sleep(0.01)
+    return time.monotonic() - t0
+
+
 def test_dist_sync_row_sparse_pull_and_liveness(monkeypatch):
+    """Rows pulled bitwise the reference's, and no dead node once every
+    worker's first heartbeat has landed (each waits for its own, then a
+    barrier): asked earlier, a worker whose heartbeat thread the host has
+    not yet scheduled counts as dead in either package."""
     def body(mx, kv, rank):
         nd = mx.nd
         w = np.arange(12).reshape(4, 3).astype(np.float32)
         kv.init("emb", nd.array(w))
         out = nd.zeros((4, 3))
         kv.row_sparse_pull("emb", out=out, row_ids=nd.array([1, 3]))
+        waited = _first_heartbeat(kv)
+        kv.barrier()
         dead = kv.num_dead_node(timeout=30)
         kv.barrier()
-        return out.asnumpy(), dead
+        return out.asnumpy(), dead, waited
 
     mine, ref = _both(monkeypatch, "dist_sync", body)
-    for (a, da), (b, db) in zip(mine, ref):
+    for (a, da, wa), (b, db, wb) in zip(mine, ref):
         _same(a, b)
-        assert da == db == 0
+        assert da == 0, f"the port counts {da} dead (waited {wa:.2f} s)"
+        assert db == 0, f"the reference counts {db} dead (waited {wb:.2f} s)"
 
 
 def test_dist_single_process(monkeypatch):

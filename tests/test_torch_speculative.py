@@ -586,8 +586,8 @@ def test_env_gates_parse_like_reference(monkeypatch):
         for pkg in (tg, jg):
             with pytest.raises(ValueError):
                 pkg.GenerationConfig(**bad)
-    with pytest.raises(NotImplementedError, match="mp_devices"):
-        _gc(mp_devices=2)
+    with pytest.raises(MXNetError, match="mp_devices=2 with speculative"):
+        _gc(mp_devices=2, speculative=True)
 
 
 def test_engine_facade():
