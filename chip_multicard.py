@@ -5,7 +5,7 @@
     python3 chip_multicard.py --rehearse   # the same workers over gloo on
                                            # the CPU, at small sizes
     python3 chip_multicard.py --legs=mp    # some legs only: sp (1-3),
-                                           # dp (4), mp (5-8)
+                                           # dp (4), mp (5-8), module (9)
 
 Run from the repository root.  The script builds the kernels, then starts
 itself four times through ``tools/launch.py -n 4`` (``--worker``); worker
@@ -60,7 +60,14 @@ alone (the inputs are the same on every rank, from seeds):
    traffic, greedy, float and int8 pools: rank 0's tokens identical to
    one card's ``mp_devices=1`` service, the paged kernel (9 or 10)
    launched on every rank by wrapper and by name; tokens/s and each
-   rank's pool bytes beside one card's.
+   rank's pool bytes beside one card's;
+9. ``Module.fit`` over meshes (``TPUMX_DP/MP/PP_DEVICES``), three f32
+   batches: dp=4 on the module_fit ResNet-50 symbol (B=128) against a
+   one-card run of the same four blocks, mp=4 storage and dp=2 x mp=2
+   tensor-parallel compute on a 1024 -> 8192 -> 1024 -> 10 MLP (B=512)
+   and pp=4 on an FC stack against one card's ``Module.fit``: losses
+   1e-5, parameters 1e-4 (ResNet-50: or 10 x its own noise floor), step
+   ms and stored bytes a rank.
 
 Prints each worker's results as one JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Any failed check, a
@@ -88,6 +95,8 @@ SIZES = {
                  attn=(8, 1024, 12, 64), resnet_hw=224, resnet_batch=128,
                  resnet_check_batch=32, resnet_steps=10, mp_steps=3,
                  pp_blocks=12, mp_micro=8, moe_tokens=8192,
+                 module_resnet_batch=128, module_mlp=(1024, 8192, 10, 512),
+                 module_pp=(8, 256, 2048),
                  serve_lm=dict(vocab=50257, d_model=768, n_heads=12,
                                n_layers=12, d_ff=3072, max_len=1024)),
     "rehearse": dict(lm=dict(vocab=256, d_model=32, n_heads=4, n_layers=2,
@@ -95,6 +104,8 @@ SIZES = {
                      attn=(2, 16, 4, 8), resnet_hw=64, resnet_batch=8,
                      resnet_check_batch=8, resnet_steps=2, mp_steps=3,
                      pp_blocks=4, mp_micro=8, moe_tokens=64,
+                     module_resnet_batch=8, module_mlp=(16, 64, 10, 16),
+                     module_pp=(8, 16, 16),
                      serve_lm=dict(vocab=256, d_model=32, n_heads=4,
                                    n_layers=2, d_ff=64, max_len=1024)),
 }
@@ -728,6 +739,259 @@ def _serving(coord, dev, size, bad):
     return out
 
 
+def _mod_fit(mx, net, X, Y, B, start, env, opt_params, rules=None):
+    """``Module.fit`` over ``net`` on this rank's card (one epoch of
+    len(X) / B batches, ``tpu_sync``, SGD) from ``start``'s parameters
+    with the ``TPUMX_*`` variables ``env`` set: (module, each batch's loss,
+    step ms of each batch, stored bytes of params + momenta)."""
+    import torch
+
+    from mxnet_tpu_torch.parallel.partition_rules import max_bytes_per_device
+
+    os.environ.update(env)
+    try:
+        dev = mx.current_context().torch_device
+        losses, marks = [], []
+
+        def keep(p):
+            _sync(dev)
+            marks.append(time.perf_counter())
+            o = p.locals["self"].get_outputs()[0]._data.float()
+            y = p.locals["data_batch"].label[0]._data.long().to(o.device)
+            losses.append(-torch.log(o.gather(1, y[:, None]).clamp_min(
+                1e-30)).mean().item())
+
+        mod = mx.mod.Module(net, label_names=["softmax_label"],
+                            context=mx.current_context())
+        _sync(dev)
+        t0 = time.perf_counter()
+        mod.fit(mx.io.NDArrayIter(X, Y, batch_size=B), num_epoch=1,
+                kvstore="tpu_sync", optimizer="sgd",
+                optimizer_params=dict(opt_params), arg_params=start[0],
+                aux_params=start[1], batch_end_callback=keep,
+                shard_rules=rules)
+        ms = [(b - a) * 1e3 for a, b in zip([t0] + marks, marks)]
+        stored = max_bytes_per_device(
+            [mod._exec.arg_dict[n] for n in mod._param_names]
+            + [s for s in mod._updater.states.values()])
+        return mod, losses, ms, stored
+    finally:
+        for k in env:
+            del os.environ[k]
+
+
+def _shard_oracle(mx, net, X, Y, B, start, opt_params, ndev):
+    """The dp mesh step's semantics on this card alone: each batch's
+    ``ndev`` blocks forward and backward one after the other (BatchNorm
+    statistics of each block, as on its rank), the gradients summed, the
+    new running statistics averaged, then one SGD update with the global
+    batch's ``rescale_grad``: (each batch's loss, final params + aux)."""
+    import torch
+
+    b = B // ndev
+    ex = net.simple_bind(ctx=mx.current_context(), grad_req={
+        n: ("null" if n in ("data", "softmax_label") else "write")
+        for n in net.list_arguments()}, data=(b,) + X.shape[1:])
+    ex.copy_params_from(start[0], start[1])
+    names = ex._grad_arg_names
+    opt = mx.optimizer.create("sgd", rescale_grad=1.0 / B, sym=net,
+                              param_idx2name=dict(enumerate(names)),
+                              **opt_params)
+    upd = mx.optimizer.get_updater(opt)
+    losses = []
+    for i in range(len(X) // B):
+        aux0 = {k: v._data.clone() for k, v in ex.aux_dict.items()}
+        gsum = {n: torch.zeros_like(ex.grad_dict[n]._data) for n in names}
+        asum = {k: torch.zeros_like(v) for k, v in aux0.items()}
+        nll = []
+        for q in range(ndev):
+            for k, v in aux0.items():
+                ex.aux_dict[k]._data.copy_(v)
+            xs = X[i * B + q * b:i * B + (q + 1) * b]
+            ys = Y[i * B + q * b:i * B + (q + 1) * b]
+            o = ex.forward(is_train=True, data=xs, softmax_label=ys)[0]
+            ex.backward()
+            y = torch.as_tensor(ys).long().to(o._data.device)
+            nll.append(-torch.log(o._data.gather(1, y[:, None]).clamp_min(
+                1e-30)))
+            for n in names:
+                gsum[n] += ex.grad_dict[n]._data
+            for k in asum:
+                asum[k] += ex.aux_dict[k]._data
+        for k in asum:
+            ex.aux_dict[k]._data.copy_(asum[k] / ndev)
+        idx = list(range(len(names)))
+        upd(idx, [mx.nd.NDArray(gsum[n]) for n in names],
+            [ex.arg_dict[n] for n in names])
+        losses.append(torch.cat(nll).mean().item())
+    params = {n: ex.arg_dict[n]._data for n in names}
+    params.update({"aux:" + k: v._data for k, v in ex.aux_dict.items()})
+    return losses, params
+
+
+def _mlp_symbol(mx, dim, hidden, classes):
+    """The wide MLP: fc1 (dim -> hidden, column-parallel under the
+    compute rules), fc2 (hidden -> dim, row-parallel), fc3 (-> classes)."""
+    with mx.name.NameManager():
+        h = mx.sym.Activation(mx.sym.FullyConnected(
+            mx.sym.Variable("data"), num_hidden=hidden, name="fc1"),
+            act_type="relu")
+        h = mx.sym.Activation(mx.sym.FullyConnected(
+            h, num_hidden=dim, name="fc2"), act_type="relu")
+        out = mx.sym.FullyConnected(h, num_hidden=classes, name="fc3")
+        return mx.sym.SoftmaxOutput(out, mx.sym.Variable("softmax_label"),
+                                    name="softmax")
+
+
+MODULE_RULES = ((r"fc1_weight", ("mp", None)), (r"fc1_bias", ("mp",)),
+                (r"fc2_weight", (None, "mp")))
+
+
+def _module(dev, size, bad):
+    """``Module.fit`` over meshes of the four cards against this card
+    alone, three batches each, f32: dp=4 on the module_fit ResNet-50
+    symbol (against ``_shard_oracle``: the reference's dp step takes each
+    rank's BatchNorm statistics; each tensor also within 10 x the
+    oracle's own noise floor where that exceeds the bound, as chip_smoke
+    holds ResNet-50); mp=4 storage and dp=2 x mp=2
+    tensor-parallel compute on the wide MLP; pp=4 on a stage-stackable FC
+    stack (the last three against one card's ``Module.fit``).  Losses
+    within 1e-5 relative, every parameter (and running statistic) within
+    1e-4 normwise; step ms (median of batches 2-3) beside the one-card
+    fit's, and this rank's stored bytes of params + momenta beside the
+    whole."""
+    import torch
+
+    import chip_smoke as cs
+    import mxnet_tpu_torch as mx
+
+    cs.RESNET_HW = size["resnet_hw"]
+    out = {}
+
+    def loss_rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    def compare(tag, got, want, got_ms, want_ms, extra=None, floor=None):
+        """Losses within 1e-5 and parameters within 1e-4 of ``want``; with
+        ``floor`` (the one-card run against itself on images moved by
+        ~2^-22: the net's own f32 noise), each within 10 x its floor
+        where that is larger (chip_smoke's ``_tolerance`` rule)."""
+        (gl, gp), (wl, wp) = got, want
+        loss_err = loss_rel(gl, wl)
+        errs = {k: _rel_err(gp[k], wp[k]) for k in wp}
+        worst = max(errs, key=errs.get)
+        floors = {k: 0.0 for k in wp}
+        loss_floor = 0.0
+        if floor is not None:
+            loss_floor = loss_rel(floor[0], wl)
+            floors = {k: _rel_err(floor[1][k], wp[k]) for k in wp}
+        over = sorted(k for k in errs
+                      if errs[k] > max(1e-4, 10 * floors[k]))
+        row = {"losses": gl, "one_card_losses": wl,
+               "loss_rel_err": loss_err, "max_param_rel_err": errs[worst],
+               "worst": worst, "floor_of_worst": floors[worst],
+               "loss_floor": loss_floor, "over_tolerance": over,
+               "step_ms": float(np.median(got_ms[1:])),
+               "one_card_step_ms": float(np.median(want_ms[1:])),
+               **(extra or {})}
+        if loss_err > max(1e-5, 10 * loss_floor) or over \
+                or not all(np.isfinite(gl)):
+            bad.append(f"module {tag}: losses {gl} vs {wl}, {worst} by "
+                       f"{errs[worst]:.3g} (floor {floors[worst]:.3g}), "
+                       f"over {over}")
+        out[tag] = row
+
+    def whole(mod):
+        arg, aux = mod.get_params()
+        p = {k: v._data for k, v in arg.items()}
+        p.update({"aux:" + k: v._data for k, v in aux.items()})
+        return p
+
+    sgd = {"learning_rate": 0.05, "momentum": 0.9}
+    # dp=4 on the ResNet-50 symbol
+    net, _, _ = cs._fit_loaded_symbol()
+    B = size["module_resnet_batch"]
+    X, Y = cs._fit_images(3, B, SEED + 20)
+    args, aux = cs._random_values(net, (B,) + X.shape[1:], SEED + 21,
+                                  cs.RESNET_CLASSES)
+    start = ({k: mx.nd.array(v) for k, v in args.items()
+              if k not in ("data", "softmax_label")},
+             {k: mx.nd.array(v) for k, v in aux.items()})
+    mod, losses, ms, stored = _mod_fit(mx, net, X, Y, B, start,
+                                       {"TPUMX_DP_DEVICES": "4"}, sgd)
+    got = (losses, whole(mod))
+    mesh = dict(mod._exec._spmd_mesh.shape)
+    del mod
+    t0 = time.perf_counter()
+    want = _shard_oracle(mx, net, X, Y, B, start, sgd, 4)
+    _sync(dev)
+    oracle_ms = (time.perf_counter() - t0) * 1e3 / 3
+    u = np.random.default_rng(SEED + 23).uniform(-1, 1, X.shape)
+    moved = _shard_oracle(mx, net, (X * (1 + 2.0 ** -22 * u)).astype(
+        np.float32), Y, B, start, sgd, 4)
+    compare("dp4_resnet50", got, want, ms, [oracle_ms] * 2,
+            {"mesh": mesh, "B": B, "fused_steps": 3,
+             "stored_bytes": stored}, floor=moved)
+    del got, want, moved
+    # the wide MLP: mp=4 storage, dp=2 x mp=2 compute
+    D, Hd, C, Bm = size["module_mlp"]
+    r = np.random.RandomState(SEED + 22)
+    Xm = r.randn(3 * Bm, D).astype(np.float32)
+    Ym = r.randint(0, C, 3 * Bm).astype(np.float32)
+    mlp = _mlp_symbol(mx, D, Hd, C)
+    shapes = mlp.infer_shape(data=(Bm, D), softmax_label=(Bm,))[0]
+    mstart = ({n: mx.nd.array((r.randn(*s) / np.sqrt(s[-1]))
+                              .astype(np.float32))
+               for n, s in zip(mlp.list_arguments(), shapes)
+               if n not in ("data", "softmax_label")}, {})
+    one, one_l, one_ms, one_bytes = _mod_fit(mx, mlp, Xm, Ym, Bm, mstart,
+                                             {}, sgd)
+    want = (one_l, whole(one))
+    del one
+    for tag, env, rules in (
+            ("mp4_storage", {"TPUMX_MP_DEVICES": "4"}, None),
+            ("dp2mp2_compute", {"TPUMX_DP_DEVICES": "2",
+                                "TPUMX_MP_DEVICES": "2"}, MODULE_RULES)):
+        mod, losses, ms, stored = _mod_fit(mx, mlp, Xm, Ym, Bm, mstart, env,
+                                           sgd, rules)
+        ex = mod._exec
+        compare(tag, (losses, whole(mod)), want, ms, one_ms,
+                {"mesh": dict(ex._spmd_mesh.shape),
+                 "compute": ex._spmd_compute,
+                 "gathers": ex.mp_gathers,
+                 "stored_bytes": stored, "one_card_bytes": one_bytes})
+        if tag == "dp2mp2_compute" and (not ex._spmd_compute or any(
+                ex.mp_gathers.values())):
+            bad.append(f"module {tag}: compute {ex._spmd_compute}, "
+                       f"gathers {ex.mp_gathers}")
+        del mod, ex
+    # pp=4 on the FC stack
+    L, Bp, Wp = size["module_pp"]
+    stack = cs._mpar_stack(mx, L, Wp)
+    Xp = r.randn(3 * Bp, Wp).astype(np.float32)
+    Yp = r.randint(0, 10, 3 * Bp).astype(np.float32)
+    shapes = stack.infer_shape(data=(Bp, Wp), softmax_label=(Bp,))[0]
+    pstart = ({n: mx.nd.array((r.randn(*s) / np.sqrt(s[-1]))
+                              .astype(np.float32))
+               for n, s in zip(stack.list_arguments(), shapes)
+               if n not in ("data", "softmax_label")}, {})
+    one, one_l, one_ms, _ = _mod_fit(mx, stack, Xp, Yp, Bp, pstart, {}, sgd)
+    want = (one_l, whole(one))
+    del one
+    mod, losses, ms, stored = _mod_fit(mx, stack, Xp, Yp, Bp, pstart,
+                                       {"TPUMX_PP_DEVICES": "4"}, sgd)
+    plan = mod._exec._spmd_pipeline
+    compare("pp4_stack", (losses, whole(mod)), want, ms, one_ms,
+            {"mesh": dict(mod._exec._spmd_mesh.shape),
+             "plan": plan[0].describe() if plan else None,
+             "microbatches": plan[1] if plan else None,
+             "stored_bytes": stored})
+    if plan is None:
+        bad.append("module pp4_stack: no pipeline plan")
+    del mod
+    return out
+
+
 def worker(out_dir, rehearse, legs):
     import torch
 
@@ -773,6 +1037,8 @@ def _legs(res, bad, ctx, dev, size, legs):
                 res["lm"] = _lm(m22, dev, size, bad)
             if "dp" in legs:
                 res["dp"] = _dp(d4, dev, size, bad)
+            if "module" in legs:
+                res["module"] = _module(dev, size, bad)
             if "mp" in legs:
                 import torch.distributed as dist
 
@@ -800,7 +1066,7 @@ def main(argv) -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     out_dir = os.path.join(root, "build", "multicard")
     legs = next((a.split("=", 1)[1].split(",") for a in argv
-                 if a.startswith("--legs=")), ["sp", "dp", "mp"])
+                 if a.startswith("--legs=")), ["sp", "dp", "mp", "module"])
     if "--worker" in argv:
         return worker(out_dir, rehearse, legs)
     try:

@@ -7268,6 +7268,330 @@ def phase_model_parallel(dev, cfg, params):
     return res
 
 
+# module_parallel: the symbolic API over a mesh of one card
+MPAR_STEPS, MPAR_TIMED = 3, 4      # compared steps, then timed steps
+MPAR_G2C = (4, 128, 1024)          # group2ctx layers, batch, width
+MPAR_PP = (8, 4, 64, 1024)         # pp symbol: layers, stages, batch, width
+
+
+def _mpar_module(net, it, start, mesh=None):
+    """A ``Module`` over ``net`` bound on the card from ``start``'s
+    parameters, with ``mesh`` attached to its executor (a dp mesh of the
+    world: the mesh fused step) or none (the plain fused step)."""
+    import mxnet_tpu_torch as mx
+
+    mod = mx.mod.Module(net, label_names=["softmax_label"])
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(arg_params=start[0], aux_params=start[1])
+    mod.init_optimizer(kvstore="tpu_sync", optimizer="sgd",
+                       optimizer_params={"learning_rate": FIT_LR,
+                                         "momentum": FIT_MOMENTUM})
+    if mesh is not None:
+        mod._exec.set_spmd(mesh, ["data", "softmax_label"])
+    return mod
+
+
+def _mpar_steps(mod, batches):
+    """One fused step a batch: each step's loss, and ms (a sync, then the
+    host clock) of each."""
+    import torch
+
+    losses, ms = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if not mod._try_fused_step(b):
+            raise SystemExit("module_parallel: the fused step was not taken")
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(_ce(mod.get_outputs()[0], b.label[0]))
+    return losses, ms
+
+
+def _mpar_resnet(mesh):
+    """The module_fit ResNet-50 symbol (NCHW f32, B=RESNET_BATCH): the mesh
+    fused step against the plain fused step from the same parameters,
+    MPAR_STEPS batches (loss, every parameter and moving statistic
+    bitwise), then MPAR_TIMED more of each, in turns."""
+    import gc
+
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    net, _, _ = _fit_loaded_symbol()
+    B = RESNET_BATCH
+    X, Y = _fit_images(MPAR_STEPS, B, SEED + 11)
+    it = mx.io.NDArrayIter(X, Y, batch_size=B)
+    batches = list(it)
+    torch.manual_seed(SEED)
+    mod = mx.mod.Module(net, label_names=["softmax_label"])
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                   magnitude=2))
+    start = mod.get_params()
+    del mod
+    res, finals = {}, {}
+    for route, m in (("plain", None), ("mesh", mesh)):
+        mod = _mpar_module(net, it, start, m)
+        losses, ms = _mpar_steps(mod, batches)
+        arg, aux = mod.get_params()
+        finals[route] = {**arg, **{"aux:" + k: v for k, v in aux.items()}}
+        res[route] = {"losses": losses, "ms": ms, "module": mod}
+    # timed steps in turns over one batch (each module goes on training)
+    for _ in range(MPAR_TIMED):
+        for route in ("plain", "mesh"):
+            _, ms = _mpar_steps(res[route]["module"], batches[:1])
+            res[route].setdefault("timed_ms", []).extend(ms)
+    for route in res:
+        del res[route]["module"]
+        res[route]["step_ms"] = float(np.median(res[route]["timed_ms"]))
+    gc.collect()
+    bitwise = {k: bool(torch.equal(finals["plain"][k]._data,
+                                   finals["mesh"][k]._data))
+               for k in finals["plain"]}
+    out = {"B": B, "steps": MPAR_STEPS, **res,
+           "losses_bitwise": res["plain"]["losses"] == res["mesh"]["losses"],
+           "params_bitwise": all(bitwise.values()),
+           "tensors": len(bitwise),
+           "not_bitwise": sorted(k for k, v in bitwise.items() if not v),
+           "mesh_over_plain": res["mesh"]["step_ms"]
+           / res["plain"]["step_ms"]}
+    bad = []
+    if not (out["losses_bitwise"] and out["params_bitwise"]):
+        bad.append(f"ResNet-50 mesh step is not the plain step bit for bit: "
+                   f"losses {res['plain']['losses']} vs "
+                   f"{res['mesh']['losses']}, differing {out['not_bitwise']}")
+    if not all(np.isfinite(res["mesh"]["losses"])):
+        bad.append(f"non-finite mesh loss {res['mesh']['losses']}")
+    return out, bad
+
+
+def _mpar_channels_last(dev, mesh):
+    """The channels-last check net (``_nhwc_symbol``) through the mesh
+    fused step, NHWC_BATCHES batches: each step launches NHWC_UNITS
+    BatchNorm stats and normalize kernels (wrapper counts, from 0 just
+    before); one more step profiled for the kernels by name.  Outside the
+    counted window: each BatchNorm's kernels held against their plain
+    versions on this path's activation (B x 56 x 56 x 256), as the kernels
+    phase holds them (f32 tolerance, bitwise repeatable)."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import batch_norm as bn
+
+    net = _nhwc_symbol()
+    B, n = NHWC_BATCH, NHWC_BATCHES
+    X, Y = _fit_images(n, B, SEED + 12, (NHWC_HW, NHWC_HW, NHWC_C), 10)
+    params, aux = _random_values(net, (B, NHWC_HW, NHWC_HW, NHWC_C),
+                                 SEED + 13, 10)
+    start = ({k: v for k, v in params.items()
+              if k not in ("data", "softmax_label")}, aux)
+    it = mx.io.NDArrayIter(X, Y, batch_size=B)
+    batches = list(it)
+    mod = _mpar_module(net, it, start, mesh)
+    torch.cuda.synchronize()
+    _reset_launches()
+    losses, ms = _mpar_steps(mod, batches)
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    prof = _profiled(lambda: mod._try_fused_step(batches[0]), families=(
+        "bn_stats_partial", "bn_stats_final", "bn_normalize"))
+    # the kernels against their plain versions on this path's input
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    x = torch.randn(B * NHWC_HW * NHWC_HW, NHWC_C, generator=g, device=dev)
+    gam = 1.0 + 0.1 * torch.randn(NHWC_C, generator=g, device=dev)
+    bet = 0.1 * torch.randn(NHWC_C, generator=g, device=dev)
+    runs = [bn.bn_train_fused(x, gam, bet, 2e-5) for _ in range(2)]
+    want = bn.bn_train_reference(x, gam, bet, 2e-5)
+    errs, ok = {}, True
+    for name, a, b in zip(("out", "mean", "var"), runs[0], want):
+        good, errs[name], _ = _close(a, b, "batch_norm")
+        ok = ok and good
+    bitwise = all(bool(torch.equal(a, b)) for a, b in zip(*runs))
+    res = {"B": B, "batches": n, "units": NHWC_UNITS,
+           "shape": [B, NHWC_HW, NHWC_HW, NHWC_C], "losses": losses,
+           "step_ms": ms, "launches": launches,
+           "profiled": {k: prof[k] for k in ("families", "family_names",
+                                             "lost_records", "idle_share")},
+           "kernels_vs_plain": {"max_abs_err": errs, "ok": ok,
+                                "bitwise_repeatable": bitwise}}
+    bad = []
+    want_l = {k: 0 for k in launches}
+    want_l.update(bn_stats=NHWC_UNITS * n, bn_normalize=NHWC_UNITS * n)
+    if launches != want_l:
+        bad.append(f"channels-last mesh steps launched {launches}, "
+                   f"expected {want_l}")
+    fam = prof["families"]
+    if not (fam["bn_stats_partial"] == fam["bn_stats_final"]
+            == fam["bn_normalize"] == NHWC_UNITS):
+        bad.append(f"profiled channels-last mesh step ran BatchNorm kernels"
+                   f" {fam}, expected {NHWC_UNITS} of each")
+    if not (ok and bitwise):
+        bad.append(f"BatchNorm kernels vs plain on the mesh path: {errs}, "
+                   f"bitwise repeatable {bitwise}")
+    if not all(np.isfinite(losses)):
+        bad.append(f"non-finite channels-last mesh loss {losses}")
+    return res, bad
+
+
+def _mpar_group2ctx(dev):
+    """``group2ctx`` with layers alternating between ``gpu(0)`` and
+    ``cpu(0)`` (``example/model-parallel/group2ctx_lstm.py``'s stacked
+    tanh layers): a training forward and a backward with head gradients
+    against the ungrouped executor on the card, outputs and every
+    gradient within 1e-5 normwise; where each group's weights live."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    L, B, H = MPAR_G2C
+    with mx.name.NameManager():
+        h = mx.sym.Variable("data")
+        for g in range(L):
+            with mx.AttrScope(ctx_group=f"layer{g}"):
+                h = mx.sym.Activation(mx.sym.FullyConnected(
+                    h, num_hidden=H, name=f"l{g}"), act_type="tanh")
+        out = mx.sym.FullyConnected(h, num_hidden=2, name="out")
+    g2c = {f"layer{g}": mx.gpu(0) if g % 2 == 0 else mx.cpu(0)
+           for g in range(L)}
+    rs = np.random.default_rng(SEED + 15)
+    vals = {n: (rs.standard_normal(s) / np.sqrt(s[-1] if len(s) > 1 else 1)
+                ).astype(np.float32)
+            for n, s in zip(out.list_arguments(),
+                            out.infer_shape(data=(B, H))[0])}
+    ct = rs.standard_normal((B, 2)).astype(np.float32)
+
+    def run(group2ctx):
+        ex = out.simple_bind(ctx=mx.gpu(0), group2ctx=group2ctx,
+                             data=(B, H))
+        for n, v in vals.items():
+            ex.arg_dict[n]._data.copy_(torch.from_numpy(v))
+        t0 = time.perf_counter()
+        o = ex.forward(is_train=True)[0]._data
+        ex.backward(out_grads=[mx.nd.array(ct, ctx=mx.gpu(0))])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        got = {"out": o.cpu()}
+        got.update({"grad:" + n: g._data.cpu()
+                    for n, g in ex.grad_dict.items()})
+        where = {n: str(ex.arg_dict[n]._data.device)
+                 for n in ("l0_weight", "l1_weight", "out_weight")}
+        return got, where, wall, ex
+
+    grouped, where, g_ms, ex = run(g2c)
+    plain, _, p_ms, _ = run(None)
+    errs = {k: _rel(grouped[k], plain[k]) for k in plain}
+    worst = max(errs, key=errs.get)
+    res = {"layers": L, "B": B, "width": H,
+           "groups": {k: str(v) for k, v in g2c.items()},
+           "segments": ex._grouped.num_segments, "placed": where,
+           "max_rel_err": errs[worst], "worst": worst, "tolerance": 1e-5,
+           "fwd_bwd_ms": g_ms, "ungrouped_fwd_bwd_ms": p_ms}
+    bad = []
+    if errs[worst] > 1e-5:
+        bad.append(f"group2ctx vs ungrouped: {worst} by {errs[worst]:.3g}")
+    if not (where["l0_weight"].startswith("cuda")
+            and where["l1_weight"] == "cpu" and res["segments"] == L):
+        bad.append(f"group2ctx placement {where}, {res['segments']} "
+                   f"segments")
+    return res, bad
+
+
+def _mpar_plan():
+    """``plan_pipeline``'s split of a stage-stackable FC stack (MPAR_PP)
+    into its stages: the describe line and each stage's parameters."""
+    import types
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.symbol.staging import plan_pipeline
+
+    L, S, B, H = MPAR_PP
+    net = _mpar_stack(mx, L, H)
+    shapes, _, _ = net.infer_shape(data=(B, H), softmax_label=(B,))
+    structs = {n: types.SimpleNamespace(shape=tuple(s), dtype=np.float32)
+               for n, s in zip(net.list_arguments(), shapes)}
+    plan = plan_pipeline(net._entries, S, structs,
+                         input_names=["data", "softmax_label"])
+    want = (f"pp plan: 1 prologue ops | {S} stages × {L // S} units "
+            f"({2 * L // S} ops/stage) | 3 epilogue ops")
+    res = {"layers": L, "stages": S, "describe": plan.describe(),
+           "stage_params": plan.stage_param_names}
+    bad = [] if plan.describe() == want else [
+        f"pp plan {plan.describe()!r}, expected {want!r}"]
+    return res, bad
+
+
+def _mpar_stack(mx, layers, width, classes=10):
+    """A stage-stackable FC stack: an input layer, ``layers`` equal
+    FC + ReLU units, a classifier and ``SoftmaxOutput``."""
+    with mx.name.NameManager():
+        h = mx.sym.Activation(mx.sym.FullyConnected(
+            mx.sym.Variable("data"), num_hidden=width, name="fc_in"),
+            act_type="relu")
+        for i in range(layers):
+            h = mx.sym.Activation(mx.sym.FullyConnected(
+                h, num_hidden=width, name=f"body{i}"), act_type="relu")
+        out = mx.sym.FullyConnected(h, num_hidden=classes, name="fc_out")
+        return mx.sym.SoftmaxOutput(out, mx.sym.Variable("softmax_label"),
+                                    name="softmax")
+
+
+def phase_module_parallel(dev):
+    """The symbolic API over a mesh (``Executor.set_spmd``, ``Module``'s
+    mesh step, ``group2ctx``, ``plan_pipeline``) in a world of one process
+    on NCCL (NCCL refuses two ranks on one card; ``chip_multicard.py``'s
+    ``module`` legs run four).  The main path, counted from 0: the mesh
+    fused step of the module_fit ResNet-50 symbol (f32, B=128), held bit
+    for bit to the plain fused step (loss and every parameter and moving
+    statistic after three steps), step ms of each in turns; the
+    channels-last BatchNorm symbol's mesh steps (kernels 3-4 counted by
+    wrapper and by name, and held to their plain versions).  Then
+    ``group2ctx`` over ``gpu(0)`` and ``cpu(0)`` against the ungrouped
+    executor, and the pipeline plan of an FC stack."""
+    import gc
+
+    import torch
+
+    from mxnet_tpu_torch.parallel import mesh as pmesh
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise SystemExit("TF32 is on: the f32 comparison needs full f32")
+    gc.collect()
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        mesh = pmesh.make_mesh({"dp": 1}, install=False, device=dev)
+        _reset_launches()
+        resnet, bad = _mpar_resnet(mesh)
+        resnet_launches = _read_launches()
+        gc.collect()
+        nhwc, bad_nhwc = _mpar_channels_last(dev, mesh)
+        gc.collect()
+        g2c, bad_g2c = _mpar_group2ctx(dev)
+        plan, bad_plan = _mpar_plan()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = det
+        pmesh.shutdown()
+    launches = {k: resnet_launches[k] + nhwc["launches"][k]
+                for k in resnet_launches}
+    res = {"phase": "module_parallel",
+           "world": {"backend": "nccl", "size": 1, "mesh": {"dp": 1}},
+           "resnet50_mesh_vs_plain": resnet, "channels_last": nhwc,
+           "group2ctx": g2c, "pipeline_plan": plan, "launches": launches}
+    emit(res)
+    bad += bad_nhwc + bad_g2c + bad_plan
+    if any(resnet_launches.values()):
+        bad.append(f"the channels-first ResNet launched port kernels: "
+                   f"{resnet_launches}")
+    if bad:
+        raise SystemExit("module_parallel phase failed: " + "; ".join(bad))
+    return res
+
+
 
 def _kernel_table(kern, runs):
     """One row per CUDA kernel: its times and bound from the kernels phase
@@ -7412,7 +7736,7 @@ def main(argv) -> int:
         "gluon_training", "module_fit", "gluon_hybrid", "rnn_lm",
         "bucketing_fit", "image_rec", "serving_spec", "serving_fleet",
         "ops_breadth", "fcn_fit", "spmd_lm", "dp_mesh", "dist_kvstore",
-        "model_parallel"}
+        "model_parallel", "module_parallel"}
     if "serving_int8" in phases:
         phases.add("serving")   # its float baseline
     t_start = time.perf_counter()
@@ -7470,6 +7794,12 @@ def main(argv) -> int:
         runs["ops_breadth"] = phase_ops_breadth(dev)
     if "fcn_fit" in phases:
         runs["fcn_fit"] = phase_fcn_fit(dev, smi)
+    # after fcn_fit: that phase's card-vs-CPU check depends on which
+    # convolution algorithms the process's earlier work leads cuDNN to
+    # (PERF.md §7); run before it, this phase moved its floor below its
+    # errors
+    if "module_parallel" in phases:
+        runs["module_parallel"] = phase_module_parallel(dev)
     # the generation phases last, on the LM built again
     if phases & {"serving_spec", "serving_fleet"}:
         cfg, params = _model(dev)

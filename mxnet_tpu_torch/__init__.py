@@ -31,7 +31,7 @@ context) unless the caller passes the CPU (``ctx=mx.cpu()``,
 ``context=mx.cpu()`` or ``device="cpu"``).
 """
 from . import (attribute, autograd, base, callback, context, engine,
-               executor, fault, gluon, initializer, io, kvstore,
+               executor, executor_manager, fault, gluon, initializer, io, kvstore,
                lr_scheduler, metric, model, module, monitor, name, ndarray,
                observability, ops, optimizer, parallel, profiler, random,
                recordio, rnn, serving, symbol)
@@ -43,6 +43,7 @@ from . import symbol as sym
 from .model import load_checkpoint, save_checkpoint
 from .module import Module
 from .symbol import Symbol
+from .attribute import AttrScope
 from .base import MXNetError
 from .context import (Context, cpu, current_context, gpu, num_devices,
                       resolve_device, tpu)

@@ -32,9 +32,39 @@ as the executor's host ms a forward.
   node uid)``, as the reference's ``trace``; ``fused_step`` draws one a
   call and folds in the step index when it runs several.
 
-Not ported, each refused with ``MXNetError``: ``set_spmd`` and
-``group2ctx`` placement (ROADMAP.md, Queue 1, item 5), loss scaling and
-telemetry (Queue 1, item 6).
+Several devices, one process per device (``parallel/mesh.py``):
+
+- ``set_spmd(mesh, batch_args, ...)`` attaches a mesh (the reference's
+  validation and messages).  ``fused_step`` then takes the mesh route
+  whenever a mesh is attached, a world of one included: each rank runs
+  forward and backward on its block of the batch (cut on the ``dp``
+  axis), the gradients are summed over ``dp`` in one buffer per dtype
+  (``collectives.psum_flat``), a training BatchNorm's new running
+  statistics are averaged over ``dp``, outputs that carry the batch are
+  gathered whole on every rank and the others averaged (reference:
+  ``executor.py`` ``_get_fused_step``'s ``shard_map`` program).
+- ``param_specs`` (from ``parallel.partition_rules.make_param_specs``):
+  each rank stores its block of every rule-matched parameter, gradient
+  and optimizer state from the first mesh step on; the step gathers the
+  whole weights, differentiates, slices each summed gradient back and
+  updates block-wise (FSDP storage).  With ``compute=True`` the step
+  partitions the graph explicitly instead (``symbol.tensor_parallel``:
+  column- and row-parallel ``FullyConnected``, elementwise ops passing the
+  split through, any other node gathering its operand whole).
+- ``pipeline=(plan, n_micro)`` (``symbol.staging.PipelinePlan``) runs the
+  plan's body as GPipe over the mesh's ``pp`` ranks; prologue and stage
+  gradients are summed over ``pp``.
+- ``forward``/``backward`` on a mesh compute the whole batch on every
+  rank from the whole weights: the reference's global outputs and
+  gradients (its plain programs are global-view), with no collective in
+  the graph.
+- ``group2ctx`` (``symbol.placement.GroupedProgram``): each group's nodes
+  run on its device in one process, arguments, gradients and aux states
+  placed on the device of the group that reads them; ``fused_step``
+  refuses it, as the reference's does.
+
+Not ported, each refused with ``MXNetError``: loss scaling and telemetry
+(ROADMAP.md, Queue 1, item 6).
 """
 from __future__ import annotations
 
@@ -68,10 +98,6 @@ class Executor:
     def __init__(self, symbol, ctx: Context, args: Dict[str, NDArray],
                  args_grad: Dict[str, NDArray], grad_req: Dict[str, str],
                  aux_states: Dict[str, NDArray], group2ctx=None):
-        if group2ctx:
-            raise MXNetError(
-                "group2ctx placement is not ported (ROADMAP.md, Queue 1, "
-                "item 5: multi-process distributed)")
         self._symbol = symbol
         self._ctx = ctx
         self.arg_dict = args
@@ -94,6 +120,30 @@ class Executor:
         self._grad_arg_names = sorted(
             n for n in self._arg_names if self.grad_req.get(n, "null") != "null"
             and n in self.grad_dict)
+        # the attached mesh (set_spmd) and what it carries
+        self._spmd_mesh = None
+        self._spmd_axis = "dp"
+        self._spmd_param_specs: Dict[str, tuple] = {}
+        self._spmd_batch_args: frozenset = frozenset()
+        self._spmd_batch = 0
+        self._spmd_out_is_batch: List[bool] = []
+        self._spmd_compute = False
+        self._spmd_tp = None            # TensorParallelPlan under compute
+        self._spmd_pipeline = None      # (PipelinePlan, n_micro)
+        # parameters stored as this rank's block: name -> whole shape
+        self._spmd_blocks: Dict[str, tuple] = {}
+        self._group2ctx = group2ctx
+        self._grouped = None
+        if group2ctx:
+            from .symbol.placement import GroupedProgram
+
+            self._grouped = GroupedProgram(symbol, group2ctx, ctx)
+            # each argument, its gradient and each aux state on the device
+            # of the group that reads it (the reference's AssignContext)
+            for d in (self.arg_dict, self.grad_dict, self.aux_dict):
+                for n, a in d.items():
+                    if a is not None and a._data is not None:
+                        a._data = a._data.to(self._grouped.arg_device(n))
 
     # -- public mirror of the reference Executor API ------------------------
     @property
@@ -116,11 +166,174 @@ class Executor:
     def output_dict(self) -> Dict[str, NDArray]:
         return dict(zip(self._out_names, self._outputs))
 
-    def set_spmd(self, mesh, batch_args, axis: str = "dp", **kwargs) -> None:
-        if mesh is not None:
+    # -- the mesh -----------------------------------------------------------
+    def set_spmd(self, mesh, batch_args, axis: str = "dp",
+                 param_specs=None, compute: bool = False,
+                 pipeline=None) -> None:
+        """Attach a mesh (``parallel.mesh.Mesh``) to this executor, or
+        detach with ``mesh=None`` (reference: ``Executor.set_spmd``).
+        ``batch_args`` carry the batch dimension and are cut on ``axis``;
+        ``param_specs`` (name -> spec) store parameters as blocks;
+        ``compute=True`` partitions the graph along the specs (tensor
+        parallelism); ``pipeline=(plan, n_micro)`` runs the plan's body
+        over the ``pp`` axis (module doc)."""
+        if mesh is None:
+            if self._spmd_blocks:
+                self._spmd_to_whole()
+            self._spmd_mesh = None
+            self._spmd_batch_args = frozenset()
+            self._spmd_param_specs = {}
+            self._spmd_out_is_batch = []
+            self._spmd_compute = False
+            self._spmd_tp = None
+            self._spmd_pipeline = None
+            return
+        ndev = int(mesh.shape[axis])
+        batch_args = frozenset(batch_args)
+        bdims = set()
+        for n in batch_args:
+            if n not in self.arg_dict:
+                raise MXNetError(f"set_spmd: unknown batch argument {n!r}")
+            shape = self.arg_dict[n].shape
+            if not shape:
+                raise MXNetError(f"set_spmd: batch argument {n!r} is scalar")
+            bdims.add(shape[0])
+        if len(bdims) != 1:
             raise MXNetError(
-                "set_spmd: a data-parallel mesh is not ported (ROADMAP.md, "
-                "Queue 1, item 5: multi-process distributed)")
+                f"set_spmd: batch arguments disagree on the leading "
+                f"(batch) dimension: {sorted(bdims)}")
+        (batch,) = bdims
+        if batch % ndev:
+            raise MXNetError(
+                f"set_spmd: batch size {batch} not divisible by the dp "
+                f"mesh size {ndev}")
+        # outputs that carry the batch (shape inference at the bound
+        # global shapes) are gathered whole; the others averaged
+        shape_kwargs = {n: self.arg_dict[n].shape for n in self._arg_names}
+        _, out_shapes, _ = self._symbol.infer_shape(**shape_kwargs)
+        out_is_batch = [bool(s) and len(s) > 0 and s[0] == batch
+                        for s in out_shapes]
+        specs = {}
+        if param_specs:
+            from .parallel.partition_rules import spec_tuple
+
+            for n, sp in param_specs.items():
+                if n not in self.arg_dict:
+                    raise MXNetError(
+                        f"set_spmd: partition spec for unknown argument "
+                        f"{n!r}")
+                if n in batch_args:
+                    raise MXNetError(
+                        f"set_spmd: {n!r} is a batch argument; batch args "
+                        f"shard on the {axis!r} axis, not via param_specs")
+                st = spec_tuple(sp)
+                if any(e is not None for e in st):
+                    specs[n] = st
+        if pipeline is not None:
+            plan, n_micro = pipeline
+            if "pp" not in mesh.axis_names:
+                raise MXNetError("set_spmd: pipeline requires a 'pp' mesh "
+                                 "axis")
+            if int(plan.n_stages) != int(mesh.shape["pp"]):
+                raise MXNetError(
+                    f"set_spmd: plan has {plan.n_stages} stages but the pp "
+                    f"axis is {int(mesh.shape['pp'])} wide")
+            local_batch = batch // ndev
+            if int(n_micro) < 1 or local_batch % int(n_micro):
+                raise MXNetError(
+                    f"set_spmd: local batch {local_batch} not divisible by "
+                    f"{n_micro} microbatches (TPUMX_PP_MICROBATCHES)")
+            pipeline = (plan, int(n_micro))
+        if self._spmd_blocks:
+            self._spmd_to_whole()
+        self._spmd_mesh = mesh
+        self._spmd_axis = axis
+        self._spmd_param_specs = specs
+        self._spmd_batch_args = batch_args
+        self._spmd_batch = batch
+        self._spmd_out_is_batch = out_is_batch
+        # the pipelined step stores the specs' blocks but computes whole
+        # weights: compute partitioning only on a pipeline-free mesh
+        self._spmd_compute = bool(compute and specs and pipeline is None
+                                  and "mp" in mesh.axis_names)
+        self._spmd_tp = None
+        if self._spmd_compute:
+            from .symbol.tensor_parallel import TensorParallelPlan
+
+            self._spmd_tp = TensorParallelPlan(self._symbol._entries, specs)
+        self._spmd_pipeline = pipeline
+
+    def _spmd_ndev(self) -> int:
+        if self._spmd_mesh is None:
+            return 1
+        return int(self._spmd_mesh.shape[self._spmd_axis])
+
+    @property
+    def mp_gathers(self) -> Dict[str, Dict[str, int]]:
+        """Under tensor-parallel compute: the gathers the partitioned steps
+        made, ``{"weights": {param: n}, "operands": {node: n}}``."""
+        tp = self._spmd_tp
+        return {"weights": dict(tp.weight_gathers) if tp else {},
+                "operands": dict(tp.operand_gathers) if tp else {}}
+
+    def _sharding(self, name):
+        from .parallel.mesh import NamedSharding, PartitionSpec
+
+        return NamedSharding(self._spmd_mesh,
+                             PartitionSpec(*self._spmd_param_specs[name]))
+
+    def spmd_block(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's block of ``t`` when ``name`` is stored as blocks and
+        ``t`` is whole; else ``t``."""
+        full = self._spmd_blocks.get(name)
+        if full is None or tuple(t.shape) != full:
+            return t
+        from .parallel.mesh import shard
+
+        return shard(t.detach(), self._sharding(name))
+
+    def spmd_whole(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The whole of ``t`` (this rank's block of ``name``) gathered from
+        every rank (a collective: every rank calls it); ``t`` itself when
+        ``name`` is not stored as blocks or ``t`` is whole already."""
+        full = self._spmd_blocks.get(name)
+        if full is None or tuple(t.shape) == full:
+            return t
+        from .parallel.mesh import gather
+
+        with torch.no_grad():
+            return gather(t.detach(), self._sharding(name))
+
+    def spmd_state_map(self, name: str, state, fn):
+        """Apply ``fn(name, tensor)`` to every leaf of an optimizer state
+        (an NDArray, a tuple of them, or None), in place."""
+        if state is None:
+            return
+        if isinstance(state, (tuple, list)):
+            for s in state:
+                self.spmd_state_map(name, s, fn)
+            return
+        state._data = fn(name, state._data)
+
+    def _spmd_to_blocks(self, states) -> None:
+        """Store every rule-matched parameter, its gradient and its
+        optimizer state as this rank's block (once; a whole tensor loaded
+        later is cut again)."""
+        for n in self._spmd_param_specs:
+            if n not in self._spmd_blocks:
+                self._spmd_blocks[n] = tuple(self.arg_dict[n].shape)
+            for d in (self.arg_dict, self.grad_dict):
+                if n in d:
+                    d[n]._data = self.spmd_block(n, d[n]._data)
+            if n in states:
+                self.spmd_state_map(n, states[n], self.spmd_block)
+
+    def _spmd_to_whole(self) -> None:
+        for n in list(self._spmd_blocks):
+            for d in (self.arg_dict, self.grad_dict):
+                if n in d:
+                    d[n]._data = self.spmd_whole(n, d[n]._data)
+        self._spmd_blocks = {}
 
     def telemetry_snapshot(self):
         raise MXNetError("executor telemetry is not ported (ROADMAP.md, "
@@ -131,14 +344,36 @@ class Executor:
         for k, v in (feed or {}).items():
             if k not in self.arg_dict:
                 raise MXNetError(f"forward: unknown argument {k!r}")
-            self.arg_dict[k]._data = _as_tensor(v, self.arg_dict[k]._data)
+            t = _as_tensor(v, self.arg_dict[k]._data)
+            if self._spmd_mesh is not None and k in self._spmd_batch_args:
+                t = self._spmd_batch_whole(k, t)
+            self.arg_dict[k]._data = t
+
+    def _spmd_batch_whole(self, name, t):
+        """A batch argument fed as this rank's block (``shard_data_batch``)
+        gathered whole: the bound buffers hold the global batch."""
+        ndev = self._spmd_ndev()
+        if ndev > 1 and t.dim() and t.shape[0] * ndev == self._spmd_batch:
+            from .parallel.collectives import allgather
+
+            with torch.no_grad():
+                t = allgather(t, self._spmd_axis, axis=0,
+                              mesh=self._spmd_mesh)
+        return t
+
+    def _env(self):
+        """Variable name -> tensor; parameters stored as blocks gathered
+        whole."""
+        env = {n: self.spmd_whole(n, self.arg_dict[n]._data)
+               for n in self._arg_names}
+        env.update((n, self.aux_dict[n]._data) for n in self._aux_names)
+        return env
 
     def _run(self, is_train: bool, with_grad: bool, collect_aux: bool,
              rng=None):
         """Evaluate the graph: (outputs, aux updates, leaves); random
         nodes fold their uids into ``rng``."""
-        env = {n: self.arg_dict[n]._data for n in self._arg_names}
-        env.update((n, self.aux_dict[n]._data) for n in self._aux_names)
+        env = self._env()
         leaves = {}
         if with_grad:
             for n in self._grad_arg_names:
@@ -146,10 +381,14 @@ class Executor:
             env.update(leaves)
         aux_updates: Dict[str, torch.Tensor] = {}
         with torch.set_grad_enabled(with_grad):
-            outs = trace(self._symbol._entries, env, is_train,
-                         aux_updates if collect_aux else None,
-                         self._order, self._release, rng,
-                         resolve_device(self._ctx))
+            if self._grouped is not None:
+                outs = self._grouped.trace(
+                    env, is_train, aux_updates if collect_aux else None, rng)
+            else:
+                outs = trace(self._symbol._entries, env, is_train,
+                             aux_updates if collect_aux else None,
+                             self._order, self._release, rng,
+                             resolve_device(self._ctx))
         return outs, aux_updates, leaves
 
     def _commit_aux(self, aux_updates) -> None:
@@ -227,8 +466,10 @@ class Executor:
         write, add = ([], []), ([], [])
         for n in self._grad_arg_names:
             dst = write if self.grad_req.get(n, "write") != "add" else add
-            dst[0].append(self.grad_dict[n]._data)
-            dst[1].append(grads[n].to(self.grad_dict[n]._data.dtype))
+            buf = self.grad_dict[n]._data
+            dst[0].append(buf)
+            dst[1].append(self.spmd_block(n, grads[n]).to(
+                device=buf.device, dtype=buf.dtype))
         with torch.no_grad():
             if write[0]:
                 torch._foreach_copy_(*write)
@@ -251,6 +492,9 @@ class Executor:
         if loss_scaler is not None:
             raise MXNetError("fused_step: loss scaling (AMP) is not ported "
                              "(ROADMAP.md, Queue 1, item 6)")
+        if self._grouped is not None:
+            raise MXNetError("fused_step does not support group2ctx "
+                             "placement")
         unames = [n for n, _ in updates]
         if set(unames) != set(self._grad_arg_names):
             raise MXNetError(
@@ -264,6 +508,9 @@ class Executor:
             raise MXNetError(
                 "fused_step: params carry mixed update counts; use the "
                 "legacy per-param update path")
+        mesh = self._spmd_mesh
+        if mesh is not None:
+            self._spmd_to_blocks(states)
         weights = [self.arg_dict[n] for n in unames]
         grads = [self.grad_dict[n] for n in unames]
         sts = [states[n] for n in unames]
@@ -271,11 +518,15 @@ class Executor:
         rng = _random.next_key()
         for step in range(steps):
             self._graph = None
-            outs, aux_updates, leaves = self._run(
-                True, True, collect_aux=True,
-                rng=_random.fold(rng, step) if steps > 1 else rng)
-            self._cached_grads = self._grads(
-                outs, leaves, [_ones_cotangent(o) for o in outs])
+            srng = _random.fold(rng, step) if steps > 1 else rng
+            if mesh is not None:
+                outs, aux_updates, self._cached_grads = \
+                    self._mesh_fwd_bwd(srng)
+            else:
+                outs, aux_updates, leaves = self._run(
+                    True, True, collect_aux=True, rng=srng)
+                self._cached_grads = self._grads(
+                    outs, leaves, [_ones_cotangent(o) for o in outs])
             self._write_grads(self._cached_grads)
             self._commit_aux(aux_updates)
             if optimizer.multi_tensor:
@@ -285,8 +536,96 @@ class Executor:
                 for i, w, g, s in zip(indices, weights, grads, sts):
                     optimizer.update_multi_precision(i, w, g, s)
         self._forwarded = True
+        if mesh is not None:
+            # the gradients are blocks: a later backward() recomputes
+            self._cached_grads = None
+            outs = self._mesh_outputs(outs)
         self._set_outputs(outs)
         return self._outputs
+
+    def _mesh_fwd_bwd(self, rng):
+        """One mesh step's forward and backward on this rank's block of the
+        batch: (outputs, aux updates averaged over dp, gradients summed
+        over dp in each parameter's stored layout)."""
+        from .parallel.collectives import psum_flat, spmd
+
+        mesh, axis = self._spmd_mesh, self._spmd_axis
+        ndev, me = self._spmd_ndev(), mesh.axis_index(self._spmd_axis)
+        tp = self._spmd_tp
+        env = {}
+        for n in self._arg_names:
+            t = self.arg_dict[n]._data
+            if n in self._spmd_batch_args:
+                if t.shape[0] != self._spmd_batch:
+                    raise MXNetError(
+                        f"fused_step: batch dim of {n!r} "
+                        f"({tuple(t.shape)}) is not the bound batch "
+                        f"{self._spmd_batch} that the dp mesh size {ndev} "
+                        f"divides")
+                b = t.shape[0] // ndev
+                t = t.narrow(0, me * b, b)
+            elif n in self._spmd_blocks and (tp is None or n in tp.gathered):
+                t = self.spmd_whole(n, t)
+            env[n] = t
+        env.update((n, self.aux_dict[n]._data) for n in self._aux_names)
+        leaves = {n: env[n].detach().requires_grad_()
+                  for n in self._grad_arg_names}
+        env.update(leaves)
+        aux_updates: Dict[str, torch.Tensor] = {}
+        dev = resolve_device(self._ctx)
+        if ndev > 1:
+            # each dp rank's random nodes draw their own masks, as the
+            # reference folds in its axis index (a world of one keeps the
+            # plain step's key)
+            rng = _random.fold(rng, me)
+        with torch.enable_grad(), spmd(mesh):
+            if self._spmd_pipeline is not None:
+                plan, n_micro = self._spmd_pipeline
+                outs = plan.apply(env, True, rng, aux_updates, n_micro,
+                                  device=dev)
+            elif tp is not None:
+                outs = tp.trace(env, mesh, True, aux_updates, rng, dev)
+            else:
+                outs = trace(self._symbol._entries, env, True, aux_updates,
+                             self._order, self._release, rng, dev)
+            grads = self._grads(outs, leaves,
+                                [_ones_cotangent(o) for o in outs])
+        names = list(grads)
+        if self._spmd_pipeline is not None:
+            # prologue and stage gradients live on one pp rank each
+            plan = self._spmd_pipeline[0]
+            pp = [n for n in names if plan.pp_combine(n) == "psum"]
+            for n, g in zip(pp, psum_flat([grads[n] for n in pp], "pp",
+                                          mesh)):
+                grads[n] = g
+        # the sum over dp of the blocks' gradients: the global batch's
+        for n, g in zip(names, psum_flat([grads[n] for n in names], axis,
+                                         mesh)):
+            grads[n] = g
+        stats = [k for k, v in aux_updates.items() if v.is_floating_point()]
+        for k, v in zip(stats, psum_flat([aux_updates[k] for k in stats],
+                                         axis, mesh)):
+            aux_updates[k] = v / ndev
+        return outs, aux_updates, grads
+
+    def _mesh_outputs(self, outs):
+        """Outputs that carry the batch gathered whole over dp, the others
+        averaged."""
+        from .parallel.collectives import allgather, psum_flat
+
+        mesh, axis, ndev = self._spmd_mesh, self._spmd_axis, \
+            self._spmd_ndev()
+        outs = [o.detach() for o in outs]
+        rest = [i for i, ob in enumerate(self._spmd_out_is_batch)
+                if not ob and outs[i].is_floating_point()]
+        for i, v in zip(rest, psum_flat([outs[i] for i in rest], axis,
+                                        mesh)):
+            outs[i] = v / ndev
+        with torch.no_grad():
+            for i, ob in enumerate(self._spmd_out_is_batch):
+                if ob:
+                    outs[i] = allgather(outs[i], axis, axis=0, mesh=mesh)
+        return outs
 
     # -- params & misc ------------------------------------------------------
     def copy_params_from(self, arg_params: Dict[str, NDArray],
@@ -296,7 +635,7 @@ class Executor:
                                (aux_params, self.aux_dict, "aux state")):
             for k, v in (src or {}).items():
                 if k in dst:
-                    t = _as_tensor(v, dst[k]._data)
+                    t = self.spmd_block(k, _as_tensor(v, dst[k]._data))
                     if t.shape != dst[k]._data.shape:
                         raise MXNetError(
                             f"copy_params_from: {what} {k!r} has shape "
@@ -312,7 +651,8 @@ class Executor:
         """Rebind with new input shapes, carrying over current params/aux
         (reference: Executor.reshape shares the bound arrays)."""
         new_exec = self._symbol.simple_bind(
-            ctx=self._ctx, grad_req=self.grad_req, **kwargs)
+            ctx=self._ctx, grad_req=self.grad_req,
+            group2ctx=self._group2ctx, **kwargs)
         param_names = set(new_exec._arg_names) - set(kwargs)
         new_exec.copy_params_from(
             {n: self.arg_dict[n] for n in param_names

@@ -17,10 +17,13 @@ default RecordIO image route: decode, resize, crop and mirror on host
 worker threads into uint8 NHWC batches, normalized and transposed on the
 device; ``RecordIOIter`` yields a shard's raw records.
 
-Not ported, each refused with ``MXNetError``: ``ImageRecordIter``'s
+``shard_data_batch`` cuts this rank's block of a batch over a mesh axis
+(one process per device: a rank holds its own block of a sharded array).
+
+Not ported, refused with ``MXNetError``: ``ImageRecordIter``'s
 ``ImageIter`` route (``use_native=False``, or C != 3; ``image.py``,
-ROADMAP.md, Queue 1, item 7) and ``shard_data_batch`` (a device mesh;
-Queue 1, item 5).  ``LibSVMIter`` waits for ``ndarray/sparse``.
+ROADMAP.md, Queue 1, item 7).  ``LibSVMIter`` waits for
+``ndarray/sparse``.
 """
 from __future__ import annotations
 
@@ -46,9 +49,36 @@ __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
 
 
 def shard_data_batch(batch, mesh, axis: str = "dp", strict: bool = False):
-    raise MXNetError("shard_data_batch: a device mesh is not ported "
-                     "(ROADMAP.md, Queue 1, item 5: multi-process "
-                     "distributed)")
+    """Cut this rank's block of every array of ``batch`` (data and labels)
+    on ``axis`` of ``mesh``, in place on the batch's NDArrays (reference:
+    ``io.shard_data_batch``, which places the whole batch sharded on the
+    axis).  On a mesh with more axes the block is replicated across them.
+
+    An array whose leading dimension the axis size does not divide is left
+    whole, unless ``strict=True``: then ``MXNetError`` names the batch size
+    and the axis.  An axis the mesh lacks raises."""
+    axis_names = tuple(str(a) for a in mesh.axis_names)
+    if axis not in axis_names:
+        raise MXNetError(
+            f"shard_data_batch: axis {axis!r} is not an axis of the mesh "
+            f"(axes: {axis_names})")
+    ndev = int(mesh.shape[axis])
+    me = int(mesh.axis_index(axis))
+    for arr in list(batch.data or []) + list(batch.label or []):
+        if not (isinstance(arr, NDArray) and arr._data is not None
+                and arr.shape):
+            continue
+        if arr.shape[0] % ndev:
+            if strict:
+                raise MXNetError(
+                    f"shard_data_batch: batch size {arr.shape[0]} is not "
+                    f"divisible by mesh axis {axis!r} of size {ndev}; pad "
+                    f"the final batch or pick a batch size that is a "
+                    f"multiple of {ndev}")
+            continue
+        b = arr.shape[0] // ndev
+        arr._data = arr._data.narrow(0, me * b, b).contiguous()
+    return batch
 
 
 class DataDesc(namedtuple("DataDesc", ["name", "shape"])):

@@ -27,7 +27,10 @@ kernels on the card).
 ``tpu_sync`` (alias ``nccl``) is the ``device`` store of one process under
 the reference's name for its collective store: no update runs on it
 (``Module`` keeps the update off the store), and a Module may take the
-fused train step over it (``_fused_step_ok``).  ``dist_sync``,
+fused train step over it (``_fused_step_ok``); with several devices the
+``device`` and ``tpu_sync`` stores qualify for the mesh fused step
+(``supports_spmd_fused``), whose gradient sum over ``dp`` is one
+collective a dtype.  ``dist_sync``,
 ``dist_async`` and the ``dist_*_device`` names are the parameter server
 between processes (``kvstore_dist.KVStoreDist``), as the reference maps
 them.
@@ -129,6 +132,14 @@ class KVStore:
         copy."""
         return False
 
+    @property
+    def supports_spmd_fused(self) -> bool:
+        """Whether this store may act as the collective boundary of the
+        mesh fused train step (reference: ``kvstore.supports_spmd_fused``):
+        device-reduce stores (``device``, ``tpu_sync``) without
+        compression; ``local`` and ``dist_*`` stores do not."""
+        return False
+
     def save_optimizer_states(self, fname, dump_optimizer=False):
         if self._updater is None:
             raise MXNetError("optimizer is not set")
@@ -153,6 +164,12 @@ class KVStoreLocal(KVStore):
 
     def _fused_step_ok(self) -> bool:
         return self._grad_compression is None and self.num_workers == 1
+
+    @property
+    def supports_spmd_fused(self) -> bool:
+        return (self._type in ("device", "tpu_sync")
+                and self._grad_compression is None
+                and self.num_workers == 1)
 
     def init(self, key, value):
         for k, vs in _pairs(key, value):

@@ -29,13 +29,22 @@ __all__ = ["BatchEndParam", "FeedForward", "save_checkpoint", "load_checkpoint",
 def _fused_step_allowed(optimizer, kvstore, update_on_kvstore,
                         num_device: int) -> bool:
     """Whether a Module may route fit through the fused train step
-    (``Executor.fused_step``): one device, no update on the store, and a
-    store (if any) whose per-parameter round trip is a copy.
-    ``TPUMX_FUSED_STEP=0`` takes the legacy route everywhere, as in the
-    reference."""
+    (``Executor.fused_step``): no update on the store, and a store (if
+    any) whose per-parameter round trip is a copy.  With several devices
+    the fused step runs over a dp mesh (``Executor.set_spmd``), which also
+    needs a collective-capable store (``supports_spmd_fused``: ``device``
+    or ``tpu_sync``) and is switched off alone by
+    ``TPUMX_FUSED_STEP_SPMD=0``.  ``TPUMX_FUSED_STEP=0`` takes the legacy
+    route everywhere, as in the reference."""
     if os.environ.get("TPUMX_FUSED_STEP", "1") == "0":
         return False
-    if num_device != 1 or optimizer is None or update_on_kvstore:
+    if num_device != 1:
+        if os.environ.get("TPUMX_FUSED_STEP_SPMD", "1") == "0":
+            return False
+        if kvstore is None or not getattr(kvstore, "supports_spmd_fused",
+                                          False):
+            return False
+    if optimizer is None or update_on_kvstore:
         return False
     if kvstore is not None and not kvstore._fused_step_ok():
         return False

@@ -4,10 +4,10 @@ PyTorch counterpart of ``mxnet_tpu/module/base_module.py`` (reference:
 python/mxnet/module/base_module.py).  ``fit`` takes the fused train step
 (``Module._try_fused_step``) where the module allows it, else
 ``forward_backward`` + ``update`` (always for ``BucketingModule`` and
-``SequentialModule``, which take no fused step, as the reference's).  Not ported, each refused with
-``MXNetError``: ``fit``'s fault-tolerant checkpoints (``checkpoint_dir``,
-``resume``) and partition rules (``shard_rules``) (ROADMAP.md, Queue 1,
-items 6 and 5).
+``SequentialModule``, which take no fused step, as the reference's).
+``fit(shard_rules=...)`` hands the partition rules to the ``Module``.
+Not ported, refused with ``MXNetError``: ``fit``'s fault-tolerant
+checkpoints (``checkpoint_dir``, ``resume``; ROADMAP.md, Queue 1, item 6).
 """
 from __future__ import annotations
 
@@ -214,8 +214,7 @@ class BaseModule:
         Returns True."""
         assert num_epoch is not None, "please specify number of epochs"
         if shard_rules is not None:
-            raise MXNetError("fit: partition rules (shard_rules) are not "
-                             "ported (ROADMAP.md, Queue 1, item 5)")
+            self._shard_rules = shard_rules
         if checkpoint_dir is not None or resume:
             raise MXNetError("fit: fault-tolerant checkpoints "
                              "(checkpoint_dir, resume) are not ported "

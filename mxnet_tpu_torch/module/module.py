@@ -1,4 +1,4 @@
-"""Module: symbolic training on one device.
+"""Module: symbolic training on one device or a mesh of them.
 
 PyTorch counterpart of ``mxnet_tpu/module/module.py`` (reference:
 python/mxnet/module/module.py).  One ``Executor`` holds the bound
@@ -9,15 +9,32 @@ optimizer's update in one call) whenever the reference would
 (``_fused_ready``), else the legacy route: ``forward_backward`` and
 ``update`` through the ``Updater`` (and the kvstore's push and pull where
 one is made).  Optimizer state lives in the ``Updater``'s slots on both
-routes, so ``save_optimizer_states``/``load_optimizer_states`` see one
-layout.  Over a ``dist_*`` store the legacy route pushes gradients and
-pulls weights, the update on the server; a ``dist_sync`` store's
-``rescale_grad`` covers every worker's batch.
+routes (index ``i * num_device``, ``num_device`` the context count), so
+``save_optimizer_states``/``load_optimizer_states`` see one layout.  Over
+a ``dist_*`` store the legacy route pushes gradients and pulls weights,
+the update on the server; a ``dist_sync`` store's ``rescale_grad`` covers
+every worker's batch.
 
-Not ported, each refused with ``MXNetError``: several contexts or a
-``TPUMX_DP_DEVICES``/``TPUMX_MP_DEVICES``/``TPUMX_PP_DEVICES`` width above
-1 and ``group2ctxs`` (ROADMAP.md, Queue 1, item 5), AMP and the
-fault-tolerant train state (Queue 1, item 6).  ``BucketingModule`` and
+Several devices, one process each (``parallel/mesh.py``; launch with
+``tools/launch.py`` or ``torchrun``): several contexts or
+``TPUMX_DP_DEVICES`` give the ``dp`` width, ``TPUMX_MP_DEVICES`` an
+``mp`` axis whose partition rules (``shard_rules`` at ``bind``/``fit``,
+``TPUMX_SHARD_RULES``, else every parameter fully sharded) store
+parameters, gradients and optimizer state as blocks, and
+``TPUMX_PP_DEVICES`` a ``pp`` axis over which a stage-stackable symbol's
+body runs as a pipeline (``symbol/staging.py``;
+``TPUMX_PP_MICROBATCHES``).  Where the widths exceed 1,
+``_maybe_attach_spmd_mesh`` makes the mesh over the world, binds the
+executor on this rank's device and attaches the mesh
+(``Executor.set_spmd``); each rank reads the whole batch from its
+iterator and the step cuts its block.  A mesh the world cannot hold (a
+world of one with two contexts) is logged and the module trains on its
+first context by the legacy route, as the reference does when its mesh
+cannot be made.  ``get_params`` and the checkpoint files hold whole
+arrays.  ``group2ctxs`` is accepted and unused, as in the reference.
+
+Not ported, refused with ``MXNetError``: AMP and the fault-tolerant train
+state (ROADMAP.md, Queue 1, item 6).  ``BucketingModule`` and
 ``SequentialModule`` (``bucketing_module.py``, ``sequential_module.py``)
 drive ``Module``s through the legacy route.
 """
@@ -30,13 +47,15 @@ import numpy as _np
 import torch
 
 from ..base import MXNetError
-from ..context import Context, current_context
+from ..context import Context, context_of, current_context
 from ..initializer import InitDesc, Uniform
 from ..model import (_create_kvstore, _fused_step_allowed, _initialize_kvstore,
                      _update_params, _update_params_on_kvstore,
                      load_checkpoint)
 from ..ndarray.ndarray import NDArray
 from ..optimizer import create as _create_optimizer, get_updater
+from ..parallel import partition_rules as _pr
+from ..parallel.mesh import make_mesh
 from .base_module import BaseModule, _check_input_names
 
 __all__ = ["Module"]
@@ -47,6 +66,15 @@ def _env_width(name: str) -> int:
         return int(os.environ.get(name, "") or 0)
     except ValueError:
         return 0
+
+
+def _copy_state(st):
+    """A state's structure with new NDArray leaves over the same tensors."""
+    if st is None:
+        return None
+    if isinstance(st, (tuple, list)):
+        return tuple(_copy_state(s) for s in st)
+    return NDArray(st._data)
 
 
 def _tensor(v) -> torch.Tensor:
@@ -67,22 +95,8 @@ class Module(BaseModule):
             context = [current_context()]
         if isinstance(context, Context):
             context = [context]
-        if len(context) > 1:
-            raise MXNetError(
-                f"Module: {len(context)} contexts; several devices are not "
-                f"ported (ROADMAP.md, Queue 1, item 5: multi-process "
-                f"distributed)")
-        if group2ctxs:
-            raise MXNetError("Module: group2ctxs placement is not ported "
-                             "(ROADMAP.md, Queue 1, item 5)")
-        for env in ("TPUMX_DP_DEVICES", "TPUMX_MP_DEVICES",
-                    "TPUMX_PP_DEVICES"):
-            if _env_width(env) > 1:
-                raise MXNetError(
-                    f"Module: {env}={os.environ[env]}; data, model and "
-                    f"pipeline parallelism are not ported (ROADMAP.md, "
-                    f"Queue 1, item 5)")
         self._context = context
+        self._group2ctxs = group2ctxs   # accepted, unused (the reference's)
         self._symbol = symbol
         self._data_names = list(data_names or [])
         self._label_names = list(label_names or [])
@@ -106,6 +120,8 @@ class Module(BaseModule):
         self._compression_params = compression_params
         self._fused_step_count = 0
         self._shared_bound = False
+        # ordered (regex, spec) partition rules from bind()/fit()
+        self._shard_rules = None
         _check_input_names(symbol, self._data_names, "data", True)
         _check_input_names(symbol, self._label_names, "label", False)
         _check_input_names(symbol, self._state_names, "state", True)
@@ -163,13 +179,26 @@ class Module(BaseModule):
     def _shape_kwargs(self):
         return dict(self._data_shapes + self._label_shapes)
 
+    def _dp_size(self) -> int:
+        """The data-parallel width: ``TPUMX_DP_DEVICES`` when above 1, else
+        the number of contexts."""
+        n = _env_width("TPUMX_DP_DEVICES")
+        return n if n > 1 else len(self._context)
+
+    def _mp_size(self) -> int:
+        """The model-parallel width (``TPUMX_MP_DEVICES``)."""
+        return max(1, _env_width("TPUMX_MP_DEVICES"))
+
+    def _pp_size(self) -> int:
+        """The pipeline width (``TPUMX_PP_DEVICES``)."""
+        return max(1, _env_width("TPUMX_PP_DEVICES"))
+
     # -- binding ------------------------------------------------------------
     def bind(self, data_shapes, label_shapes=None, for_training=True,
              inputs_need_grad=False, force_rebind=False, shared_module=None,
              grad_req="write", shard_rules=None):
         if shard_rules is not None:
-            raise MXNetError("bind: partition rules (shard_rules) are not "
-                             "ported (ROADMAP.md, Queue 1, item 5)")
+            self._shard_rules = shard_rules
         if self.binded and not force_rebind:
             self.logger.warning("Already bound, ignoring bind()")
             return
@@ -198,14 +227,120 @@ class Module(BaseModule):
                 req[n] = "null"
             else:
                 req[n] = grad_req
+        spmd = self._spmd_mesh_for_bind()
+        ctx = self._context[0] if spmd is None \
+            else context_of(spmd[0].device)
         self._exec = self._symbol.simple_bind(
-            ctx=self._context[0], grad_req=req, **self._shape_kwargs())
+            ctx=ctx, grad_req=req, **self._shape_kwargs())
+        if spmd is not None:
+            self._attach_spmd_mesh(*spmd)
         self._shared_bound = shared_module is not None
         if shared_module is not None and shared_module._exec is not None:
             self._exec.copy_params_from(*shared_module.get_params())
         if self._arg_params is not None:
             self._exec.copy_params_from(self._arg_params, self._aux_params,
                                         allow_extra_params=True)
+
+    def _spmd_mesh_for_bind(self):
+        """``(mesh, rules, pipeline)`` when this module trains over a mesh
+        (widths above 1, reference: ``_maybe_attach_spmd_mesh``), else
+        None.  Rule axes are checked first (an unknown axis raises); a mesh
+        the world cannot hold is logged and leaves the legacy route."""
+        ndev, mp, pp = self._dp_size(), self._mp_size(), self._pp_size()
+        if (ndev * mp * pp <= 1 or not self.for_training or self._state_names
+                or os.environ.get("TPUMX_FUSED_STEP", "1") == "0"
+                or os.environ.get("TPUMX_FUSED_STEP_SPMD", "1") == "0"):
+            return None
+        rules = None
+        if mp > 1:
+            env_rules = _pr.rules_from_env()
+            rules = self._shard_rules or env_rules or _pr.DEFAULT_FSDP_RULES
+            axes = ("dp",) + (("pp",) if pp > 1 else ()) + ("mp",)
+            _pr.validate_rule_axes(
+                rules, axes,
+                source=("TPUMX_SHARD_RULES" if self._shard_rules is None
+                        and env_rules is not None else "shard_rules"))
+        pipeline = self._plan_pipeline(ndev, pp) if pp > 1 else None
+        if pipeline is None:
+            pp = 1
+        axes = {"dp": ndev}
+        if pp > 1:
+            axes["pp"] = pp
+        if mp > 1:
+            axes["mp"] = mp
+        if ndev * mp * pp <= 1:
+            return None
+        try:
+            mesh = make_mesh(axes, install=False, device=self._context[0])
+        except MXNetError as e:
+            self.logger.warning(
+                "SPMD fused step unavailable (%s); multi-device fit will use "
+                "the legacy executor-group path", e)
+            return None
+        return mesh, rules, pipeline
+
+    def _attach_spmd_mesh(self, mesh, rules, pipeline):
+        param_specs, compute = None, False
+        if "mp" in mesh.axis_names:
+            shapes = {n: tuple(self._exec.arg_dict[n].shape)
+                      for n in self._param_names
+                      if n not in self._fixed_param_names
+                      and n in self._exec.arg_dict}
+            param_specs = _pr.make_param_specs(rules, shapes, mesh,
+                                               mp_axis="mp")
+            # explicit column/row rule sets partition the compute; the
+            # FSDP catch-all keeps gather-compute-slice; under pp mp stays
+            # a storage axis
+            compute = (pipeline is None and _pr.mp_compute_enabled()
+                       and _pr.rules_compute_partitionable(rules))
+        try:
+            self._exec.set_spmd(
+                mesh, batch_args=self._data_names + self._label_names,
+                param_specs=param_specs, compute=compute, pipeline=pipeline)
+        except MXNetError as e:
+            self.logger.warning(
+                "SPMD fused step unavailable (%s); multi-device fit will use "
+                "the legacy executor-group path", e)
+
+    def _plan_pipeline(self, ndev, pp):
+        """(plan, n_micro) when the bound symbol splits into ``pp`` stages
+        and the microbatch count divides the per-dp-rank batch; None (with
+        a logged reason) otherwise."""
+        from ..symbol.staging import PlanError, plan_pipeline
+
+        batch = self._data_shapes[0][1][0] if self._data_shapes else 0
+        if not batch or batch % ndev:
+            return None
+        local_batch = batch // ndev
+        env = os.environ.get("TPUMX_PP_MICROBATCHES", "")
+        n_micro = _env_width("TPUMX_PP_MICROBATCHES")
+        if not n_micro:
+            n_micro = next((m for m in (4 * pp, 2 * pp, pp)
+                            if m <= local_batch and local_batch % m == 0), 0)
+        if n_micro < 1 or local_batch % n_micro:
+            self.logger.warning(
+                "pipeline: local batch %d has no usable microbatch count "
+                "(TPUMX_PP_MICROBATCHES=%s); dropping the pp axis",
+                local_batch, env or "auto")
+            return None
+        arg_shapes, _, aux_shapes = self._symbol.infer_shape(
+            **self._shape_kwargs())
+        structs = {n: torch.empty(s, device="meta") for n, s in zip(
+            self._symbol.list_arguments() + self._aux_names,
+            list(arg_shapes) + list(aux_shapes))}
+        try:
+            plan = plan_pipeline(
+                self._symbol._entries, pp, structs,
+                input_names=(self._data_names + self._label_names
+                             + self._state_names))
+        except PlanError as e:
+            self.logger.warning(
+                "pipeline: symbol is not stage-stackable (%s); dropping "
+                "the pp axis", e)
+            return None
+        self.logger.info("pipeline: %s, %d microbatches", plan.describe(),
+                         n_micro)
+        return (plan, n_micro)
 
     # -- params -------------------------------------------------------------
     def init_params(self, initializer=Uniform(0.01), arg_params=None,
@@ -226,7 +361,7 @@ class Module(BaseModule):
             for name in names:
                 arr = bound[name]._data
                 if given is not None and name in given:
-                    src = _tensor(given[name])
+                    src = self._exec.spmd_block(name, _tensor(given[name]))
                     if tuple(src.shape) != tuple(arr.shape):
                         raise MXNetError(
                             f"{what} {name}: given shape "
@@ -254,9 +389,13 @@ class Module(BaseModule):
         self._aux_params = dict(self._exec.aux_dict)
 
     def get_params(self):
+        """Copies of the parameters and aux states, whole: under partition
+        rules each rank's blocks are gathered (every rank calls it)."""
         assert self.params_initialized
         self._sync_params_from_exec()
-        return ({k: v.copy() for k, v in self._arg_params.items()},
+        whole = self._exec.spmd_whole
+        return ({k: NDArray(whole(k, v._data).clone())
+                 for k, v in self._arg_params.items()},
                 {k: v.copy() for k, v in self._aux_params.items()})
 
     # -- optimizer ----------------------------------------------------------
@@ -265,8 +404,9 @@ class Module(BaseModule):
         assert self.binded and self.params_initialized
         if self.optimizer_initialized and not force_init:
             return
+        # the effective dp width: above 1 makes the collective store
         kv, update_on_kvstore = _create_kvstore(
-            kvstore, len(self._context),
+            kvstore, self._dp_size(),
             {n: self._exec.arg_dict[n] for n in self._param_names})
         batch_size = self._data_shapes[0][1][0] if self._data_shapes else 1
         if kv and "dist" in kv.type and "_sync" in kv.type:
@@ -350,16 +490,34 @@ class Module(BaseModule):
         if not (self.binded and self.params_initialized
                 and self.optimizer_initialized):
             return False
+        ndev = self._dp_size()
         if not _fused_step_allowed(self._optimizer, self._kvstore,
-                                   self._update_on_kvstore,
-                                   len(self._context)):
+                                   self._update_on_kvstore, ndev):
             return False
         if self._updater is None or self._shared_bound or self.inputs_need_grad:
             return False
-        if self._exec is None or self._exec._monitor_callback is not None:
+        if self._exec is None or self._exec._grouped is not None:
+            return False
+        if self._exec._monitor_callback is not None:
             return False  # per-step introspection wants the legacy path
         # every gradient-taking argument must be a parameter we update
-        return not set(self._exec._grad_arg_names) - set(self._param_names)
+        if set(self._exec._grad_arg_names) - set(self._param_names):
+            return False
+        if ndev > 1:
+            # the mesh must be attached and the batch divide over dp
+            if self._exec._spmd_ndev() != ndev:
+                return False
+            batch = self._data_shapes[0][1][0] if self._data_shapes else 0
+            if not batch or batch % ndev:
+                return False
+        if self._mp_size() > 1:
+            mesh = self._exec._spmd_mesh
+            if mesh is None or "mp" not in mesh.axis_names:
+                return False
+            if self._exec._spmd_param_specs and not getattr(
+                    self._optimizer, "update_step_elementwise", True):
+                return False
+        return True
 
     def _try_fused_step(self, data_batch) -> bool:
         """Forward, backward and the optimizer update in one
@@ -379,6 +537,10 @@ class Module(BaseModule):
         feed = self._feed(data_batch)
         updates, states = [], {}
         for name, idx in idx_of.items():
+            if idx in self._updater._loaded:
+                # a state read from a file is whole: this rank's block
+                self._exec.spmd_state_map(name, self._updater.states[idx],
+                                          self._exec.spmd_block)
             states[name] = self._updater._state(idx, self._exec.arg_dict[name])
             updates.append((name, idx))
         self._exec.fused_step(self._optimizer, states, updates, feed=feed,
@@ -428,12 +590,29 @@ class Module(BaseModule):
                 self._exec.arg_dict[n][:] = value
 
     def save_optimizer_states(self, fname):
+        """The reference's file; under partition rules each state is
+        gathered whole first (every rank calls it)."""
         assert self.optimizer_initialized
         if self._update_on_kvstore:
             self._kvstore.save_optimizer_states(fname)
-        else:
-            with open(fname, "wb") as f:
-                f.write(self._updater.get_states())
+            return
+        held = self._updater.states
+        if self._exec._spmd_blocks:
+            nslot = len(self._context)
+            name_of = {i * nslot: n for i, n in enumerate(self._param_names)}
+            whole = {}
+            for idx, st in held.items():
+                st = _copy_state(st)
+                self._exec.spmd_state_map(name_of.get(idx), st,
+                                          self._exec.spmd_whole)
+                whole[idx] = st
+            self._updater.states = whole
+        try:
+            data = self._updater.get_states()
+        finally:
+            self._updater.states = held
+        with open(fname, "wb") as f:
+            f.write(data)
 
     def load_optimizer_states(self, fname):
         assert self.optimizer_initialized

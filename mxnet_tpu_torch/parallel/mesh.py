@@ -190,7 +190,14 @@ def make_mesh(axes: Dict[str, int] = None, devices=None, install: bool = True,
         raise MXNetError("make_mesh: CUDA is not available; pass "
                          "device=\"cpu\" (or use `with mx.cpu():`) for a "
                          "gloo world")
+    size = math.prod(axes.values())
     if not dist.is_initialized():
+        # a mesh the world to be started cannot hold raises before it
+        # starts (no process group is left behind)
+        world = _rendezvous()[1]
+        if size != world:
+            raise MXNetError(f"make_mesh: mesh {axes} has {size} devices but"
+                             f" the world has {world} processes")
         local = _init_world(cuda)
     else:
         local = _env_int("LOCAL_RANK")
@@ -203,7 +210,6 @@ def make_mesh(axes: Dict[str, int] = None, devices=None, install: bool = True,
             f"make_mesh: the world runs {backend!r} but this mesh asks for "
             f"{'cuda' if cuda else 'the cpu'}; one process group serves "
             f"one device type")
-    size = math.prod(axes.values())
     world = dist.get_world_size()
     if size != world:
         raise MXNetError(f"make_mesh: mesh {axes} has {size} devices but the"

@@ -15,6 +15,8 @@ JAX package's.
   differently).  Also ``backward(out_grads)``, ``Symbol.grad``/``eval``,
   ``reshape``, ``copy_params_from`` and the refusals.
 """
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -291,13 +293,22 @@ def test_reshape_and_copy_params():
 
 
 def test_executor_refusals():
+    """``group2ctx`` binds (a symbol without groups runs on the default
+    group, one segment); ``set_spmd`` validates as the reference's and
+    detaches with ``None``; loss scaling stays refused."""
     ts = _sym(tmx, "mlp")
-    with pytest.raises(MXNetError, match="Queue 1, item 5"):
-        ts.simple_bind(ctx=tmx.cpu(), data=(4, 1, 28, 28),
-                       group2ctx={"a": tmx.cpu()})
+    tg = ts.simple_bind(ctx=tmx.cpu(), data=(4, 1, 28, 28),
+                        group2ctx={"a": tmx.cpu()})
+    assert tg._grouped.num_segments == 1
     te = ts.simple_bind(ctx=tmx.cpu(), data=(4, 1, 28, 28))
-    with pytest.raises(MXNetError, match="Queue 1, item 5"):
-        te.set_spmd(object(), ["data"])
+    mesh = types.SimpleNamespace(axis_names=("dp",), shape={"dp": 3},
+                                 size=3)
+    with pytest.raises(MXNetError, match="not divisible by the dp mesh"):
+        te.set_spmd(mesh, ["data"])
+    with pytest.raises(MXNetError, match="unknown batch argument"):
+        te.set_spmd(mesh, ["nope"])
+    te.set_spmd(None, ["data"])
+    assert te._spmd_mesh is None
     opt = tmx.optimizer.create("sgd")
     with pytest.raises(MXNetError, match="loss scaling"):
         te.fused_step(opt, {}, [], loss_scaler=object())

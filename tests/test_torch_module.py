@@ -18,6 +18,7 @@ package's.
   checkpoints, ``ImageRecordIter``'s ``ImageIter`` route).
 """
 import os
+import types
 
 import numpy as np
 import pytest
@@ -271,21 +272,47 @@ def test_feedforward_and_score_callbacks():
     assert ff.score(tmx.io.NDArrayIter(X, Y, batch_size=32)) > 0.9
 
 
-def test_refusals(monkeypatch):
+def test_refusals(monkeypatch, caplog):
+    """What the port took up from its refusals: several contexts,
+    ``group2ctxs``, ``TPUMX_MP_DEVICES`` and ``shard_rules`` are accepted.
+    In a world of one process a mesh of two devices cannot be made: the
+    module logs it and trains on its first context by the legacy route,
+    to the reference's numbers (which trains over two virtual devices).
+    What stays refused keeps its refusal."""
+    import logging
+
     sym = _mlp_sym(tmx)
-    with pytest.raises(MXNetError, match="Queue 1, item 5"):
-        tmx.mod.Module(sym, context=[tmx.cpu(0), tmx.cpu(1)])
-    with pytest.raises(MXNetError, match="Queue 1, item 5"):
-        tmx.mod.Module(sym, context=tmx.cpu(), group2ctxs={"a": tmx.cpu()})
+    X, Y = _toy()
+    got = {}
+    for pkg in (jmx, tmx):
+        it = pkg.io.NDArrayIter(X, Y, batch_size=32)
+        mod = pkg.mod.Module(_mlp_sym(pkg), context=[pkg.cpu(0),
+                                                     pkg.cpu(1)])
+        with caplog.at_level(logging.WARNING):
+            mod.fit(it, num_epoch=1, kvstore="tpu_sync",
+                    optimizer_params={"learning_rate": 0.5},
+                    arg_params={k: pkg.nd.array(v)
+                                for k, v in _params().items()})
+        got[pkg] = (mod._fused_step_count,
+                    {k: v.asnumpy() for k, v in mod.get_params()[0].items()})
+    assert got[jmx][0] == 8 and got[tmx][0] == 0
+    assert any("mesh {'dp': 2} has 2 devices but the world has 1" in
+               r.message for r in caplog.records)
+    for k in got[jmx][1]:
+        np.testing.assert_allclose(got[tmx][1][k], got[jmx][1][k], **TOL,
+                                   err_msg=k)
+    tmx.mod.Module(sym, context=tmx.cpu(), group2ctxs={"a": tmx.cpu()})
     monkeypatch.setenv("TPUMX_MP_DEVICES", "2")
-    with pytest.raises(MXNetError, match="TPUMX_MP_DEVICES"):
-        tmx.mod.Module(sym, context=tmx.cpu())
+    mod = tmx.mod.Module(sym, context=tmx.cpu())
+    caplog.clear()
+    with caplog.at_level(logging.WARNING):
+        mod.bind([("data", (8, 16))], [("softmax_label", (8,))],
+                 shard_rules=[(r"fc1_weight", ("mp", None))])
+    assert mod._shard_rules == [(r"fc1_weight", ("mp", None))]
+    assert mod._exec._spmd_mesh is None
+    assert any("'mp': 2" in r.message for r in caplog.records)
     monkeypatch.delenv("TPUMX_MP_DEVICES")
     mod = tmx.mod.Module(sym, context=tmx.cpu())
-    with pytest.raises(MXNetError, match="shard_rules"):
-        mod.bind([("data", (8, 16))], [("softmax_label", (8,))],
-                 shard_rules=[])
-    X, Y = _toy()
     it = tmx.io.NDArrayIter(X, Y, batch_size=32)
     with pytest.raises(MXNetError, match="checkpoint_dir"):
         mod.fit(it, num_epoch=1, checkpoint_dir="x")
@@ -293,10 +320,18 @@ def test_refusals(monkeypatch):
     for make in (lambda: tmx.io.ImageRecordIter(path_imgrec="x",
                                                 use_native=False),
                  lambda: tmx.io.ImageRecordIter(path_imgrec="x",
-                                                data_shape=(1, 28, 28)),
-                 lambda: tmx.io.shard_data_batch(None, None)):
+                                                data_shape=(1, 28, 28))):
         with pytest.raises(MXNetError, match="Queue 1, item"):
             make()
+    # shard_data_batch cuts this rank's block (rank 1 of dp=2 here)
+    mesh = types.SimpleNamespace(axis_names=("dp",), shape={"dp": 2},
+                                 axis_index=lambda a: 1)
+    batch = next(iter(tmx.io.NDArrayIter(X[:8], Y[:8], batch_size=8)))
+    tmx.io.shard_data_batch(batch, mesh)
+    np.testing.assert_array_equal(batch.data[0].asnumpy(), X[4:8])
+    np.testing.assert_array_equal(batch.label[0].asnumpy(), Y[4:8])
+    with pytest.raises(MXNetError, match="not an axis of the mesh"):
+        tmx.io.shard_data_batch(batch, mesh, axis="mp")
     if not torch.cuda.is_available():
         # the default context is gpu(0): without CUDA it names the way out
         monkeypatch.setattr(tmx.context.Context._tls, "stack", [])
