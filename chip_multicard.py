@@ -5,7 +5,8 @@
     python3 chip_multicard.py --rehearse   # the same workers over gloo on
                                            # the CPU, at small sizes
     python3 chip_multicard.py --legs=mp    # some legs only: sp (1-3),
-                                           # dp (4), mp (5-8), module (9)
+                                           # dp (4), mp (5-8), serve (8),
+                                           # module (9)
 
 Run from the repository root.  The script builds the kernels, then starts
 itself four times through ``tools/launch.py -n 4`` (``--worker``); worker
@@ -60,7 +61,12 @@ alone (the inputs are the same on every rank, from seeds):
    traffic, greedy, float and int8 pools: rank 0's tokens identical to
    one card's ``mp_devices=1`` service, the paged kernel (9 or 10)
    launched on every rank by wrapper and by name; tokens/s and each
-   rank's pool bytes beside one card's;
+   rank's pool bytes beside one card's; then speculative decode (n-gram
+   and draft model) and multi-step decode at k=8 (eager under mp, one
+   command a k-iteration step) on chip_smoke's greedy
+   spec traffic: rank 0's tokens identical to one card's service of the
+   same mode, the paged kernel's launches counted on every rank
+   (``--legs=serve`` runs the two serving legs alone);
 9. ``Module.fit`` over meshes (``TPUMX_DP/MP/PP_DEVICES``), three f32
    batches: dp=4 on the module_fit ResNet-50 symbol (B=128) against a
    one-card run of the same four blocks, mp=4 storage and dp=2 x mp=2
@@ -739,6 +745,100 @@ def _serving(coord, dev, size, bad):
     return out
 
 
+def _serving_multi_token(coord, dev, size, bad):
+    """Speculative decode (n-gram and draft-model proposers, draft_k =
+    chip_smoke's SPEC_DRAFT_K) and multi-step decode (k =
+    SPEC_MULTISTEP_K, eager under mp: one command a k-iteration step) at
+    ``mp_devices=4``, warmed up, on chip_smoke's greedy spec traffic in
+    waves of max_slots: rank 0's tokens against one card's
+    ``mp_devices=1`` service of the same mode (multi-step there one CUDA
+    graph replay); every rank's paged-kernel launches (row 9) by
+    wrapper over the warm-up and the traffic, and the spec and multi-step
+    step counts; tokens/s beside one card's."""
+    import torch.distributed as dist
+
+    import chip_smoke as cs
+    from mxnet_tpu_torch.parallel.transformer import (TransformerConfig,
+                                                      transformer_lm_init)
+    from mxnet_tpu_torch.serving.generation import (GenerationConfig,
+                                                    GenerationService)
+
+    cfg = TransformerConfig(**size["serve_lm"])
+    params = transformer_lm_init(cfg, seed=SEED, device=dev)
+    prompts = [p for i, p in enumerate(cs._spec_traffic(cfg))
+               if i not in cs.SPEC_SAMPLED]
+    rank = dist.get_rank()
+    modes = {"ngram": dict(speculative=True, draft_mode="ngram",
+                           draft_k=cs.SPEC_DRAFT_K),
+             "model": dict(speculative=True, draft_mode="model",
+                           draft_k=cs.SPEC_DRAFT_K,
+                           draft_window=cs.SPEC_DRAFT_WINDOW),
+             "multistep": dict(multistep_k=cs.SPEC_MULTISTEP_K)}
+    out = {}
+
+    def serve(svc, slots):
+        outs, t0 = [], time.perf_counter()
+        for w in range(0, len(prompts), slots):
+            streams = [svc.submit(p) for p in prompts[w:w + slots]]
+            outs += [st.result(timeout=600) for st in streams]
+        _sync(dev)
+        return outs, sum(len(o) for o in outs) / (time.perf_counter() - t0)
+
+    for mode, kw in modes.items():
+        gen = dict(max_slots=8, block_size=32,
+                   seq_buckets=[64, 128, 256, 512], max_new_tokens=32, **kw)
+        draft = (dict(draft_params=params, draft_cfg=cfg)
+                 if mode == "model" else {})
+        svc = GenerationService(params, cfg, GenerationConfig(
+            mp_devices=4, **gen), device=dev, **draft)
+        # a follower's steps run on its own thread until the leader stops:
+        # each rank counts from before the warm-up to after its stop()
+        cs._reset_launches()
+        t0 = time.perf_counter()
+        svc.warmup()
+        warm_s = time.perf_counter() - t0
+        if rank == 0:
+            outs, tps = serve(svc, gen["max_slots"])
+            st = svc.stats()
+        row = {"kernel": svc._programs.kernel, "warmup_s": warm_s,
+               "captures": svc._programs.captures}
+        svc.stop()
+        _sync(dev)
+        row["launches"] = launches = cs._read_launches()
+        if not launches["paged_attention"] and dev.type == "cuda":
+            bad.append(f"mp=4 {mode} on rank {rank}: no paged kernel "
+                       f"launch")
+        del svc
+        if rank == 0:
+            one = GenerationService(params, cfg, GenerationConfig(**gen),
+                                    device=dev, **draft)
+            try:
+                one.warmup()
+                ref, ref_tps = serve(one, gen["max_slots"])
+            finally:
+                one.stop()
+            row.update(tokens_per_s=tps, one_card_tokens_per_s=ref_tps,
+                       tokens=sum(len(o) for o in outs),
+                       same_tokens=outs == ref,
+                       mismatched_requests=sum(
+                           a != b for a, b in zip(outs, ref)),
+                       speculative=st["speculative"],
+                       multistep=st["multistep"],
+                       counts={k: st["counts"][k] for k in (
+                           "spec_steps", "multistep_steps",
+                           "draft_proposed", "draft_accepted", "failed")})
+            if outs != ref:
+                bad.append(f"mp=4 {mode}: tokens differ from one card's "
+                           f"in {row['mismatched_requests']} requests")
+            steps = row["counts"]["multistep_steps" if mode == "multistep"
+                                  else "spec_steps"]
+            if not steps or row["counts"]["failed"]:
+                bad.append(f"mp=4 {mode}: {row['counts']}")
+        dist.barrier(group=coord)
+        out[mode] = row
+    return out
+
+
 def _mod_fit(mx, net, X, Y, B, start, env, opt_params, rules=None):
     """``Module.fit`` over ``net`` on this rank's card (one epoch of
     len(X) / B batches, ``tpu_sync``, SGD) from ``start``'s parameters
@@ -1039,6 +1139,13 @@ def _legs(res, bad, ctx, dev, size, legs):
                 res["dp"] = _dp(d4, dev, size, bad)
             if "module" in legs:
                 res["module"] = _module(dev, size, bad)
+            if "serve" in legs:
+                import torch.distributed as dist
+
+                coord = dist.new_group(backend="gloo")
+                res["serving"] = _serving(coord, dev, size, bad)
+                res["serving_multi_token"] = _serving_multi_token(
+                    coord, dev, size, bad)
             if "mp" in legs:
                 import torch.distributed as dist
 
@@ -1052,8 +1159,10 @@ def _legs(res, bad, ctx, dev, size, legs):
                     pp=4, install=False, device=dev), dev, size, bad)
                 res["moe"] = _moe(pmesh.make_mesh(
                     ep=4, install=False, device=dev), dev, size, bad)
-                res["serving"] = _serving(dist.new_group(backend="gloo"),
-                                          dev, size, bad)
+                coord = dist.new_group(backend="gloo")
+                res["serving"] = _serving(coord, dev, size, bad)
+                res["serving_multi_token"] = _serving_multi_token(
+                    coord, dev, size, bad)
         except BaseException:
             bad.append(traceback.format_exc()[-2000:])
             raise

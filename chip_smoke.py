@@ -304,6 +304,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -390,6 +391,12 @@ NHWC_BATCH, NHWC_BATCHES, NHWC_HW, NHWC_C, NHWC_UNITS = 32, 3, 56, 256, 3
 # per conv unit (94); the capture check net's batch; the export round
 # trip's tolerance, relative to the output's largest magnitude
 GH_BATCH, GH_HW, GH_CLASSES, GH_STEPS, GH_BN = 128, 299, 1000, 10, 94
+# amp: the Gluon bf16 loop's steps (at RESNET_BATCH), its card-vs-CPU
+# check (resnet18_v1: B, HW, classes), the Module.fit batches a dtype, the
+# cifar fp16 scaler check's batches (at CIFAR_BATCH), and the reference's
+# low-precision tolerance (tests/test_amp.py)
+AMP_GLUON_STEPS, AMP_CHECK, AMP_FIT_BATCHES = 10, (8, 64, 10), 6
+AMP_CIFAR_BATCHES, AMP_RTOL = 4, 0.05
 # empty kernels that open a profiler session counting kernels by name:
 # their records take the loss of a session's first records (``_profiled``)
 PROFILE_LEAD = 1024
@@ -4184,6 +4191,460 @@ def phase_module_fit(dev):
     return res
 
 
+# ---------------------------------------------------------------------------
+# amp: automatic mixed precision (Gluon amp.init, Module under TPUMX_AMP)
+# ---------------------------------------------------------------------------
+
+_AMP_ENV = ("TPUMX_AMP", "TPUMX_AMP_DTYPE", "TPUMX_AMP_LOSS_SCALE")
+
+
+def _amp_env(dtype=None):
+    """A context setting ``TPUMX_AMP*`` for ``dtype`` (fp16 with dynamic
+    loss scaling; None: AMP off), restoring the variables after."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def scope():
+        old = {k: os.environ.get(k) for k in _AMP_ENV}
+        for k in _AMP_ENV:
+            os.environ.pop(k, None)
+        if dtype is not None:
+            os.environ.update(TPUMX_AMP="1", TPUMX_AMP_DTYPE=dtype)
+            if dtype == "float16":
+                os.environ["TPUMX_AMP_LOSS_SCALE"] = "dynamic"
+        try:
+            yield
+        finally:
+            for k, v in old.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    return scope()
+
+
+def _amp_gluon_net(mx, ctx, classes, depth, hw, init_from=None):
+    """``resnet<depth>_v1(layout="NHWC")`` on ``ctx``, its deferred shapes
+    resolved by one paused forward, its values ``init_from`` (numpy, by
+    creation order) when given; then ``amp.init(net, "bfloat16")``."""
+    import torch
+
+    from mxnet_tpu_torch import amp, autograd, gluon
+
+    torch.manual_seed(SEED + 30)
+    net = getattr(gluon.model_zoo.vision, f"resnet{depth}_v1")(
+        classes=classes, layout="NHWC")
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    with autograd.pause():
+        net(mx.nd.zeros((2, hw, hw, 3), ctx=ctx))
+    if init_from is not None:
+        for p, v in zip(net.collect_params().values(), init_from):
+            p.set_data(mx.nd.array(v, ctx=ctx))
+    return amp.init(net, "bfloat16")
+
+
+def _amp_trainer(mx, net):
+    from mxnet_tpu_torch import gluon
+
+    return gluon.Trainer(net.collect_params(), "sgd",
+                         {"learning_rate": RESNET_LR,
+                          "momentum": RESNET_MOMENTUM, "wd": 1e-4,
+                          "multi_precision": True})
+
+
+def _amp_step(mx, net, trainer, loss_fn, x, y):
+    """One Gluon step of a converted net, the loss taken in f32 (as the
+    reference's AMP tests do); returns the loss NDArray."""
+    from mxnet_tpu_torch import autograd
+
+    with autograd.record():
+        L = loss_fn(net(x).astype("float32"), y)
+    L.backward()
+    trainer.step(x.shape[0])
+    return L
+
+
+def _amp_dtypes(net):
+    """Each parameter's dtype by block kind: the Conv2D/Dense weights and
+    biases (bf16 under amp.init), BatchNorm's (f32)."""
+    from mxnet_tpu_torch.base import dtype_name
+
+    kinds = {}
+    for name, p in net.collect_params().items():
+        kind = "batchnorm" if "batchnorm" in name else "conv_dense"
+        kinds.setdefault(kind, set()).add(dtype_name(p.data()._data.dtype))
+    return {k: sorted(v) for k, v in kinds.items()}
+
+
+def _amp_gluon_loop(dev):
+    """(a) Gluon ResNet-50 v1 channels-last at 224x224x3, B = 128, under
+    ``amp.init(net, "bfloat16")`` with ``Trainer(sgd, multi_precision=
+    True)``: AMP_GLUON_STEPS steps, steps 2 and 3 on the first batch again
+    (each update must lower its loss); launches by wrapper each step and
+    by kernel name in one profiled step (53 + 53, f32 instantiations:
+    BatchNorm is on AMP's f32 list); parameter dtypes; images/s, step ms
+    and peak memory."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+
+    ctx = mx.gpu(0)
+    B = RESNET_BATCH
+    g = torch.Generator(device=dev).manual_seed(SEED + 31)
+    n = AMP_GLUON_STEPS - 2
+    X = torch.randn((n * B, RESNET_HW, RESNET_HW, 3), generator=g,
+                    device=dev)
+    Y = torch.randint(0, RESNET_CLASSES, (n * B,), generator=g, device=dev)
+    net = _amp_gluon_net(mx, ctx, RESNET_CLASSES, 50, RESNET_HW)
+    dtypes = _amp_dtypes(net)
+    trainer = _amp_trainer(mx, net)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, per_step = [], [], []
+    for step in range(AMP_GLUON_STEPS):
+        i = 0 if step < 3 else step - 2
+        x = mx.nd.NDArray(X[i * B:(i + 1) * B])
+        y = mx.nd.NDArray(Y[i * B:(i + 1) * B])
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        L = _amp_step(mx, net, trainer, loss_fn, x, y)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append(_read_launches())
+        losses.append(L.mean().asscalar().item())
+    peak = torch.cuda.max_memory_allocated()
+    prof = _profiled(lambda: _amp_step(mx, net, trainer, loss_fn, x, y),
+                     families=("bn_stats_partial", "bn_normalize"))
+    masters = [s for s in trainer._updaters[0].states.values()
+               if isinstance(s, tuple)]
+    steady = float(np.median(step_ms[1:]))
+    launches = {k: sum(p[k] for p in per_step) for k in per_step[0]}
+    names = prof["family_names"]
+    res = {"B": B, "steps": AMP_GLUON_STEPS, "losses": losses,
+           "step_ms": step_ms, "steady_step_ms": steady,
+           "images_per_s": B / (steady / 1e3), "peak_bytes": peak,
+           "param_dtypes": dtypes, "f32_masters": len(masters),
+           "profiled_step": {k: prof[k] for k in (
+               "wall_s", "kernels", "device_busy_s", "idle_share", "top",
+               "port_kernels_ms")},
+           "bn_launches_by_name": {"stats": prof["families"][
+               "bn_stats_partial"], "normalize": prof["families"][
+               "bn_normalize"]},
+           "bn_kernel_names": names,
+           "profiler_lost_records": prof["lost_records"],
+           "launches_per_step": per_step[0], "launches": launches}
+    bad = []
+    want = {k: 0 for k in per_step[0]}
+    want.update(bn_stats=RESNET_BNS, bn_normalize=RESNET_BNS)
+    off = [p for p in per_step if p != want]
+    if off:
+        bad.append(f"(a) {len(off)} AMP steps launched other counts than "
+                   f"{want}, the first {off[0]}")
+    if res["bn_launches_by_name"] != {"stats": RESNET_BNS,
+                                      "normalize": RESNET_BNS}:
+        bad.append(f"(a) BatchNorm kernels by name: "
+                   f"{res['bn_launches_by_name']}")
+    wrong = [n for ns in names.values() for n in ns
+             if "<float," not in n.replace(" ", "")]
+    if wrong or not all(names.values()):
+        bad.append(f"(a) BatchNorm kernel functions not the f32 "
+                   f"instantiation: {names}")
+    if dtypes != {"batchnorm": ["float32"], "conv_dense": ["bfloat16"]}:
+        bad.append(f"(a) parameter dtypes {dtypes}")
+    if not masters:
+        bad.append("(a) no f32 master weights in the Trainer's states")
+    if not all(np.isfinite(losses)):
+        bad.append(f"(a) non-finite loss: {losses}")
+    if not losses[2] < losses[1] < losses[0]:
+        bad.append(f"(a) the first two updates did not each lower the "
+                   f"first batch's loss: {losses[:3]}")
+    return res, bad
+
+
+def _amp_gluon_card_vs_cpu(dev):
+    """(a) at a small depth: resnet18_v1 channels-last under
+    ``amp.init(net, "bfloat16")`` from the same values on the card and
+    on the CPU, one ``multi_precision`` Trainer step: the f32 loss within
+    AMP_RTOL, and every parameter after the update within the
+    reference's low-precision tolerance (``tests/test_amp.py``: rtol
+    AMP_RTOL, atol AMP_RTOL x the tensor's largest magnitude) or, where
+    the card moves by more than that against itself, within 3 x that
+    floor.  The floor is the card's step with the images moved by one
+    bf16 step (2^-8, relative): one update from a random init at B = 8
+    carries bf16 noise of several tolerances in the BatchNorm shifts
+    (the CPU measures the same against its own f32 step)."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+
+    B, hw, classes = AMP_CHECK
+    rs = np.random.default_rng(SEED + 32)
+    X = rs.standard_normal((B, hw, hw, 3), dtype=np.float32)
+    Y = rs.integers(0, classes, B).astype(np.float32)
+    u = np.random.default_rng(SEED + 34).uniform(-1, 1, X.shape)
+    moved = (X * (1 + 2.0 ** -8 * u)).astype(np.float32)
+    base, names, got = None, None, {}
+    for tag, ctx, image in (("cpu", mx.cpu(), X), ("card", mx.gpu(0), X),
+                            ("card_moved", mx.gpu(0), moved)):
+        with ctx:
+            # the card's nets take the CPU net's converted values
+            net = _amp_gluon_net(mx, ctx, classes, 18, hw, base)
+            if base is None:
+                names = list(net.collect_params())
+                base = [p.data().astype("float32").asnumpy()
+                        for p in net.collect_params().values()]
+            trainer = _amp_trainer(mx, net)
+            L = _amp_step(mx, net, trainer, gluon.loss.
+                          SoftmaxCrossEntropyLoss(),
+                          mx.nd.array(image, ctx=ctx),
+                          mx.nd.array(Y, ctx=ctx))
+            got[tag] = [L.mean().asscalar().item()] + [
+                p.data().astype("float32").asnumpy()
+                for p in net.collect_params().values()]
+            del net, trainer
+
+    def over(a, b):
+        """|a - b| in units of the tolerance at b, the largest."""
+        lim = AMP_RTOL * np.abs(b) + AMP_RTOL * max(float(np.abs(b).max()),
+                                                    1e-3)
+        return float((np.abs(a - b) / lim).max())
+
+    errs = {n: over(a, b) for n, a, b in zip(names, got["card"][1:],
+                                              got["cpu"][1:])}
+    floors = {n: over(a, b) for n, a, b in zip(
+        names, got["card_moved"][1:], got["card"][1:])}
+    failing = {n: {"err": errs[n], "floor": floors[n]} for n in names
+               if errs[n] > max(1.0, 3 * floors[n])}
+    worst = max(errs, key=errs.get)
+    loss_err = abs(got["card"][0] - got["cpu"][0]) / abs(got["cpu"][0])
+    res = {"model": "resnet18_v1", "B": B, "hw": hw, "classes": classes,
+           "rtol": AMP_RTOL, "loss_card": got["card"][0],
+           "loss_cpu": got["cpu"][0], "loss_rel_err": loss_err,
+           "params": len(errs), "worst": worst,
+           "worst_err_in_tolerances": errs[worst],
+           "floor_of_worst": floors[worst],
+           "over_tolerance_not_floor": sorted(
+               n for n in names if errs[n] > 1.0),
+           "failing": failing,
+           "tolerance": "each: max(1, 3 x floor) tolerances"}
+    bad = []
+    if loss_err > AMP_RTOL or failing:
+        bad.append(f"(a) amp card vs CPU: loss {loss_err:.3g}, beyond "
+                   f"max(1, 3 x floor) tolerances: {failing}")
+    return res, bad
+
+
+def _amp_fit(net, dtype, f32_fit):
+    """(b) ``Module.fit`` over module_fit's ResNet-50 symbol (NCHW) under
+    ``TPUMX_AMP=1`` in ``dtype`` (fp16 with dynamic loss scaling):
+    AMP_FIT_BATCHES batches at B = 128 through the fused step, the
+    converted graph bound, ``do_checkpoint``'s symbol and
+    ``save_checkpoint`` of the bound (converted) graph both without
+    ``amp_cast``; images/s beside module_fit's f32 figure."""
+    import tempfile
+
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp
+
+    B = RESNET_BATCH
+    X, Y = _fit_images(AMP_FIT_BATCHES, B, SEED)
+    marks, losses, scales = [], [], []
+    with _amp_env(dtype), tempfile.TemporaryDirectory() as tmp:
+        mod = mx.mod.Module(net, label_names=["softmax_label"])
+
+        def timing(param):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            losses.append(_ce(param.locals["self"].get_outputs()[0],
+                              param.locals["data_batch"].label[0]))
+            sc = param.locals["self"]._loss_scaler
+            if sc is not None:
+                scales.append([sc.scale_value, sc.good_steps])
+
+        torch.manual_seed(SEED)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        mod.fit(mx.io.NDArrayIter(X, Y, batch_size=B), num_epoch=1,
+                kvstore="tpu_sync", optimizer="sgd",
+                optimizer_params=_fit_optimizer_params(),
+                initializer=mx.init.Xavier(rnd_type="gaussian",
+                                           factor_type="in", magnitude=2),
+                batch_end_callback=timing,
+                epoch_end_callback=mx.callback.do_checkpoint(
+                    f"{tmp}/amp"))
+        launches = _read_launches()
+        fused = mod._fused_step_count
+        peak = torch.cuda.max_memory_allocated()
+        # one more fused step on the last batch, profiled: where it goes
+        batch = mx.io.DataBatch(data=[mx.nd.array(X[-B:])],
+                                label=[mx.nd.array(Y[-B:])])
+        prof = _profiled(lambda: mod._try_fused_step(batch))
+        arg, aux = mod.get_params()
+        mx.model.save_checkpoint(f"{tmp}/bound", 1, mod._exec._symbol, arg,
+                                 aux)
+        files = {k: amp.count_amp_casts(mx.sym.load(
+            f"{tmp}/{k}-symbol.json")) for k in ("amp", "bound")}
+    step_ms = [(b - a) * 1e3 for a, b in zip([t0] + marks, marks)]
+    steady = float(np.median(step_ms[1:]))
+    f32_ips = (f32_fit or {}).get("fit", {}).get("images_per_s")
+    res = {"dtype": dtype, "B": B, "batches": AMP_FIT_BATCHES,
+           "loss_scale": "dynamic" if dtype == "float16" else None,
+           "bound_amp_casts": amp.count_amp_casts(mod._exec._symbol),
+           "checkpoint_amp_casts": files,
+           "fused_steps": fused, "losses": losses,
+           "scaler_trail": scales, "step_ms": step_ms,
+           "steady_step_ms": steady, "images_per_s": B / (steady / 1e3),
+           "f32_module_fit_images_per_s": f32_ips,
+           "speedup_over_f32": (B / (steady / 1e3)) / f32_ips
+           if f32_ips else None,
+           "peak_bytes": peak,
+           "profiled_step": {k: prof[k] for k in (
+               "wall_s", "kernels", "device_busy_s", "idle_share", "top",
+               "backward_nodes_ms")},
+           "launches": launches}
+    bad = []
+    if res["fused_steps"] != AMP_FIT_BATCHES:
+        bad.append(f"(b) {dtype}: fit took the fused step "
+                   f"{res['fused_steps']} times in {AMP_FIT_BATCHES} "
+                   f"batches")
+    if not res["bound_amp_casts"] or any(files.values()):
+        bad.append(f"(b) {dtype}: bound graph casts "
+                   f"{res['bound_amp_casts']}, checkpoint casts {files}")
+    if not all(np.isfinite(losses)):
+        bad.append(f"(b) {dtype}: non-finite loss {losses}")
+    if dtype == "bfloat16" and not losses[2] < losses[1] < losses[0]:
+        bad.append(f"(b) bf16: the first two updates did not each lower "
+                   f"the first batch's loss: {losses[:3]}")
+    if dtype == "float16" and len(scales) != AMP_FIT_BATCHES:
+        bad.append(f"(b) fp16: no loss scaler trail {scales}")
+    if any(launches.values()):
+        bad.append(f"(b) {dtype}: the channels-first net launched port "
+                   f"kernels {launches}")
+    return res, bad
+
+
+def _amp_cifar_scaler(dev):
+    """(b) at the cifar depth (ResNet-20, 32x32, B = CIFAR_BATCH): fp16
+    ``Module.fit`` with dynamic loss scaling on the card and on the CPU
+    over the same batches from the same values; the scaler's ``(scale,
+    good_steps)`` after every step must be equal.  Each step's largest
+    gradient magnitude (infinite on a skipped step) is kept beside it."""
+    import mxnet_tpu_torch as mx
+
+    net = _example_resnet_symbol(10, 20, "3,32,32")
+    shape = (CIFAR_BATCH, 3, 32, 32)
+    args, aux = _random_values(net, shape, SEED + 6, 10)
+    params = {k: v for k, v in args.items()
+              if k not in ("data", "softmax_label")}
+    X, Y = _fit_images(AMP_CIFAR_BATCHES, CIFAR_BATCH, SEED + 33,
+                       image=shape[1:], classes=10)
+    trails = {}
+    with _amp_env("float16"):
+        for tag, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+            with ctx:
+                mod = mx.mod.Module(net, context=ctx)
+                trail = []
+
+                def keep(param, mod=mod, trail=trail):
+                    ex = mod._exec
+                    sc = mod._loss_scaler
+                    trail.append([sc.scale_value, sc.good_steps, max(
+                        float(ex.grad_dict[n]._data.abs().max())
+                        for n in ex._grad_arg_names)])
+
+                mod.fit(mx.io.NDArrayIter(X, Y, batch_size=CIFAR_BATCH),
+                        num_epoch=1, kvstore="local", optimizer="sgd",
+                        optimizer_params={"learning_rate": FIT_LR,
+                                          "momentum": FIT_MOMENTUM},
+                        arg_params=params, aux_params=aux,
+                        batch_end_callback=keep)
+                trails[tag] = {"trail": trail,
+                               "fused_steps": mod._fused_step_count}
+    card, cpu = trails["card"]["trail"], trails["cpu"]["trail"]
+    differ = [i for i, (a, b) in enumerate(zip(card, cpu))
+              if a[:2] != b[:2]]
+    res = {"B": CIFAR_BATCH, "batches": AMP_CIFAR_BATCHES, "card": card,
+           "cpu": cpu, "first_difference": differ[0] if differ else None}
+    bad = []
+    if differ or len(card) != len(cpu) != AMP_CIFAR_BATCHES:
+        i = differ[0] if differ else None
+        bad.append(f"(b) fp16 scaler card vs CPU differ at step {i}: card "
+                   f"{card[i] if differ else card} (scale, good steps, "
+                   f"largest gradient), CPU {cpu[i] if differ else cpu}")
+    if not any(np.isinf(c[2]) for c in card) or np.isinf(card[-1][2]):
+        bad.append(f"(b) fp16 scaler trail without a backed-off overflow "
+                   f"and a clean step after it: {card}")
+    return res, bad
+
+
+def phase_amp(dev, runs):
+    """Mixed precision through the port's own ``amp`` (``convert_symbol``
+    under ``TPUMX_AMP``, the loss-scaled fused step, Gluon ``amp.init``
+    with f32 master weights), cuDNN deterministic.  (a) Gluon ResNet-50
+    v1 channels-last in bf16 (``_amp_gluon_loop``: BatchNorm's two kernels
+    at their f32 instantiation, 53 + 53 a step) and its card-vs-CPU check
+    at a small depth; (b) ``Module.fit`` over module_fit's ResNet-50
+    symbol in bf16 and in fp16 with dynamic scaling, and the fp16
+    scaler's trajectory at the cifar depth, card against CPU.  Each
+    images/s stands beside the f32 phase's (``gluon_training``,
+    ``module_fit``) when that ran in the same process."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        loop, bad = _amp_gluon_loop(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        check, bad_check = _amp_gluon_card_vs_cpu(dev)
+        net, _, _ = _fit_loaded_symbol()
+        fits, bad_fits = {}, []
+        for dtype in ("bfloat16", "float16"):
+            fits[dtype], b = _amp_fit(net, dtype, runs.get("module_fit"))
+            bad_fits += b
+            gc.collect()
+        cifar, bad_cifar = _amp_cifar_scaler(dev)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = det
+    f32 = (runs.get("gluon_training") or {}).get("loop") or {}
+    loop["f32_gluon_training"] = {k: f32.get(k) for k in (
+        "images_per_s", "steady_step_ms", "peak_bytes")} if f32 else None
+    launches = {k: loop["launches"][k] + sum(f["launches"][k]
+                                             for f in fits.values())
+                for k in loop["launches"]}
+    res = {"phase": "amp",
+           "config": {"gluon": {"model": "resnet50_v1", "layout": "NHWC",
+                                "image": [RESNET_HW, RESNET_HW, 3],
+                                "amp": "amp.init(net, 'bfloat16')",
+                                "optimizer": "sgd", "multi_precision": True,
+                                "lr": RESNET_LR, "momentum": RESNET_MOMENTUM},
+                      "module": {"symbol": "example/image-classification/"
+                                 "symbols/resnet.py", "num_layers": 50,
+                                 "env": "TPUMX_AMP=1, TPUMX_AMP_DTYPE",
+                                 "kvstore": "tpu_sync"}},
+           "gluon": loop, "gluon_card_vs_cpu": check, "fit": fits,
+           "cifar_fp16_scaler": cifar, "launches": launches}
+    emit(res)
+    bad += bad_check + bad_fits + bad_cifar
+    if bad:
+        raise SystemExit("amp phase failed: " + "; ".join(bad))
+    return res
+
+
 # -- phase 13: gluon_hybrid -----------------------------------------------------------------
 
 def _gh_check_net(mx, layout="NHWC"):
@@ -5763,6 +6224,8 @@ def phase_ops_breadth(dev):
 FCN_CLASSES, FCN_BATCH, FCN_HW, FCN_WARM, FCN_STEPS = 21, 8, 500, 2, 10
 FCN_LR, FCN_MOMENTUM, FCN_WD = 1e-10, 0.99, 5e-4
 FCN_CHECK_HW, FCN_CHECK_RTOL = 224, 1e-3
+# the first node id of the check's graph: far above any id a run reaches
+FCN_CHECK_UID = 1 << 40
 
 
 def _fcn_symbol():
@@ -5836,11 +6299,23 @@ def _fcn_card_vs_cpu(net):
     FCN_CHECK_RTOL or, where the card moves by more than that against
     itself, within 3 x that floor (the card with the image moved by
     ~2^-22, cuDNN deterministic); the tensors past the rtol are listed
-    with their floors.  Two card runs bitwise equal."""
+    with their floors.  Two card runs bitwise equal.
+
+    A symbolic Dropout node draws ``fold_in(key, node id)``, and node ids
+    count every graph node the process made: the check's graph is loaded
+    with its ids from FCN_CHECK_UID, so its masks (and with them the
+    floor) do not depend on which phases ran before it."""
     import torch
 
     import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.symbol.graph import Node
 
+    made = Node._next_uid[0]
+    Node._next_uid[0] = FCN_CHECK_UID
+    try:
+        net = mx.sym.load_json(net.tojson())
+    finally:
+        Node._next_uid[0] = made
     hw = FCN_CHECK_HW
     X, Y = _fcn_images(1, hw, SEED + 20)
     shapes = dict(zip(net.list_arguments(),
@@ -7736,7 +8211,7 @@ def main(argv) -> int:
         "gluon_training", "module_fit", "gluon_hybrid", "rnn_lm",
         "bucketing_fit", "image_rec", "serving_spec", "serving_fleet",
         "ops_breadth", "fcn_fit", "spmd_lm", "dp_mesh", "dist_kvstore",
-        "model_parallel", "module_parallel"}
+        "model_parallel", "module_parallel", "amp"}
     if "serving_int8" in phases:
         phases.add("serving")   # its float baseline
     t_start = time.perf_counter()
@@ -7782,6 +8257,10 @@ def main(argv) -> int:
         runs["gluon_training"] = phase_gluon_training(dev)
     if "module_fit" in phases:
         runs["module_fit"] = phase_module_fit(dev)
+    if "amp" in phases:
+        runs["amp"] = phase_amp(dev, runs)
+    if "module_parallel" in phases:
+        runs["module_parallel"] = phase_module_parallel(dev)
     if "gluon_hybrid" in phases:
         runs["gluon_hybrid"] = phase_gluon_hybrid(dev)
     if "rnn_lm" in phases:
@@ -7794,12 +8273,6 @@ def main(argv) -> int:
         runs["ops_breadth"] = phase_ops_breadth(dev)
     if "fcn_fit" in phases:
         runs["fcn_fit"] = phase_fcn_fit(dev, smi)
-    # after fcn_fit: that phase's card-vs-CPU check depends on which
-    # convolution algorithms the process's earlier work leads cuDNN to
-    # (PERF.md §7); run before it, this phase moved its floor below its
-    # errors
-    if "module_parallel" in phases:
-        runs["module_parallel"] = phase_module_parallel(dev)
     # the generation phases last, on the LM built again
     if phases & {"serving_spec", "serving_fleet"}:
         cfg, params = _model(dev)

@@ -26,7 +26,9 @@ several processes: named meshes over ``torch.distributed`` (NCCL on the
 cards, gloo on the CPU) with differentiable collectives, the mesh
 ``DataParallelTrainer``, ring and Ulysses sequence parallelism in the
 dp x sp LM step, and the ``dist_sync``/``dist_async`` parameter server
-(``kvstore_dist``, ``kvstore_server``).  Entry points run on ``cuda`` (``mx.gpu()``, the default
+(``kvstore_dist``, ``kvstore_server``); and automatic mixed precision
+(``amp``: the graph casting policy, loss scaling in the fused step,
+Gluon ``amp.init``).  Entry points run on ``cuda`` (``mx.gpu()``, the default
 context) unless the caller passes the CPU (``ctx=mx.cpu()``,
 ``context=mx.cpu()`` or ``device="cpu"``).
 """
@@ -48,12 +50,13 @@ from .base import MXNetError
 from .context import (Context, cpu, current_context, gpu, num_devices,
                       resolve_device, tpu)
 from . import kvstore_server
+from . import amp
 
 random._install_samplers()
 
 __version__ = "0.1.0"
 
-__all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "current_context",
+__all__ = ["MXNetError", "amp", "Context", "cpu", "gpu", "tpu", "current_context",
            "num_devices", "resolve_device", "attribute", "autograd", "base",
            "callback", "context", "engine", "executor", "fault", "gluon",
            "init", "initializer", "kvstore_server", "observability",

@@ -63,8 +63,17 @@ Several devices, one process per device (``parallel/mesh.py``):
   placed on the device of the group that reads them; ``fused_step``
   refuses it, as the reference's does.
 
-Not ported, each refused with ``MXNetError``: loss scaling and telemetry
-(ROADMAP.md, Queue 1, item 6).
+AMP (``amp``): ``fused_step(loss_scaler=)`` seeds the floating outputs'
+cotangents with the scale, counts the non-finite entries of the summed
+gradients (summed again over every mesh axis on the mesh route, so every
+rank takes the same branch), unscales them, and on overflow skips the
+update, the optimizer state and the aux commit while the update counts
+advance, as the reference's skipped program does; the scaler's ``(scale,
+good_steps)`` stays on the device, and the finite verdict is the step's
+one host read.
+
+Not ported, refused with ``MXNetError``: telemetry (ROADMAP.md, Queue 1,
+item 6).
 """
 from __future__ import annotations
 
@@ -83,6 +92,17 @@ __all__ = ["Executor"]
 
 def _ones_cotangent(x: torch.Tensor) -> torch.Tensor:
     return torch.ones_like(x)
+
+
+def _seeds(outs, scale=None) -> List[torch.Tensor]:
+    """The outputs' cotangent seeds: ones, times the loss scale for the
+    floating outputs when one is given."""
+    if scale is None:
+        return [_ones_cotangent(o) for o in outs]
+    from .amp.loss_scaler import LossScaler
+
+    return [LossScaler.scale_cotangent(_ones_cotangent(o), scale)
+            if o.is_floating_point() else _ones_cotangent(o) for o in outs]
 
 
 def _as_tensor(v, like: torch.Tensor) -> torch.Tensor:
@@ -488,10 +508,9 @@ class Executor:
         exactly the gradient-taking arguments; ``states`` maps each arg name
         to its optimizer state (``Optimizer.create_state_multi_precision``),
         updated in place.  The update counts advance as the per-parameter
-        loop's do, and the rate is the scheduler's at each step."""
-        if loss_scaler is not None:
-            raise MXNetError("fused_step: loss scaling (AMP) is not ported "
-                             "(ROADMAP.md, Queue 1, item 6)")
+        loop's do, and the rate is the scheduler's at each step.
+        ``loss_scaler`` (an ``amp.LossScaler``) scales, checks and skips
+        (module doc)."""
         if self._grouped is not None:
             raise MXNetError("fused_step does not support group2ctx "
                              "placement")
@@ -519,15 +538,24 @@ class Executor:
         for step in range(steps):
             self._graph = None
             srng = _random.fold(rng, step) if steps > 1 else rng
+            sc = None if loss_scaler is None else loss_scaler.state(
+                weights[0]._data.device if weights else None)
             if mesh is not None:
                 outs, aux_updates, self._cached_grads = \
-                    self._mesh_fwd_bwd(srng)
+                    self._mesh_fwd_bwd(srng, None if sc is None else sc[0])
             else:
                 outs, aux_updates, leaves = self._run(
                     True, True, collect_aux=True, rng=srng)
                 self._cached_grads = self._grads(
-                    outs, leaves, [_ones_cotangent(o) for o in outs])
+                    outs, leaves, _seeds(outs, None if sc is None
+                                         else sc[0]))
+            finite = sc is None or self._check_and_unscale(loss_scaler, sc)
             self._write_grads(self._cached_grads)
+            if not finite:
+                # overflow: the counts advance, nothing else is updated
+                for i in indices:
+                    optimizer._update_count(i)
+                continue
             self._commit_aux(aux_updates)
             if optimizer.multi_tensor:
                 optimizer.update_multi_precision_list(indices, weights,
@@ -543,10 +571,34 @@ class Executor:
         self._set_outputs(outs)
         return self._outputs
 
-    def _mesh_fwd_bwd(self, rng):
+    def _check_and_unscale(self, scaler, sc) -> bool:
+        """The loss-scaled step's check: the non-finite count of the
+        (scaled, summed) gradients, summed over every mesh axis; the
+        gradients unscaled in place; the scaler's state advanced on the
+        device.  Returns the finite verdict (one host read)."""
+        grads = self._cached_grads
+        nonfin = scaler.nonfinite_count(grads).to(sc[0].device)
+        mesh = self._spmd_mesh
+        if mesh is not None and mesh.size > 1:
+            from .parallel.collectives import psum_flat
+
+            (nonfin,) = psum_flat([nonfin], tuple(mesh.axis_names), mesh)
+        finite = nonfin == 0
+        f32 = [g for g in grads.values() if g.dtype == torch.float32]
+        with torch.no_grad():
+            if f32:
+                torch._foreach_div_(f32, sc[0])
+            for n, g in grads.items():
+                if g.is_floating_point() and g.dtype != torch.float32:
+                    grads[n] = scaler.unscale(g, sc[0])
+        scaler.set_state(scaler.next_state(sc, finite))
+        return bool(finite)
+
+    def _mesh_fwd_bwd(self, rng, scale=None):
         """One mesh step's forward and backward on this rank's block of the
         batch: (outputs, aux updates averaged over dp, gradients summed
-        over dp in each parameter's stored layout)."""
+        over dp in each parameter's stored layout).  ``scale`` seeds the
+        floating outputs' cotangents (loss scaling)."""
         from .parallel.collectives import psum_flat, spmd
 
         mesh, axis = self._spmd_mesh, self._spmd_axis
@@ -588,8 +640,7 @@ class Executor:
             else:
                 outs = trace(self._symbol._entries, env, True, aux_updates,
                              self._order, self._release, rng, dev)
-            grads = self._grads(outs, leaves,
-                                [_ones_cotangent(o) for o in outs])
+            grads = self._grads(outs, leaves, _seeds(outs, scale))
         names = list(grads)
         if self._spmd_pipeline is not None:
             # prologue and stage gradients live on one pp rank each

@@ -414,12 +414,17 @@ class HybridBlock(Block):
         """Write the block's graph as ``path-symbol.json`` and its
         parameters as ``path-NNNN.params`` (``arg:``/``aux:`` full names),
         both the reference's bytes; the graph is ``hybrid_forward`` on one
-        variable named ``data``."""
+        variable named ``data``, its AMP cast nodes stripped unless
+        ``remove_amp_cast=False``."""
         from .. import symbol as _sym
 
         out = self(_sym.var("data"))
         if isinstance(out, (list, tuple)):
             out = _sym.Group(list(out))
+        if remove_amp_cast:
+            from ..amp import remove_amp_cast as _strip
+
+            out = _strip(out)
         aux_names = set(out.list_auxiliary_states())
         params = {}
         for name, p in self.collect_params().items():

@@ -221,9 +221,13 @@ def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params,
                     remove_amp_cast=True):
     """Write prefix-symbol.json + prefix-%04d.params (and the params
     file's manifest) — reference: model.py save_checkpoint.
-    ``remove_amp_cast`` is taken for the reference's signature: the port
-    makes no AMP cast nodes."""
+    ``remove_amp_cast`` (default True, as the reference) strips the AMP
+    cast nodes first, so the graph file is the original-precision one."""
     if symbol is not None:
+        if remove_amp_cast:
+            from .amp import remove_amp_cast as _strip
+
+            symbol = _strip(symbol)
         symbol.save(f"{prefix}-symbol.json")
     _save_params_file(f"{prefix}-{epoch:04d}.params", arg_params, aux_params)
 

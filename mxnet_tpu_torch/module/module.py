@@ -33,8 +33,16 @@ first context by the legacy route, as the reference does when its mesh
 cannot be made.  ``get_params`` and the checkpoint files hold whole
 arrays.  ``group2ctxs`` is accepted and unused, as in the reference.
 
-Not ported, refused with ``MXNetError``: AMP and the fault-tolerant train
-state (ROADMAP.md, Queue 1, item 6).  ``BucketingModule`` and
+AMP (``amp``): under ``TPUMX_AMP=1`` ``bind`` binds
+``amp.convert_symbol(symbol, TPUMX_AMP_DTYPE)`` (``self._symbol``, the
+argument names and the checkpoint files stay the original's) and
+``init_optimizer`` makes the loss scaler ``TPUMX_AMP_LOSS_SCALE`` asks
+for, which the fused step takes; where the fused step is not allowed the
+scaler is dropped with a warning and the converted graph trains
+unscaled, as in the reference.
+
+Not ported, refused with ``MXNetError``: the fault-tolerant train state
+(ROADMAP.md, Queue 1, item 6).  ``BucketingModule`` and
 ``SequentialModule`` (``bucketing_module.py``, ``sequential_module.py``)
 drive ``Module``s through the legacy route.
 """
@@ -119,6 +127,8 @@ class Module(BaseModule):
         self._label_shapes = None
         self._compression_params = compression_params
         self._fused_step_count = 0
+        self._amp_cfg = None        # resolved at bind (TPUMX_AMP*)
+        self._loss_scaler = None    # made at init_optimizer when needed
         self._shared_bound = False
         # ordered (regex, spec) partition rules from bind()/fit()
         self._shard_rules = None
@@ -230,7 +240,16 @@ class Module(BaseModule):
         spmd = self._spmd_mesh_for_bind()
         ctx = self._context[0] if spmd is None \
             else context_of(spmd[0].device)
-        self._exec = self._symbol.simple_bind(
+        # AMP: the converted graph is bound, self._symbol stays the
+        # original (arguments, checkpoints)
+        from .. import amp as _amp
+
+        self._amp_cfg = _amp.active_config()
+        bind_symbol = self._symbol
+        if self._amp_cfg is not None:
+            bind_symbol = _amp.convert_symbol(self._symbol,
+                                              self._amp_cfg.dtype)
+        self._exec = bind_symbol.simple_bind(
             ctx=ctx, grad_req=req, **self._shape_kwargs())
         if spmd is not None:
             self._attach_spmd_mesh(*spmd)
@@ -442,6 +461,19 @@ class Module(BaseModule):
                 update_on_kvstore=update_on_kvstore)
         if not update_on_kvstore:
             self._updater = get_updater(self._optimizer)
+        # made once per optimizer init: its (scale, good_steps) carries
+        # over batches, epochs and rebinds
+        from .. import amp as _amp
+
+        self._loss_scaler = _amp.make_loss_scaler(self._amp_cfg)
+        if self._loss_scaler is not None and not _fused_step_allowed(
+                self._optimizer, self._kvstore, self._update_on_kvstore,
+                self._dp_size()):
+            self.logger.warning(
+                "AMP loss scaling requires the fused train step; this "
+                "configuration falls back to the legacy path and trains "
+                "UNSCALED")
+            self._loss_scaler = None
         self.optimizer_initialized = True
         if hasattr(self, "_preload_opt_states"):
             self.load_optimizer_states(self._preload_opt_states)
@@ -544,7 +576,8 @@ class Module(BaseModule):
             states[name] = self._updater._state(idx, self._exec.arg_dict[name])
             updates.append((name, idx))
         self._exec.fused_step(self._optimizer, states, updates, feed=feed,
-                              num_steps=1, kvstore=self._kvstore)
+                              num_steps=1, kvstore=self._kvstore,
+                              loss_scaler=self._loss_scaler)
         self._params_dirty = True
         self._fused_step_count += 1
         return True

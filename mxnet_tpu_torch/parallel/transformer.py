@@ -684,7 +684,8 @@ def transformer_lm_decode_tp(params: Params, tokens, positions, lengths,
     operand is the same on every rank.  ``rows`` (B,) picks the position
     of each row whose logits are wanted (the sampled one) before the LM
     head, so the head's partial logits summed over ranks are (B, vocab);
-    returns them f32, whole on every rank."""
+    ``rows=None`` keeps every position, (B, T, vocab) (speculative
+    verify).  Returns them f32, whole on every rank."""
     enter, reduce, gather = _tp_ops(mesh, axis)
     attend, tokens, pos64 = _decode_setup(
         tokens, positions, lengths, k_pool, v_pool, block_tables, cfg,
@@ -693,7 +694,8 @@ def transformer_lm_decode_tp(params: Params, tokens, positions, lengths,
     for i in range(cfg.n_layers):
         x = _block(x, params, i, cfg.d_head, attend, enter, reduce)
     x = _ln(x, params["lnf_g"], params["lnf_b"])
-    x = x[torch.arange(x.shape[0], device=x.device), rows.long()]
+    if rows is not None:
+        x = x[torch.arange(x.shape[0], device=x.device), rows.long()]
     return _tp_logits(x, params, cfg, mesh, axis, enter, reduce).float()
 
 

@@ -41,8 +41,9 @@ the port's CUDA kernels: fused LayerNorm and paged attention, whose
 int8-pool variant serves ``kv_dtype="int8"`` (``mxnet_tpu_torch.ops``).
 Greedy and sampled tokens match the JAX package's for the same
 parameters: sampling is keyed on (request seed, position) with the
-reference's threefry bits.  Model-parallel serving (``mp_devices > 1``)
-is not ported; :class:`GenerationConfig` refuses it by name.
+reference's threefry bits.  Model-parallel serving (``mp_devices > 1``,
+:class:`GenerationService`) runs every step kind, speculative and
+multi-step decode included.
 """
 from __future__ import annotations
 
@@ -92,8 +93,7 @@ class GenerationConfig:
     """Knobs for :class:`GenerationService`, with the reference's names,
     defaults, ``TPUMX_GEN_*`` environment variables and validation.
     Refused: any ``amp_dtype`` but float32/bfloat16 (the dtypes the
-    port's kernels take; ``NotImplementedError``), and speculative or
-    multi-step decode under ``mp_devices > 1`` (``MXNetError``)."""
+    port's kernels take; ``NotImplementedError``)."""
 
     def __init__(self, max_slots: Optional[int] = None,
                  block_size: Optional[int] = None,
@@ -259,15 +259,6 @@ class GenerationConfig:
                                else getenv("TPUMX_GEN_MULTISTEP_K", 1))
         if self.multistep_k < 1:
             raise ValueError("multistep_k must be >= 1")
-        modes = [m for m, on in (
-            ("speculative=True", self.speculative),
-            (f"multistep_k={self.multistep_k}", self.multistep_k > 1)) if on]
-        if self.mp_devices > 1 and modes:
-            raise MXNetError(
-                f"GenerationConfig mp_devices={self.mp_devices} with "
-                f"{' and '.join(modes)}: speculative and multi-step decode "
-                f"are not served under model parallelism yet (ROADMAP.md, "
-                f"Queue 1, item 5)")
 
     def __repr__(self):
         return (f"GenerationConfig(max_slots={self.max_slots}, "
@@ -555,7 +546,11 @@ class GenerationService:
     takes requests; its signatures and :meth:`stats` keys are the
     reference's.  The other ranks are FOLLOWERS: from construction a
     thread of theirs runs each device step the leader announces on its
-    own head slice (``programs.py``).  On a follower :meth:`submit` (and
+    own part (``programs.py``: its head slice, or the whole step on the
+    gather route of heads or ``d_ff`` that mp does not divide); the
+    leader alone drafts, verifies and samples, except that every rank
+    samples the iterations of a multi-step decode.  On a follower
+    :meth:`submit` (and
     so :meth:`generate`) raises ``MXNetError`` naming rank 0,
     :meth:`warmup` and :meth:`start` do nothing (the leader's drive it),
     and :meth:`stop` waits until the leader stops (or the group breaks,
@@ -579,12 +574,13 @@ class GenerationService:
                                             mp_devices=cfg.mp_devices,
                                             shard_rules=cfg.shard_rules)
         self._device = self._programs.device
-        # under mp each rank holds its head slice of the pool
+        # on the paged mp route each rank holds its head slice of the
+        # pool; on the gather route the whole pool
         self._cache = PagedKVCache(
             model_cfg.n_layers, model_cfg.n_heads, model_cfg.d_head,
             cfg.num_blocks, cfg.block_size,
             dtype=compute_dtype or torch.float32, device=self._device,
-            kv_dtype=cfg.kv_dtype, mp=cfg.mp_devices)
+            kv_dtype=cfg.kv_dtype, mp=self._programs.pool_mp)
         self._cache.allocator.set_watermarks(cfg.watermark_high,
                                              cfg.watermark_low)
         # the chain-hash index over resident full blocks; None with the
@@ -630,6 +626,10 @@ class GenerationService:
                 raise ValueError(
                     f"draft model vocab {draft_cfg.vocab} != target "
                     f"vocab {model_cfg.vocab}")
+        # the draft model proposes on the leader's host side: whole on its
+        # device, never sharded, absent on a model-parallel follower
+        if cfg.speculative and cfg.draft_mode == "model" \
+                and self._programs.mp_rank == 0:
             from .speculative import DraftModel
             self._draft = DraftModel(
                 draft_params, draft_cfg, cfg.draft_k,

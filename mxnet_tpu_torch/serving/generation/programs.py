@@ -25,22 +25,39 @@ steps sit beside it:
 **Model-parallel serving** (``mp_devices > 1``): one process per device,
 every rank of a ``{"mp": mp_devices}`` mesh (the whole world) building the
 same service.  The parameters are cut per the partition rules
-(``shard_rules``, else ``transformer_partition_rules()``) and moved into
-the tensor-parallel compute layout once
-(``parallel.transformer.tp_params``); each rank holds its head slice of
-the KV pool, and the model step is
-``parallel.transformer.transformer_lm_decode_tp``: the paged kernels on
-this rank's heads, one all-reduce after attention-out and one after
-MLP-out, the LM head's partial logits summed for each row's sampled
-position, so the logits are whole on every rank.  Rank 0 (the leader)
-schedules and samples; before each device step it broadcasts the step's
-host operands over a gloo control group (:class:`_ModelParallel`), and
-the other ranks (followers) run the same step on their slices from a
-thread of their own (:meth:`GenerationPrograms.follow`).  Any failure
+(``shard_rules``, else ``transformer_partition_rules()``).  Two routes,
+as in the reference (:attr:`GenerationPrograms.kernel`):
+
+- ``"paged"`` (``n_heads`` and ``d_ff`` divide mp): the blocks are moved
+  into the tensor-parallel compute layout once
+  (``parallel.transformer.tp_params``); each rank holds its head slice of
+  the KV pool, and the model step is
+  ``parallel.transformer.transformer_lm_decode_tp``: the paged kernels
+  on this rank's heads, one all-reduce after attention-out and one after
+  MLP-out, the LM head's partial logits summed, so the logits are whole
+  (and the same bytes) on every rank.
+- ``"gather"`` (either does not divide): every rank holds the whole pool,
+  its parameters stay stored as its blocks and are all-gathered whole
+  where a layer reads them (:class:`_GatheredParams`, the storage route's
+  ``parallel.mesh.gather``), and attention is the gather+dense path of
+  ``transformer_lm_decode``; every rank computes the whole step.
+
+Rank 0 (the leader) schedules and samples; before each device step it
+broadcasts the step's host operands over a gloo control group
+(:class:`_ModelParallel`), and the other ranks (followers) run the same
+step from a thread of their own (:meth:`GenerationPrograms.follow`).
+Speculative verify: the followers run the multi-query step and join its
+collectives, only the leader runs ``speculative_verify`` (the drafts are
+the leader's host work, a draft model whole on the leader's device).
+Multi-step decode: every rank samples each iteration's token from the
+whole logits with the same keys, so every rank feeds the same token to
+the next iteration with no collective of its own.  Under mp the k
+iterations run eagerly, as one command: captured as a CUDA graph with
+their NCCL all-reduces inside, they ended in an illegal memory access on
+the followers on four H100s (PERF.md §6).  Any failure
 after a command went out marks the group broken on that rank: the leader
 then fails every step, its peers' pending collectives end when its
-process exits or at the groups' timeout.  Speculative and multi-step
-decode are refused under mp (``GenerationConfig``).
+process exits or at the groups' timeout.
 
 Steps run eagerly (or as graph replays); the KV pools (and the int8
 pool's scales) are written in place.  Each distinct ``(kind, batch,
@@ -56,13 +73,14 @@ from __future__ import annotations
 
 import threading
 import time
+from collections.abc import Mapping
 from datetime import timedelta
 from typing import Dict, Optional
 
 import numpy as _np
 import torch
 
-from ...base import MXNetError
+from ...base import MXNetError, dtype_name
 from ...context import resolve_device
 from ...observability import recompile as _recompile
 from ...ops.capture import add_counts, capture_graph, warm_up
@@ -72,8 +90,9 @@ from ...parallel.transformer import (transformer_lm_decode,
 
 __all__ = ["GenerationPrograms", "block_copy_pools"]
 
-#: the decode-attention implementation every step runs: the CUDA kernel
-#: walking the block table (its plain version on CPU tensors)
+#: the decode-attention implementation of a single-device service and of
+#: the model-parallel route whose heads divide: the CUDA kernel walking
+#: the block table (its plain version on CPU tensors)
 KERNEL = "paged"
 
 
@@ -156,23 +175,100 @@ def _multistep(params, cache, tokens, positions, lengths, block_tables,
     return torch.stack(out, dim=1)
 
 
-def _model_step_tp(params, cache, tokens, positions, lengths, block_tables,
-                   seeds, counters, temperature, top_k, top_p, *, cfg, mesh,
-                   sample):
-    """:func:`_model_step` of one model-parallel rank: this rank's heads,
-    the logits of each row's last valid position whole after the head's
-    all-reduce; only the leader samples (``sample``)."""
+class _GatheredParams(Mapping):
+    """The whole parameters of the dense gather route, read from this
+    rank's stored blocks: each one all-gathered (``parallel.mesh.gather``,
+    the storage route's) when a layer reads it and dropped after, so a
+    rank holds its blocks and the layer in use.  Every rank runs the same
+    step code, so every rank reads them, and gathers, in the same
+    order."""
+
+    def __init__(self, blocks, specs, mesh):
+        self._blocks, self._specs, self._mesh = blocks, specs, mesh
+
+    def __getitem__(self, name):
+        from ...parallel.mesh import gather, sharding_for
+
+        v = self._blocks[name]
+        spec = self._specs.get(name)
+        return gather(v, sharding_for(self._mesh, *spec)) if spec else v
+
+    def __iter__(self):
+        return iter(self._blocks)
+
+    def __len__(self):
+        return len(self._blocks)
+
+
+def _mp_logits(params, cache, tokens, positions, lengths, block_tables, *,
+               cfg, mesh, kernel, rows):
+    """One model-parallel rank's logits, whole and the same on every
+    rank: (B, vocab) at ``rows`` (B,), or (B, T, vocab) with ``rows``
+    None.  ``kernel`` is the route (module doc)."""
     scales = ({"k_scale": cache.k_scale, "v_scale": cache.v_scale}
               if cache.quantized else {})
+    if kernel == "paged":
+        return transformer_lm_decode_tp(
+            params, tokens, positions, lengths, cache.k, cache.v,
+            block_tables, cfg, mesh, rows, **scales)
+    logits = transformer_lm_decode(
+        params, tokens, positions, lengths, cache.k, cache.v, block_tables,
+        cfg, attention_kernel="gather", **scales)[0]
+    if rows is None:
+        return logits
+    return logits[torch.arange(logits.shape[0], device=logits.device),
+                  rows.long()]
+
+
+def _model_step_mp(params, cache, tokens, positions, lengths, block_tables,
+                   seeds, counters, temperature, top_k, top_p, *, cfg, mesh,
+                   kernel, sample):
+    """:func:`_model_step` of one model-parallel rank: the logits of each
+    row's last valid position; only the leader samples (``sample``)."""
     T = tokens.shape[1]
     rows = (lengths.long() - 1).clamp(0, T - 1)
-    last = transformer_lm_decode_tp(
-        params, tokens, positions, lengths, cache.k, cache.v, block_tables,
-        cfg, mesh, rows, **scales)
+    last = _mp_logits(params, cache, tokens, positions, lengths,
+                      block_tables, cfg=cfg, mesh=mesh, kernel=kernel,
+                      rows=rows)
     if not sample:
         return None, last
     return sample_logits(last, seeds, counters, temperature, top_k,
                          top_p), last
+
+
+def _verify_step_mp(params, cache, tokens, positions, lengths, block_tables,
+                    seeds, counters, temperature, top_k, top_p, *, cfg, mesh,
+                    kernel, leader):
+    """:func:`_verify_step` of one model-parallel rank: every rank runs
+    the multi-query step (its pool writes, the collectives); the leader
+    alone runs the sampler and the acceptance (None elsewhere)."""
+    logits = _mp_logits(params, cache, tokens, positions, lengths,
+                        block_tables, cfg=cfg, mesh=mesh, kernel=kernel,
+                        rows=None)
+    if not leader:
+        return None
+    return speculative_verify(logits, tokens, seeds, counters, temperature,
+                              top_k, top_p, lengths)
+
+
+def _multistep_mp(params, cache, tokens, positions, lengths, block_tables,
+                  seeds, counters, temperature, top_k, top_p, *, k, cfg,
+                  mesh, kernel):
+    """:func:`_multistep` of one model-parallel rank: every rank samples
+    each iteration's token from the whole logits with the same keys, so
+    the next iteration's input is the same on every rank."""
+    tok, pos, ctr = tokens, positions, counters
+    rows = torch.zeros_like(lengths)
+    out = []
+    for _ in range(k):
+        logits = _mp_logits(params, cache, tok[:, None], pos[:, None],
+                            lengths, block_tables, cfg=cfg, mesh=mesh,
+                            kernel=kernel, rows=rows)
+        tok = sample_logits(logits, seeds, ctr, temperature, top_k, top_p)
+        out.append(tok)
+        pos = pos + 1
+        ctr = ctr + 1
+    return torch.stack(out, dim=1)
 
 
 #: seconds a control-group operation may wait: a follower idles in one
@@ -183,8 +279,8 @@ _MP_TIMEOUT_S = 120.0
 class _ModelParallel:
     """The control plane of a model-parallel service: its mesh, this
     rank's place in it, and the gloo group (timeout ``_MP_TIMEOUT_S``)
-    that carries the leader's commands — ``("run", kind, operands)``, ``("copy", src,
-    dst)``, ``("noop",)`` and ``("stop",)``.  The leader sends a no-op
+    that carries the leader's commands — ``("run", kind, operands)``,
+    ``("copy", src, dst)``, ``("noop",)`` and ``("stop",)``.  The leader sends a no-op
     when no command went out for ``heartbeat`` seconds (a fifth of the
     timeout, at most 5), so idle followers never time out and a dead
     follower is seen within that time.  Every command and the step it
@@ -299,6 +395,7 @@ class GenerationPrograms:
                  kv_dtype=None, mp_devices: int = 1, shard_rules=None):
         self._cfg = cfg
         self._kv_dtype = kv_dtype
+        self._kernel = KERNEL
         self._mp: Optional[_ModelParallel] = None
         if int(mp_devices) > 1:
             self._params = self._place_mp(params, cfg, compute_dtype,
@@ -317,22 +414,17 @@ class GenerationPrograms:
     def _place_mp(self, params, cfg, compute_dtype, device, mp, rules):
         """The model-parallel set-up: the ``{"mp": mp}`` mesh over the
         world (started from the launcher's variables if need be), the
-        whole params cut per the rules and moved into the tensor-parallel
-        compute layout, the control group.  Heads (and d_ff) that do not
-        split over mp raise ``MXNetError``: there is no gather route."""
+        whole params cut per the rules, the route (module doc: the
+        tensor-parallel compute layout when ``n_heads`` and ``d_ff``
+        divide mp, else the stored blocks behind
+        :class:`_GatheredParams`), the control group."""
         from ...parallel.mesh import make_mesh
         from ...parallel.partition_rules import (make_param_specs,
                                                  shard_params,
                                                  validate_rule_axes)
-        from ...parallel.transformer import (tp_params,
+        from ...parallel.transformer import (_live_spec, tp_params,
                                              transformer_partition_rules)
 
-        if cfg.n_heads % mp or cfg.d_ff % mp:
-            raise MXNetError(
-                f"model-parallel serving: n_heads ({cfg.n_heads}) and d_ff "
-                f"({cfg.d_ff}) must divide mp_devices={mp}: each rank runs "
-                f"the paged kernels on its own heads, and the port has no "
-                f"dense gather route (ROADMAP.md, Queue 3)")
         mesh = make_mesh({"mp": mp}, install=False,
                          device=resolve_device(device))
         self._device = mesh.device
@@ -343,9 +435,13 @@ class GenerationPrograms:
             mesh, mp_axis="mp")
         blocks = {k: v.to(compute_dtype) if compute_dtype else v
                   for k, v in shard_params(params, specs, mesh).items()}
-        out = tp_params(blocks, cfg, mesh, specs)
         self._mp = _ModelParallel(mesh)
-        return out
+        if cfg.n_heads % mp or cfg.d_ff % mp:
+            self._kernel = "gather"
+            live = {k: _live_spec(sp, mesh) for k, sp in specs.items()}
+            return _GatheredParams(blocks, {k: sp for k, sp in live.items()
+                                            if sp}, mesh)
+        return tp_params(blocks, cfg, mesh, specs)
 
     @property
     def mp_rank(self) -> int:
@@ -364,13 +460,25 @@ class GenerationPrograms:
 
     @property
     def kernel(self) -> str:
-        """The decode-attention implementation (``"paged"``)."""
-        return KERNEL
+        """The decode-attention implementation: ``"paged"`` (the CUDA
+        kernel over the block table), or ``"gather"`` (the dense gather
+        route of model parallelism over heads or ``d_ff`` that mp does not
+        divide)."""
+        return self._kernel
+
+    @property
+    def pool_mp(self) -> int:
+        """The number of head slices the KV pool is cut into: mp on the
+        paged model-parallel route (each rank its heads), else 1."""
+        if self._mp is None or self._kernel != "paged":
+            return 1
+        return int(self._mp.mesh.shape["mp"])
 
     def _family(self) -> tuple:
         """Key components every signature of this service shares: the
-        kernel, and the int8 pool's own program family."""
-        fam = (("kernel", KERNEL),)
+        paged kernel (the gather route's keys carry none, as the
+        reference's), and the int8 pool's own program family."""
+        fam = (("kernel", KERNEL),) if self._kernel == KERNEL else ()
         if self._kv_dtype == "int8":
             fam += (("kv_dtype", "int8"),)
         return fam
@@ -378,21 +486,22 @@ class GenerationPrograms:
     def _key(self, kind: str, cache, tokens, block_tables) -> tuple:
         sig = (("tokens", tuple(_np.shape(tokens)), "int32"),
                ("block_tables", tuple(_np.shape(block_tables)), "int32"),
-               ("kv_pool", cache.shape, str(cache.k.dtype)))
+               ("kv_pool", cache.shape, dtype_name(cache.k.dtype)))
         return (kind, sig + self._family())
 
     def _lookup(self, kind: str, key: tuple) -> None:
         """Count the lookup and note it at its site (the reference's site
-        names: the kind, ``_paged`` for model steps, ``_int8`` for the
-        int8 pool) — before the step runs, so a frozen service raises
-        before any set-up work."""
+        names: the kind, ``_paged`` for the paged kernel's model steps,
+        ``_int8`` for the int8 pool) — before the step runs, so a frozen
+        service raises before any set-up work."""
         with self._lock:
             per = self._stats.get(key)
             hit = per is not None
             if per is None:
                 per = self._stats[key] = {"hits": 0, "misses": 0,
                                           "seconds": 0.0}
-        site = kind if kind == "gen_block_copy" else f"{kind}_{KERNEL}"
+        site = kind if kind == "gen_block_copy" or self._kernel != KERNEL \
+            else f"{kind}_{KERNEL}"
         if self._kv_dtype == "int8":
             site = f"{site}_int8"
         _recompile.note_cache(hit, (site, ("lm",)), key)
@@ -427,18 +536,31 @@ class GenerationPrograms:
         self._account(key, time.perf_counter() - t0)
         return next_tokens, last
 
+    def _mp_kw(self) -> dict:
+        return {"cfg": self._cfg, "mesh": self._mp.mesh,
+                "kernel": self._kernel}
+
     def _step(self, cache, host, sample: bool = True):
         args = self._put(host)
         with torch.no_grad():
             if self._mp is None:
                 return _model_step(self._params, cache, *args,
                                    cfg=self._cfg)
-            return _model_step_tp(self._params, cache, *args, cfg=self._cfg,
-                                  mesh=self._mp.mesh, sample=sample)
+            return _model_step_mp(self._params, cache, *args,
+                                  sample=sample, **self._mp_kw())
+
+    def _verify(self, cache, host, leader: bool = True):
+        args = self._put(host)
+        with torch.no_grad():
+            if self._mp is None:
+                return _verify_step(self._params, cache, *args,
+                                    cfg=self._cfg)
+            return _verify_step_mp(self._params, cache, *args,
+                                   leader=leader, **self._mp_kw())
 
     def follow(self, cache) -> None:
         """A follower's loop (model-parallel ranks other than 0): receive
-        the leader's commands and run each on this rank's slice of
+        the leader's commands and run each on this rank's part of
         ``cache`` until ``("stop",)``.  A failure is raised after marking
         the group broken."""
         mp = self._mp
@@ -447,7 +569,11 @@ class GenerationPrograms:
             if cmd[0] == "stop":
                 return
             try:
-                if cmd[0] == "run":
+                if cmd[0] == "run" and cmd[1] == "gen_verify":
+                    self._verify(cache, cmd[2], leader=False)
+                elif cmd[0] == "run" and cmd[1] == "gen_multistep":
+                    self._multistep(cache, cmd[2][0], cmd[2][1:])
+                elif cmd[0] == "run":
                     self._step(cache, cmd[2], sample=False)
                 elif cmd[0] == "copy":
                     block_copy_pools(cache.k, cache.v, cmd[1], cmd[2],
@@ -470,11 +596,14 @@ class GenerationPrograms:
         t0 = time.perf_counter()
         key = self._key("gen_verify", cache, tokens, block_tables)
         self._lookup("gen_verify", key)
-        args = self._put((tokens, positions, lengths, block_tables, seeds,
-                          counters, temperature, top_k, top_p))
-        with torch.no_grad():
-            target, accepted = _verify_step(self._params, cache, *args,
-                                            cfg=self._cfg)
+        host = (tokens, positions, lengths, block_tables, seeds, counters,
+                temperature, top_k, top_p)
+        if self._mp is None:
+            target, accepted = self._verify(cache, host)
+        else:
+            target, accepted = self._mp.command(
+                ("run", "gen_verify", host), lambda: self._verify(cache,
+                                                                  host))
         out = torch.cat([target, accepted[:, None]], dim=1).cpu().numpy()
         self._account(key, time.perf_counter() - t0)
         return out[:, :-1], out[:, -1]
@@ -482,9 +611,10 @@ class GenerationPrograms:
     def run_multistep(self, k: int, cache, tokens, positions, lengths,
                       block_tables, seeds, counters, temperature, top_k,
                       top_p):
-        """``k`` decode iterations in one dispatch: on the card one replay
+        """``k`` decode iterations in one dispatch: on one card one replay
         of the key's CUDA graph (captured at its first call), on the CPU
-        the same function eagerly.  ``tokens``/``positions``/``counters``
+        and under mp (one command) the same function eagerly.
+        ``tokens``/``positions``/``counters``
         are the first iteration's (S,) values; returns np (S, k) tokens.
         Each k is its own signature (``("k", k)``, site
         ``gen_multistep``)."""
@@ -495,25 +625,42 @@ class GenerationPrograms:
         self._lookup("gen_multistep", key)
         host = (tokens, positions, lengths, block_tables, seeds, counters,
                 temperature, top_k, top_p)
-        if self._device.type != "cuda":
-            with torch.no_grad():
-                toks = _multistep(self._params, cache, *self._put(host),
-                                  k=k, cfg=self._cfg)
+        if self._mp is None:
+            toks = self._multistep(cache, k, host)
         else:
-            cap = self._graphs.get(key)
-            if cap is None:
-                cap = self._capture_multistep(key, k, cache,
-                                              _np.shape(block_tables))
-            for buf, a, dt in zip(cap.inputs, host, self._OPERAND_DTYPES):
-                buf.copy_(torch.from_numpy(_np.asarray(a, dt)))
-            cap.graph.replay()
-            add_counts(cap.launches)
-            toks = cap.out
+            toks = self._mp.command(("run", "gen_multistep", (k,) + host),
+                                    lambda: self._multistep(cache, k, host))
         out = toks.cpu().numpy()  # the one host copy; waits for the device
         self._account(key, time.perf_counter() - t0)
         return out
 
-    def _capture_multistep(self, key, k: int, cache, table_shape):
+    def _ms_program(self, k: int, cache, args):
+        """The k-iteration function over operand tensors ``args``: the
+        single-device decode math, or this model-parallel rank's."""
+        if self._mp is None:
+            return lambda: _multistep(self._params, cache, *args, k=k,
+                                      cfg=self._cfg)
+        return lambda: _multistep_mp(self._params, cache, *args, k=k,
+                                     **self._mp_kw())
+
+    def _multistep(self, cache, k: int, host):
+        """This rank's k iterations: eager on the CPU and under mp, on one
+        card one replay of the (k, S, W) graph (captured at its first
+        call)."""
+        if self._device.type != "cuda" or self._mp is not None:
+            with torch.no_grad():
+                return self._ms_program(k, cache, self._put(host))()
+        gkey = (k,) + tuple(_np.shape(host[3]))
+        cap = self._graphs.get(gkey)
+        if cap is None:
+            cap = self._capture_multistep(k, cache, gkey[1:])
+        for buf, a, dt in zip(cap.inputs, host, self._OPERAND_DTYPES):
+            buf.copy_(torch.from_numpy(_np.asarray(a, dt)))
+        cap.graph.replay()
+        add_counts(cap.launches)
+        return cap.out
+
+    def _capture_multistep(self, k: int, cache, table_shape):
         """Capture the (S, W, k) multi-step program as a CUDA graph over
         static input buffers.  One eager warm-up on a side stream first
         (all rows inactive: it writes only the null block) launches every
@@ -528,10 +675,7 @@ class GenerationPrograms:
                                   device=dev)
                       for s, dt in zip(shapes, self._OPERAND_DTYPES)]
         cap.inputs[-1].fill_(1.0)  # top_p 1: no nucleus filter
-
-        def program():
-            return _multistep(self._params, cache, *cap.inputs, k=k,
-                              cfg=self._cfg)
+        program = self._ms_program(k, cache, cap.inputs)
 
         cap.graph = torch.cuda.CUDAGraph()
         with torch.no_grad():
@@ -545,7 +689,7 @@ class GenerationPrograms:
                     f"cannot be captured as a CUDA graph: {e}") from e
             torch.cuda.synchronize(dev)
         with self._lock:
-            self._graphs[key] = cap
+            self._graphs[(k, S, W)] = cap
             self.captures += 1
         return cap
 
@@ -555,7 +699,7 @@ class GenerationPrograms:
         signature per pool family (kind ``gen_block_copy``)."""
         t0 = time.perf_counter()
         key = ("gen_block_copy",
-               (("kv_pool", cache.shape, str(cache.k.dtype)),)
+               (("kv_pool", cache.shape, dtype_name(cache.k.dtype)),)
                + self._family())
         self._lookup("gen_block_copy", key)
         src, dst = int(src), int(dst)

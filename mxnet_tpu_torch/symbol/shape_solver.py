@@ -25,6 +25,10 @@ __all__ = ["solve_shapes"]
 
 _META = torch.device("meta")
 
+#: single-input ops that keep their input's shape and may stand between a
+#: parameter variable and the op whose rule gives its shape
+_PASSTHROUGH = ("amp_cast",)
+
 
 def _param_shape_rule(op_name: str, slot: str, attrs: dict,
                       in_shapes: List[Tuple[int, ...]]) -> Tuple[int, ...]:
@@ -151,6 +155,16 @@ def solve_shapes(symbol, known: Dict[str, Tuple[int, ...]],
     def _complete(sh) -> bool:
         return sh is not None and all(d > 0 for d in sh)
 
+    def _source(e):
+        """``e`` followed up through passthrough casts (AMP's
+        ``amp_cast``): the entry whose shape it carries, and the casts."""
+        chain = []
+        while e.node.kind == "op" and e.node.op.name in _PASSTHROUGH \
+                and id(e.node) not in shapes:
+            chain.append(e.node)
+            e = e.node.inputs[0]
+        return e, chain
+
     for node in topo_order(entries):
         if node.kind == "var":
             if _complete(var_shape.get(node.name)):
@@ -166,6 +180,10 @@ def solve_shapes(symbol, known: Dict[str, Tuple[int, ...]],
             # else: deferred — a consuming op's rule fills it
             continue
         op = node.op
+        if op.name in _PASSTHROUGH and id(node.inputs[0].node) not in shapes:
+            # a cast of a parameter whose shape its consumer's rule gives:
+            # filled in (backward) when that consumer is solved
+            continue
         params, aux = _active_extra_inputs(op.name, node.attrs)
         extra = list(params) + list(aux)
         n_data = len(node.inputs) - len(extra)
@@ -207,6 +225,7 @@ def solve_shapes(symbol, known: Dict[str, Tuple[int, ...]],
         # solve param/aux shapes; caller-given shapes are validated against
         # the op's rule — a wrong weight shape raises
         for slot, e in zip(extra, node.inputs[n_data:]):
+            e, casts = _source(e)
             given = var_shape.get(e.node.name) \
                 if e.node.kind == "var" else None
             if id(e.node) in shapes and given is None:
@@ -227,6 +246,8 @@ def solve_shapes(symbol, known: Dict[str, Tuple[int, ...]],
                     f"but op {node.name!r} requires {sh}")
             var_shape[e.node.name] = sh
             shapes[id(e.node)] = (sh,)
+            for c in casts:
+                shapes[id(c)] = (sh,)
             in_shapes.append(sh)
         try:
             shapes[id(node)] = _meta_out_shapes(op, node.attrs, in_shapes)

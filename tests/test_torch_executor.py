@@ -295,7 +295,9 @@ def test_reshape_and_copy_params():
 def test_executor_refusals():
     """``group2ctx`` binds (a symbol without groups runs on the default
     group, one segment); ``set_spmd`` validates as the reference's and
-    detaches with ``None``; loss scaling stays refused."""
+    detaches with ``None``; the fused step refuses ``group2ctx`` with a
+    loss scaler as without (loss scaling itself is ported:
+    ``tests/test_torch_amp.py``); telemetry stays refused."""
     ts = _sym(tmx, "mlp")
     tg = ts.simple_bind(ctx=tmx.cpu(), data=(4, 1, 28, 28),
                         group2ctx={"a": tmx.cpu()})
@@ -310,8 +312,10 @@ def test_executor_refusals():
     te.set_spmd(None, ["data"])
     assert te._spmd_mesh is None
     opt = tmx.optimizer.create("sgd")
-    with pytest.raises(MXNetError, match="loss scaling"):
-        te.fused_step(opt, {}, [], loss_scaler=object())
+    with pytest.raises(MXNetError, match="group2ctx"):
+        tg.fused_step(opt, {}, [], loss_scaler=tmx.amp.LossScaler())
+    with pytest.raises(MXNetError, match="telemetry"):
+        te.telemetry_snapshot()
 
 
 def test_outputs_that_are_also_consumed():

@@ -346,21 +346,22 @@ def test_default_device_without_cuda_raises(params, monkeypatch):
     dict(mp_devices=2, speculative=True), dict(amp_dtype="float16"),
     dict(shard_rules=[(".*", None)], mp_devices=2, multistep_k=4)])
 def test_unported_config_raises(kw):
-    """What stays refused: an amp dtype the kernels do not take, and
-    speculative or multi-step decode under model parallelism (which
-    itself, with or without shard_rules, now constructs)."""
+    """What stays refused: an amp dtype the kernels do not take.
+    Speculative and multi-step decode under model parallelism (with or
+    without shard_rules) construct, as in the reference, and keep their
+    settings."""
     base = dict(GEN)
     base.update(kw)
     name = next(iter(kw))
-    err = NotImplementedError if name == "amp_dtype" else MXNetError
-    with pytest.raises(err, match=name if err is NotImplementedError
-                       else "mp_devices=2 with"):
-        tg.GenerationConfig(**base)
-    if err is MXNetError:
-        del base["speculative" if "speculative" in kw else "multistep_k"]
-        cfg = tg.GenerationConfig(**base)
-        assert cfg.mp_devices == 2
-        assert cfg.shard_rules == kw.get("shard_rules")
+    if name == "amp_dtype":
+        with pytest.raises(NotImplementedError, match=name):
+            tg.GenerationConfig(**base)
+        return
+    cfg = tg.GenerationConfig(**base)
+    assert cfg.mp_devices == 2
+    assert cfg.shard_rules == kw.get("shard_rules")
+    assert cfg.speculative == kw.get("speculative", False)
+    assert cfg.multistep_k == kw.get("multistep_k", 1)
 
 
 @pytest.mark.parametrize("kw", [

@@ -24,7 +24,11 @@ seeds) and save ``.npz`` results.
 - World of 2: ``GenerationService(mp_devices=2)`` under the reference's
   default config (preemption, prefix cache; float and int8 pools), greedy
   tokens equal to the reference's ``mp_devices=2`` service and to the
-  port's mp=1 service; a follower's ``submit`` is refused.  A second
+  port's mp=1 service; a follower's ``submit`` is refused.  In the same
+  world: speculative decode (n-gram and draft model) and multi-step
+  decode at k=4, greedy and sampled, and a three-head model on the dense
+  gather route, each against the reference's mp=2 service and the port's
+  mp=1 service.  A second
   world of 2 whose follower fails mid-run: both processes end, in bounded
   time, with errors.
 """
@@ -249,6 +253,51 @@ with mx.cpu():
             except MXNetError as e:
                 res["follower_submit_refused"] = np.array(str(e))
         svc.stop()
+
+    # speculative (n-gram, draft model) and multi-step decode, and the
+    # dense gather route: greedy then sampled waves
+    for tag, pre, dims, gen, draft in cfgs["modes"]:
+        mcfg = TransformerConfig(**dims)
+        mp_ = {k[len(pre):]: v for k, v in inp.items() if k.startswith(pre)}
+        extra = dict(draft_params=mp_, draft_cfg=mcfg) if draft else {}
+        svc = tg.GenerationService(
+            mp_, mcfg, tg.GenerationConfig(mp_devices=2, **gen),
+            start=False, device="cpu", **extra)
+        res[f"{tag}_kernel"] = np.array(svc._programs.kernel)
+        res[f"{tag}_pool_bytes"] = np.array(svc._cache.nbytes())
+        ms, real = [], svc._programs._multistep
+
+        def rec(*a, _real=real, **k):
+            toks = _real(*a, **k)
+            ms.append(toks.numpy().copy())
+            return toks
+
+        svc._programs._multistep = rec
+        if rank == 0:
+            queued = threading.Event()
+            admit = svc._admit_locked
+            svc._admit_locked = lambda: admit() if queued.is_set() else []
+            svc.start()
+            outs = []
+            for sampled in (False, True):
+                queued.clear()
+                hs = [svc.submit(inp[f"m{pre}prompt{i}"],
+                                 **(dict(temperature=0.9, top_k=10,
+                                         top_p=0.95, seed=100 + i)
+                                    if sampled else dict(temperature=0.0)))
+                      for i in range(cfgs["n_mode_prompts"])]
+                queued.set()
+                outs += [h.result(timeout=120) for h in hs]
+            st = svc.stats()
+            res[f"{tag}_tokens"] = np.array(outs)
+            res[f"{tag}_counts"] = np.array(
+                [st["counts"][k] for k in cfgs["mode_counts"]])
+            res[f"{tag}_signatures"] = np.array(
+                sorted(map(repr, svc.compile_stats())))
+        svc.stop()
+        res[f"{tag}_ms"] = np.concatenate(
+            [m.reshape(-1) for m in ms] or [np.zeros(0, np.int64)])
+        res[f"{tag}_ms_n"] = np.array(len(ms))
 
 np.savez(out + f"/rank{rank}.npz", **res)
 dist.barrier()
@@ -670,6 +719,23 @@ def test_paged_attention_sharded_indivisible_refused():
 N_PROMPTS = 6
 WAVES = [[0, 1, 2], [3, 4, 5]]
 COUNTS = ("preempted", "prefix_hits", "cached_tokens", "cow_copies")
+# multi-token decode: 16-position blocks and prompts of at most 9 tokens,
+# so a first multi-token step after admission stays inside the block the
+# reference's admission secured (its tests' failure, ROADMAP Queue 3)
+SPEC_GEN = dict(max_slots=3, block_size=16, num_blocks=16,
+                seq_buckets=[16, 32], max_new_tokens=8, prefix_cache=False)
+MODES = {
+    "ngram": dict(SPEC_GEN, speculative=True, draft_k=4),
+    "model": dict(SPEC_GEN, speculative=True, draft_mode="model",
+                  draft_k=3, draft_window=32),
+    "multistep": dict(SPEC_GEN, multistep_k=4),
+}
+# three heads do not split over mp=2: the dense gather route
+GATHER_DIMS = dict(vocab=61, d_model=24, n_heads=3, n_layers=2, d_ff=64,
+                   max_len=64)
+MODE_COUNTS = ("spec_steps", "multistep_steps", "draft_proposed",
+               "draft_accepted", "preempted", "prefix_hits")
+N_MODE_PROMPTS = 3
 
 
 def _serve_inputs():
@@ -683,7 +749,25 @@ def _serve_inputs():
         if i % 2:  # block-aligned shared prefixes: prefix hits
             p[:8] = shared[:min(8, n)] if n >= 8 else p[:8]
         inp[f"prompt{i}"] = p.astype(np.int64)
+    # repetitive prompts, so the n-gram proposer fires
+    for i, p in enumerate((([1, 2, 3, 4] * 3)[:9], [7, 8, 9] * 2 + [7],
+                           [3, 1, 4, 1, 3, 1, 4])):
+        inp[f"mp_prompt{i}"] = np.array(p, np.int64)
+    gj = jt.transformer_lm_init(jt.TransformerConfig(**GATHER_DIMS),
+                                jax.random.PRNGKey(2))
+    inp.update({"g_" + k: np.asarray(v) for k, v in gj.items()})
+    for i in range(N_MODE_PROMPTS):
+        inp[f"mg_prompt{i}"] = inp[f"prompt{2 * i + 1}"]
     return pj, inp
+
+
+def _modes():
+    """(tag, parameter prefix, dims, generation config, draft) of the
+    multi-token and gather-route runs."""
+    out = [(tag, "p_", DIMS, gen, tag == "model")
+           for tag, gen in MODES.items()]
+    out.append(("gather", "g_", GATHER_DIMS, DEFAULTS, False))
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -693,7 +777,8 @@ def serving(tmp_path_factory):
     np.savez(d / "inputs.npz", **inp)
     ranks, _ = _run_world(d, SERVE, 2, {
         "dims": DIMS, "gen": DEFAULTS, "n_prompts": N_PROMPTS,
-        "waves": WAVES, "counts": COUNTS})
+        "waves": WAVES, "counts": COUNTS, "modes": _modes(),
+        "n_mode_prompts": N_MODE_PROMPTS, "mode_counts": MODE_COUNTS})
     return pj, inp, ranks
 
 
@@ -753,17 +838,104 @@ def test_model_parallel_serving(serving, kv, monkeypatch):
     assert "rank 0" in str(ranks[1]["follower_submit_refused"])
 
 
-def test_model_parallel_serving_refusals():
-    """What stays refused under mp: speculative and multi-step decode, by
-    name; heads that do not split over mp at construction."""
-    with pytest.raises(MXNetError, match="speculative"):
-        tg.GenerationConfig(mp_devices=2, speculative=True)
-    with pytest.raises(MXNetError, match="multistep_k=4"):
-        tg.GenerationConfig(mp_devices=2, multistep_k=4)
-    with pytest.raises(MXNetError, match="n_heads"):
-        tg.GenerationService(
-            {}, tt.TransformerConfig(**dict(DIMS, n_heads=2, d_ff=64)),
-            tg.GenerationConfig(mp_devices=4), start=False, device="cpu")
+def _serve_modes(svc, inp, pre, monkeypatch):
+    """The world's mode runs in this process: a greedy wave, then a
+    sampled one, each admitted once wholly queued."""
+    queued = threading.Event()
+    admit = svc._admit_locked
+    monkeypatch.setattr(svc, "_admit_locked",
+                        lambda: admit() if queued.is_set() else [])
+    try:
+        svc.start()
+        outs = []
+        for sampled in (False, True):
+            queued.clear()
+            hs = [svc.submit(inp[f"m{pre}prompt{i}"],
+                             **(dict(temperature=0.9, top_k=10, top_p=0.95,
+                                     seed=100 + i)
+                                if sampled else dict(temperature=0.0)))
+                  for i in range(N_MODE_PROMPTS)]
+            queued.set()
+            outs += [h.result(timeout=300) for h in hs]
+        return outs, svc.stats(), svc.compile_stats()
+    finally:
+        svc.stop()
+
+
+def _mode_services(tag, inp):
+    _, pre, dims, gen, draft = next(m for m in _modes() if m[0] == tag)
+    pj = {k[len(pre):]: v for k, v in inp.items() if k.startswith(pre)}
+    jcfg, tcfg = jt.TransformerConfig(**dims), tt.TransformerConfig(**dims)
+    jx = dict(draft_params=pj, draft_cfg=jcfg) if draft else {}
+    tx = dict(draft_params=pj, draft_cfg=tcfg) if draft else {}
+    ref = jg.GenerationService(pj, jcfg, jg.GenerationConfig(
+        mp_devices=2, **gen), start=False, **jx)
+    one = tg.GenerationService(pj, tcfg, tg.GenerationConfig(**gen),
+                               start=False, device="cpu", **tx)
+    return pre, ref, one
+
+
+@pytest.mark.parametrize("tag", list(MODES))
+def test_model_parallel_multi_token_decode(serving, tag, monkeypatch):
+    """Speculative decode (n-gram and draft-model proposers) and
+    multi-step decode at k=4 under mp=2: greedy and sampled tokens equal
+    the reference's mp=2 service's and the port's mp=1 service's; the
+    spec and multi-step step counts and the draft counts agree; each
+    multi-step command drew the same tokens on both ranks (every rank
+    samples)."""
+    _, inp, ranks = serving
+    pre, ref, one = _mode_services(tag, inp)
+    want, sj, _ = _serve_modes(ref, inp, pre, monkeypatch)
+    got1, s1, sig1 = _serve_modes(one, inp, pre, monkeypatch)
+    got = ranks[0][f"{tag}_tokens"].tolist()
+    assert got == want == got1
+    counts = dict(zip(MODE_COUNTS, ranks[0][f"{tag}_counts"].tolist()))
+    for k in MODE_COUNTS:
+        assert counts[k] == s1["counts"][k], k
+    assert counts["spec_steps"] == (sj["speculative"] or {}).get(
+        "spec_steps", 0)
+    assert counts["multistep_steps"] == sj["multistep"]["steps"]
+    assert counts["draft_accepted"] == (sj["speculative"] or {}).get(
+        "accepted_tokens", 0)
+    if tag == "multistep":
+        assert counts["multistep_steps"] >= 1
+        assert int(ranks[0][f"{tag}_ms_n"]) == int(ranks[1][f"{tag}_ms_n"]) \
+            == counts["multistep_steps"]
+        assert ranks[0][f"{tag}_ms"].size > 0
+        np.testing.assert_array_equal(ranks[0][f"{tag}_ms"],
+                                      ranks[1][f"{tag}_ms"])
+    else:
+        assert counts["spec_steps"] >= 1 and counts["draft_proposed"] >= 1
+    # the leader's signatures are the single-device service's
+    assert ranks[0][f"{tag}_signatures"].tolist() == sorted(
+        map(repr, sig1))
+    for r in ranks:
+        assert str(r[f"{tag}_kernel"]) == "paged"
+
+
+def test_model_parallel_serving_gather_route(serving, monkeypatch):
+    """Three heads over mp=2 (formerly refused): the dense gather route,
+    under the reference's default config — greedy and sampled tokens
+    equal the reference's mp=2 service's and the port's mp=1 service's,
+    the leader's signatures (sites without ``_paged``, keys without a
+    kernel component) are the reference's, and every rank holds the
+    whole pool."""
+    _, inp, ranks = serving
+    pre, ref, one = _mode_services("gather", inp)
+    assert ref.stats()["decode_kernel"] == "gather"
+    want, _, sigj = _serve_modes(ref, inp, pre, monkeypatch)
+    got1, _, _ = _serve_modes(one, inp, pre, monkeypatch)
+    got = ranks[0]["gather_tokens"].tolist()
+    assert got == want
+    np.testing.assert_array_equal(got[:N_MODE_PROMPTS],
+                                  got1[:N_MODE_PROMPTS])
+    assert got == got1
+    assert ranks[0]["gather_signatures"].tolist() == sorted(
+        map(repr, sigj))
+    whole = one._cache.nbytes()
+    for r in ranks:
+        assert str(r["gather_kernel"]) == "gather"
+        assert int(r["gather_pool_bytes"]) == whole
 
 
 def test_model_parallel_follower_failure_ends_every_rank(tmp_path):

@@ -11,7 +11,8 @@ and the port only, run every scenario on the inputs this file wrote
 (numpy from seeds) and save ``.npz`` results; the reference's scenarios
 run while they do.
 
-- World of 2: ``Module.fit`` at dp=2 (SGD-momentum with BatchNorm, Adam),
+- World of 2: ``Module.fit`` at dp=2 (SGD-momentum with BatchNorm, Adam,
+  fp16 AMP with dynamic loss scaling),
   mp=2 storage (each rank's stored blocks equal the reference's shard on
   the same mesh coordinate), a checkpoint saved at mp=2 and resumed at
   dp=2, the indivisible-batch fallback, ``DataParallelExecutorManager``
@@ -48,7 +49,10 @@ LOSS_TOL = dict(rtol=1e-5, atol=1e-7)
 MODEL_TOL = dict(rtol=1e-4, atol=1e-6)
 ENVS = ("TPUMX_DP_DEVICES", "TPUMX_MP_DEVICES", "TPUMX_PP_DEVICES",
         "TPUMX_PP_MICROBATCHES", "TPUMX_SHARD_RULES", "TPUMX_MP_COMPUTE",
-        "TPUMX_FUSED_STEP", "TPUMX_FUSED_STEP_SPMD", "TPUMX_AMP")
+        "TPUMX_FUSED_STEP", "TPUMX_FUSED_STEP_SPMD", "TPUMX_AMP",
+        "TPUMX_AMP_DTYPE", "TPUMX_AMP_LOSS_SCALE")
+FP16 = {"TPUMX_AMP": "1", "TPUMX_AMP_DTYPE": "float16",
+        "TPUMX_AMP_LOSS_SCALE": "dynamic"}
 RULES_ENV = "fc1_weight=mp,-;fc2_weight=-,mp"
 SGD = dict(learning_rate=0.5, momentum=0.9)
 ADAM = dict(learning_rate=0.01)
@@ -83,6 +87,8 @@ SCENARIOS = (
     ("dp2_adam", 2, {"TPUMX_DP_DEVICES": "2"}, "mlp", "adam", ADAM, 32, 96),
     ("mp2", 2, {"TPUMX_MP_DEVICES": "2"}, "bn", "sgd", SGD, 32, 96),
     ("indivisible", 2, {"TPUMX_DP_DEVICES": "2"}, "mlp", "sgd", SGD, 7, 21),
+    ("dp2_fp16", 2, dict(FP16, TPUMX_DP_DEVICES="2"), "mlp", "sgd", SGD,
+     32, 96),
     ("dp2mp2_compute", 4, {"TPUMX_DP_DEVICES": "2", "TPUMX_MP_DEVICES": "2",
                            "TPUMX_SHARD_RULES": RULES_ENV},
      "mlp", "sgd", SGD, 32, 96),
@@ -135,7 +141,9 @@ def data_iter(batch, n):
     return mx.io.NDArrayIter(inp["X"][:n], inp["Y"][:n], batch_size=batch)
 
 
-def record(tag, mod, probs, accs):
+def record(tag, mod, probs, accs, scales=()):
+    if scales:
+        res[f"{tag}_scaler"] = np.array(scales)
     arg, aux = mod.get_params()
     for k, v in arg.items():
         res[f"{tag}_p_{k}"] = v.asnumpy()
@@ -159,11 +167,14 @@ def fit(tag, env, kind, opt, params, batch, n, **kw):
     try:
         mod = kw.pop("module", None) or mx.mod.Module(
             build_net(mx.sym, mx.name, kind), context=mx.cpu())
-        probs, accs = [], []
+        probs, accs, scales = [], [], []
 
         def keep(p):
             probs.append(p.locals["self"].get_outputs()[0].asnumpy())
             accs.append(dict(p.eval_metric.get_name_value())["accuracy"])
+            sc = p.locals["self"]._loss_scaler
+            if sc is not None:
+                scales.append((sc.scale_value, sc.good_steps))
 
         init = {k[len(kind) + 1:]: v for k, v in inp.items()
                 if k.startswith(kind + "_")}
@@ -174,7 +185,7 @@ def fit(tag, env, kind, opt, params, batch, n, **kw):
                     k: v for k, v in init.items() if not k.startswith("aux:")}),
                 aux_params={k[4:]: v for k, v in init.items()
                             if k.startswith("aux:")} or None, **kw)
-        record(tag, mod, probs, accs)
+        record(tag, mod, probs, accs, scales)
         return mod
     finally:
         for k in env:
@@ -311,11 +322,14 @@ def _ref_fit(mp, inp, tag, env, kind, opt, params, batch, n, **kw):
         jmx.random.seed(0)
         mod = kw.pop("module", None) or jmx.mod.Module(
             build_net(jmx.sym, jmx.name, kind), context=jmx.cpu())
-        probs, accs = [], []
+        probs, accs, scales = [], [], []
 
         def keep(p):
             probs.append(p.locals["self"].get_outputs()[0].asnumpy())
             accs.append(dict(p.eval_metric.get_name_value())["accuracy"])
+            sc = p.locals["self"]._loss_scaler
+            if sc is not None:
+                scales.append((sc.scale_value, sc.good_steps))
 
         init = {k[len(kind) + 1:]: v for k, v in inp.items()
                 if k.startswith(kind + "_")}
@@ -331,7 +345,7 @@ def _ref_fit(mp, inp, tag, env, kind, opt, params, batch, n, **kw):
                 batch_end_callback=keep, arg_params=arg, aux_params=aux,
                 **kw)
         out = {"fused": mod._fused_step_count, "probs": np.stack(probs),
-               "acc": np.array(accs)}
+               "acc": np.array(accs), "scaler": np.array(scales)}
         a, x = mod.get_params()
         out.update({f"p_{k}": v.asnumpy() for k, v in a.items()})
         out.update({f"a_{k}": v.asnumpy() for k, v in x.items()})
@@ -380,6 +394,8 @@ def worlds(tmp_path_factory):
                     begin_epoch=1, num_epoch=2)
         _, ref["single_adam"] = _ref_fit(mp, inp, "single_adam", {}, "mlp",
                                          "adam", ADAM, 32, 96)
+        _, ref["single_fp16"] = _ref_fit(mp, inp, "single_fp16", FP16,
+                                         "mlp", "sgd", SGD, 32, 96)
     finally:
         mp.undo()
         jmesh.set_mesh(saved)
@@ -476,6 +492,51 @@ def test_metrics_match_single_device(worlds):
                                   ref["single_adam"]["acc"])
     np.testing.assert_allclose(ranks[2][0]["dp2_adam_probs"],
                                ref["single_adam"]["probs"], **LOSS_TOL)
+
+
+def test_fit_dp2_fp16_scaler_matches_single_device(worlds, monkeypatch):
+    """(k) fp16 AMP with dynamic loss scaling at dp=2: the finite check
+    summed over the mesh makes both ranks skip the same steps, so the
+    scaler's ``(scale, good_steps)`` after every step equal the port's
+    single-device run's and the reference's (dp=2 and single device),
+    two overflows and a clean step (an fp16 gradient summed over a
+    rank's half batch can stay finite where the whole batch's does not:
+    this net and batch are one where it does not); the parameters equal the
+    single-device run's within the fp16 tolerance of
+    ``tests/test_amp.py`` (rtol 0.08)."""
+    inp, ranks, ref, _ = worlds
+    for k in ENVS:
+        monkeypatch.delenv(k, raising=False)
+    for k, v in FP16.items():
+        monkeypatch.setenv(k, v)
+    init = {k[4:]: v for k, v in inp.items() if k.startswith("mlp_")}
+    scales = []
+    with tmx.cpu():
+        mod = tmx.mod.Module(build_net(tmx.sym, tmx.name, "mlp"),
+                             context=tmx.cpu())
+        mod.fit(tmx.io.NDArrayIter(inp["X"], inp["Y"], batch_size=32),
+                num_epoch=1, optimizer="sgd", optimizer_params=dict(SGD),
+                kvstore="tpu_sync", arg_params=init,
+                batch_end_callback=lambda p: scales.append(
+                    (mod._loss_scaler.scale_value,
+                     mod._loss_scaler.good_steps)))
+        single = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    assert mod._fused_step_count == 3
+    scales = [list(map(float, t)) for t in scales]
+    for r in ranks[2]:
+        assert r["dp2_fp16_scaler"].tolist() == scales \
+            == ref["dp2_fp16"]["scaler"].tolist() \
+            == ref["single_fp16"]["scaler"].tolist()
+        assert int(r["dp2_fp16_fused"]) == 3
+        for k, v in single.items():
+            got = r[f"dp2_fp16_p_{k}"]
+            assert np.isfinite(got).all()
+            np.testing.assert_allclose(got, v, rtol=0.08,
+                                       atol=0.08 * np.abs(v).max(),
+                                       err_msg=k)
+    # two overflows backed off, then a clean step
+    assert scales == [[16384.0, 0.0], [8192.0, 0.0], [8192.0, 1.0]]
+    assert str(ranks[2][0]["dp2_fp16_mesh"]) == "{'dp': 2}"
 
 
 def test_checkpoint_across_mesh_shapes(worlds):

@@ -586,8 +586,12 @@ def test_env_gates_parse_like_reference(monkeypatch):
         for pkg in (tg, jg):
             with pytest.raises(ValueError):
                 pkg.GenerationConfig(**bad)
-    with pytest.raises(MXNetError, match="mp_devices=2 with speculative"):
-        _gc(mp_devices=2, speculative=True)
+    # under model parallelism the modes construct, as the reference's do
+    got = _gc(mp_devices=2, speculative=True, multistep_k=4)
+    want = jg.GenerationConfig(max_slots=2, mp_devices=2, speculative=True,
+                               multistep_k=4)
+    for name in ("mp_devices", "speculative", "multistep_k"):
+        assert getattr(got, name) == getattr(want, name), name
 
 
 def test_engine_facade():
