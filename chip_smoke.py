@@ -278,6 +278,35 @@ toolkit (``nvcc``) and PyTorch built for CUDA.  Phases, one JSON line each:
               pools; kernels by name).  The four-card legs are
               ``chip_multicard.py``'s.
 
+25. fit_resume — fault-tolerant ``Module.fit`` right after module_fit,
+              on its ResNet-50 symbol at B=32 over 12 batches (f32, cuDNN
+              deterministic, seeded numpy parameters): an uninterrupted run
+              whose telemetry gauges (every 4 steps) equal the norms of
+              ``get_params`` and the gradients (rtol 1e-5); a second one
+              (the card's floor); telemetry off and an async checkpoint
+              every 2 steps, both bitwise the first; a run checkpointing
+              every 4 steps preempted at step 7 (a real SIGTERM) that
+              returns False after a synchronous checkpoint, and a fresh
+              Module resuming it to the uninterrupted losses and
+              parameters bitwise (or within the floor); the newest
+              checkpoint flipped, restore takes the one before; the
+              channels-last check net through the same flow (its
+              BatchNorm kernels' launches).  Save ms and bytes, step ms
+              with and without a write in flight, with telemetry on and
+              off; no failed write.
+26. inference_service — ``serving.InferenceService`` over the ResNet-50
+              symbol bound for inference at B=32: after ``warmup`` 8
+              client threads send 512 single images (4, then 16 in flight
+              each, a fresh service each time); every output equals
+              the image's row of one ``Module.predict`` (rtol 1e-5, or the
+              card's floor where a bucket's batch size moves cuDNN), no
+              executor bound after warmup; requests/s, p50/p99 latency,
+              batch occupancy beside predict's images/s.  A BERT-base-width
+              FFN block with ``LayerNorm`` at sequence 128 served the same
+              way (kernel 5 once a forward), and ``Module.predict`` on a
+              final batch of 8 after 32 (the padded tail's rows equal the
+              predict rows).
+
 Every ResNet phase also requires that the BatchNorm op copied no
 non-contiguous input (``batch_norm.noncontiguous_copies`` stays 0); no
 port kernel runs on the three sequence and RecordIO paths, so their
@@ -289,7 +318,8 @@ also runs ``serving``, its float baseline — ``resnet_training``,
 ``resnet_compressed``, ``gluon_training``, ``module_fit``,
 ``gluon_hybrid``, ``rnn_lm``, ``bucketing_fit``, ``image_rec``,
 ``serving_spec``, ``serving_fleet``, ``ops_breadth``, ``fcn_fit``,
-``spmd_lm``, ``dp_mesh``, ``dist_kvstore``, ``model_parallel``, and
+``spmd_lm``, ``dp_mesh``, ``dist_kvstore``, ``model_parallel``,
+``module_parallel``, ``amp``, ``fit_resume``, ``inference_service``, and
 ``profile``, ``profile_training`` and ``profile_resnet``, which are not in
 the default run: the serving window, or two bf16 LM or ResNet training
 steps, once more under ``torch.profiler``)
@@ -387,6 +417,22 @@ FIT_BATCHES, FIT_LR, FIT_MOMENTUM = 12, 0.05, 0.9
 FIT_LR_STEPS, FIT_LR_FACTOR = (8,), 0.1
 CIFAR_BATCH = 16
 NHWC_BATCH, NHWC_BATCHES, NHWC_HW, NHWC_C, NHWC_UNITS = 32, 3, 56, 256, 3
+# fit_resume: module_fit's symbol at RESNET_F32_BATCH over FIT_BATCHES
+# batches: an async checkpoint every RESUME_EVERY steps and a preemption at
+# step RESUME_AT; the timing run's cadence; telemetry's publishing cadence
+# (it divides FIT_BATCHES: the last step publishes)
+RESUME_EVERY, RESUME_AT, RESUME_TIMING_EVERY, RESUME_TELE_EVERY = 4, 7, 2, 4
+# inference_service: the ResNet-50 symbol served to SERVE_CLIENTS threads,
+# each keeping SERVE_WINDOWS[i] requests in flight (one run a window: 32
+# and 128 requests outstanding), batch buckets up to
+# SERVE_MAX_BATCH (also the Module's bound batch); a BERT-base-width FFN
+# block with LayerNorm (width, d_ff, sequence, requests, bound batch); the
+# partial final batch of F5 (32 + 8 images)
+SERVE_REQUESTS, SERVE_CLIENTS, SERVE_MAX_BATCH = 512, 8, 32
+SERVE_WINDOWS = (4, 16)
+BERT_WIDTH, BERT_FF, BERT_SEQ, BERT_REQUESTS, BERT_MAX_BATCH = \
+    768, 3072, 128, 64, 16
+SERVE_PARTIAL = 40
 # gluon_hybrid: Inception v3 at its published input, B=128, one BatchNorm
 # per conv unit (94); the capture check net's batch; the export round
 # trip's tolerance, relative to the output's largest magnitude
@@ -4188,6 +4234,644 @@ def phase_module_fit(dev):
     bad += bad_fused + bad_cifar + bad_nhwc
     if bad:
         raise SystemExit("module_fit phase failed: " + "; ".join(bad))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# fit_resume: fault-tolerant Module.fit (checkpoints, preemption, resume)
+# and the fused step's device-side telemetry
+# ---------------------------------------------------------------------------
+
+class _Env:
+    """Set environment variables for a block, then put them back."""
+
+    def __init__(self, **env):
+        self.env = {k: str(v) for k, v in env.items()}
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.env}
+        os.environ.update(self.env)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _resume_fit(net, X, Y, init, B, num_epoch=1, ckdir=None, every=0,
+                preempt=None, resume=False, telemetry=True, ctx=None):
+    """One ``Module.fit`` of ``net`` over ``NDArrayIter(X, Y)`` from the
+    numpy ``init = (args, aux)``, SGD with module_fit's settings: whether
+    it completed, each batch's loss and end mark (a sync of the step's
+    stream, then the host clock), whether a checkpoint write was in flight
+    when each next step began, the parameters and aux states (on the
+    card), the module and its checkpoint manager."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.fault import injector
+
+    env = {"TPUMX_TELEMETRY": int(telemetry),
+           "TPUMX_TELEMETRY_EVERY": RESUME_TELE_EVERY}
+    if preempt:
+        env["TPUMX_FAULT_PREEMPT_AT_STEP"] = preempt
+    out = {"losses": [], "marks": [], "busy": [], "manager": None}
+
+    def batch_end(param):
+        torch.cuda.current_stream().synchronize()
+        out["marks"].append(time.perf_counter())
+        out["losses"].append(_ce(param.locals["self"].get_outputs()[0],
+                                 param.locals["data_batch"].label[0]))
+        ck = param.locals.get("ckpt")
+        if ck is not None:
+            out["manager"] = ck.manager
+            out["busy"].append(not ck.manager._idle.is_set())
+
+    with _Env(**env):
+        injector().reset()
+        try:
+            with ctx or mx.gpu(0):
+                mod = mx.mod.Module(net, label_names=["softmax_label"],
+                                    context=ctx)
+                torch.cuda.current_stream().synchronize()
+                out["t0"] = time.perf_counter()
+                out["done"] = mod.fit(
+                    mx.io.NDArrayIter(X, Y, batch_size=B),
+                    num_epoch=num_epoch, optimizer="sgd",
+                    optimizer_params={"learning_rate": FIT_LR,
+                                      "momentum": FIT_MOMENTUM},
+                    arg_params=init[0], aux_params=init[1],
+                    batch_end_callback=batch_end, checkpoint_dir=ckdir,
+                    checkpoint_every=every, resume=resume)
+                arg, aux = mod.get_params()
+        finally:
+            with _Env(TPUMX_FAULT_PREEMPT_AT_STEP=""):
+                injector().reset()
+    out["params"] = {k: v._data for k, v in arg.items()}
+    out["params"].update({"aux:" + k: v._data for k, v in aux.items()})
+    out["module"] = mod
+    return out
+
+
+def _step_ms(run):
+    marks = [run["t0"]] + run["marks"]
+    return [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+
+
+def _bit_diff(a, b):
+    """The largest |a - b| over the tensors of two parameter dicts (0.0
+    when every tensor is bitwise equal), and the tensors that differ."""
+    import torch
+
+    worst, names = 0.0, []
+    for k in b:
+        if not torch.equal(a[k], b[k]):
+            names.append(k)
+            worst = max(worst, float((a[k].double() - b[k].double()).abs()
+                                     .max()))
+    return worst, names
+
+
+def _resume_check(tag, full, floor_run, pre, res, at):
+    """The preempted run stopped after a synchronous checkpoint at step
+    ``at``; the resumed run's losses and final parameters equal the
+    uninterrupted run's bitwise, or within the card's own floor (two
+    uninterrupted runs, ``floor_run``) where those already differ."""
+    floor, floor_names = _bit_diff(floor_run["params"], full["params"])
+    loss_floor = max([abs(a - b) for a, b in zip(floor_run["losses"],
+                                                  full["losses"])] or [0])
+    diff, names = _bit_diff(res["params"], full["params"])
+    loss_diff = max(abs(a - b) for a, b in zip(res["losses"],
+                                               full["losses"][at:]))
+    out = {"preempted_returned": pre["done"], "resumed_returned": res["done"],
+           "resumed_steps": res["module"]._fused_step_count,
+           "losses_full": full["losses"], "losses_resumed": res["losses"],
+           "param_max_abs_diff": diff, "params_differing": len(names),
+           "loss_max_abs_diff": loss_diff,
+           "floor_param_max_abs_diff": floor,
+           "floor_params_differing": len(floor_names),
+           "floor_loss_max_abs_diff": loss_floor,
+           "bitwise": diff == 0.0 and loss_diff == 0.0}
+    bad = []
+    if pre["done"] is not False:
+        bad.append(f"{tag}: the preempted fit returned {pre['done']}")
+    if res["done"] is not True or out["resumed_steps"] != \
+            len(full["losses"]) - at:
+        bad.append(f"{tag}: the resumed fit returned {res['done']} after "
+                   f"{out['resumed_steps']} steps")
+    if diff > floor or loss_diff > loss_floor:
+        bad.append(f"{tag}: the resumed run left the uninterrupted one: "
+                   f"params {diff:.3g} (floor {floor:.3g}), losses "
+                   f"{loss_diff:.3g} (floor {loss_floor:.3g})")
+    return out, bad
+
+
+def _resume_channels_last(dev):
+    """The channels-last check net (kernels 3-4 in its BatchNorms) through
+    the same flow at B=NHWC_BATCH: two uninterrupted runs of two epochs of
+    two batches, one preempted at step 3, one resumed."""
+    import tempfile
+
+    net = _nhwc_symbol()
+    B = NHWC_BATCH
+    X, Y = _fit_images(2, B, SEED + 8, (NHWC_HW, NHWC_HW, NHWC_C), 10)
+    args, aux = _random_values(net, (B, NHWC_HW, NHWC_HW, NHWC_C),
+                               SEED + 9, 10)
+    init = ({k: v for k, v in args.items()
+             if k not in ("data", "softmax_label")}, aux)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, kw in (("full", {}), ("again", {}),
+                        ("preempted", dict(ckdir=tmp, every=2, preempt=3)),
+                        ("resumed", dict(ckdir=tmp, every=2, resume=True))):
+            runs[tag] = _resume_fit(net, X, Y, init, B, num_epoch=2, **kw)
+    return _resume_check("channels-last", runs["full"], runs["again"],
+                         runs["preempted"], runs["resumed"], 3)
+
+
+def _telemetry_check(run):
+    """The gauges published at the last step (``TPUMX_TELEMETRY_EVERY``
+    divides the step count) against the norms of ``get_params`` and of
+    the bound gradients, in f64 on the card."""
+    import torch
+
+    from mxnet_tpu_torch import observability as obs
+
+    gauges = obs.snapshot()["gauges"]
+    mod = run["module"]
+    ex = mod._exec
+    pn = float(torch.sqrt(sum((mod.get_params()[0][n]._data.double() ** 2)
+                              .sum() for n in ex._grad_arg_names)))
+    gn = float(torch.sqrt(sum((ex.grad_dict[n]._data.double() ** 2).sum()
+                              for n in ex._grad_arg_names)))
+    out = {"train_grad_norm": gauges.get("train_grad_norm"),
+           "grad_norm": gn, "train_param_norm": gauges.get(
+               "train_param_norm"), "param_norm": pn,
+           "train_loss": gauges.get("train_loss"),
+           "train_nonfinite_grads_total": gauges.get(
+               "train_nonfinite_grads_total"),
+           "train_skip_steps_total": gauges.get("train_skip_steps_total"),
+           "rtol": 1e-5}
+    bad = []
+    for g, want in (("train_grad_norm", gn), ("train_param_norm", pn)):
+        got = out[g]
+        if got is None or abs(got - want) > 1e-5 * abs(want):
+            bad.append(f"telemetry {g} {got} against {want}")
+    if out["train_nonfinite_grads_total"] != 0 or \
+            out["train_skip_steps_total"] != 0:
+        bad.append(f"telemetry counted non-finite gradients: {out}")
+    return out, bad
+
+
+def _stall_profile(run, X, Y, B, directory):
+    """One profiled fused step of a fitted module alone and one while an
+    async checkpoint write of it is in flight: wall and device ms and the
+    idle share of each (does the writer stall the host or the card?)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.checkpoint import TrainCheckpointer
+
+    mod = run["module"]
+    with mx.gpu(0):
+        batch = next(iter(mx.io.NDArrayIter(X[:B], Y[:B], batch_size=B)))
+        mod._try_fused_step(batch)
+        quiet = _profiled(lambda: mod._try_fused_step(batch))
+        ck = TrainCheckpointer(mod, directory)
+        ck.save(0, 1, 1, blocking=False)
+        loaded = _profiled(lambda: mod._try_fused_step(batch))
+        still = not ck.manager._idle.is_set()
+        ck.close()
+    keep = ("wall_s", "device_busy_s", "idle_share", "kernels")
+    return {"alone": {k: quiet[k] for k in keep},
+            "write_in_flight": {k: loaded[k] for k in keep},
+            "write_still_in_flight_after": still}
+
+
+def phase_fit_resume(dev):
+    """Fault-tolerant ``Module.fit`` on module_fit's ResNet-50 symbol
+    (224x224, 1000 classes) at B=RESNET_F32_BATCH over FIT_BATCHES batches,
+    f32, TF32 off, cuDNN deterministic, SGD lr FIT_LR momentum 0.9, from
+    seeded numpy parameters: (1) an uninterrupted run with telemetry
+    (``TPUMX_TELEMETRY_EVERY=4``: the published norms against
+    ``get_params`` and the gradients, rtol 1e-5); (2) the same with
+    telemetry off (parameters bitwise); (3) the same writing an async
+    checkpoint every RESUME_TIMING_EVERY steps (parameters bitwise: the
+    writer only reads; the median step with a write in flight beside one
+    without); a second uninterrupted run gives the card's floor; (4) a run writing every RESUME_EVERY steps preempted at step
+    RESUME_AT (``TPUMX_FAULT_PREEMPT_AT_STEP``: a real SIGTERM) that
+    returns False after a synchronous checkpoint; (5) a fresh Module that
+    resumes and finishes: losses and parameters bitwise the uninterrupted
+    run's, or within the card's floor where two uninterrupted runs differ
+    (runs 2 and 3 are held to it too);
+    then the newest checkpoint flipped: restore falls back to the one
+    before.  The channels-last check net runs the same flow (its
+    BatchNorms launch kernels 3-4).  Numbers: save ms and bytes, async
+    and sync; step ms with and without a write in flight, and one
+    profiled step of each (device time and idle share); step ms with
+    telemetry on and off; launches by wrapper.  A failed async write
+    (``checkpoint_save_failures_total``) fails the phase."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from mxnet_tpu_torch import observability as obs
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+    from mxnet_tpu_torch.fault import corrupt_checkpoint
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise SystemExit("TF32 is on: the f32 comparison needs full f32")
+    gc.collect()
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    failures0 = obs.snapshot()["counters"].get(
+        "checkpoint_save_failures_total", 0)
+    B = RESNET_F32_BATCH
+    net, _, _ = _fit_loaded_symbol()
+    X, Y = _fit_images(FIT_BATCHES, B, SEED + 20)
+    args, aux = _random_values(net, (B, 3, RESNET_HW, RESNET_HW), SEED + 21,
+                               RESNET_CLASSES)
+    init = ({k: v for k, v in args.items()
+             if k not in ("data", "softmax_label")}, aux)
+    runs, bad = {}, []
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.cuda.synchronize()
+            _reset_launches()
+            runs["full"] = _resume_fit(net, X, Y, init, B)
+            tele, bad_tele = _telemetry_check(runs["full"])
+            runs["again"] = _resume_fit(net, X, Y, init, B)
+            runs["telemetry_off"] = _resume_fit(net, X, Y, init, B,
+                                                telemetry=False)
+            runs["timing"] = _resume_fit(net, X, Y, init, B,
+                                         ckdir=f"{tmp}/timing",
+                                         every=RESUME_TIMING_EVERY)
+            ckdir = f"{tmp}/resume"
+            runs["preempted"] = _resume_fit(net, X, Y, init, B, ckdir=ckdir,
+                                            every=RESUME_EVERY,
+                                            preempt=RESUME_AT)
+            pre_steps = [s for s, _ in CheckpointManager(ckdir).list()]
+            runs["resumed"] = _resume_fit(net, X, Y, init, B, ckdir=ckdir,
+                                          every=RESUME_EVERY, resume=True)
+            nhwc, bad_nhwc = _resume_channels_last(dev)
+            torch.cuda.synchronize()
+            launches = _read_launches()
+            stall = _stall_profile(runs["timing"], X, Y, B, f"{tmp}/stall")
+            # the newest checkpoint corrupted: restore takes the one before
+            mgr = CheckpointManager(ckdir)
+            steps = [s for s, _ in mgr.list()]
+            corrupt_checkpoint(mgr.list()[0][1], "flip")
+            fallback = mgr.restore()[0].step
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = det
+    resumed, bad_resume = _resume_check("ResNet-50", runs["full"],
+                                        runs["again"], runs["preempted"],
+                                        runs["resumed"], RESUME_AT)
+    floor = resumed["floor_param_max_abs_diff"]
+    off_diff, _ = _bit_diff(runs["telemetry_off"]["params"],
+                            runs["full"]["params"])
+    timing_diff, _ = _bit_diff(runs["timing"]["params"],
+                               runs["full"]["params"])
+    timing = runs["timing"]
+    steps_ms = _step_ms(timing)
+    # step k began with a write in flight when the writer was busy at
+    # step k-1's end; the first step of each run is left out (warm-up)
+    in_flight = [ms for ms, b in zip(steps_ms[1:], timing["busy"]) if b]
+    idle = [ms for ms, b in zip(steps_ms[1:], timing["busy"]) if not b]
+    saves = {}
+    for tag in ("timing", "preempted", "resumed"):
+        for mode, s, nbytes, host_s in runs[tag]["manager"].history:
+            saves.setdefault(mode, []).append({
+                "run": tag, "ms": s * 1e3, "to_host_ms": host_s * 1e3,
+                "bytes": nbytes})
+    failures = obs.snapshot()["counters"].get(
+        "checkpoint_save_failures_total", 0) - failures0
+    res = {"phase": "fit_resume",
+           "config": {"symbol": "example/image-classification/symbols/"
+                      "resnet.py", "num_layers": 50,
+                      "image_shape": [3, RESNET_HW, RESNET_HW],
+                      "num_classes": RESNET_CLASSES, "B": B,
+                      "batches": FIT_BATCHES, "dtype": "float32",
+                      "optimizer": "sgd", "lr": FIT_LR,
+                      "momentum": FIT_MOMENTUM,
+                      "checkpoint_every": RESUME_EVERY,
+                      "preempt_at": RESUME_AT,
+                      "timing_checkpoint_every": RESUME_TIMING_EVERY,
+                      "telemetry_every": RESUME_TELE_EVERY},
+           "resume": resumed, "channels_last": nhwc,
+           "checkpoints_when_preempted": pre_steps,
+           "checkpoints_after_resume": steps, "fallback_step": fallback,
+           "saves": saves, "save_failures": failures,
+           "step_ms_no_checkpoints": _step_ms(runs["full"]),
+           "step_ms_checkpointing": steps_ms,
+           "write_in_flight": timing["busy"],
+           "profiled_step": stall,
+           "median_step_ms": {
+               "no_checkpoints": float(np.median(_step_ms(runs["full"])[1:])),
+               "write_in_flight": float(np.median(in_flight))
+               if in_flight else None,
+               "no_write_in_flight": float(np.median(idle))
+               if idle else None,
+               "telemetry_off": float(np.median(
+                   _step_ms(runs["telemetry_off"])[1:]))},
+           "telemetry": tele,
+           "telemetry_off_param_max_abs_diff": off_diff,
+           "checkpointing_run_param_max_abs_diff": timing_diff,
+           "launches": launches}
+    emit(res)
+    bad += bad_tele + bad_resume + bad_nhwc
+    if max(pre_steps) != RESUME_AT:
+        bad.append(f"the preempted run's checkpoints {pre_steps}: none at "
+                   f"step {RESUME_AT}")
+    if len(steps) < 2 or fallback != steps[1]:
+        bad.append(f"restore after flipping {steps[:1]} took {fallback}, "
+                   f"not {steps[1:2]}")
+    if off_diff > floor:
+        bad.append(f"telemetry off moved the parameters by {off_diff:.3g} "
+                   f"(floor {floor:.3g})")
+    if timing_diff > floor:
+        bad.append(f"checkpoint writes moved the parameters by "
+                   f"{timing_diff:.3g} (floor {floor:.3g})")
+    if failures:
+        bad.append(f"{failures} checkpoint writes failed")
+    want = {k: 0 for k in launches}
+    steps_nhwc = 4 + 4 + 3 + 1  # two full runs, preempted, resumed
+    want.update(bn_stats=NHWC_UNITS * steps_nhwc,
+                bn_normalize=NHWC_UNITS * steps_nhwc)
+    if launches != want:
+        bad.append(f"launches {launches}, expected {want}")
+    if bad:
+        raise SystemExit("fit_resume phase failed: " + "; ".join(bad))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# inference_service: InferenceService with its micro-batcher
+# ---------------------------------------------------------------------------
+
+def _serve_clients(svc, samples, clients, window):
+    """``clients`` threads share ``samples``, each keeping ``window``
+    requests in flight: the outputs (on the host, in order), the wall
+    seconds and the first client error."""
+    import threading
+
+    outs = [None] * len(samples)
+    errors = []
+
+    def client(c):
+        try:
+            mine = list(range(c, len(samples), clients))
+            for i in range(0, len(mine), window):
+                idx = mine[i:i + window]
+                futs = [svc.submit(samples[j]) for j in idx]
+                for j, f in zip(idx, futs):
+                    outs[j] = f.result(120)._data.cpu()
+        except Exception as e:  # noqa: BLE001 — reported by the caller
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    return outs, time.perf_counter() - t0, errors[:1]
+
+
+def _served_vs_predict(svc, outs, want, probe, rtol=1e-5, atol=1e-6):
+    """Each served row against the same sample's ``Module.predict`` row;
+    where a bucket's batch size alone moves cuDNN's result, the card's
+    floor: each bound bucket executor run directly on the first samples
+    (``probe``) against predict's rows."""
+    import torch
+
+    got = torch.stack(outs)
+    err = (got - want).abs()
+    excess = float((err - (atol + rtol * want.abs())).max())
+    floor = 0.0
+    for sig, ex in svc._adapter._cache.items():
+        name, (b, *_), _ = sig[0]
+        rows = ex.forward(is_train=False, **{name: probe[:b]})[0]._data
+        floor = max(floor, float((rows.cpu() - want[:b]).abs().max()))
+    return {"max_abs_err": float(err.max()), "excess_over_tol": excess,
+            "bucket_floor_max_abs": floor, "rtol": rtol, "atol": atol}
+
+
+def _serve_model(mod, samples, shape, max_batch, clients, windows):
+    """``InferenceService`` over ``mod`` (bound for inference) with batch
+    buckets up to ``max_batch`` and one shape bucket, once for each client
+    window (a fresh service each): warmup, then the clients; each run's
+    stats and binds after warmup, its outputs against ``Module.predict``'s
+    over the same samples (predict's samples/s beside), and the launches
+    counted up to that predict."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.serving import InferenceService, ServingConfig
+
+    runs, outs, svcs, bad = [], [], [], []
+    try:
+        for window in windows:
+            svc = InferenceService(mod, ServingConfig(
+                max_batch_size=max_batch, batch_timeout_ms=2.0,
+                shape_buckets=[tuple(shape)], queue_bound=1024))
+            svcs.append(svc)
+            t0 = time.perf_counter()
+            warmed = svc.warmup()
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            binds0 = svc.stats()["compile_cache"]["misses"]
+            got, wall, errors = _serve_clients(svc, samples, clients, window)
+            stats = svc.stats()
+            outs.append(got)
+            runs.append({
+                "window": window, "warmup_binds": warmed, "warmup_s": warm_s,
+                "binds_after_warmup":
+                stats["compile_cache"]["misses"] - binds0,
+                "wall_s": wall, "requests_per_s": len(samples) / wall,
+                "latency_ms": stats["latency_ms"],
+                "queue_wait_ms_p99": stats.get("queue_wait_ms_p99"),
+                "batches": stats["batches"],
+                "avg_batch_size": stats["avg_batch_size"],
+                "batch_occupancy": stats["batch_occupancy"],
+                "errors": errors})
+            if errors or any(o is None for o in got):
+                bad.append(f"window {window}: requests failed: {errors}")
+            if runs[-1]["binds_after_warmup"]:
+                bad.append(f"window {window}: "
+                           f"{runs[-1]['binds_after_warmup']} executor "
+                           f"binds after warmup")
+        B = mod.data_shapes[0][1][0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = mod.predict(mx.io.NDArrayIter(np.stack(samples),
+                                             batch_size=B))
+        torch.cuda.synchronize()
+        predict_s = time.perf_counter() - t0
+        launches = _read_launches()   # the path's; the floor pass follows
+        want = want._data.cpu()
+        probe = torch.from_numpy(np.stack(samples[:max_batch]))
+        checks = [_served_vs_predict(svcs[0], got, want, probe)
+                  for got in outs if all(o is not None for o in got)]
+    finally:
+        for svc in svcs:
+            svc.stop()
+    for run, check in zip(runs, checks):
+        run["vs_predict"] = check
+        if check["excess_over_tol"] > check["bucket_floor_max_abs"]:
+            bad.append(f"window {run['window']}: served outputs against "
+                       f"Module.predict: {check}")
+    res = {"requests": len(samples), "clients": clients,
+           "max_batch": max_batch,
+           "batch_buckets": svcs[0]._config.batch_buckets, "runs": runs,
+           "predict_s": predict_s,
+           "predict_per_s": len(samples) / predict_s, "launches": launches}
+    return res, want, bad
+
+
+class _TailIter:
+    """Full batches of ``X``, then one smaller final batch (no pad)."""
+
+    def __init__(self, mx, X, B):
+        self.mx, self.X, self.B = mx, X, B
+        self.provide_data = [mx.io.DataDesc("data", (B,) + X.shape[1:])]
+        self.provide_label = []
+
+    def reset(self):
+        pass
+
+    def __iter__(self):
+        for i in range(0, len(self.X), self.B):
+            yield self.mx.io.DataBatch(
+                data=[self.mx.nd.array(self.X[i:i + self.B])], label=None)
+
+
+def _bert_block():
+    """A BERT-base-width feed-forward block: FullyConnected 768 -> 3072,
+    GELU, 3072 -> 768, the residual and ``LayerNorm`` (kernel 5), over
+    (B, BERT_SEQ, BERT_WIDTH)."""
+    import mxnet_tpu_torch as mx
+
+    with mx.name.NameManager():
+        x = mx.sym.Variable("data")
+        h = mx.sym.FullyConnected(x, num_hidden=BERT_FF, flatten=False,
+                                  name="ffn_1")
+        h = mx.sym.LeakyReLU(h, act_type="gelu")
+        h = mx.sym.FullyConnected(h, num_hidden=BERT_WIDTH, flatten=False,
+                                  name="ffn_2")
+        return mx.sym.LayerNorm(h + x, name="ln")
+
+
+def _inference_module(net, data_shape, seed, labels):
+    import mxnet_tpu_torch as mx
+
+    args, aux = _random_values(net, data_shape, seed, RESNET_CLASSES)
+    mod = mx.mod.Module(net, label_names=["softmax_label"] if labels
+                        else None)
+    label_shapes = [("softmax_label", data_shape[:1])] if labels else None
+    mod.bind(data_shapes=[("data", data_shape)], label_shapes=label_shapes,
+             for_training=False)
+    mod.init_params(arg_params={k: v for k, v in args.items()
+                                if k not in ("data", "softmax_label")},
+                    aux_params=aux)
+    return mod
+
+
+def phase_inference_service(dev):
+    """``serving.InferenceService`` on the card: (a) module_fit's ResNet-50
+    symbol bound for inference at B=SERVE_MAX_BATCH (f32, cuDNN
+    deterministic), batch buckets up to it; after ``warmup`` SERVE_CLIENTS
+    threads send SERVE_REQUESTS single images, each client keeping 4 in
+    flight, then 16, on a fresh service (SERVE_WINDOWS); every output equals the same image's row of
+    one ``Module.predict`` over the images (rtol 1e-5, atol 1e-6, or the
+    card's floor where a bucket's batch size alone moves cuDNN's result);
+    no executor bound after warmup; requests/s, p50/p99 latency and batch
+    occupancy beside predict's images/s.  (b) A BERT-base-width FFN block
+    with ``LayerNorm`` at sequence BERT_SEQ served the same way (kernel 5's
+    launches by wrapper, counted from before (a)'s warmup to (b)'s
+    predict).  (c) ``Module.predict`` on a final batch of 8 after 32 (F5):
+    its rows equal (a)'s predict rows."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise SystemExit("TF32 is on: the f32 comparison needs full f32")
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    bad = []
+    try:
+        with mx.gpu(0):
+            net, _, _ = _fit_loaded_symbol()
+            shape = (3, RESNET_HW, RESNET_HW)
+            mod = _inference_module(net, (SERVE_MAX_BATCH,) + shape,
+                                    SEED + 30, labels=True)
+            X, _ = _fit_images(SERVE_REQUESTS // SERVE_MAX_BATCH,
+                               SERVE_MAX_BATCH, SEED + 31)
+            images = list(X)
+            bert = _inference_module(
+                _bert_block(), (BERT_MAX_BATCH, BERT_SEQ, BERT_WIDTH),
+                SEED + 32, labels=False)
+            seqs = list(np.random.default_rng(SEED + 33).standard_normal(
+                (BERT_REQUESTS, BERT_SEQ, BERT_WIDTH), dtype=np.float32))
+            torch.cuda.synchronize()
+            _reset_launches()
+            resnet, want, bad_a = _serve_model(mod, images, shape,
+                                               SERVE_MAX_BATCH,
+                                               SERVE_CLIENTS, SERVE_WINDOWS)
+            ex = mod._exec
+            tail = mod.predict(_TailIter(mx, X[:SERVE_PARTIAL],
+                                         SERVE_MAX_BATCH))
+            tail = tail._data.cpu()
+            partial = {"rows": list(tail.shape),
+                       "same_executor": mod._exec is ex,
+                       "max_abs_err": float((tail - want[:SERVE_PARTIAL])
+                                            .abs().max()),
+                       "bitwise": bool(torch.equal(
+                           tail, want[:SERVE_PARTIAL]))}
+            ffn, _, bad_b = _serve_model(bert, seqs, (BERT_SEQ, BERT_WIDTH),
+                                         BERT_MAX_BATCH, SERVE_CLIENTS, (1,))
+            # counted from before (a) to (b)'s Module.predict
+            launches = ffn.pop("launches")
+            resnet.pop("launches")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = det
+    # LayerNorm runs once per forward of the block: the warmup's, the
+    # served batches', and Module.predict's
+    ln_want = sum(r["warmup_binds"] + r["batches"] for r in ffn["runs"]) \
+        + -(-BERT_REQUESTS // BERT_MAX_BATCH)
+    res = {"phase": "inference_service",
+           "config": {"resnet": {"symbol": "example/image-classification/"
+                                 "symbols/resnet.py", "num_layers": 50,
+                                 "image_shape": list(shape),
+                                 "bound_batch": SERVE_MAX_BATCH},
+                      "bert_ffn": {"width": BERT_WIDTH, "ff": BERT_FF,
+                                   "seq": BERT_SEQ,
+                                   "bound_batch": BERT_MAX_BATCH},
+                      "dtype": "float32"},
+           "resnet": resnet, "bert_ffn": ffn, "partial_final_batch": partial,
+           "layer_norm_launches_expected": ln_want, "launches": launches}
+    emit(res)
+    bad += bad_a + bad_b
+    if partial["rows"] != [SERVE_PARTIAL, RESNET_CLASSES] or \
+            not partial["same_executor"] or \
+            partial["max_abs_err"] > resnet["runs"][0]["vs_predict"][
+                "bucket_floor_max_abs"] + 1e-6:
+        bad.append(f"Module.predict on a partial final batch: {partial}")
+    want_l = {k: 0 for k in launches}
+    want_l["layer_norm"] = ln_want
+    if launches != want_l:
+        bad.append(f"launches {launches}, expected {want_l}")
+    if bad:
+        raise SystemExit("inference_service phase failed: " + "; ".join(bad))
     return res
 
 
@@ -8211,7 +8895,8 @@ def main(argv) -> int:
         "gluon_training", "module_fit", "gluon_hybrid", "rnn_lm",
         "bucketing_fit", "image_rec", "serving_spec", "serving_fleet",
         "ops_breadth", "fcn_fit", "spmd_lm", "dp_mesh", "dist_kvstore",
-        "model_parallel", "module_parallel", "amp"}
+        "model_parallel", "module_parallel", "amp", "fit_resume",
+        "inference_service"}
     if "serving_int8" in phases:
         phases.add("serving")   # its float baseline
     t_start = time.perf_counter()
@@ -8257,6 +8942,10 @@ def main(argv) -> int:
         runs["gluon_training"] = phase_gluon_training(dev)
     if "module_fit" in phases:
         runs["module_fit"] = phase_module_fit(dev)
+    if "fit_resume" in phases:
+        runs["fit_resume"] = phase_fit_resume(dev)
+    if "inference_service" in phases:
+        runs["inference_service"] = phase_inference_service(dev)
     if "amp" in phases:
         runs["amp"] = phase_amp(dev, runs)
     if "module_parallel" in phases:

@@ -28,11 +28,13 @@ cards, gloo on the CPU) with differentiable collectives, the mesh
 dp x sp LM step, and the ``dist_sync``/``dist_async`` parameter server
 (``kvstore_dist``, ``kvstore_server``); and automatic mixed precision
 (``amp``: the graph casting policy, loss scaling in the fused step,
-Gluon ``amp.init``).  Entry points run on ``cuda`` (``mx.gpu()``, the default
+Gluon ``amp.init``); fault-tolerant ``Module.fit`` (``checkpoint``:
+async checksummed checkpoints, resume, preemption), device-side train
+telemetry and the micro-batching ``serving.InferenceService``.  Entry points run on ``cuda`` (``mx.gpu()``, the default
 context) unless the caller passes the CPU (``ctx=mx.cpu()``,
 ``context=mx.cpu()`` or ``device="cpu"``).
 """
-from . import (attribute, autograd, base, callback, context, engine,
+from . import (attribute, autograd, base, callback, checkpoint, context, engine,
                executor, executor_manager, fault, gluon, initializer, io, kvstore,
                lr_scheduler, metric, model, module, monitor, name, ndarray,
                observability, ops, optimizer, parallel, profiler, random,
@@ -58,7 +60,7 @@ __version__ = "0.1.0"
 
 __all__ = ["MXNetError", "amp", "Context", "cpu", "gpu", "tpu", "current_context",
            "num_devices", "resolve_device", "attribute", "autograd", "base",
-           "callback", "context", "engine", "executor", "fault", "gluon",
+           "callback", "checkpoint", "context", "engine", "executor", "fault", "gluon",
            "init", "initializer", "kvstore_server", "observability",
            "profiler",
            "io", "kv", "kvstore", "lr_scheduler", "metric", "mod", "model",

@@ -90,13 +90,20 @@ class LossScaler:
     @staticmethod
     def nonfinite_count(grads) -> torch.Tensor:
         """The number of non-finite entries of the floating gradients: an
-        f32 scalar, summable over a mesh (a boolean is not)."""
-        total = None
+        f32 scalar, summable over a mesh (a boolean is not).  The
+        gradients of one device and dtype are concatenated and counted in
+        one pass: a handful of launches whatever their number (one by
+        one it was four launches a gradient)."""
+        groups = {}
         for g in grads.values() if isinstance(grads, dict) else grads:
-            if not g.is_floating_point():
-                continue
-            n = torch.logical_not(torch.isfinite(g)).sum(dtype=torch.float32)
-            total = n if total is None else total + n
+            if g.is_floating_point():
+                groups.setdefault((g.device, g.dtype), []).append(
+                    g.reshape(-1))
+        total = None
+        for flat in groups.values():
+            n = torch.logical_not(torch.isfinite(torch.cat(flat))).sum(
+                dtype=torch.float32)
+            total = n if total is None else total + n.to(total.device)
         if total is None:
             return torch.tensor(0.0)
         return total

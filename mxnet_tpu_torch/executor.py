@@ -72,8 +72,16 @@ advance, as the reference's skipped program does; the scaler's ``(scale,
 good_steps)`` stays on the device, and the finite verdict is the step's
 one host read.
 
-Not ported, refused with ``MXNetError``: telemetry (ROADMAP.md, Queue 1,
-item 6).
+Telemetry (``observability.telemetry``, on unless ``TPUMX_TELEMETRY=0``):
+after each fused step the gradient and parameter norms, the step loss,
+the non-finite count (the loss-scale check's own count where there is
+one), the skipped-step flag and the loss scale are computed as device
+scalars from the summed gradients and the updated parameters, and kept
+(``telemetry_snapshot``); nothing is read on the host.
+
+Checkpoints: ``snapshot_arrays`` clones the bound arguments and aux
+states on the current stream (the step updates its buffers in place),
+whole where the mesh stores blocks.
 """
 from __future__ import annotations
 
@@ -154,6 +162,13 @@ class Executor:
         self._spmd_blocks: Dict[str, tuple] = {}
         self._group2ctx = group2ctx
         self._grouped = None
+        # train telemetry: the last fused step's device scalars and the
+        # running sums of the accumulating ones
+        self._telemetry_last: Optional[Dict[str, torch.Tensor]] = None
+        self._telemetry_accum: Dict[str, torch.Tensor] = {}
+        # this rank's non-finite gradient counts of the last loss-scale
+        # check: (other gradients, block gradients)
+        self._step_nonfinite = None
         if group2ctx:
             from .symbol.placement import GroupedProgram
 
@@ -355,9 +370,91 @@ class Executor:
                     d[n]._data = self.spmd_whole(n, d[n]._data)
         self._spmd_blocks = {}
 
-    def telemetry_snapshot(self):
-        raise MXNetError("executor telemetry is not ported (ROADMAP.md, "
-                         "Queue 1, item 6: observability)")
+    # -- train telemetry ----------------------------------------------------
+    def _note_telemetry(self, vals: Dict[str, torch.Tensor]) -> None:
+        """Keep one fused step's telemetry: the accumulating keys add up
+        (on the device), the others keep the last step's value."""
+        from .observability import telemetry as _tele
+
+        self._telemetry_last = dict(vals)
+        for k in _tele.ACCUMULATING:
+            v = vals.get(k)
+            if v is None:
+                continue
+            prev = self._telemetry_accum.get(k)
+            self._telemetry_accum[k] = v if prev is None else prev + v
+
+    def telemetry_snapshot(self) -> Dict[str, torch.Tensor]:
+        """The telemetry device scalars: the last step's values, with the
+        non-finite and skip counters replaced by their totals across
+        steps.  Hand them to ``observability.telemetry.publish`` at a log
+        boundary (the one host read)."""
+        if self._telemetry_last is None:
+            return {}
+        out = dict(self._telemetry_last)
+        out.update(self._telemetry_accum)
+        return out
+
+    def _step_telemetry(self, outs, loss_scaler) -> Dict[str, torch.Tensor]:
+        from .observability import telemetry as _tele
+
+        grads = self._cached_grads or {}
+        names = [n for n in self._grad_arg_names if n in grads]
+        grads = {n: grads[n] for n in names}
+        params = {n: self.arg_dict[n]._data for n in names}
+
+        def cut(tree):
+            # the names whose tensor here is this rank's block, not whole
+            return [n for n, t in tree.items() if n in self._spmd_blocks
+                    and tuple(t.shape) != self._spmd_blocks[n]]
+
+        g_blk, p_blk = cut(grads), cut(params)
+        global_sum = None
+        if g_blk or p_blk:
+            from .parallel.collectives import psum_flat
+
+            axes = tuple(sorted({a for n in set(g_blk) | set(p_blk)
+                                 for part in self._spmd_param_specs[n]
+                                 if part is not None
+                                 for a in (part if isinstance(
+                                     part, (tuple, list)) else (part,))}))
+
+            def global_sum(xs):
+                return psum_flat(xs, axes, self._spmd_mesh)
+        sc = None
+        if loss_scaler is not None:
+            sc = loss_scaler.state(params[names[0]].device if names
+                                   else None)
+        return _tele.compute(outs, grads, params, scaler_state=sc,
+                             nonfinite=self._step_nonfinite,
+                             sharded_grads=g_blk,
+                             sharded_params=p_blk, global_sum=global_sum)
+
+    # -- checkpoint capture -------------------------------------------------
+    def snapshot_arrays(self, include_aux: bool = True):
+        """Copies of the bound arguments (and aux states) that the next
+        step cannot touch: ``({name: tensor}, {aux_name: tensor})``.
+
+        The fused step updates weights and optimizer state in place, so
+        each buffer is cloned on the current stream (no host sync): the
+        clones are ordered before the next step's update, and a reader on
+        another stream waits on an event recorded after them
+        (``checkpoint.CheckpointManager.save``).  A parameter stored as
+        this rank's block is gathered whole first (a collective: every
+        rank calls it), so a checkpoint holds whole arrays and restores
+        under any mesh shape."""
+        with torch.no_grad():
+            args = {n: self.spmd_whole(n, self.arg_dict[n]._data).clone()
+                    for n in self._arg_names
+                    if n in self.arg_dict
+                    and self.arg_dict[n]._data is not None}
+            aux = {}
+            if include_aux:
+                aux = {n: self.aux_dict[n]._data.clone()
+                       for n in self._aux_names
+                       if n in self.aux_dict
+                       and self.aux_dict[n]._data is not None}
+        return args, aux
 
     # -- evaluation ---------------------------------------------------------
     def _feed(self, feed) -> None:
@@ -534,6 +631,9 @@ class Executor:
         grads = [self.grad_dict[n] for n in unames]
         sts = [states[n] for n in unames]
         steps = max(1, int(num_steps or 1))
+        from .observability import telemetry as _tele
+
+        tele_on = _tele.enabled()
         rng = _random.next_key()
         for step in range(steps):
             self._graph = None
@@ -549,6 +649,7 @@ class Executor:
                 self._cached_grads = self._grads(
                     outs, leaves, _seeds(outs, None if sc is None
                                          else sc[0]))
+            self._step_nonfinite = None
             finite = sc is None or self._check_and_unscale(loss_scaler, sc)
             self._write_grads(self._cached_grads)
             if not finite:
@@ -565,9 +666,13 @@ class Executor:
                     optimizer.update_multi_precision(i, w, g, s)
         self._forwarded = True
         if mesh is not None:
+            outs = self._mesh_outputs(outs)
+        if tele_on:
+            with torch.no_grad():
+                self._note_telemetry(self._step_telemetry(outs, loss_scaler))
+        if mesh is not None:
             # the gradients are blocks: a later backward() recomputes
             self._cached_grads = None
-            outs = self._mesh_outputs(outs)
         self._set_outputs(outs)
         return self._outputs
 
@@ -577,7 +682,19 @@ class Executor:
         gradients unscaled in place; the scaler's state advanced on the
         device.  Returns the finite verdict (one host read)."""
         grads = self._cached_grads
-        nonfin = scaler.nonfinite_count(grads).to(sc[0].device)
+        dev = sc[0].device
+        # one pass over the gradients, this rank's blocks counted apart
+        # for telemetry's sum over the axes they are cut on
+        def is_block(n, g):
+            return n in self._spmd_blocks and \
+                tuple(g.shape) != self._spmd_blocks[n]
+
+        rep = scaler.nonfinite_count([g for n, g in grads.items()
+                                      if not is_block(n, g)])
+        blk = scaler.nonfinite_count([g for n, g in grads.items()
+                                      if is_block(n, g)])
+        self._step_nonfinite = (rep, blk)
+        nonfin = rep.to(dev) + blk.to(dev)
         mesh = self._spmd_mesh
         if mesh is not None and mesh.size > 1:
             from .parallel.collectives import psum_flat

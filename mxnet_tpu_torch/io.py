@@ -19,6 +19,8 @@ device; ``RecordIOIter`` yields a shard's raw records.
 
 ``shard_data_batch`` cuts this rank's block of a batch over a mesh axis
 (one process per device: a rank holds its own block of a sharded array).
+``fast_forward`` skips batches for a mid-epoch resume
+(``NDArrayIter.seek`` jumps without making them).
 
 Not ported, refused with ``MXNetError``: ``ImageRecordIter``'s
 ``ImageIter`` route (``use_native=False``, or C != 3; ``image.py``,
@@ -45,7 +47,35 @@ from .ndarray.ndarray import NDArray
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
            "PrefetchingIter", "CSVIter", "MNISTIter", "ImageRecordIter",
-           "ImageRecordIterNative", "RecordIOIter", "shard_data_batch"]
+           "ImageRecordIterNative", "RecordIOIter", "shard_data_batch",
+           "fast_forward"]
+
+
+def fast_forward(data_iter, num_batches: int) -> int:
+    """Advance an iterator by ``num_batches`` without training on them:
+    ``Module.fit(resume=True)``'s mid-epoch resume (reference:
+    ``io.fast_forward``).  An iterator with ``seek(batch_index)``
+    (``NDArrayIter`` and its subclasses) jumps; any other is consumed batch
+    by batch.  Returns the batches skipped (fewer than ``num_batches`` when
+    the epoch is shorter)."""
+    n = int(num_batches or 0)
+    if n <= 0:
+        return 0
+    seek = getattr(data_iter, "seek", None)
+    if callable(seek):
+        try:
+            seek(n)
+            return n
+        except Exception:
+            pass  # fall through to plain consumption
+    consumed = 0
+    for _ in range(n):
+        try:
+            next(data_iter)
+        except StopIteration:
+            break
+        consumed += 1
+    return consumed
 
 
 def shard_data_batch(batch, mesh, axis: str = "dp", strict: bool = False):
@@ -203,6 +233,19 @@ class NDArrayIter(DataIter):
     def iter_next(self):
         self.cursor += self.batch_size
         return self.cursor < self.num_data
+
+    def seek(self, batch_index: int) -> None:
+        """Position the cursor so that the NEXT batch served is
+        ``batch_index`` (0-based) of the current epoch's order, without
+        making the skipped batches; the order is the last ``reset()``'s."""
+        if batch_index < 0:
+            raise ValueError(f"seek: negative batch index {batch_index}")
+        self.cursor = -self.batch_size + batch_index * self.batch_size
+
+    def tell(self) -> int:
+        """Batches already served this epoch (what ``seek`` takes to come
+        back to this position)."""
+        return max(0, (self.cursor + self.batch_size) // self.batch_size)
 
     def _take(self, arrays):
         out = []

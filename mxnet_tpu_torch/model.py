@@ -10,8 +10,6 @@ checks before it reads; each package reads the other's files.
 """
 from __future__ import annotations
 
-import hashlib
-import json
 import os
 import struct as _struct
 from collections import namedtuple
@@ -19,6 +17,7 @@ from collections import namedtuple
 from . import ndarray as nd
 from . import symbol as sym
 from .base import MXNetError
+from .checkpoint.integrity import verify_params_file, write_params_manifest
 from .kvstore import KVStore, create as _create_kv
 
 __all__ = ["BatchEndParam", "FeedForward", "save_checkpoint", "load_checkpoint",
@@ -129,64 +128,10 @@ def _update_params(param_arrays, grad_arrays, updater, num_device,
             updater(list(i), list(g), list(w))
 
 
-def _file_sha256(path: str) -> str:
-    h = hashlib.sha256()
-    with open(path, "rb") as f:
-        for chunk in iter(lambda: f.read(1 << 20), b""):
-            h.update(chunk)
-    return h.hexdigest()
-
-
-def _write_params_manifest(params_path: str, keys) -> None:
-    """The sidecar ``<params>.manifest.json`` the reference writes beside
-    a params file: its size, sha256 and sorted keys."""
-    manifest = {"format": 1, "file": os.path.basename(params_path),
-                "bytes": os.path.getsize(params_path),
-                "sha256": _file_sha256(params_path), "keys": sorted(keys)}
-    path = params_path + ".manifest.json"
-    with open(path + ".tmp", "w") as f:
-        json.dump(manifest, f, indent=1, sort_keys=True)
-    os.replace(path + ".tmp", path)
-
-
-def _verify_params_file(params_path: str, loaded_keys=None) -> None:
-    """Check a params file against its manifest, when there is one: size
-    and sha256 before the load, every manifest key after it."""
-    if not os.path.exists(params_path):
-        raise MXNetError(f"checkpoint file {params_path!r} does not exist")
-    mpath = params_path + ".manifest.json"
-    if not os.path.exists(mpath):
-        return
-    try:
-        with open(mpath) as f:
-            manifest = json.load(f)
-    except (json.JSONDecodeError, OSError) as e:
-        raise MXNetError(
-            f"checkpoint manifest {mpath!r} is unreadable/corrupt: {e}")
-    if loaded_keys is None:
-        size = os.path.getsize(params_path)
-        if "bytes" in manifest and size != manifest["bytes"]:
-            raise MXNetError(
-                f"checkpoint file {params_path!r} is truncated/corrupt: "
-                f"{size} bytes on disk, manifest expects "
-                f"{manifest['bytes']}")
-        if "sha256" in manifest and \
-                _file_sha256(params_path) != manifest["sha256"]:
-            raise MXNetError(f"checkpoint file {params_path!r} failed its "
-                             f"checksum: the file is corrupt")
-        return
-    missing = sorted(set(manifest.get("keys", ())) - set(loaded_keys))
-    if missing:
-        raise MXNetError(
-            f"checkpoint file {params_path!r} is incomplete: manifest key "
-            f"{missing[0]!r} is missing from the loaded parameters "
-            f"({len(missing)} missing in total)")
-
-
 def _load_params_file(params_path: str):
     """(arg_params, aux_params) of a params file, checked against its
     manifest."""
-    _verify_params_file(params_path)
+    verify_params_file(params_path)
     try:
         save_dict = nd.load(params_path)
     except MXNetError:
@@ -206,7 +151,7 @@ def _load_params_file(params_path: str):
             arg_params[name] = v
         elif tp == "aux":
             aux_params[name] = v
-    _verify_params_file(params_path, loaded_keys=list(save_dict))
+    verify_params_file(params_path, loaded_keys=list(save_dict))
     return arg_params, aux_params
 
 
@@ -214,7 +159,7 @@ def _save_params_file(params_path: str, arg_params, aux_params) -> None:
     save_dict = {f"arg:{k}": v for k, v in arg_params.items()}
     save_dict.update({f"aux:{k}": v for k, v in aux_params.items()})
     nd.save(params_path, save_dict)
-    _write_params_manifest(params_path, list(save_dict))
+    write_params_manifest(params_path, list(save_dict))
 
 
 def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params,

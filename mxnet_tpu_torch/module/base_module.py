@@ -6,8 +6,11 @@ python/mxnet/module/base_module.py).  ``fit`` takes the fused train step
 ``forward_backward`` + ``update`` (always for ``BucketingModule`` and
 ``SequentialModule``, which take no fused step, as the reference's).
 ``fit(shard_rules=...)`` hands the partition rules to the ``Module``.
-Not ported, refused with ``MXNetError``: ``fit``'s fault-tolerant
-checkpoints (``checkpoint_dir``, ``resume``; ROADMAP.md, Queue 1, item 6).
+``fit(checkpoint_dir=..., checkpoint_every=N, resume=True)`` checkpoints
+the complete train state every N global steps on a background writer,
+writes a final synchronous checkpoint and returns ``False`` on
+SIGTERM/SIGINT (``checkpoint.TrainCheckpointer``, ``fault.preemption``),
+and resumes mid-epoch from the newest valid checkpoint.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import numpy as _np
 
 from .. import metric as _metric
 from .. import ndarray as nd
-from ..base import MXNetError
+from .. import observability as _obs
 from ..initializer import Uniform
 from ..model import BatchEndParam, _load_params_file, _save_params_file
 
@@ -211,15 +214,25 @@ class BaseModule:
             sparse_row_id_fn=None, shard_rules=None, checkpoint_dir=None,
             checkpoint_every=0, checkpoint_keep=3, resume=False):
         """The canonical training loop (reference: base_module.py fit).
-        Returns True."""
+
+        ``shard_rules``: ordered ``(regex, PartitionSpec)`` partition rules
+        for the ``mp`` mesh axis (``TPUMX_MP_DEVICES`` > 1), handed to the
+        module's ``bind``.
+
+        Fault tolerance: with ``checkpoint_dir`` set, fit snapshots the
+        COMPLETE train state (parameters, optimizer state with AMP
+        masters, the loss scaler, the random key, the iterator position)
+        every ``checkpoint_every`` global steps for a background writer,
+        keeping the last ``checkpoint_keep`` checkpoints, and installs a
+        SIGTERM/SIGINT handler that writes a final SYNCHRONOUS checkpoint
+        and returns from fit.  ``resume=True`` finds the newest *valid*
+        checkpoint (corrupt or truncated ones are skipped by checksum for
+        the previous one) and continues mid-epoch on the same loss
+        trajectory.  Returns True when training ran to completion, False
+        when it returned early on a preemption signal."""
         assert num_epoch is not None, "please specify number of epochs"
         if shard_rules is not None:
             self._shard_rules = shard_rules
-        if checkpoint_dir is not None or resume:
-            raise MXNetError("fit: fault-tolerant checkpoints "
-                             "(checkpoint_dir, resume) are not ported "
-                             "(ROADMAP.md, Queue 1, item 6); use "
-                             "epoch_end_callback=callback.do_checkpoint")
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
@@ -235,23 +248,102 @@ class BaseModule:
         if not isinstance(eval_metric, _metric.EvalMetric):
             eval_metric = _metric.create(eval_metric)
 
+        # fault tolerance: periodic async checkpoints, a final synchronous
+        # one on preemption, mid-epoch resume; inert without checkpoint_dir
+        ckpt = None
+        preempt = None
+        resume_skip = 0
+        global_step = 0
+        if checkpoint_dir is not None:
+            from ..checkpoint import TrainCheckpointer
+            from ..fault.preemption import PreemptionHandler
+
+            ckpt = TrainCheckpointer(self, checkpoint_dir,
+                                     every=checkpoint_every,
+                                     keep=checkpoint_keep)
+            preempt = PreemptionHandler().install()
+            ckpt.attach_preemption(preempt)
+            if resume:
+                point = ckpt.restore()
+                if point is not None:
+                    begin_epoch = point.epoch
+                    resume_skip = point.nbatch
+                    global_step = point.global_step
+                    self.logger.info(
+                        "resumed from checkpoint at step %d "
+                        "(epoch %d, batch %d)", point.global_step,
+                        point.epoch, point.nbatch)
+
+        # per-batch host wall time (dispatch, no device sync added)
+        step_hist = _obs.registry().histogram(
+            "train_step_seconds",
+            help="Module.fit per-batch host wall time (dispatch, no sync)")
         train_data.reset()  # defensive: support reused/exhausted iterators
-        for epoch in range(begin_epoch, num_epoch):
-            tic = time.time()
-            eval_metric.reset()
-            nbatch = 0
-            data_iter = iter(train_data)
-            end_of_batch = False
-            eval_name_vals = []
-            try:
-                next_data_batch = next(data_iter)
-            except StopIteration:
-                end_of_batch = True
-                eval_name_vals = eval_metric.get_name_value()
-            while not end_of_batch:
-                data_batch = next_data_batch
-                if monitor is not None:
-                    monitor.tic()
+        preempted = False
+        # one trace context for the whole fit call: the fit, step and
+        # checkpoint spans share a trace id, and the async checkpoint
+        # writer inherits it across its thread (a no-op under
+        # TPUMX_TRACING=0)
+        trace_token = _obs.tracing.attach(_obs.tracing.new_trace())
+        try:
+            for epoch in range(begin_epoch, num_epoch):
+                with _obs.span(f"fit.epoch[{epoch}]", cat="fit"):
+                    global_step, preempted = self._fit_epoch(
+                        epoch, train_data, eval_metric, monitor,
+                        batch_end_callback, sparse_row_id_fn, ckpt,
+                        step_hist, resume_skip if epoch == begin_epoch
+                        else 0, global_step)
+                    if preempted:
+                        break
+                    arg_p, aux_p = self.get_params()
+                    self.set_params(arg_p, aux_p)
+                    if epoch_end_callback is not None:
+                        for cb in _as_list(epoch_end_callback):
+                            cb(epoch, self.symbol, arg_p, aux_p)
+                    if eval_data is not None:
+                        res = self.score(
+                            eval_data, validation_metric,
+                            score_end_callback=eval_end_callback,
+                            batch_end_callback=eval_batch_end_callback,
+                            epoch=epoch)
+                        for name, val in res:
+                            self.logger.info("Epoch[%d] Validation-%s=%f",
+                                             epoch, name, val)
+                    train_data.reset()
+        finally:
+            _obs.tracing.detach(trace_token)
+            if preempt is not None:
+                preempt.uninstall()
+            if ckpt is not None:
+                ckpt.close()
+        return not preempted
+
+    def _fit_epoch(self, epoch, train_data, eval_metric, monitor,
+                   batch_end_callback, sparse_row_id_fn, ckpt, step_hist,
+                   skip, global_step):
+        """One epoch of ``fit``: ``(global step, preempted)``; preempted
+        means the final checkpoint is written and fit must return."""
+        tic = time.time()
+        eval_metric.reset()
+        nbatch = 0
+        data_iter = iter(train_data)
+        if skip:
+            from ..io import fast_forward
+
+            nbatch = fast_forward(data_iter, skip)
+        end_of_batch = False
+        eval_name_vals = []
+        try:
+            next_data_batch = next(data_iter)
+        except StopIteration:  # resumed exactly at the epoch's end
+            end_of_batch = True
+            eval_name_vals = eval_metric.get_name_value()
+        while not end_of_batch:
+            data_batch = next_data_batch
+            if monitor is not None:
+                monitor.tic()
+            step_tic = time.perf_counter()
+            with _obs.span("fit.batch", cat="fit"):
                 if not self._try_fused_step(data_batch):
                     self.forward_backward(data_batch)
                     self.update()
@@ -261,44 +353,39 @@ class BaseModule:
                                        pre_sliced=True)
                 else:
                     self.update_metric(eval_metric, data_batch.label)
-                try:
-                    next_data_batch = next(data_iter)
-                    self.prepare(next_data_batch,
-                                 sparse_row_id_fn=sparse_row_id_fn)
-                except StopIteration:
-                    end_of_batch = True
-                if monitor is not None:
-                    monitor.toc_print()
-                if end_of_batch:
-                    eval_name_vals = eval_metric.get_name_value()
-                if batch_end_callback is not None:
-                    params = BatchEndParam(epoch=epoch, nbatch=nbatch,
-                                           eval_metric=eval_metric,
-                                           locals=locals())
-                    for cb in _as_list(batch_end_callback):
-                        cb(params)
-                nbatch += 1
-
-            for name, val in eval_name_vals:
-                self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
-            toc = time.time()
-            self.logger.info("Epoch[%d] Time cost=%.3f", epoch, toc - tic)
-
-            arg_p, aux_p = self.get_params()
-            self.set_params(arg_p, aux_p)
-            if epoch_end_callback is not None:
-                for cb in _as_list(epoch_end_callback):
-                    cb(epoch, self.symbol, arg_p, aux_p)
-            if eval_data is not None:
-                res = self.score(eval_data, validation_metric,
-                                 score_end_callback=eval_end_callback,
-                                 batch_end_callback=eval_batch_end_callback,
-                                 epoch=epoch)
-                for name, val in res:
-                    self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
-                                     name, val)
-            train_data.reset()
-        return True
+            step_hist.observe(time.perf_counter() - step_tic)
+            global_step += 1
+            if ckpt is not None and ckpt.after_batch(epoch, nbatch + 1,
+                                                     global_step):
+                # the final synchronous checkpoint is written; leave
+                # without touching the iterator again
+                self.logger.info(
+                    "Epoch[%d] preempted at batch %d (step %d); final "
+                    "checkpoint written, exiting fit", epoch, nbatch,
+                    global_step)
+                return global_step, True
+            try:
+                next_data_batch = next(data_iter)
+                self.prepare(next_data_batch,
+                             sparse_row_id_fn=sparse_row_id_fn)
+            except StopIteration:
+                end_of_batch = True
+            if monitor is not None:
+                monitor.toc_print()
+            if end_of_batch:
+                eval_name_vals = eval_metric.get_name_value()
+            if batch_end_callback is not None:
+                params = BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                       eval_metric=eval_metric,
+                                       locals=locals())
+                for cb in _as_list(batch_end_callback):
+                    cb(params)
+            nbatch += 1
+        for name, val in eval_name_vals:
+            self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
+        self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
+                         time.time() - tic)
+        return global_step, False
 
     # -- misc ---------------------------------------------------------------------
     def prepare(self, data_batch, sparse_row_id_fn=None):

@@ -41,9 +41,11 @@ for, which the fused step takes; where the fused step is not allowed the
 scaler is dropped with a warning and the converted graph trains
 unscaled, as in the reference.
 
-Not ported, refused with ``MXNetError``: the fault-tolerant train state
-(ROADMAP.md, Queue 1, item 6).  ``BucketingModule`` and
-``SequentialModule`` (``bucketing_module.py``, ``sequential_module.py``)
+Fault tolerance: ``capture_train_state``/``restore_train_state`` hand the
+complete train state to ``checkpoint.TrainCheckpointer`` (``fit``'s
+``checkpoint_dir``/``resume``); the fused step publishes its device-side
+telemetry to the registry every ``TPUMX_TELEMETRY_EVERY`` steps.
+``BucketingModule`` and ``SequentialModule`` (``bucketing_module.py``, ``sequential_module.py``)
 drive ``Module``s through the legacy route.
 """
 from __future__ import annotations
@@ -580,6 +582,13 @@ class Module(BaseModule):
                               loss_scaler=self._loss_scaler)
         self._params_dirty = True
         self._fused_step_count += 1
+        # telemetry stays on the device across steps; every
+        # TPUMX_TELEMETRY_EVERY-th step reads its scalars into gauges
+        if self._exec._telemetry_last is not None:
+            from ..observability import telemetry as _tele
+
+            if self._fused_step_count % _tele.every() == 0:
+                _tele.publish(self._exec.telemetry_snapshot())
         return True
 
     def update(self):
@@ -665,6 +674,23 @@ class Module(BaseModule):
         self.bind(data_shapes, label_shapes, for_training=self.for_training,
                   inputs_need_grad=self.inputs_need_grad, force_rebind=True)
         self._exec.copy_params_from(arg_params, aux_params, allow_extra_params=True)
+
+    # -- fault tolerance ----------------------------------------------------
+    def capture_train_state(self):
+        """The COMPLETE train state (parameters, aux, optimizer state with
+        AMP masters, optimizer counters, loss scaler, random key) as
+        ``(arrays, opt_tree, meta)``: clones the next step cannot touch,
+        what one fault-tolerant checkpoint holds."""
+        from ..checkpoint.train_state import capture_train_state
+
+        return capture_train_state(self)
+
+    def restore_train_state(self, info, arrays, opt_tree):
+        """Install a checkpoint loaded by ``CheckpointManager.restore``
+        into this bound module; returns the ``ResumePoint``."""
+        from ..checkpoint.train_state import restore_train_state
+
+        return restore_train_state(self, info, arrays, opt_tree)
 
     def borrow_optimizer(self, shared_module):
         assert shared_module.optimizer_initialized

@@ -19,10 +19,12 @@ PyTorch counterpart of ``mxnet_tpu.observability``:
 - :mod:`.recompile` — the program-cache explainer and watchdog
   (``TPUMX_EXPLAIN_RECOMPILES=1`` logs miss causes;
   ``TPUMX_FREEZE_COMPILES=1`` + :func:`mark_warm` makes any post-warmup
-  miss raise).  In the port a miss is a new program key or a new CUDA
-  graph capture.
-
-The executor telemetry of the reference (``telemetry.py``) is not ported.
+  miss raise).  In the port a miss is a new program key, a new CUDA graph
+  capture or a new serving executor bind;
+- :mod:`.telemetry` — the gradient and parameter norms, step loss, loss
+  scale and non-finite/skip counts computed on the device after each fused
+  train step and read on the host only every ``TPUMX_TELEMETRY_EVERY``
+  steps (``TPUMX_TELEMETRY=0`` turns it off).
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ from . import exposition
 from . import flight_recorder
 from . import metrics
 from . import recompile
+from . import telemetry
 from . import tracing
 
 __all__ = ["registry", "snapshot", "to_prometheus", "dump_prometheus",
@@ -46,7 +49,7 @@ __all__ = ["registry", "snapshot", "to_prometheus", "dump_prometheus",
            "last_explanations", "explain_key_diff", "FreezeCompilesError",
            "Counter", "Gauge", "Histogram", "MetricsRegistry",
            "DEFAULT_BUCKETS", "metrics", "tracing", "recompile",
-           "exposition", "flight_recorder"]
+           "telemetry", "exposition", "flight_recorder"]
 
 #: the process-wide default registry every subsystem records into
 _default_registry = MetricsRegistry()

@@ -52,7 +52,7 @@ import torch.nn.functional as F
 
 from ..base import MXNetError
 from .batch_norm import bn_train_fused
-from .layer_norm import layer_norm_fused
+from .layer_norm import layer_norm_fused, layer_norm_reference
 from .random_ops import bernoulli_mask
 from .registry import alias, register
 
@@ -444,9 +444,12 @@ def layer_norm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False):
     ``output_mean_var``) it is :func:`ops.layer_norm.layer_norm_fused`
     (the CUDA kernel on a CUDA tensor, its plain version on a CPU one),
     as the reference takes ``layer_norm_fused`` there; other axes are
-    plain torch ops."""
+    plain torch ops.  The shape solver's meta tensors (no data) take the
+    plain version's shapes."""
     ax = int(axis) % data.ndim
     if ax == data.ndim - 1 and not output_mean_var:
+        if data.device.type == "meta":
+            return layer_norm_reference(data, gamma, beta, float(eps))
         return layer_norm_fused(data.contiguous(), gamma, beta,
                                 eps=float(eps))
     mean = data.mean(dim=ax, keepdim=True)

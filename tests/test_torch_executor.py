@@ -297,7 +297,9 @@ def test_executor_refusals():
     group, one segment); ``set_spmd`` validates as the reference's and
     detaches with ``None``; the fused step refuses ``group2ctx`` with a
     loss scaler as without (loss scaling itself is ported:
-    ``tests/test_torch_amp.py``); telemetry stays refused."""
+    ``tests/test_torch_amp.py``); ``telemetry_snapshot`` is empty before a
+    fused step and holds the reference's keys as f32 device scalars after
+    one."""
     ts = _sym(tmx, "mlp")
     tg = ts.simple_bind(ctx=tmx.cpu(), data=(4, 1, 28, 28),
                         group2ctx={"a": tmx.cpu()})
@@ -314,8 +316,22 @@ def test_executor_refusals():
     opt = tmx.optimizer.create("sgd")
     with pytest.raises(MXNetError, match="group2ctx"):
         tg.fused_step(opt, {}, [], loss_scaler=tmx.amp.LossScaler())
-    with pytest.raises(MXNetError, match="telemetry"):
-        te.telemetry_snapshot()
+    assert te.telemetry_snapshot() == {}
+    tf = _sym(tmx, "mlp").simple_bind(ctx=tmx.cpu(), data=(4, 1, 28, 28))
+    gnames = tf._grad_arg_names
+    for n in gnames:
+        tf.arg_dict[n]._data.normal_(0, 0.1)
+    upd = tmx.optimizer.get_updater(opt)
+    states = {n: upd._state(i, tf.arg_dict[n]) for i, n in enumerate(gnames)}
+    tf.fused_step(opt, states, [(n, i) for i, n in enumerate(gnames)],
+                  feed={"data": np.ones((4, 1, 28, 28), np.float32)})
+    snap = tf.telemetry_snapshot()
+    assert sorted(snap) == sorted(["grad_norm", "param_norm", "loss",
+                                   "nonfinite_grad_count", "skip_step"])
+    for v in snap.values():
+        assert isinstance(v, torch.Tensor) and v.dim() == 0
+        assert v.dtype == torch.float32 and bool(torch.isfinite(v))
+    assert float(snap["param_norm"]) > 0 and float(snap["skip_step"]) == 0
 
 
 def test_outputs_that_are_also_consumed():

@@ -272,13 +272,15 @@ def test_feedforward_and_score_callbacks():
     assert ff.score(tmx.io.NDArrayIter(X, Y, batch_size=32)) > 0.9
 
 
-def test_refusals(monkeypatch, caplog):
+def test_refusals(monkeypatch, caplog, tmp_path):
     """What the port took up from its refusals: several contexts,
     ``group2ctxs``, ``TPUMX_MP_DEVICES`` and ``shard_rules`` are accepted.
     In a world of one process a mesh of two devices cannot be made: the
     module logs it and trains on its first context by the legacy route,
     to the reference's numbers (which trains over two virtual devices).
-    What stays refused keeps its refusal."""
+    ``fit(checkpoint_dir=...)`` writes valid checkpoints (the rest of the
+    fault-tolerant fit: ``tests/test_torch_checkpoint.py``).  What stays
+    refused keeps its refusal."""
     import logging
 
     sym = _mlp_sym(tmx)
@@ -314,8 +316,16 @@ def test_refusals(monkeypatch, caplog):
     monkeypatch.delenv("TPUMX_MP_DEVICES")
     mod = tmx.mod.Module(sym, context=tmx.cpu())
     it = tmx.io.NDArrayIter(X, Y, batch_size=32)
-    with pytest.raises(MXNetError, match="checkpoint_dir"):
-        mod.fit(it, num_epoch=1, checkpoint_dir="x")
+    ckdir = str(tmp_path / "ck")
+    assert mod.fit(it, num_epoch=1, checkpoint_dir=ckdir,
+                   checkpoint_every=3) is True
+    manager = tmx.checkpoint.CheckpointManager(ckdir)
+    steps = [s for s, _ in manager.list()]
+    assert steps and all(s % 3 == 0 for s in steps)
+    info, arrays, opt_tree = manager.restore()
+    assert sorted(arrays["params"]) == sorted(mod._param_names)
+    assert info.meta["global_step"] == info.step
+    assert manager.validate(info.path) is not None
     # the RecordIO iterators are ported: their ImageIter route is not
     for make in (lambda: tmx.io.ImageRecordIter(path_imgrec="x",
                                                 use_native=False),

@@ -153,6 +153,8 @@ def record(tag, mod, probs, accs, scales=()):
     res[f"{tag}_acc"] = np.array(accs)
     res[f"{tag}_fused"] = np.array(mod._fused_step_count)
     ex = mod._exec
+    for k, v in ex.telemetry_snapshot().items():
+        res[f"{tag}_tele_{k}"] = np.array(float(v))
     for i, n in enumerate(mod._param_names):
         st = mod._updater.states.get(i) if mod._updater else None
         st = st[0] if isinstance(st, tuple) else st
@@ -178,13 +180,14 @@ def fit(tag, env, kind, opt, params, batch, n, **kw):
 
         init = {k[len(kind) + 1:]: v for k, v in inp.items()
                 if k.startswith(kind + "_")}
-        mod.fit(data_iter(batch, n), num_epoch=kw.pop("num_epoch", 1),
+        res[f"{tag}_done"] = np.array(mod.fit(
+                data_iter(batch, n), num_epoch=kw.pop("num_epoch", 1),
                 optimizer=opt, optimizer_params=dict(params),
                 kvstore="tpu_sync", batch_end_callback=keep,
                 arg_params=kw.pop("arg_params", {
                     k: v for k, v in init.items() if not k.startswith("aux:")}),
                 aux_params={k[4:]: v for k, v in init.items()
-                            if k.startswith("aux:")} or None, **kw)
+                            if k.startswith("aux:")} or None, **kw))
         record(tag, mod, probs, accs, scales)
         return mod
     finally:
@@ -222,6 +225,17 @@ with mx.cpu():
                 arg_params=None, begin_epoch=1, num_epoch=2)
 
     if world == 2:
+        # a fault-tolerant fit at mp=2, preempted at step 4 of 6: every
+        # rank captures (the blocks gathered), rank 0 writes
+        from mxnet_tpu_torch.fault import injector
+
+        os.environ["TPUMX_FAULT_PREEMPT_AT_STEP"] = "4"
+        injector().reset()
+        del os.environ["TPUMX_FAULT_PREEMPT_AT_STEP"]
+        fit("ck_mp2", {"TPUMX_MP_DEVICES": "2"}, "bn", "sgd", cfg["sgd"],
+            32, 96,
+            num_epoch=2, checkpoint_dir=out + "/ck_mp2", checkpoint_every=2)
+
         from mxnet_tpu_torch.executor_manager import \
             DataParallelExecutorManager
         from mxnet_tpu_torch.io import shard_data_batch
@@ -345,7 +359,9 @@ def _ref_fit(mp, inp, tag, env, kind, opt, params, batch, n, **kw):
                 batch_end_callback=keep, arg_params=arg, aux_params=aux,
                 **kw)
         out = {"fused": mod._fused_step_count, "probs": np.stack(probs),
-               "acc": np.array(accs), "scaler": np.array(scales)}
+               "acc": np.array(accs), "scaler": np.array(scales),
+               "tele": {k: float(v) for k, v in
+                        mod._exec.telemetry_snapshot().items()}}
         a, x = mod.get_params()
         out.update({f"p_{k}": v.asnumpy() for k, v in a.items()})
         out.update({f"a_{k}": v.asnumpy() for k, v in x.items()})
@@ -372,7 +388,7 @@ def worlds(tmp_path_factory):
     procs = {}
     for w, d in dirs.items():
         np.savez(d / "inputs.npz", **inp)
-        procs[w] = _start_world(d, w, {"scenarios": SCENARIOS})
+        procs[w] = _start_world(d, w, {"scenarios": SCENARIOS, "sgd": SGD})
     t0 = time.monotonic()
     mp = pytest.MonkeyPatch()
     saved = jmesh.get_mesh()
@@ -492,6 +508,74 @@ def test_metrics_match_single_device(worlds):
                                   ref["single_adam"]["acc"])
     np.testing.assert_allclose(ranks[2][0]["dp2_adam_probs"],
                                ref["single_adam"]["probs"], **LOSS_TOL)
+
+
+def test_telemetry_dp2_matches_single_device(worlds):
+    """(l) the dp=2 fused step's telemetry (norms of the summed gradients
+    and the updated parameters, the global batch's loss) equals the
+    single-device reference's on both ranks (the reference's
+    ``test_telemetry_spmd_matches_single_device``)."""
+    _, ranks, ref, _ = worlds
+    want = ref["single_adam"]["tele"]
+    assert set(want) == {"grad_norm", "param_norm", "loss",
+                         "nonfinite_grad_count", "skip_step"}
+    for r in ranks[2]:
+        for k, v in want.items():
+            np.testing.assert_allclose(float(r[f"dp2_adam_tele_{k}"]), v,
+                                       err_msg=k, **LOSS_TOL)
+
+
+def test_checkpoint_mp2_resumes_at_mp1(worlds, tmp_path, monkeypatch):
+    """(m) ``fit(checkpoint_dir=...)`` at mp=2 preempted at step 4 of 6
+    returns False on both ranks; rank 0's checkpoint holds whole arrays,
+    and ``fit(resume=True)`` in this process (one device, no mesh)
+    finishes the run to the uninterrupted single-device run's outputs and
+    parameters (the reference's ``test_mp2_save_mp1_restore``)."""
+    import shutil
+
+    inp, ranks, _, dirs = worlds
+    for k in ENVS:
+        monkeypatch.delenv(k, raising=False)
+    for r in ranks[2]:
+        assert bool(r["ck_mp2_done"]) is False
+    assert str(ranks[2][0]["mp2_mesh"]) == "{'dp': 1, 'mp': 2}"
+    ckdir = str(tmp_path / "ck")
+    shutil.copytree(dirs[2] / "ck_mp2", ckdir)
+    init = {k[3:]: v for k, v in inp.items() if k.startswith("bn_")}
+    arg = {k: v for k, v in init.items() if not k.startswith("aux:")}
+    aux = {k[4:]: v for k, v in init.items() if k.startswith("aux:")}
+    manager = tmx.checkpoint.CheckpointManager(ckdir)
+    assert manager.latest().step == 4
+    info, arrays, _ = manager.restore()
+    for k, v in arrays["params"].items():
+        assert v.shape == arg[k].shape, k
+    got = {}
+    with tmx.cpu():
+        for tag, kw in (("full", {}),
+                        ("resumed", dict(checkpoint_dir=ckdir,
+                                         resume=True))):
+            probs = []
+            mod = tmx.mod.Module(build_net(tmx.sym, tmx.name, "bn"),
+                                 context=tmx.cpu())
+            done = mod.fit(tmx.io.NDArrayIter(inp["X"], inp["Y"],
+                                              batch_size=32),
+                           num_epoch=2, optimizer="sgd",
+                           optimizer_params=dict(SGD), kvstore="tpu_sync",
+                           arg_params=arg, aux_params=aux,
+                           batch_end_callback=lambda p: probs.append(
+                               p.locals["self"].get_outputs()[0].asnumpy()),
+                           **kw)
+            assert done
+            got[tag] = (probs, mod.get_params(), mod._fused_step_count)
+    (fp, (fa, fx), fn), (rp, (ra, rx), rn) = got["full"], got["resumed"]
+    assert (fn, rn) == (6, 2)
+    np.testing.assert_allclose(np.stack(rp), np.stack(fp[4:]), **LOSS_TOL)
+    for k in fa:
+        np.testing.assert_allclose(ra[k].asnumpy(), fa[k].asnumpy(),
+                                   err_msg=k, **MODEL_TOL)
+    for k in fx:
+        np.testing.assert_allclose(rx[k].asnumpy(), fx[k].asnumpy(),
+                                   err_msg=k, **MODEL_TOL)
 
 
 def test_fit_dp2_fp16_scaler_matches_single_device(worlds, monkeypatch):

@@ -10,7 +10,10 @@ fixed): every wide-event key, the deterministic wide-event values, the
 ``stats()`` keys (the port adds ``step_seconds`` and ``device``) and the
 counts are equal.  Then the port alone: trace contexts and spans of one
 request, the TTFT breakdown, the JSONL sink, the generation gauges in the
-Prometheus text, ``health()`` and ``load()``.
+Prometheus text, ``health()`` and ``load()``.  Train telemetry: the
+gauges ``Module.fit`` publishes equal the reference's, ``TPUMX_TELEMETRY=0``
+leaves the parameters bitwise unchanged, and the counters add up over fp16
+overflow steps (its dp=2 leg: ``tests/test_torch_module_parallel.py``).
 """
 import json
 import threading
@@ -310,3 +313,183 @@ def test_serving_metrics_percentile_and_snapshot(q):
     rsnap = ref.snapshot()
     assert set(snap) == set(rsnap)
     assert snap["batch_occupancy"] == rsnap["batch_occupancy"] == 0.75
+
+
+# ---------------------------------------------------------------------------
+# device-side train telemetry (the fused step's norms, loss and counters)
+# ---------------------------------------------------------------------------
+
+def _tele_data():
+    r = np.random.RandomState(0)
+    Y = r.randint(0, 4, 320).astype(np.float32)
+    X = r.rand(320, 8).astype(np.float32) * 0.3
+    for c in range(4):
+        X[Y == c, c] += 1.0
+    init = {"fc1_weight": (r.randn(16, 8) * 0.3).astype(np.float32),
+            "fc1_bias": (r.randn(16) * 0.1).astype(np.float32),
+            "fc2_weight": (r.randn(4, 16) * 0.3).astype(np.float32),
+            "fc2_bias": (r.randn(4) * 0.1).astype(np.float32)}
+    return X, Y, init
+
+
+def _tele_fit(pkg, monkeypatch, telemetry_env=None, every="4",
+              optimizer="sgd"):
+    """The reference's ``_fit`` (one epoch of the toy MLP, 10 fused steps)
+    from the same numpy parameters in ``pkg``: (module, parameters, the
+    gauges published at step 8)."""
+    if telemetry_env is None:
+        monkeypatch.delenv("TPUMX_TELEMETRY", raising=False)
+    else:
+        monkeypatch.setenv("TPUMX_TELEMETRY", telemetry_env)
+    monkeypatch.setenv("TPUMX_TELEMETRY_EVERY", every)
+    X, Y, init = _tele_data()
+    obs = jobs if pkg.__name__ == "mxnet_tpu" else tobs
+    obs.reset()
+    with pkg.name.NameManager():
+        data, label = pkg.sym.Variable("data"), pkg.sym.Variable(
+            "softmax_label")
+        h = pkg.sym.Activation(pkg.sym.FullyConnected(
+            data, num_hidden=16, name="fc1"), act_type="relu")
+        net = pkg.sym.SoftmaxOutput(pkg.sym.FullyConnected(
+            h, num_hidden=4, name="fc2"), label, name="softmax")
+    mod = pkg.mod.Module(net, context=pkg.cpu())
+    mod.fit(pkg.io.NDArrayIter(X, Y, batch_size=32), num_epoch=1,
+            optimizer=optimizer, optimizer_params=(("learning_rate", 0.5),),
+            arg_params={k: pkg.nd.array(v) for k, v in init.items()})
+    arg, _ = mod.get_params()
+    gauges = {k: v for k, v in obs.snapshot()["gauges"].items()
+              if k.startswith("train_")}
+    return mod, {k: v.asnumpy() for k, v in arg.items()}, gauges
+
+
+def _port_tele_fit(*a, **kw):
+    import mxnet_tpu_torch as tmx
+
+    with tmx.cpu():
+        return _tele_fit(tmx, *a, **kw)
+
+
+def test_telemetry_published_from_fit_equals_reference(monkeypatch):
+    """``fit`` publishes the reference's gauges every
+    ``TPUMX_TELEMETRY_EVERY`` fused steps with the reference's values
+    (rtol 1e-5); the last step's snapshot matches too, and its norms equal
+    the ones computed from ``get_params`` and the bound gradients."""
+    import mxnet_tpu as jmx
+    from mxnet_tpu.observability import telemetry as jtele
+    from mxnet_tpu_torch.observability import telemetry as ttele
+
+    jmod, _, jg = _tele_fit(jmx, monkeypatch)
+    tmod, tparams, tg = _port_tele_fit(monkeypatch)
+    assert tmod._fused_step_count == jmod._fused_step_count == 10
+    want = ("train_grad_norm", "train_param_norm", "train_loss",
+            "train_nonfinite_grads_total", "train_skip_steps_total")
+    assert set(tg) == set(jg) and set(want) <= set(tg)
+    for k in jg:
+        assert tg[k] == pytest.approx(jg[k], rel=1e-5, abs=1e-7), k
+    assert tg["train_grad_norm"] > 0 and tg["train_skip_steps_total"] == 0
+    assert tobs.snapshot()["histograms"]["train_step_seconds"]["count"] \
+        == 10
+    jt_, tt_ = (tele.publish(m._exec.telemetry_snapshot())
+                for tele, m in ((jtele, jmod), (ttele, tmod)))
+    assert set(jt_) == set(tt_)
+    for k in jt_:
+        assert tt_[k] == pytest.approx(jt_[k], rel=1e-5, abs=1e-7), k
+    pn = np.sqrt(sum(float((v.astype(np.float64) ** 2).sum())
+                     for v in tparams.values()))
+    assert tt_["param_norm"] == pytest.approx(pn, rel=1e-5)
+    ex = tmod._exec
+    gn = np.sqrt(sum(float((ex.grad_dict[n]._data.double() ** 2).sum())
+                     for n in ex._grad_arg_names))
+    assert tt_["grad_norm"] == pytest.approx(gn, rel=1e-5)
+
+
+def test_telemetry_off_is_bitwise_and_reads_env(monkeypatch):
+    """``TPUMX_TELEMETRY=0`` computes nothing (no snapshot, no gauges) and
+    the parameters are bitwise those of the run with telemetry on; the
+    variables parse as the reference's."""
+    from mxnet_tpu.observability import telemetry as jtele
+    from mxnet_tpu_torch.observability import telemetry as ttele
+
+    off, p_off, g_off = _port_tele_fit(monkeypatch, telemetry_env="0")
+    assert off._exec._telemetry_last is None
+    assert off._exec.telemetry_snapshot() == {}
+    assert "train_grad_norm" not in g_off
+    on, p_on, g_on = _port_tele_fit(monkeypatch, telemetry_env="1")
+    assert on._exec._telemetry_last is not None and g_on
+    for k in p_off:
+        np.testing.assert_array_equal(p_off[k], p_on[k])
+    for env in ("0", "1", None):
+        if env is None:
+            monkeypatch.delenv("TPUMX_TELEMETRY", raising=False)
+        else:
+            monkeypatch.setenv("TPUMX_TELEMETRY", env)
+        assert ttele.enabled() == jtele.enabled()
+    for every in ("7", "0", "x"):
+        monkeypatch.setenv("TPUMX_TELEMETRY_EVERY", every)
+        assert ttele.every() == jtele.every()
+    assert ttele.ACCUMULATING == jtele.ACCUMULATING
+
+
+def test_telemetry_accumulates_overflow_counts(monkeypatch):
+    """fp16 with a dynamic scaler over a clean batch, two batches holding
+    an inf and a clean one: ``nonfinite_grad_count`` and ``skip_step`` add
+    up across steps (the first batch overflows at the initial scale too:
+    3 skipped steps in both packages), and the loss scale, norms and loss
+    equal the reference's.  The non-finite count is each package's own
+    gradients' (equal to their count in the bound gradient buffers): how
+    many entries an inf input makes non-finite differs between the two
+    packages' ReLU backwards (the port's gives 0 where the input is not
+    positive even under a NaN cotangent), so the counts are compared per
+    package, not across."""
+    import mxnet_tpu as jmx
+    import mxnet_tpu_torch as tmx
+    from mxnet_tpu.observability import telemetry as jtele
+    from mxnet_tpu_torch.observability import telemetry as ttele
+
+    for k, v in (("TPUMX_AMP", "1"), ("TPUMX_AMP_DTYPE", "float16"),
+                 ("TPUMX_AMP_LOSS_SCALE", "dynamic")):
+        monkeypatch.setenv(k, v)
+    monkeypatch.delenv("TPUMX_TELEMETRY", raising=False)
+    X, Y, init = _tele_data()
+    got = {}
+    for pkg, tele in ((jmx, jtele), (tmx, ttele)):
+        with pkg.cpu():
+            with pkg.name.NameManager():
+                data, label = pkg.sym.Variable("data"), pkg.sym.Variable(
+                    "softmax_label")
+                h = pkg.sym.Activation(pkg.sym.FullyConnected(
+                    data, num_hidden=16, name="fc1"), act_type="relu")
+                net = pkg.sym.SoftmaxOutput(pkg.sym.FullyConnected(
+                    h, num_hidden=4, name="fc2"), label, name="softmax")
+            mod = pkg.mod.Module(net, context=pkg.cpu())
+            mod.bind(data_shapes=[("data", (32, 8))],
+                     label_shapes=[("softmax_label", (32,))])
+            mod.init_params(arg_params={k: pkg.nd.array(v)
+                                        for k, v in init.items()})
+            mod.init_optimizer(optimizer="sgd",
+                               optimizer_params={"learning_rate": 0.5})
+            assert mod._loss_scaler is not None
+            counts = []
+            for bad in (False, True, True, False):
+                x = X[:32].copy()
+                if bad:
+                    x[0, 0] = np.inf
+                assert mod._try_fused_step(pkg.io.DataBatch(
+                    data=[pkg.nd.array(x)], label=[pkg.nd.array(Y[:32])]))
+                ex = mod._exec
+                counts.append(sum(
+                    int((~np.isfinite(ex.grad_dict[n].asnumpy())).sum())
+                    for n in ex._grad_arg_names))
+                assert float(ex._telemetry_last["nonfinite_grad_count"]) \
+                    == counts[-1]
+            got[pkg.__name__] = (tele.publish(ex.telemetry_snapshot()),
+                                 counts)
+    (tv, tc), (jv, jc) = got["mxnet_tpu_torch"], got["mxnet_tpu"]
+    assert set(tv) == set(jv) and "loss_scale" in tv
+    assert tv["skip_step"] == jv["skip_step"] == 3.0
+    assert tv["nonfinite_grad_count"] == sum(tc) and tc[1] > 0
+    assert jv["nonfinite_grad_count"] == sum(jc)
+    assert [c > 0 for c in tc] == [c > 0 for c in jc]
+    assert tv["loss_scale"] == jv["loss_scale"]
+    for k in ("grad_norm", "param_norm", "loss"):
+        assert tv[k] == pytest.approx(jv[k], rel=1e-3), k
