@@ -433,6 +433,43 @@ SERVE_WINDOWS = (4, 16)
 BERT_WIDTH, BERT_FF, BERT_SEQ, BERT_REQUESTS, BERT_MAX_BATCH = \
     768, 3072, 128, 64, 16
 SERVE_PARTIAL = 40
+# inference_int8: inference_service's two models and traffic served int8;
+# calibrated on INT8_CALIB_IMAGES seeded images (one batch) and
+# INT8_CALIB_SEQS sequences; the CPU check's images and sequences (the
+# card's int8-against-f32 error held to twice the CPU's on them); the
+# batch at which ResNet-50's convolution shapes check the quantized ops;
+# the card's int8 outputs against the CPU int8 service's on the CPU
+# check's samples, as a share of the CPU's int8-against-f32 error there
+# (read on an H100 80GB HBM3 at 700 W: ResNet-50 1.924e-3 of 3.587e-3,
+# 0.54; the BERT block 3.8e-6 of 0.0710, f32 sum order alone), and the
+# int8 activations of the converted graph, card against CPU on the same
+# samples: the largest difference of any element and the share that
+# differ over all quantize nodes (read: ResNet-50 4 and 2.52%, growing
+# with depth from 1 element of 1.6 M at the second node; the BERT block
+# 0 and 0)
+INT8_CALIB_IMAGES, INT8_CALIB_SEQS = 32, 16
+INT8_CPU_IMAGES, INT8_CPU_SEQS = 8, 8
+INT8_CARD_CPU_SHARE = {"resnet": 0.75, "bert_ffn": 1e-3}
+INT8_ACT_MAX_DIFF, INT8_ACT_SHARE = 8, 0.05
+INT8_OP_BATCH = 2
+# optimizers: a tanh MLP fitted OPT_BATCHES batches of OPT_BATCH on the
+# card and on the CPU, per optimizer (its settings); custom_op: the
+# example's numpy softmax as a symbolic Custom node, CUSTOM_BATCHES of
+# CUSTOM_BATCH
+OPT_WIDTHS, OPT_BATCH, OPT_BATCHES = (64, 32, 10), 64, 6
+OPT_SETTINGS = {
+    "ftml": {"learning_rate": 0.01},
+    "lbsgd": {"learning_rate": 0.05, "momentum": 0.9, "batch_scale": 4,
+              "warmup_epochs": 1, "updates_per_epoch": OPT_BATCHES},
+    "dcasgd": {"learning_rate": 0.05, "momentum": 0.9},
+    "sgld": {"learning_rate": 1e-3},
+    "adadelta": {},
+    "ftrl": {"learning_rate": 0.1},
+    "adamax": {"learning_rate": 0.002},
+    "nadam": {"learning_rate": 0.001},
+    "test": {}}
+OPT_RTOL, OPT_ATOL = 1e-5, 1e-6
+CUSTOM_BATCH, CUSTOM_BATCHES = 64, 6
 # gluon_hybrid: Inception v3 at its published input, B=128, one BatchNorm
 # per conv unit (94); the capture check net's batch; the export round
 # trip's tolerance, relative to the output's largest magnitude
@@ -4876,6 +4913,743 @@ def phase_inference_service(dev):
 
 
 # ---------------------------------------------------------------------------
+# inference_int8: int8 quantization served through InferenceService
+# ---------------------------------------------------------------------------
+
+def _conv_layers(net, B):
+    """ResNet-50's distinct convolutions at batch ``B``: (data shape,
+    weight shape, stride, pad)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.symbol.graph import SymbolEntry, topo_order
+
+    convs = [n for n in topo_order(net._entries)
+             if n.kind == "op" and n.op.name == "Convolution"]
+    probe = mx.sym.Group([mx.sym.Symbol([SymbolEntry(n.inputs[0].node,
+                                                     n.inputs[0].index)])
+                          for n in convs])
+    _, in_shapes, _ = probe.infer_shape(data=(B, 3, RESNET_HW, RESNET_HW))
+    shapes = dict(zip(net.list_arguments(), net.infer_shape(
+        data=(B, 3, RESNET_HW, RESNET_HW))[0]))
+    seen = {}
+    for n, sh in zip(convs, in_shapes):
+        key = (tuple(sh), tuple(shapes[n.name + "_weight"]),
+               tuple(n.attrs.get("stride", (1, 1))),
+               tuple(n.attrs.get("pad", (0, 0))))
+        seen.setdefault(key, n.name)
+    return list(seen)
+
+
+def _int8_op_checks(dev, net):
+    """Every ``_contrib_quantized_*`` accumulator on the card against the
+    port's CPU op on the same int8 inputs (bitwise), and every
+    ``_tpumx_quantized_*`` output within rtol 1e-5, atol 1e-5 x max|CPU|:
+    at ResNet-50's convolution shapes (batch INT8_OP_BATCH, with and
+    without bias), its classifier and the BERT-width block's two
+    FullyConnected layers (rows INT8_OP_BATCH x BERT_SEQ); the exact
+    int8 GEMM's device time at each FullyConnected shape beside
+    ``torch.matmul``'s in f32 on the f32-widened operands."""
+    import torch
+
+    from mxnet_tpu_torch.ops import quantization_ops as qo
+
+    g = torch.Generator().manual_seed(SEED + 40)
+
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, generator=g,
+                             dtype=torch.int8)
+
+    def rng(v):
+        return torch.tensor([v], dtype=torch.float32)
+
+    ranges = [rng(v) for v in (-1.3, 1.2, -0.4, 0.5, -0.2, 0.3)]
+    act = torch.tensor([0.02])
+    cases, bad = [], []
+    for (dshape, wshape, stride, pad) in _conv_layers(net, INT8_OP_BATCH):
+        d, w = i8(*dshape), i8(*wshape)
+        wsc = torch.rand(wshape[0], generator=g) * 0.01 + 1e-3
+        kw = dict(kernel=wshape[2:], stride=stride, pad=pad,
+                  num_filter=wshape[0])
+        cases.append(("quantized_conv", [d, w, *ranges[:4]],
+                      dict(kw, no_bias=True), f"conv{list(dshape)}"
+                      f"x{list(wshape)}/s{stride[0]}"))
+        cases.append(("tpumx_quantized_conv_int8", [d, act, w, wsc],
+                      dict(kw, no_bias=True), cases[-1][3]))
+    first = _conv_layers(net, INT8_OP_BATCH)[0]
+    d, w = i8(*first[0]), i8(*first[1])
+    cases.append(("quantized_conv", [d, w, i8(first[1][0]), *ranges],
+                  dict(kernel=first[1][2:], stride=first[2], pad=first[3],
+                       num_filter=first[1][0]), "conv0+bias"))
+    fcs = [((INT8_OP_BATCH, 2048), (RESNET_CLASSES, 2048), "classifier"),
+           ((INT8_OP_BATCH * BERT_SEQ, BERT_WIDTH), (BERT_FF, BERT_WIDTH),
+            "ffn_1"),
+           ((INT8_OP_BATCH * BERT_SEQ, BERT_FF), (BERT_WIDTH, BERT_FF),
+            "ffn_2")]
+    gemm_ms = {}
+    for dshape, wshape, tag in fcs:
+        x, w = i8(*dshape), i8(*wshape)
+        wsc = torch.rand(wshape[0], generator=g) * 0.01 + 1e-3
+        b = torch.randn(wshape[0], generator=g)
+        cases.append(("quantized_fully_connected",
+                      [x, w, i8(wshape[0]), *ranges],
+                      {"num_hidden": wshape[0]}, tag))
+        cases.append(("tpumx_quantized_fc_int8", [x, act, w, wsc, b],
+                      {"num_hidden": wshape[0]}, tag))
+        xd, wd = x.to(dev), w.to(dev)
+        xf, wf = xd.float(), wd.float()
+        gemm_ms[tag] = {"int8_ms": _event_ms(
+            lambda: qo.int8_matmul(xd, wd), 20),
+            "f32_matmul_ms": _event_ms(lambda: torch.matmul(xf, wf.t()),
+                                       20)}
+    worst = {"contrib_mismatches": 0, "tpumx_excess": 0.0}
+    for fn, args, kw, tag in cases:
+        want = getattr(qo, fn)(*args, **kw)
+        got = getattr(qo, fn)(*[a.to(dev) for a in args], **kw)
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        for i, (a, b) in enumerate(zip(got, want)):
+            a = a.cpu()
+            if fn.startswith("tpumx"):
+                tol = 1e-5 * float(b.abs().max())
+                excess = float(((a - b).abs() - tol - 1e-5 * b.abs()).max())
+                worst["tpumx_excess"] = max(worst["tpumx_excess"], excess)
+                if excess > 0:
+                    bad.append(f"{fn} {tag}: {excess} past the tolerance")
+            elif a.dtype != b.dtype or not torch.equal(a, b):
+                worst["contrib_mismatches"] += 1
+                bad.append(f"{fn} {tag} output {i}: not the CPU op's bits")
+    return {"cases": len(cases), "conv_shapes": len(_conv_layers(
+        net, INT8_OP_BATCH)), **worst, "gemm_ms": gemm_ms}, bad
+
+
+def _param_bytes(adapter):
+    """Bytes of an executor adapter's served parameters (the arguments
+    other than its inputs and labels) and of its float graph's."""
+    skip = set(adapter.input_names) | {n for n, _ in adapter._label_shapes}
+
+    def nbytes(ex):
+        return sum(a._data.numel() * a._data.element_size()
+                   for n, a in ex.arg_dict.items() if n not in skip)
+
+    return {"served": nbytes(adapter._base),
+            "float": nbytes(adapter._float_base)}
+
+
+def _serve_int8(mod, samples, shape, max_batch, clients, windows, table):
+    """``InferenceService(quantize="int8")`` over ``mod`` with
+    ``table``, once for each client window (a fresh service each), as
+    :func:`_serve_model` serves the float model: each run's stats, binds
+    after warmup and kernel launches (counted from 0 just before the
+    service is made, read just after its last request), its outputs (on
+    the host), and the served parameter bytes against the float graph's."""
+    import torch
+
+    from mxnet_tpu_torch.serving import InferenceService, ServingConfig
+
+    runs, outs, bad = [], [], []
+    for window in windows:
+        torch.cuda.synchronize()
+        _reset_launches()
+        svc = InferenceService(mod, ServingConfig(
+            max_batch_size=max_batch, batch_timeout_ms=2.0,
+            shape_buckets=[tuple(shape)], queue_bound=1024,
+            quantize="int8", quantize_calibration=table))
+        try:
+            t0 = time.perf_counter()
+            warmed = svc.warmup()
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            binds0 = svc.stats()["compile_cache"]["misses"]
+            got, wall, errors = _serve_clients(svc, samples, clients, window)
+            torch.cuda.synchronize()
+            launches = _read_launches()
+            stats = svc.stats()
+            ad = svc._adapter
+            nbytes = _param_bytes(ad)
+            int8_dtype = all(
+                a._data.dtype == torch.int8
+                for n, a in ad._base.arg_dict.items() if n.endswith("_int8"))
+        finally:
+            svc.stop()
+        outs.append(got)
+        runs.append({
+            "window": window, "warmup_binds": warmed, "warmup_s": warm_s,
+            "binds_after_warmup":
+            stats["compile_cache"]["misses"] - binds0,
+            "wall_s": wall, "requests_per_s": len(samples) / wall,
+            "latency_ms": stats["latency_ms"],
+            "batches": stats["batches"],
+            "avg_batch_size": stats["avg_batch_size"],
+            "batch_occupancy": stats["batch_occupancy"],
+            "errors": errors, "launches": launches})
+        if errors or any(o is None for o in got):
+            bad.append(f"int8 window {window}: requests failed: {errors}")
+        if runs[-1]["binds_after_warmup"]:
+            bad.append(f"int8 window {window}: "
+                       f"{runs[-1]['binds_after_warmup']} binds after warmup")
+        if not int8_dtype:
+            bad.append(f"int8 window {window}: weights not int8")
+    return runs, outs, nbytes, bad
+
+
+def _int8_error(got, want):
+    """The int8 outputs against the float ones: the largest absolute
+    error, it over the float outputs' largest magnitude, and the share
+    of rows whose argmax agrees."""
+    import torch
+
+    got, want = torch.as_tensor(got).float(), torch.as_tensor(want).float()
+    err = float((got - want).abs().max())
+    top = float((got.flatten(1).argmax(1) == want.flatten(1).argmax(1))
+                .float().mean())
+    return {"max_abs_err": err,
+            "rel_err": err / max(float(want.abs().max()), 1e-30),
+            "argmax_agree": top}
+
+
+def _int8_cpu_check(net, shape, data_shape, args, aux, labels, samples,
+                    table):
+    """The same model bound on the CPU from the same numpy values: its
+    f32 ``Module.predict`` and its int8 service's outputs over
+    ``samples`` (one batch, the same calibration table)."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.serving import InferenceService, ServingConfig
+
+    n = len(samples)
+    with mx.cpu():
+        mod = mx.mod.Module(net, label_names=["softmax_label"] if labels
+                            else None, context=mx.cpu())
+        mod.bind(data_shapes=[("data", (n,) + tuple(shape))],
+                 label_shapes=[("softmax_label", (n,))] if labels else None,
+                 for_training=False)
+        mod.init_params(arg_params={k: v for k, v in args.items()
+                                    if k not in ("data", "softmax_label")},
+                        aux_params=aux)
+        f32 = mod.predict(mx.io.NDArrayIter(np.stack(samples),
+                                            batch_size=n))._data
+        svc = InferenceService(mod, ServingConfig(
+            max_batch_size=n, batch_timeout_ms=50.0,
+            shape_buckets=[tuple(shape)], quantize="int8",
+            quantize_calibration=table))
+        try:
+            got, _, errors = _serve_clients(svc, samples, 1, n)
+        finally:
+            svc.stop()
+    if errors:
+        raise SystemExit(f"inference_int8: the CPU int8 service failed: "
+                         f"{errors}")
+    return torch.stack(got), f32
+
+
+def _int8_activations_card_vs_cpu(net, args, aux, table, x):
+    """The int8 output of every ``_tpumx_quantize_int8`` node of ``net``'s
+    converted graph (``table``, a path) on the samples ``x``, bound once
+    on the card and once on the CPU from the same numpy values and int8
+    weights: for each node in graph order, its element count, how many
+    differ and the largest difference.  The integer GEMMs are exact on
+    both, so a node differs only where an upstream f32 pass (BatchNorm,
+    the dequantize epilogue) lands the other side of a rounding boundary,
+    and what follows carries that flip on."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import quantization as q
+
+    table = q.CalibrationTable.load(table)
+    params = {k: v for k, v in args.items()
+              if k not in ("data", "softmax_label")}
+    qsym = q.convert_symbol(net, table, param_shapes={
+        k: tuple(v.shape) for k, v in params.items()})
+    inner = qsym.get_internals()
+    names = [n for n in inner.list_outputs()
+             if n.startswith("quantize_int8_") and n.endswith("_output0")]
+    grp = mx.sym.Group([inner[n] for n in names])
+    qargs = dict(q.quantize_weights(net, params, table=table), data=x)
+    got = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        with ctx:
+            ex = grp.bind(ctx=ctx, args={
+                k: mx.nd.array(v, ctx=ctx, dtype=v.dtype)
+                for k, v in qargs.items() if k in grp.list_arguments()},
+                args_grad=None, grad_req="null", aux_states={
+                    k: mx.nd.array(v, ctx=ctx)
+                    for k, v in aux.items()
+                    if k in grp.list_auxiliary_states()})
+            with torch.no_grad():
+                got.append([o._data.cpu()
+                            for o in ex.forward(is_train=False)])
+    card, cpu = got
+    nodes = []
+    for n, a, b in zip(names, card, cpu):
+        d = (a.int() - b.int()).abs()
+        nodes.append({"node": n, "elements": d.numel(),
+                      "differ": int((d > 0).sum()), "max_diff": int(d.max())})
+    return nodes
+
+
+def phase_inference_int8(dev):
+    """int8 serving on the card: inference_service's ResNet-50 symbol (f32
+    weights from the same seeds, bound at B=SERVE_MAX_BATCH) and its
+    BERT-width FFN block, calibrated (``quantization.calibrate_module`` on
+    seeded samples, the card's activations), the tables saved and loaded
+    back, then served through ``InferenceService(ServingConfig(
+    quantize="int8", quantize_calibration=path))`` to the same traffic:
+    SERVE_REQUESTS images from SERVE_CLIENTS threads at each of
+    SERVE_WINDOWS in flight, and BERT_REQUESTS sequences.  The float
+    service takes the same traffic in the same process, the two kinds
+    served in the order float, int8, int8, float.  Checks: (a) the
+    quantized ops at ResNet-50's real layer shapes against the port's CPU
+    ops (``_int8_op_checks``); (b) no bind after warmup, the weights int8
+    on the card; (c) the int8 outputs against ``Module.predict``'s float
+    ones on the same samples, on the first INT8_CPU_IMAGES images
+    (INT8_CPU_SEQS sequences) within twice the same model's
+    int8-against-f32 error on the CPU (same values, same table), and
+    within INT8_CARD_CPU_SHARE of that error of the CPU int8 service's
+    outputs; the converted graph's int8 activations on those samples,
+    card against CPU, the data's node bit for bit, no element off by more
+    than INT8_ACT_MAX_DIFF, at most INT8_ACT_SHARE of them differing; (d) each int8 service's kernel launches, counted from its
+    construction to its last request: kernel 5 once a BERT-block forward
+    (warm-up buckets and served batches), nothing in ResNet-50.  Reports
+    requests/s and p50/p99 latency of every run of each kind and their
+    ratio, the parameter bytes int8 against f32, and one B=32 forward's
+    device time each way."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import quantization as q
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise SystemExit("TF32 is on: the f32 comparison needs full f32")
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    tables = os.path.join("build", "chip_smoke_int8")
+    os.makedirs(tables, exist_ok=True)
+    bad, res = [], {"phase": "inference_int8"}
+    try:
+        with mx.gpu(0):
+            net, _, _ = _fit_loaded_symbol()
+            shape = (3, RESNET_HW, RESNET_HW)
+            data_shape = (SERVE_MAX_BATCH,) + shape
+            args, aux = _random_values(net, data_shape, SEED + 30,
+                                       RESNET_CLASSES)
+            mod = _inference_module(net, data_shape, SEED + 30, labels=True)
+            X, _ = _fit_images(SERVE_REQUESTS // SERVE_MAX_BATCH,
+                               SERVE_MAX_BATCH, SEED + 31)
+            images = list(X)
+            bsym = _bert_block()
+            bshape = (BERT_MAX_BATCH, BERT_SEQ, BERT_WIDTH)
+            bargs, baux = _random_values(bsym, bshape, SEED + 32,
+                                         RESNET_CLASSES)
+            bert = _inference_module(bsym, bshape, SEED + 32, labels=False)
+            seqs = list(np.random.default_rng(SEED + 33).standard_normal(
+                (BERT_REQUESTS, BERT_SEQ, BERT_WIDTH), dtype=np.float32))
+            res["op_checks"], bad_ops = _int8_op_checks(dev, net)
+            bad += bad_ops
+            # calibration on seeded samples apart from the traffic
+            Xc = np.random.default_rng(SEED + 34).standard_normal(
+                (INT8_CALIB_IMAGES,) + shape, dtype=np.float32)
+            Sc = np.random.default_rng(SEED + 35).standard_normal(
+                (INT8_CALIB_SEQS, BERT_SEQ, BERT_WIDTH), dtype=np.float32)
+            t0 = time.perf_counter()
+            table = q.calibrate_module(mod, mx.io.NDArrayIter(
+                Xc, batch_size=SERVE_MAX_BATCH))
+            torch.cuda.synchronize()
+            calib_s = time.perf_counter() - t0
+            btable = q.calibrate_module(bert, mx.io.NDArrayIter(
+                Sc, batch_size=BERT_MAX_BATCH))
+            paths = [table.save(os.path.join(tables, "resnet50.calib.json")),
+                     btable.save(os.path.join(tables, "bert_ffn.calib.json"))]
+            loaded = [q.CalibrationTable.load(p) for p in paths]
+            same = all(a.act_scale(n) == b.act_scale(n)
+                       for a, b in zip((table, btable), loaded)
+                       for n in a.activations)
+            res["calibration"] = {
+                "resnet_nodes": len(table.activations),
+                "resnet_weights": len(table.weights),
+                "bert_nodes": len(btable.activations),
+                "resnet_calibrate_s": calib_s, "file_round_trip": same,
+                "converted_nodes": q.count_quantized_nodes(
+                    q.convert_symbol(net, table))}
+            if not same or len(table.activations) != 54:
+                bad.append(f"calibration: {res['calibration']}")
+            # the float and the int8 service, a fresh one each, served
+            # in the order float, int8, int8, float, so that neither kind
+            # always runs first in the process; the float runs also give
+            # Module.predict's outputs over the traffic
+            served = {m: {"float": [], "int8": []}
+                      for m in ("resnet", "bert_ffn")}
+            outs_r, outs_b = [], []
+            for rnd, order in enumerate((("float", "int8"),
+                                         ("int8", "float"))):
+                for kind in order:
+                    if kind == "float":
+                        fr, want, bad_f = _serve_model(
+                            mod, images, shape, SERVE_MAX_BATCH,
+                            SERVE_CLIENTS, SERVE_WINDOWS)
+                        fb, bwant, bad_fb = _serve_model(
+                            bert, seqs, (BERT_SEQ, BERT_WIDTH),
+                            BERT_MAX_BATCH, SERVE_CLIENTS, (1,))
+                        bad += bad_f + bad_fb
+                        runs_r, runs_b = fr["runs"], fb["runs"]
+                    else:
+                        runs_r, o_r, bytes_r, bad_r = _serve_int8(
+                            mod, images, shape, SERVE_MAX_BATCH,
+                            SERVE_CLIENTS, SERVE_WINDOWS, paths[0])
+                        runs_b, o_b, bytes_b, bad_b = _serve_int8(
+                            bert, seqs, (BERT_SEQ, BERT_WIDTH),
+                            BERT_MAX_BATCH, SERVE_CLIENTS, (1,), paths[1])
+                        bad += bad_r + bad_b
+                        outs_r += o_r
+                        outs_b += o_b
+                    for m, runs in (("resnet", runs_r), ("bert_ffn", runs_b)):
+                        served[m][kind] += [dict(r, round=rnd)
+                                            for r in runs]
+            # one B=32 forward's device time, float against int8
+            from mxnet_tpu_torch.serving import (InferenceService,
+                                                 ServingConfig)
+
+            svc = InferenceService(mod, ServingConfig(
+                max_batch_size=SERVE_MAX_BATCH, quantize="int8",
+                quantize_calibration=paths[0]))
+            try:
+                qex = svc._adapter._base
+                x32 = torch.from_numpy(X[:SERVE_MAX_BATCH]).to(dev)
+                with torch.no_grad():
+                    fwd_ms = {
+                        "float32": _event_ms(lambda: mod._exec.forward(
+                            is_train=False, data=x32), 5),
+                        "int8": _event_ms(lambda: qex.forward(
+                            is_train=False, data=x32), 5)}
+            finally:
+                svc.stop()
+            acts = {
+                "resnet": _int8_activations_card_vs_cpu(
+                    net, args, aux, paths[0],
+                    np.stack(images[:INT8_CPU_IMAGES])),
+                "bert_ffn": _int8_activations_card_vs_cpu(
+                    bsym, bargs, baux, paths[1],
+                    np.stack(seqs[:INT8_CPU_SEQS]))}
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = det
+    # (c) the card's int8 error against the CPU's on the same samples
+    cpu_r, f32_r = _int8_cpu_check(net, shape, data_shape, args, aux, True,
+                                   images[:INT8_CPU_IMAGES], paths[0])
+    cpu_b, f32_b = _int8_cpu_check(bsym, (BERT_SEQ, BERT_WIDTH), bshape,
+                                   bargs, baux, False,
+                                   seqs[:INT8_CPU_SEQS], paths[1])
+    errors = {}
+    for tag, outs, ref, n, cpu, f32 in (
+            ("resnet", outs_r, want, INT8_CPU_IMAGES, cpu_r, f32_r),
+            ("bert_ffn", outs_b, bwant, INT8_CPU_SEQS, cpu_b, f32_b)):
+        card_all = [_int8_error(torch.stack(o), ref) for o in outs]
+        card_n = [_int8_error(torch.stack(o[:n]), ref[:n]) for o in outs]
+        cpu_err = _int8_error(cpu, f32)
+        # the card's int8 outputs against the CPU int8 service's on the
+        # same samples, values and table: both routes' GEMMs are exact, so
+        # only a rounding flip at a quantize boundary parts them
+        vs_cpu = [float((torch.stack(o[:n]).float() - cpu.float())
+                        .abs().max()) for o in outs]
+        limit = INT8_CARD_CPU_SHARE[tag] * cpu_err["max_abs_err"]
+        nodes = acts[tag]
+        differ = sum(a["differ"] for a in nodes) \
+            / sum(a["elements"] for a in nodes)
+        errors[tag] = {"card_all": card_all, "card_first": card_n,
+                       "cpu_first": cpu_err, "samples": n,
+                       "card_vs_cpu_int8": vs_cpu,
+                       "card_vs_cpu_int8_limit": limit,
+                       "int8_activations": {
+                           "nodes": len(nodes), "share_differing": differ,
+                           "max_diff": max(a["max_diff"] for a in nodes),
+                           "first_differing": next(
+                               (a for a in nodes if a["differ"]), None),
+                           "by_node": nodes}}
+        for e in card_n:
+            if not 0 < e["max_abs_err"] <= 2 * cpu_err["max_abs_err"]:
+                bad.append(f"{tag}: the card's int8 error {e} against "
+                           f"twice the CPU's {cpu_err}")
+        if max(vs_cpu) > limit:
+            bad.append(f"{tag}: the card's int8 outputs {vs_cpu} from the "
+                       f"CPU int8 service's, past {limit}")
+        act = errors[tag]["int8_activations"]
+        if nodes[0]["differ"] or act["max_diff"] > INT8_ACT_MAX_DIFF \
+                or differ > INT8_ACT_SHARE:
+            bad.append(f"{tag}: int8 activations card against CPU: the "
+                       f"data's node {nodes[0]}, largest difference "
+                       f"{act['max_diff']} (limit {INT8_ACT_MAX_DIFF}), "
+                       f"share {differ} (limit {INT8_ACT_SHARE})")
+    # kernel 5 in each int8 service: once a BERT-block forward (warm-up
+    # buckets and served batches), never in ResNet-50
+    launches = {}
+    for m in ("resnet", "bert_ffn"):
+        for r in served[m]["int8"]:
+            want_l = {k: 0 for k in r["launches"]}
+            if m == "bert_ffn":
+                want_l["layer_norm"] = r["warmup_binds"] + r["batches"]
+            if r["launches"] != want_l:
+                bad.append(f"{m} int8 round {r['round']} window "
+                           f"{r['window']}: launches {r['launches']}, "
+                           f"expected {want_l}")
+            for k, v in r["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    ln_want = sum(r["warmup_binds"] + r["batches"]
+                  for r in served["bert_ffn"]["int8"])
+
+    def brief(runs):
+        return [{k: r[k] for k in ("round", "window", "requests_per_s",
+                                   "latency_ms", "avg_batch_size",
+                                   "batch_occupancy")}
+                for r in runs]
+
+    # int8 over float requests/s, each round and window on its own
+    ratio = {m: [{"round": i["round"], "window": i["window"],
+                  "int8_over_float": i["requests_per_s"]
+                  / f["requests_per_s"]}
+                 for i, f in zip(served[m]["int8"], served[m]["float"])]
+             for m in served}
+
+    res.update({
+        "config": {"resnet": {"symbol": "example/image-classification/"
+                              "symbols/resnet.py", "num_layers": 50,
+                              "bound_batch": SERVE_MAX_BATCH},
+                   "bert_ffn": {"width": BERT_WIDTH, "ff": BERT_FF,
+                                "seq": BERT_SEQ,
+                                "bound_batch": BERT_MAX_BATCH},
+                   "quantize": "int8", "calibration": "naive absmax"},
+        "resnet": {"int8": served["resnet"]["int8"],
+                   "float": brief(served["resnet"]["float"]),
+                   "requests_per_s_ratio": ratio["resnet"],
+                   "parameter_bytes": bytes_r},
+        "bert_ffn": {"int8": served["bert_ffn"]["int8"],
+                     "float": brief(served["bert_ffn"]["float"]),
+                     "requests_per_s_ratio": ratio["bert_ffn"],
+                     "parameter_bytes": bytes_b},
+        "forward_ms_b32": fwd_ms, "errors": errors,
+        "layer_norm_launches_expected": ln_want, "launches": launches})
+    emit(res)
+    if bad:
+        raise SystemExit("inference_int8 phase failed: " + "; ".join(bad))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# optimizers: the nine optimizers of this slice through Module.fit
+# ---------------------------------------------------------------------------
+
+def _opt_mlp():
+    """The MLP: tanh, not ReLU.  FTML, Adamax and Nadam move a weight by
+    about ``lr * g / (|g| + eps)``, near ``lr * sign(g)``: where a ReLU's
+    input sits at 0 the card's and the CPU's f32 sums put it on either
+    side, one side's gradient is 0, and that weight then differs by a
+    whole step (on an H100 80GB HBM3 at 700 W, a 784-256-128-10 ReLU MLP
+    left FTML 0.0286 off the CPU after six steps, about three times its
+    lr).  A smooth activation leaves the f32 sum order's own noise."""
+    import mxnet_tpu_torch as mx
+
+    with mx.name.NameManager():
+        h = mx.sym.Variable("data")
+        for i, w in enumerate(OPT_WIDTHS[1:]):
+            h = mx.sym.FullyConnected(h, num_hidden=w, name=f"fc{i}")
+            if i < len(OPT_WIDTHS) - 2:
+                h = mx.sym.Activation(h, act_type="tanh")
+        return mx.sym.SoftmaxOutput(h, name="softmax")
+
+
+def _opt_fit(ctx, name, X, Y, init):
+    """``Module.fit`` of the MLP for one epoch on ``ctx`` with the
+    optimizer ``name``: the final parameters (numpy) and the fit's wall
+    seconds."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    mx.random.seed(SEED)
+    with ctx:
+        mod = mx.mod.Module(_opt_mlp(), context=ctx)
+        it = mx.io.NDArrayIter(X, Y, batch_size=OPT_BATCH)
+        t0 = time.perf_counter()
+        mod.fit(it, num_epoch=1, optimizer=name,
+                optimizer_params=dict(OPT_SETTINGS[name]),
+                arg_params={k: mx.nd.array(v) for k, v in init.items()},
+                initializer=mx.init.Zero(), eval_metric="acc")
+        if ctx.device_type == "gpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return {k: v.asnumpy() for k, v in mod.get_params()[0].items()}, \
+            wall, type(mod._optimizer).__name__
+
+
+def phase_optimizers(dev):
+    """The nine optimizers this slice ports (FTML, LBSGD, DCASGD, SGLD,
+    AdaDelta, Ftrl, Adamax, Nadam, Test): OPT_BATCHES ``Module.fit``
+    steps of an MLP (OPT_WIDTHS, batch OPT_BATCH, f32, TF32 off) on the
+    card and on the CPU from the same parameters, data and random seed
+    (SGLD's noise); the final parameters held at rtol OPT_RTOL, atol
+    OPT_ATOL, and every parameter moved."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise SystemExit("TF32 is on: the f32 comparison needs full f32")
+    rs = np.random.default_rng(SEED + 50)
+    n = OPT_BATCH * OPT_BATCHES
+    X = rs.standard_normal((n, OPT_WIDTHS[0]), dtype=np.float32)
+    Y = rs.integers(0, OPT_WIDTHS[-1], n).astype(np.float32)
+    shapes = dict(zip(_opt_mlp().list_arguments(), _opt_mlp().infer_shape(
+        data=(OPT_BATCH, OPT_WIDTHS[0]))[0]))
+    init = {k: (rs.standard_normal(s) / np.sqrt(s[-1] if len(s) > 1
+                                                 else 1) * 0.5)
+            .astype(np.float32) for k, s in shapes.items()
+            if k not in ("data", "softmax_label")}
+    _reset_launches()
+    rows, bad = {}, []
+    for name in OPT_SETTINGS:
+        card, wall, cls = _opt_fit(mx.gpu(0), name, X, Y, init)
+        cpu, _, _ = _opt_fit(mx.cpu(), name, X, Y, init)
+        excess = max(float((np.abs(card[k] - cpu[k])
+                            - OPT_ATOL - OPT_RTOL * np.abs(cpu[k])).max())
+                     for k in cpu)
+        err = max(float(np.abs(card[k] - cpu[k]).max()) for k in cpu)
+        moved = min(float(np.abs(card[k] - init[k]).max()) for k in init)
+        rows[name] = {"class": cls, "max_abs_err": err,
+                      "excess_over_tol": excess, "min_moved": moved,
+                      "card_fit_s": wall}
+        if excess > 0 or moved == 0:
+            bad.append(f"{name}: {rows[name]}")
+    launches = _read_launches()
+    res = {"phase": "optimizers", "mlp": list(OPT_WIDTHS),
+           "batch": OPT_BATCH, "steps": OPT_BATCHES, "rtol": OPT_RTOL,
+           "atol": OPT_ATOL, "optimizers": rows, "launches": launches}
+    emit(res)
+    if any(launches.values()):
+        bad.append(f"launches {launches}, expected none")
+    if bad:
+        raise SystemExit("optimizers phase failed: " + "; ".join(bad))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# custom_op: user ops in Python (mx.operator)
+# ---------------------------------------------------------------------------
+
+def _custom_fit(ctx, X, Y, W0):
+    """``Module.fit`` through FullyConnected -> the example's numpy
+    softmax as a symbolic ``Custom`` node -> a log loss: the weight."""
+    import mxnet_tpu_torch as mx
+
+    with ctx, mx.name.NameManager():
+        data = mx.sym.Variable("data")
+        label = mx.sym.Variable("softmax_label")
+        fc = mx.sym.FullyConnected(data, num_hidden=10, no_bias=True,
+                                   name="fc")
+        p = mx.sym.Custom(fc, op_type="numpy_softmax", name="sm")
+        net = mx.sym.MakeLoss(-mx.sym.sum(mx.sym.log(
+            mx.sym.pick(p, label, axis=1) + 1e-6)))
+        mod = mx.mod.Module(net, data_names=["data"],
+                            label_names=["softmax_label"], context=ctx)
+        mod.fit(mx.io.NDArrayIter(X, Y, batch_size=CUSTOM_BATCH),
+                num_epoch=1, optimizer="sgd", eval_metric="loss",
+                optimizer_params={"learning_rate": 0.01},
+                arg_params={"fc_weight": mx.nd.array(W0)},
+                initializer=mx.init.Zero())
+        return mod.get_params()[0]["fc_weight"].asnumpy()
+
+
+def phase_custom_op(dev):
+    """``example/numpy-ops/custom_softmax.py``'s op (exec'd against the
+    port) on the card: (a) its forward against ``nd.softmax`` and its
+    gradient against autograd through ``nd.softmax`` (rtol 1e-5, atol
+    1e-6), outputs on the card; (b) ``Module.fit`` through a symbolic
+    ``Custom`` node, CUSTOM_BATCHES steps, on the card against the same
+    fit on the CPU (rtol 1e-5, atol 1e-6); (c) a hybridized block whose
+    forward runs the op: the program stays uncaptured on the card
+    (``cached_op.UNCAPTURED``), its outputs the eager block's."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import cached_op, nn
+
+    ns = _example_ns(os.path.join("example", "numpy-ops",
+                                  "custom_softmax.py"))
+    rs = np.random.default_rng(SEED + 60)
+    bad = []
+    _reset_launches()
+    with mx.gpu(0):
+        x = mx.nd.array(rs.standard_normal((CUSTOM_BATCH, 10),
+                                           dtype=np.float32))
+        g = mx.nd.array(rs.standard_normal((CUSTOM_BATCH, 10),
+                                           dtype=np.float32))
+        out = mx.nd.Custom(x, op_type="numpy_softmax")
+        ref = mx.nd.softmax(x, axis=1)
+        grads = []
+        for fn in (lambda v: mx.nd.Custom(v, op_type="numpy_softmax"),
+                   lambda v: mx.nd.softmax(v, axis=1)):
+            v = x.copy()
+            v.attach_grad()
+            with mx.autograd.record():
+                y = fn(v)
+            y.backward(g)
+            grads.append(v.grad._data.detach().clone().cpu())
+        ns["main"](type("Args", (), {"batch_size": 32})())
+        fwd_err = float((out._data - ref._data).abs().max())
+        grad_err = float((grads[0] - grads[1]).abs().max())
+        on_card = out._data.device.type == "cuda" and \
+            grads[0].shape == (CUSTOM_BATCH, 10)
+
+        class Net(mx.gluon.HybridBlock):
+            def __init__(self):
+                super().__init__()
+                self.dense = nn.Dense(10, in_units=10)
+
+            def hybrid_forward(self, F, v):
+                return F.Custom(self.dense(v), op_type="numpy_softmax")
+
+        blk = Net()
+        blk.initialize(ctx=mx.gpu(0))
+        eager = blk(x)._data.cpu()
+        blk.hybridize()
+        before = dict(cached_op.UNCAPTURED)
+        hyb = [blk(x)._data.cpu() for _ in range(3)]
+        unc = {k: cached_op.UNCAPTURED[k] - before[k] for k in before}
+    hyb_err = max(float((h - eager).abs().max()) for h in hyb)
+    X = rs.standard_normal((CUSTOM_BATCH * CUSTOM_BATCHES, 784),
+                           dtype=np.float32)
+    Y = rs.integers(0, 10, len(X)).astype(np.float32)
+    W0 = (rs.standard_normal((10, 784)) * 0.01).astype(np.float32)
+    card = _custom_fit(mx.gpu(0), X, Y, W0)
+    cpu = _custom_fit(mx.cpu(), X, Y, W0)
+    fit_excess = float((np.abs(card - cpu) - 1e-6 - 1e-5 * np.abs(cpu))
+                       .max())
+    launches = _read_launches()
+    res = {"phase": "custom_op", "forward_max_abs_err": fwd_err,
+           "grad_max_abs_err": grad_err, "on_card": on_card,
+           "fit": {"steps": CUSTOM_BATCHES, "batch": CUSTOM_BATCH,
+                   "max_abs_err": float(np.abs(card - cpu).max()),
+                   "excess_over_tol": fit_excess,
+                   "moved": float(np.abs(card - W0).max())},
+           "hybridized": {"uncaptured": unc, "max_abs_err": hyb_err},
+           "launches": launches}
+    emit(res)
+    if fwd_err > 1e-5 or grad_err > 1e-5 or not on_card:
+        bad.append(f"eager op: forward {fwd_err}, gradient {grad_err}, "
+                   f"on the card {on_card}")
+    if fit_excess > 0 or res["fit"]["moved"] == 0:
+        bad.append(f"Module.fit through Custom: {res['fit']}")
+    if unc != {"programs": 1, "calls": 3} or hyb_err > 1e-6:
+        bad.append(f"hybridized Custom: {res['hybridized']}")
+    if any(launches.values()):
+        bad.append(f"launches {launches}, expected none")
+    if bad:
+        raise SystemExit("custom_op phase failed: " + "; ".join(bad))
+    return res
+
+
+# ---------------------------------------------------------------------------
 # amp: automatic mixed precision (Gluon amp.init, Module under TPUMX_AMP)
 # ---------------------------------------------------------------------------
 
@@ -8896,7 +9670,7 @@ def main(argv) -> int:
         "bucketing_fit", "image_rec", "serving_spec", "serving_fleet",
         "ops_breadth", "fcn_fit", "spmd_lm", "dp_mesh", "dist_kvstore",
         "model_parallel", "module_parallel", "amp", "fit_resume",
-        "inference_service"}
+        "inference_service", "inference_int8", "optimizers", "custom_op"}
     if "serving_int8" in phases:
         phases.add("serving")   # its float baseline
     t_start = time.perf_counter()
@@ -8946,6 +9720,12 @@ def main(argv) -> int:
         runs["fit_resume"] = phase_fit_resume(dev)
     if "inference_service" in phases:
         runs["inference_service"] = phase_inference_service(dev)
+    if "inference_int8" in phases:
+        runs["inference_int8"] = phase_inference_int8(dev)
+    if "optimizers" in phases:
+        runs["optimizers"] = phase_optimizers(dev)
+    if "custom_op" in phases:
+        runs["custom_op"] = phase_custom_op(dev)
     if "amp" in phases:
         runs["amp"] = phase_amp(dev, runs)
     if "module_parallel" in phases:

@@ -30,7 +30,11 @@ dp x sp LM step, and the ``dist_sync``/``dist_async`` parameter server
 (``amp``: the graph casting policy, loss scaling in the fused step,
 Gluon ``amp.init``); fault-tolerant ``Module.fit`` (``checkpoint``:
 async checksummed checkpoints, resume, preemption), device-side train
-telemetry and the micro-batching ``serving.InferenceService``.  Entry points run on ``cuda`` (``mx.gpu()``, the default
+telemetry and the micro-batching ``serving.InferenceService``; int8
+quantization (``quantization``: calibration, graph conversion, int8
+serving; ``contrib.quantization``, the reference's QuantizeGraph pass),
+every optimizer of the reference, and user ops in Python
+(``operator``: ``nd.Custom``/``sym.Custom``).  Entry points run on ``cuda`` (``mx.gpu()``, the default
 context) unless the caller passes the CPU (``ctx=mx.cpu()``,
 ``context=mx.cpu()`` or ``device="cpu"``).
 """
@@ -53,12 +57,14 @@ from .context import (Context, cpu, current_context, gpu, num_devices,
                       resolve_device, tpu)
 from . import kvstore_server
 from . import amp
+from . import contrib, operator, quantization
 
 random._install_samplers()
 
 __version__ = "0.1.0"
 
-__all__ = ["MXNetError", "amp", "Context", "cpu", "gpu", "tpu", "current_context",
+__all__ = ["MXNetError", "amp", "contrib", "operator", "quantization",
+           "Context", "cpu", "gpu", "tpu", "current_context",
            "num_devices", "resolve_device", "attribute", "autograd", "base",
            "callback", "checkpoint", "context", "engine", "executor", "fault", "gluon",
            "init", "initializer", "kvstore_server", "observability",

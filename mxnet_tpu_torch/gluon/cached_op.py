@@ -28,7 +28,10 @@ capture of the same signature, captured anew when none is free; a
 capture is free again after its backward or once its outputs' graph is
 dropped.  A program whose parameters moved (a cast,
 ``initialize(force_reinit=True)``, a rebinding ``set_data``) is stale and
-is built again.
+is built again.  A forward that syncs with the host (a ``Custom`` op:
+its Python body reads its inputs) cannot be captured: the warm-up sees it
+(:func:`note_host_sync`), and the program runs uncaptured on every call,
+logged once and counted in :data:`UNCAPTURED`.
 
 The kernel wrappers' ``.launches`` counters count launches: the warm-ups
 launch and count; a capture only records, so what it counted is taken
@@ -37,6 +40,7 @@ back and added again on each replay of the graph that holds it.
 from __future__ import annotations
 
 import contextlib
+import logging
 import threading
 import weakref
 
@@ -50,10 +54,14 @@ from ..ops.capture import add_counts, capture_graph, warm_up
 from .parameter import capture_writes
 
 __all__ = ["CachedProgram", "in_program", "program_scope", "flatten",
-           "unflatten"]
+           "unflatten", "note_host_sync", "UNCAPTURED"]
 
 _tls = threading.local()
 _WARMUP = 2
+
+#: programs that run uncaptured on the card because their forward syncs
+#: with the host, and the calls they ran so
+UNCAPTURED = {"programs": 0, "calls": 0}
 
 
 def in_program() -> bool:
@@ -61,6 +69,14 @@ def in_program() -> bool:
     call): an active block called there runs its forward under a split
     key instead of a program of its own."""
     return getattr(_tls, "depth", 0) > 0
+
+
+def note_host_sync(what: str) -> None:
+    """Called by an op whose body syncs with the host (``Custom``): inside
+    a program's forward it marks the program as one that cannot be
+    captured."""
+    if in_program():
+        _tls.host_sync = what
 
 
 @contextlib.contextmanager
@@ -173,6 +189,7 @@ class CachedProgram:
         self._mode = "host"
         self._cap = None             # the capture being warmed up/captured
         self._captures = {}          # signature -> [_Capture]
+        self._host_only = None       # what kept the program uncaptured
 
     # -- staleness ------------------------------------------------------------
     def _pointers(self):
@@ -247,18 +264,23 @@ class CachedProgram:
         self._root = key
         if capture is None:
             capture = bool(args) and args[0].device.type == "cuda"
-        if not capture:
+        cap = None
+        if capture and self._host_only is None:
+            sig = (need_grad, tuple(a.requires_grad for a in args))
+            caps = self._captures.setdefault(sig, [])
+            cap = next((c for c in caps if not c.busy()), None)
+            if cap is None:
+                cap = self._capture(args, need_grad)
+                if cap is not None:
+                    caps.append(cap)
+        if cap is None:
+            if capture:
+                UNCAPTURED["calls"] += 1
             self._mode = "host"
             with torch.set_grad_enabled(need_grad):
                 flat, struct, aux = self._forward(args)
             self._commit(aux)
             return unflatten(struct, iter(flat))
-        sig = (need_grad, tuple(a.requires_grad for a in args))
-        caps = self._captures.setdefault(sig, [])
-        cap = next((c for c in caps if not c.busy()), None)
-        if cap is None:
-            cap = self._capture(args, need_grad)
-            caps.append(cap)
         if not need_grad:
             outs = self._replay(cap, args)
         else:
@@ -279,7 +301,9 @@ class CachedProgram:
         self._commit(cap.aux)
         return [o.detach().clone() for o in cap.outs]
 
-    def _capture(self, args, need_grad: bool) -> _Capture:
+    def _capture(self, args, need_grad: bool):
+        """A new capture of the program, or None when its warm-up synced
+        with the host (the program then stays uncaptured)."""
         cap = _Capture()
         cap.static_args = [a.detach().clone().requires_grad_(a.requires_grad)
                            for a in args]
@@ -291,6 +315,7 @@ class CachedProgram:
         self._mode, self._cap = "warmup", cap
 
         def warmup():
+            _tls.host_sync = None
             for _ in range(_WARMUP):
                 with torch.set_grad_enabled(need_grad):
                     flat, _, _ = self._forward(cap.static_args)
@@ -311,6 +336,15 @@ class CachedProgram:
         with torch.no_grad():
             for p, v in saved:
                 p._tensor().copy_(v)
+        if _tls.host_sync is not None:
+            self._host_only, self._mode, self._cap = _tls.host_sync, \
+                "host", None
+            UNCAPTURED["programs"] += 1
+            logging.getLogger(__name__).warning(
+                "%s: the forward runs a %s op, which syncs with the host; "
+                "the program runs uncaptured (no CUDA graph)",
+                self.block.name, self._host_only)
+            return None
         cap.table = torch.zeros((max(1, len(cap.paths)), 2),
                                 dtype=torch.int64, device=args[0].device)
         self._fill_table(cap)

@@ -6,11 +6,14 @@ token-sampling functions of the generation engine, the random samplers
 recurrent ``RNN`` op (``rnn``, plain torch), the 2-bit gradient
 compression kernels (``twobit``) and the optimizers' update rules
 (``optimizer_ops``, also registered as ops), the legacy ``Crop`` and
-``SVMOutput`` (``spatial``) and the flash attention op (``contrib``)."""
-from . import (batch_norm, contrib, flash_attention, layer_norm, nn,
-               optimizer_ops, paged_attention, random_ops, registry, rnn,
-               sampling, spatial, tensor, twobit)
+``SVMOutput`` (``spatial``), the flash attention op (``contrib``), the
+int8 quantization ops (``quantization_ops``) and the user-defined op
+``Custom`` (``custom``, over ``mx.operator``'s registry)."""
+from . import (batch_norm, contrib, custom, flash_attention, layer_norm, nn,
+               optimizer_ops, paged_attention, quantization_ops, random_ops,
+               registry, rnn, sampling, spatial, tensor, twobit)
 
-__all__ = ["batch_norm", "contrib", "flash_attention", "layer_norm", "nn",
-           "optimizer_ops", "paged_attention", "random_ops", "registry",
-           "rnn", "sampling", "spatial", "tensor", "twobit"]
+__all__ = ["batch_norm", "contrib", "custom", "flash_attention", "layer_norm",
+           "nn", "optimizer_ops", "paged_attention", "quantization_ops",
+           "random_ops", "registry", "rnn", "sampling", "spatial", "tensor",
+           "twobit"]

@@ -4,9 +4,12 @@ PyTorch counterpart of ``mxnet_tpu/optimizer.py``: the ``Optimizer`` base
 (``lr_mult``/``wd_mult`` by name and through ``param_dict``,
 ``rescale_grad``, ``clip_gradient``, ``multi_precision``,
 ``begin_num_update``/``num_update``, ``set_learning_rate``),
-``register``/``create``, ``SGD``, ``NAG``, ``Adam``, ``AdaGrad``,
-``RMSProp`` and ``Signum`` (each computing as the reference does), and the
-``Updater``.
+``register``/``create``, every optimizer the reference registers (``SGD``,
+``NAG``, ``Adam``, ``AdaGrad``, ``RMSProp``, ``Signum``, ``FTML``,
+``LBSGD``, ``DCASGD``, ``SGLD``, ``AdaDelta``, ``Ftrl``, ``Adamax``,
+``Nadam`` and ``Test``, each computing as the reference does, with its
+states), and the ``Updater``.  ``SGLD``'s noise comes from the port's
+threefry stream, key for key the reference's.
 
 Updates run in place on the weight's and the states' tensors, under
 ``torch.no_grad()``, so an update through a Gluon ``Parameter``'s
@@ -49,8 +52,10 @@ import torch
 from .base import MXNetError
 from .ndarray.ndarray import NDArray
 
-__all__ = ["Optimizer", "SGD", "NAG", "Adam", "AdaGrad", "RMSProp",
-           "Signum", "register", "create", "Updater", "get_updater"]
+__all__ = ["Optimizer", "SGD", "Signum", "FTML", "LBSGD", "DCASGD", "NAG",
+           "SGLD", "Adam", "AdaGrad", "RMSProp", "AdaDelta", "Ftrl",
+           "Adamax", "Nadam", "Test", "register", "create", "Updater",
+           "get_updater"]
 
 _REG: Dict[str, type] = {}
 
@@ -67,7 +72,7 @@ def create(name, **kwargs) -> "Optimizer":
     try:
         klass = _REG[name.lower()]
     except KeyError:
-        raise MXNetError(f"optimizer {name!r} is not ported (ported: "
+        raise MXNetError(f"unknown optimizer {name!r} (registered: "
                          f"{sorted(_REG)})") from None
     return klass(**kwargs)
 
@@ -430,6 +435,275 @@ class Signum(Optimizer):
             else:
                 w.copy_((1 - lr * (wd + self.wd_lh)) * w
                         - lr * torch.sign(g))
+
+
+@register
+class FTML(Optimizer):
+    """Follow the moving leader (reference: optimizer.py FTML); states
+    ``(d, v, z)``."""
+
+    def __init__(self, beta1=0.6, beta2=0.999, epsilon=1e-8, **kwargs):
+        super().__init__(**kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight), _zeros(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        t = self._index_update_count[index]
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        b1, b2 = self.beta1, self.beta2
+        with torch.no_grad():
+            w = weight._data
+            g = self._preprocess(grad._data) + wd * w
+            d, v, z = (s._data for s in state)
+            v.copy_(b2 * v + (1 - b2) * g * g)
+            d_t = (1 - b1 ** t) / lr * (
+                torch.sqrt(v / (1 - b2 ** t)) + self.epsilon)
+            sigma = d_t - b1 * d
+            z.copy_(b1 * z + (1 - b1) * g - sigma * w)
+            d.copy_(d_t)
+            w.copy_(-z / d_t)
+
+
+@register
+class LBSGD(Optimizer):
+    """Large-batch SGD (reference: optimizer.py LBSGD): the rate scaled
+    by ``lbmult``, which warms up from 1 to ``batch_scale`` over
+    ``warmup_epochs`` (``linear``, ``power2`` or ``sqrt``), or by the
+    layer's LARS ratio under ``warmup_strategy="lars"``; momentum SGD."""
+
+    def __init__(self, momentum=0.0, multi_precision=False,
+                 warmup_strategy="linear", warmup_epochs=5, batch_scale=1,
+                 updates_per_epoch=32, begin_epoch=0, num_epochs=60,
+                 **kwargs):
+        super().__init__(multi_precision=multi_precision, **kwargs)
+        self.momentum = momentum
+        self.warmup_strategy = warmup_strategy
+        self.warmup_epochs = warmup_epochs
+        self.batch_scale = batch_scale
+        self.updates_per_epoch = updates_per_epoch
+        self.init_updates = begin_epoch * updates_per_epoch
+        self.num_epochs = num_epochs
+        self.lbmult = 1.0
+
+    def create_state(self, index, weight):
+        return _zeros(weight)
+
+    def _get_lbmult(self, nup):
+        nwup = self.warmup_epochs * self.updates_per_epoch
+        if nup >= nwup or nwup == 0:
+            return self.batch_scale
+        if self.warmup_strategy == "linear":
+            return 1.0 + (self.batch_scale - 1) * nup / nwup
+        if self.warmup_strategy == "power2":
+            return 1.0 + (self.batch_scale - 1) * (nup * nup) / (nwup * nwup)
+        if self.warmup_strategy == "sqrt":
+            return 1.0 + (self.batch_scale - 1) * math.sqrt(nup / nwup)
+        return 1.0
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        with torch.no_grad():
+            w, m = weight._data, state._data
+            g = self._preprocess(grad._data)
+            if self.warmup_strategy == "lars":
+                w_norm = float(torch.linalg.vector_norm(w.float()))
+                g_norm = float(torch.linalg.vector_norm(g.float()))
+                if w_norm > 0 and g_norm > 0:
+                    lr = lr * (w_norm / (g_norm + wd * w_norm))
+            else:
+                lr = lr * self._get_lbmult(self.num_update
+                                           - self.init_updates)
+            m.copy_(self.momentum * m - lr * (g + wd * w))
+            w.add_(m)
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated asynchronous SGD (reference: optimizer.py
+    DCASGD); states ``(momentum or None, previous weight)``."""
+
+    def __init__(self, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.lamda = lamda
+
+    def create_state(self, index, weight):
+        mom = _zeros(weight) if self.momentum != 0 else None
+        return (mom, NDArray(weight._data.detach().clone()))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        with torch.no_grad():
+            w = weight._data
+            g = self._preprocess(grad._data)
+            mom, prev = state
+            comp = g + self.lamda * g * g * (w - prev._data)
+            if mom is not None:
+                mom._data.copy_(self.momentum * mom._data
+                                - lr * (comp + wd * w))
+                delta = mom._data
+            else:
+                delta = -lr * (comp + wd * w)
+            prev._data.copy_(w)
+            w.add_(delta)
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics (reference: optimizer.py
+    SGLD): ``w -= lr / 2 * g`` plus normal noise of variance ``lr``, drawn
+    from the port's threefry stream (``random.next_key``), key for key
+    the reference's."""
+
+    def update(self, index, weight, grad, state):
+        from . import random as _random
+        from .ops.random_ops import random_normal
+
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        with torch.no_grad():
+            w = weight._data
+            g = self._preprocess(grad._data) + wd * w
+            key = _random.key_tensor(_random.next_key(), w.device)
+            noise = random_normal(rng_key=key, shape=tuple(w.shape)) \
+                * math.sqrt(lr)
+            w.copy_(w - lr / 2 * g + noise)
+
+
+@register
+class AdaDelta(Optimizer):
+    """AdaDelta (reference: optimizer.py AdaDelta): no learning rate;
+    states ``(acc_g, acc_delta)``."""
+
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho, self.epsilon = rho, epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        wd = self._get_wd(index)
+        rho, eps = self.rho, self.epsilon
+        with torch.no_grad():
+            w = weight._data
+            g = self._preprocess(grad._data) + wd * w
+            acc_g, acc_delta = state[0]._data, state[1]._data
+            acc_g.copy_(rho * acc_g + (1 - rho) * g * g)
+            delta = torch.sqrt(acc_delta + eps) / torch.sqrt(acc_g + eps) * g
+            acc_delta.copy_(rho * acc_delta + (1 - rho) * delta * delta)
+            w.sub_(delta)
+
+
+@register
+class Ftrl(Optimizer):
+    """FTRL-proximal (reference: optimizer.py Ftrl); states ``(z, n)``."""
+
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1, self.beta = lamda1, beta
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        with torch.no_grad():
+            w = weight._data
+            g = self._preprocess(grad._data)
+            z, n = state[0]._data, state[1]._data
+            sigma = (torch.sqrt(n + g * g) - torch.sqrt(n)) / lr
+            z.copy_(z + g - sigma * w)
+            n.copy_(n + g * g)
+            w.copy_((torch.sign(z) * self.lamda1 - z)
+                    / ((self.beta + torch.sqrt(n)) / lr + wd)
+                    * (torch.abs(z) > self.lamda1))
+
+
+@register
+class Adamax(Optimizer):
+    """Adamax (reference: optimizer.py Adamax), the infinity-norm Adam;
+    states ``(m, u)``."""
+
+    def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2 = beta1, beta2
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        t = self._index_update_count[index]
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        lr /= (1.0 - self.beta1 ** t)
+        with torch.no_grad():
+            w = weight._data
+            g = self._preprocess(grad._data) + wd * w
+            m, u = state[0]._data, state[1]._data
+            m.copy_(self.beta1 * m + (1 - self.beta1) * g)
+            u.copy_(torch.maximum(self.beta2 * u, torch.abs(g)))
+            w.copy_(w - lr * m / (u + 1e-8))
+
+
+@register
+class Nadam(Optimizer):
+    """Nesterov Adam (reference: optimizer.py Nadam); states ``(m, v)``,
+    the momentum schedule's product kept on the optimizer (one for all
+    parameters, as the reference keeps it)."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, schedule_decay=0.004, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.schedule_decay = schedule_decay
+        self.m_schedule = 1.0
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        t = self._index_update_count[index]
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        b1, b2 = self.beta1, self.beta2
+        momentum_t = b1 * (1.0 - 0.5 * 0.96 ** (t * self.schedule_decay))
+        momentum_t_1 = b1 * (1.0 - 0.5 * 0.96 ** ((t + 1)
+                                                  * self.schedule_decay))
+        self.m_schedule = self.m_schedule * momentum_t
+        m_schedule_next = self.m_schedule * momentum_t_1
+        with torch.no_grad():
+            w = weight._data
+            g = self._preprocess(grad._data) + wd * w
+            m, v = state[0]._data, state[1]._data
+            m.copy_(b1 * m + (1 - b1) * g)
+            v.copy_(b2 * v + (1 - b2) * g * g)
+            g_prime = g / (1 - self.m_schedule)
+            m_prime = m / (1 - m_schedule_next)
+            v_prime = v / (1 - b2 ** t)
+            m_bar = (1 - momentum_t) * g_prime + momentum_t_1 * m_prime
+            w.copy_(w - lr * m_bar / (torch.sqrt(v_prime) + self.epsilon))
+
+
+@register
+class Test(Optimizer):
+    """The reference's test optimizer: ``w -= rescale_grad * grad`` (no
+    update count, one zero state)."""
+
+    def create_state(self, index, weight):
+        return _zeros(weight)
+
+    def update(self, index, weight, grad, state):
+        with torch.no_grad():
+            weight._data.sub_(self.rescale_grad * grad._data)
 
 
 # ---------------------------------------------------------------------------

@@ -37,18 +37,6 @@ __all__ = ["ServingError", "QueueFullError", "DeadlineExceededError",
 BACKPRESSURE_POLICIES = ("block", "reject", "shed_oldest")
 
 
-def _quant_env() -> Optional[str]:
-    """``TPUMX_QUANT``: ``int8`` (or ``1``); ``0``/``none``/``off``/unset
-    disable (the reference's ``quantization.active_dtype``)."""
-    raw = os.environ.get("TPUMX_QUANT", "").strip().lower()
-    if raw in ("", "0", "none", "off", "false"):
-        return None
-    if raw in ("int8", "1"):
-        return "int8"
-    raise MXNetError(
-        f"TPUMX_QUANT={raw!r}: expected 'int8' (or '0'/'none' to disable)")
-
-
 class ServingError(MXNetError):
     """Base class for serving-layer failures."""
 
@@ -127,20 +115,21 @@ class ServingConfig:
         self.amp_dtype: Optional[str] = (
             str(amp_dtype) if amp_dtype is not None
             else (env_amp or None))
-        # int8 weight quantization: TPUMX_QUANT=int8 (or quantize="int8")
-        # serves the quantized graph in the reference; the port has no
-        # quantization yet and refuses it by name
+        # int8 weight quantization: executor-backed models are served
+        # through a quantization.convert_symbol'd graph (int8 weights
+        # stored once with per-channel scales); TPUMX_QUANT=int8 is the
+        # fleet switch, =0 or unset leaves every key and output as it was
         if quantize == "__env__":
-            quantize = _quant_env()
+            from .. import quantization as _q
+
+            quantize = _q.active_dtype()
         elif quantize not in (None, "int8"):
             raise ValueError(
                 f"quantize must be None or 'int8', got {quantize!r}")
-        if quantize is not None:
-            raise MXNetError(
-                "ServingConfig(quantize='int8'): int8 serving is not ported "
-                "(ROADMAP.md, Queue 1, item 6d: quantization)")
-        self.quantize: Optional[str] = None
-        # a calibration table (or a path to one) for quantize
+        self.quantize: Optional[str] = quantize
+        # a CalibrationTable (or a path to one, TPUMX_QUANT_CALIBRATION)
+        # pins static activation scales; without one activations quantize
+        # dynamically in the graph
         env_calib = os.environ.get("TPUMX_QUANT_CALIBRATION")
         self.quantize_calibration = (
             quantize_calibration if quantize_calibration is not None

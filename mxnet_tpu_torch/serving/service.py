@@ -119,11 +119,21 @@ class _ExecutorAdapter:
     instead: the matmul and convolution family run in bf16/fp16, the
     softmax and norm outputs stay f32; the parameters are still the
     original executor's (the casts are in the graph), so
-    ``refresh_params`` after a weight update keeps working."""
+    ``refresh_params`` after a weight update keeps working.
+
+    ``quantize="int8"`` (``ServingConfig.quantize`` / ``TPUMX_QUANT``)
+    serves ``quantization.convert_symbol``'s graph: the weights are
+    quantized once, here, into int8 arrays on the model's device with
+    per-output-channel f32 scales (no f32 copy of a quantized weight is
+    kept beside them); activations take the static scales of
+    ``quantize_calibration`` (a ``CalibrationTable`` or a path to one),
+    or a dynamic absmax without one; ``refresh_params`` quantizes again
+    from the float executor."""
 
     def __init__(self, base_exec, data_names: Sequence[str],
                  label_shapes: Optional[Sequence[Tuple[str, Tuple[int, ...]]]]
-                 = None, amp_dtype: Optional[str] = None):
+                 = None, amp_dtype: Optional[str] = None,
+                 quantize: Optional[str] = None, quantize_calibration=None):
         if amp_dtype:
             from .. import amp as _amp
 
@@ -131,12 +141,44 @@ class _ExecutorAdapter:
             base_exec = conv.bind(
                 ctx=base_exec._ctx, args=base_exec.arg_dict, args_grad=None,
                 grad_req="null", aux_states=base_exec.aux_dict)
+        self._float_base = base_exec
+        self._quantize = quantize
+        self._quant_table = None
+        if quantize:
+            from .. import quantization as _q
+
+            table = quantize_calibration
+            if isinstance(table, str):
+                table = _q.CalibrationTable.load(table)
+            self._quant_table = table
+            base_exec = self._quantized_bind(base_exec, table)
         self._base = base_exec
         self.input_names = list(data_names)
         self._label_shapes = list(label_shapes or [])
         self._cache: Dict[tuple, object] = {}
         self._lock = threading.Lock()
         self.counter = _CompileCounter()
+
+    def _quantized_args(self) -> Dict[str, object]:
+        from .. import quantization as _q
+
+        base = self._float_base
+        return _q.quantize_weights(base._symbol, dict(base.arg_dict),
+                                   table=self._quant_table)
+
+    def _quantized_bind(self, base_exec, table):
+        from .. import nd as _nd
+        from .. import quantization as _q
+
+        sym = base_exec._symbol
+        shapes = {k: tuple(v.shape) for k, v in base_exec.arg_dict.items()}
+        qsym = _q.convert_symbol(sym, table, param_shapes=shapes)
+        args = {k: (v if isinstance(v, NDArray)
+                    else _nd.array(v, ctx=base_exec._ctx))
+                for k, v in self._quantized_args().items()}
+        return qsym.bind(ctx=base_exec._ctx, args=args, args_grad=None,
+                         grad_req="null",
+                         aux_states=dict(base_exec.aux_dict))
 
     def _bind(self, shape_kwargs: Dict[str, tuple], dtypes: Dict[str, str]):
         """One executor at the bucket's input shapes over the base's
@@ -167,8 +209,9 @@ class _ExecutorAdapter:
             self.counter.note(ex is not None, "executor", sig)
             if ex is not None:
                 return ex
-            shape_kwargs = {name: tuple(shape) for name, shape, _dt in sig}
-            dtypes = {name: dt for name, _shape, dt in sig}
+            feeds = sig[:len(self.input_names)]
+            shape_kwargs = {name: tuple(shape) for name, shape, _dt in feeds}
+            dtypes = {name: dt for name, _shape, dt in feeds}
             batch = next(iter(shape_kwargs.values()))[0]
             for lname, lshape in self._label_shapes:
                 # labels are never fed at inference; their shape follows
@@ -192,8 +235,15 @@ class _ExecutorAdapter:
     def refresh_params(self) -> None:
         """Carry the base executor's parameters into every cached
         executor.  They share the base's arrays, so an in-place update is
-        already seen; this re-links arrays the model replaced since."""
+        already seen; this re-links arrays the model replaced since.
+        Under ``quantize`` the float executor stays the source: its
+        weights are quantized again into the int8 base's arrays first."""
         inputs = set(self.input_names) | {n for n, _ in self._label_shapes}
+        if self._quantize:
+            self._base.copy_params_from(
+                {n: v for n, v in self._quantized_args().items()
+                 if n not in inputs}, dict(self._float_base.aux_dict),
+                allow_extra_params=True)
         with self._lock:
             for ex in self._cache.values():
                 for n, a in self._base.arg_dict.items():
@@ -280,9 +330,12 @@ class _CallableAdapter:
             return len(self._seen)
 
 
-def _make_adapter(model, data_names, amp_dtype=None):
+def _make_adapter(model, data_names, amp_dtype=None, quantize=None,
+                  quantize_calibration=None):
     # duck-typed: Module-likes carry a bound executor and data_names; raw
     # executors arg_dict/forward; Gluon blocks collect_params
+    quant = dict(amp_dtype=amp_dtype, quantize=quantize,
+                 quantize_calibration=quantize_calibration)
     if hasattr(model, "_exec") and hasattr(model, "data_names"):
         if not (getattr(model, "binded", False)
                 and getattr(model, "params_initialized", False)):
@@ -291,10 +344,9 @@ def _make_adapter(model, data_names, amp_dtype=None):
         label_shapes = [(n, tuple(s)) for n, s in (model.label_shapes or [])]
         return _ExecutorAdapter(model._exec,
                                 data_names or model.data_names,
-                                label_shapes, amp_dtype=amp_dtype)
+                                label_shapes, **quant)
     if hasattr(model, "arg_dict") and hasattr(model, "forward"):
-        return _ExecutorAdapter(model, data_names or ["data"],
-                                amp_dtype=amp_dtype)
+        return _ExecutorAdapter(model, data_names or ["data"], **quant)
     if hasattr(model, "collect_params") and callable(model):
         return _BlockAdapter(model)
     if callable(model):
@@ -324,8 +376,10 @@ class InferenceService:
     def __init__(self, model, config: Optional[ServingConfig] = None,
                  data_names: Optional[Sequence[str]] = None):
         self._config = config or ServingConfig()
-        self._adapter = _make_adapter(model, data_names,
-                                      amp_dtype=self._config.amp_dtype)
+        self._adapter = _make_adapter(
+            model, data_names, amp_dtype=self._config.amp_dtype,
+            quantize=self._config.quantize,
+            quantize_calibration=self._config.quantize_calibration)
         self._ctx = _scope_context()
         self._metrics = ServingMetrics()
         self._batcher = MicroBatcher(self._config, self._metrics)

@@ -36,13 +36,20 @@ OP_EXTRA_INPUTS: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {
     "Embedding": (("weight",), ()),
     "RNN": (("parameters", "state", "state_cell"), ()),
     "LeakyReLU": (("gamma",), ()),
+    # the int8 serving twins: act_scale comes from the quantize node,
+    # weight and wscale are the offline-quantized variables
+    "_tpumx_quantized_fc_int8": (("act_scale", "weight", "wscale", "bias"),
+                                 ()),
+    "_tpumx_quantized_conv_int8": (("act_scale", "weight", "wscale",
+                                    "bias"), ()),
 }
 
 
 def _active_extra_inputs(opname: str, attrs: dict
                          ) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
     params, aux = OP_EXTRA_INPUTS.get(opname, ((), ()))
-    if opname in ("FullyConnected", "Convolution", "Deconvolution") \
+    if opname in ("FullyConnected", "Convolution", "Deconvolution",
+                  "_tpumx_quantized_fc_int8", "_tpumx_quantized_conv_int8") \
             and attr_bool(attrs.get("no_bias")):
         params = tuple(p for p in params if p != "bias")
     if opname == "LeakyReLU" and attrs.get("act_type", "leaky") != "prelu":

@@ -34,6 +34,16 @@ def _param_shape_rule(op_name: str, slot: str, attrs: dict,
                       in_shapes: List[Tuple[int, ...]]) -> Tuple[int, ...]:
     """Shape of a learnable/aux input given the data input shapes."""
     data = in_shapes[0]
+    if op_name in ("_tpumx_quantized_fc_int8", "_tpumx_quantized_conv_int8"):
+        # the int8 twins: data_q has the float data's shape, the weight
+        # the float op's rule, wscale and bias one entry an output
+        # channel, act_scale the quantize node's (1,)
+        if slot == "act_scale":
+            return (1,)
+        base = ("FullyConnected" if op_name == "_tpumx_quantized_fc_int8"
+                else "Convolution")
+        return _param_shape_rule(base, "weight" if slot == "weight"
+                                 else "bias", attrs, in_shapes)
     if op_name == "FullyConnected":
         nh = int(attrs["num_hidden"])
         flat = 1

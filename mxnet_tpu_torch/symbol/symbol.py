@@ -511,8 +511,7 @@ def load_json(json_str: str) -> Symbol:
             if spec["op"] not in OP_REGISTRY:
                 raise MXNetError(
                     f"load_json: operator {spec['op']!r} is not ported "
-                    f"(ROADMAP.md, Queue 1; the int8 quantized ops: "
-                    f"item 6)")
+                    f"(ROADMAP.md, Queue 1)")
             op = get_op(spec["op"])
             raw_attrs = spec.get("attrs", spec.get("param", {}))
             attrs = {k: _parse_attr_value(v) for k, v in raw_attrs.items()}

@@ -155,22 +155,28 @@ def test_compressed_reduce_bit_exact():
 
 def test_refusals(monkeypatch):
     # the dist stores are ported (tests/test_torch_kvstore_dist.py): one
-    # worker of its own, on a free port
-    sock = socket.socket()
-    sock.bind(("127.0.0.1", 0))
-    port = sock.getsockname()[1]
-    sock.close()
+    # worker of its own, on a free port.  The port stays reserved (bound
+    # with SO_REUSEADDR, not listening) while the stores run: their server
+    # binds it beside the reservation, and no other process's bind or
+    # outgoing connection can take it between the pick and that bind
+    reserve = socket.socket()
+    reserve.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    reserve.bind(("127.0.0.1", 0))
+    port = reserve.getsockname()[1]
     monkeypatch.setenv("MXTPU_COORDINATOR", f"127.0.0.1:{port}")
     for var in ("MXTPU_PROC_ID", "MXTPU_NUM_PROCS", "MXTPU_NUM_SERVERS"):
         monkeypatch.delenv(var, raising=False)
-    for name in ("dist_sync", "dist_async"):
-        with tmx.cpu():
-            kv = tmx.kvstore.create(name)
-        try:
-            assert kv.type == name and kv.num_workers == 1
-            assert not kv._fused_step_ok()
-        finally:
-            kv.close()
+    try:
+        for name in ("dist_sync", "dist_async"):
+            with tmx.cpu():
+                kv = tmx.kvstore.create(name)
+            try:
+                assert kv.type == name and kv.num_workers == 1
+                assert not kv._fused_step_ok()
+            finally:
+                kv.close()
+    finally:
+        reserve.close()
     with pytest.raises(MXNetError, match="unknown kvstore"):
         tmx.kvstore.create("nonsense")
     # tpu_sync (alias nccl) is the one-process collective store now

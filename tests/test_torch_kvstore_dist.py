@@ -47,18 +47,31 @@ def _torch_threads():
     torch.set_num_threads(old)
 
 
-def _free_port():
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
+def _free_port(n=1):
+    """A port from which ``n`` consecutive ports are free: the server tier
+    binds them all, on every interface, so each is checked by a bind."""
+    while True:
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        held = []
+        try:
+            for p in range(port, port + n):
+                held.append(socket.socket())
+                held[-1].bind(("0.0.0.0", p))
+            return port
+        except OSError:
+            continue
+        finally:
+            for t in held:
+                t.close()
 
 
 def _stores(pkg, monkeypatch, mode, n, extra=None):
     """``n`` stores of one job, made in rank order under the launcher's
     variables (``extra`` too)."""
-    port = _free_port()
+    port = _free_port(int((extra or {}).get("MXTPU_NUM_SERVERS", "1")))
     kvs = []
     for rank in range(n):
         env = {"MXTPU_COORDINATOR": f"127.0.0.1:{port}",

@@ -1,9 +1,13 @@
 """PyTorch port: the optimizers, their update rules and the ``Updater``
 against the JAX package's.
 
-Each ported optimizer (``SGD`` with and without momentum, ``NAG``,
+Each optimizer (``SGD`` with and without momentum, ``NAG``,
 ``Adam``, ``AdaGrad``, ``RMSProp`` plain and centered with
-``clip_weights``, ``Signum`` with and without momentum) runs three updates
+``clip_weights``, ``Signum`` with and without momentum; and, in
+``test_remaining_optimizers_match_jax``, four updates of ``FTML``,
+``LBSGD``, ``DCASGD``, ``SGLD`` (its noise within the sampling tolerance
+rtol 1e-4 / atol 1e-4), ``AdaDelta``, ``Ftrl``, ``Adamax``, ``Nadam`` and
+``Test``, their states loaded back in either package) runs three updates
 of the same weights from the same gradients (numpy, from a seed) in both
 packages, through ``Updater(index, grad, weight)``, with ``rescale_grad``,
 ``clip_gradient``, ``wd`` and per-name ``lr_mult``/``wd_mult`` (one
@@ -46,6 +50,24 @@ CASES = {
     "signum_plain": ("signum", {"momentum": 0.0, "wd_lh": 0.01}),
 }
 LIST_CASES = {"sgd", "sgd_momentum", "nag", "adam", "adagrad"}
+# the rest of the reference's optimizers (``test_remaining_optimizers_*``)
+MORE_CASES = {
+    "ftml": ("ftml", {}),
+    "lbsgd": ("lbsgd", {"momentum": 0.9, "batch_scale": 4,
+                        "warmup_epochs": 1, "updates_per_epoch": 8}),
+    "lbsgd_lars": ("lbsgd", {"momentum": 0.9, "warmup_strategy": "lars"}),
+    "dcasgd": ("dcasgd", {}),
+    "dcasgd_momentum": ("dcasgd", {"momentum": 0.9}),
+    "sgld": ("sgld", {}),
+    "adadelta": ("adadelta", {}),
+    "ftrl": ("ftrl", {}),
+    "adamax": ("adamax", {}),
+    "nadam": ("nadam", {}),
+    "test": ("test", {}),
+}
+# SGLD's noise: the reference's normal draws, within the repo's sampling
+# tolerance (tests/test_torch_random.py)
+SAMPLING_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 @pytest.fixture(autouse=True)
@@ -60,7 +82,7 @@ def _arrays(seed, dtype=np.float32):
 
 
 def _optimizer(mx, case, mp):
-    name, kw = CASES[case]
+    name, kw = CASES[case] if case in CASES else MORE_CASES[case]
     kw = dict({"learning_rate": 0.1}, **kw)
     param_dict = {2: types.SimpleNamespace(lr_mult=2.0, wd_mult=0.5)}
     opt = mx.optimizer.create(name, rescale_grad=0.5, clip_gradient=0.8,
@@ -100,12 +122,12 @@ def _run(mx, case, mp, steps=3, updater=None, weights=None, seed=0):
     return weights, updater
 
 
-def _compare(jw, jupd, tw, tupd):
+def _compare(jw, jupd, tw, tupd, tol=TOL):
     for i in range(len(SHAPES)):
         js, ts = _flat(jupd.states.get(i)), _flat(tupd.states.get(i))
         assert len(js) == len(ts)
         for a, b in zip(js, ts):
-            np.testing.assert_allclose(_np32(b), _np32(a), **TOL)
+            np.testing.assert_allclose(_np32(b), _np32(a), **tol)
         if js and js[0].dtype == np.float32 and jw[i].dtype == np.float16:
             # multi-precision: the master is compared; each package's
             # float16 weight is its own master rounded
@@ -113,7 +135,7 @@ def _compare(jw, jupd, tw, tupd):
                 np.testing.assert_array_equal(
                     w.asnumpy(), m.asnumpy().astype(np.float16))
         else:
-            np.testing.assert_allclose(_np32(tw[i]), _np32(jw[i]), **TOL)
+            np.testing.assert_allclose(_np32(tw[i]), _np32(jw[i]), **tol)
 
 
 @pytest.mark.parametrize("mp", [False, True], ids=["f32", "mp_f16"])
@@ -169,6 +191,62 @@ def test_updater_states_cross_packages(case, direction):
         _compare(dw, dupd, sw, supd)
 
 
+@pytest.mark.parametrize("mp", [False, True], ids=["f32", "mp_f16"])
+@pytest.mark.parametrize("case", sorted(MORE_CASES))
+def test_remaining_optimizers_match_jax(case, mp):
+    """FTML, LBSGD (warm-up and LARS), DCASGD (with and without momentum),
+    SGLD, AdaDelta, Ftrl, Adamax, Nadam and Test: four updates in both
+    packages from one seed of both streams (SGLD's noise), weights and
+    states compared; then the port's states written by ``get_states``
+    load in a fresh updater of either package with the same values."""
+    jmx.random.seed(11)
+    tmx.random.seed(11)
+    jw, jupd = _run(jmx, case, mp, steps=4)
+    tw, tupd = _run(tmx, case, mp, steps=4)
+    _compare(jw, jupd, tw, tupd,
+             tol=SAMPLING_TOL if case == "sgld" else TOL)
+    assert type(tupd.optimizer).__name__ == type(jupd.optimizer).__name__
+    blob = tupd.get_states(dump_optimizer=False)
+    for mx in (jmx, tmx):
+        other = mx.optimizer.get_updater(_optimizer(mx, case, mp))
+        other.set_states(blob)
+        assert sorted(other.states) == sorted(tupd.states)
+        for i in tupd.states:
+            a, b = _flat(other.states[i]), _flat(tupd.states[i])
+            assert len(a) == len(b)
+            for x, y in zip(a, b):
+                np.testing.assert_array_equal(_np32(x), _np32(y))
+
+
+def test_sgld_noise_key_for_key():
+    """SGLD draws its noise with one key of the stream an update, the
+    reference's key: the keys' bits equal, and each update's noise (the
+    weight moved with a zero gradient, lr 1) is the reference's normal
+    draw within the sampling tolerance."""
+    jmx.random.seed(5)
+    tmx.random.seed(5)
+    for _ in range(3):
+        np.testing.assert_array_equal(tmx.random.next_key(),
+                                      np.asarray(jmx.random.next_key()))
+    moved = {}
+    for mx in (jmx, tmx):
+        opt = mx.optimizer.create("sgld", learning_rate=1.0)
+        w = mx.nd.array(np.zeros((64,), np.float32))
+        g = mx.nd.array(np.zeros((64,), np.float32))
+        moved[mx] = []
+        for i in range(3):
+            opt.update(0, w, g, None)
+            moved[mx].append(w.asnumpy().copy())
+    for a, b in zip(moved[jmx], moved[tmx]):
+        np.testing.assert_allclose(b, a, **SAMPLING_TOL)
+    assert not np.allclose(moved[tmx][0], moved[tmx][1])
+    jmx.random.seed(5)
+    tmx.random.seed(5)
+    for _ in range(6):
+        np.testing.assert_array_equal(tmx.random.next_key(),
+                                      np.asarray(jmx.random.next_key()))
+
+
 def test_dump_optimizer_files(tmp_path):
     _, jupd = _run(jmx, "sgd_momentum", False, steps=1)
     with pytest.raises(MXNetError, match="dump_optimizer"):
@@ -184,12 +262,14 @@ def test_dump_optimizer_files(tmp_path):
 
 def test_optimizer_refusals():
     # a scheduler is taken now (its base_lr set from learning_rate, as the
-    # reference's): only optimizers not yet ported are refused
+    # reference's); every reference optimizer is made, an unknown name is
+    # refused
     sched = tmx.lr_scheduler.FactorScheduler(step=1, factor=0.5)
     opt = tmx.optimizer.SGD(learning_rate=0.5, lr_scheduler=sched)
     assert sched.base_lr == 0.5 and opt.learning_rate == 0.5
-    with pytest.raises(MXNetError, match="not ported"):
-        tmx.optimizer.create("ftml")
+    assert isinstance(tmx.optimizer.create("ftml"), tmx.optimizer.FTML)
+    with pytest.raises(MXNetError, match="unknown optimizer"):
+        tmx.optimizer.create("no_such_optimizer")
     opt = tmx.optimizer.create("SGD", learning_rate=0.5)
     assert opt.learning_rate == 0.5
     opt.set_learning_rate(0.25)

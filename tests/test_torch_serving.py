@@ -415,8 +415,8 @@ def test_overlong_request_rejected_at_enqueue():
 
 def test_serving_config_env_defaults_and_refusals(monkeypatch):
     """Every default from its ``TPUMX_SERVING_*`` variable as the
-    reference's; the reference's refusals; ``quantize="int8"`` (or
-    ``TPUMX_QUANT=int8``) refused by name (ROADMAP Queue 1 item 6d)."""
+    reference's; the reference's refusals; ``quantize="int8"`` and
+    ``TPUMX_QUANT=int8`` give the reference's ``quantize``."""
     env = {"TPUMX_SERVING_MAX_BATCH_SIZE": "16",
            "TPUMX_SERVING_BATCH_TIMEOUT_MS": "7.5",
            "TPUMX_SERVING_QUEUE_BOUND": "99",
@@ -440,11 +440,12 @@ def test_serving_config_env_defaults_and_refusals(monkeypatch):
             ServingConfig(**bad)
         with pytest.raises(ValueError):
             jmx.serving.ServingConfig(**bad)
-    with pytest.raises(MXNetError, match="item 6d"):
-        ServingConfig(quantize="int8")
+    assert ServingConfig(quantize="int8").quantize == \
+        jmx.serving.ServingConfig(quantize="int8").quantize == "int8"
     monkeypatch.setenv("TPUMX_QUANT", "int8")
-    with pytest.raises(MXNetError, match="item 6d"):
-        ServingConfig()
+    cfg, ref = ServingConfig(), jmx.serving.ServingConfig()
+    assert cfg.quantize == ref.quantize == "int8"
+    assert repr(cfg) == repr(ref)
 
 
 def test_amp_dtype_serves_the_converted_graph():

@@ -106,11 +106,15 @@ def test_reference_mxnet_json_loads():
     js, ts = jmx.sym.load_json(text), tmx.sym.load_json(text)
     assert ts.tojson() == js.tojson()
     assert ts.infer_shape(data=(2, 5)) == js.infer_shape(data=(2, 5))
-    # a graph with an op the port has not registered is refused by name
+    # a graph with an op the port has not registered is refused by name;
+    # one with the int8 quantized ops loads
+    unported = text.replace('"op": "Activation"', '"op": "ROIPooling"')
+    with pytest.raises(MXNetError, match="ROIPooling"):
+        tmx.sym.load_json(unported)
     quantized = text.replace('"op": "Activation"',
                              '"op": "_tpumx_quantized_fc_int8"')
-    with pytest.raises(MXNetError, match="_tpumx_quantized_fc_int8"):
-        tmx.sym.load_json(quantized)
+    assert tmx.sym.load_json(quantized).tojson() == \
+        jmx.sym.load_json(quantized).tojson()
 
 
 @pytest.mark.parametrize("name", sorted(SYMBOLS))
