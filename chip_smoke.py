@@ -307,6 +307,25 @@ toolkit (``nvcc``) and PyTorch built for CUDA.  Phases, one JSON line each:
               final batch of 8 after 32 (the padded tail's rows equal the
               predict rows).
 
+27. sparse_fit — ``example/sparse/linear_classification.py``'s linear
+              classifier at upstream's Avazu width (1,000,001 features,
+              batch 8192), its data declared ``stype="csr"``, over 16
+              batches of seeded synthetic LibSVM rows (5-19 values a row):
+              ``LibSVMIter``'s rows/s parsing and serving to the card,
+              two epochs of ``Module.fit`` (samples/s, step ms, the peak
+              device bytes it adds under 1 GiB; no dense batch exists),
+              three steps card against CPU, and the example's ``main`` at
+              its defaults reaching the CPU's accuracy; no port kernel.
+28. control_flow — a two-layer LSTM word LM of ``sym.contrib.foreach``
+              cells at rnn_lm's width (vocabulary 33,278, 650/650, bptt
+              35, batch 32): loss and gradients card against CPU, its
+              outputs against the fused ``RNN`` op's with the same weights,
+              step ms beside the ``RNN``-op LM's and rnn_lm's; a foreach
+              body of LayerNorm launching kernel 5 35 times a forward,
+              held against the plain version's loop; a hybridized
+              ``while_loop``/``cond`` block captured on the card against
+              the CPU; the foreach graph saved and loaded, bitwise.
+
 Every ResNet phase also requires that the BatchNorm op copied no
 non-contiguous input (``batch_norm.noncontiguous_copies`` stays 0); no
 port kernel runs on the three sequence and RecordIO paths, so their
@@ -319,7 +338,9 @@ also runs ``serving``, its float baseline — ``resnet_training``,
 ``gluon_hybrid``, ``rnn_lm``, ``bucketing_fit``, ``image_rec``,
 ``serving_spec``, ``serving_fleet``, ``ops_breadth``, ``fcn_fit``,
 ``spmd_lm``, ``dp_mesh``, ``dist_kvstore``, ``model_parallel``,
-``module_parallel``, ``amp``, ``fit_resume``, ``inference_service``, and
+``module_parallel``, ``amp``, ``fit_resume``, ``inference_service``,
+``inference_int8``, ``optimizers``, ``custom_op``, ``sparse_fit``,
+``control_flow``, and
 ``profile``, ``profile_training`` and ``profile_resnet``, which are not in
 the default run: the serving window, or two bf16 LM or ResNet training
 steps, once more under ``torch.profiler``)
@@ -497,6 +518,18 @@ RNN_CHECK = (35, 4, 128, 128, 2)
 BK_VOCAB, BK_HIDDEN, BK_EMBED, BK_LAYERS = 10000, 200, 200, 2
 BK_BUCKETS, BK_BATCH, BK_LR, BK_EPOCHS = (10, 20, 30, 40), 32, 0.01, 2
 BK_SENTENCES = 3200
+# sparse_fit: upstream MXNet's Avazu linear classification width
+# (example/sparse/linear_classification: 1,000,001 features, batch 8192)
+# over SP_BATCHES batches of seeded synthetic LibSVM rows, SGD at the
+# repo's example's lr 0.1, two epochs; the card-vs-CPU check's steps; the
+# device bytes the fit may add at its peak
+SP_FEATURES, SP_BATCH, SP_BATCHES, SP_EPOCHS, SP_LR = \
+    1_000_001, 8192, 16, 2, 0.1
+SP_CHECK_STEPS, SP_PEAK_BYTES = 3, 1 << 30
+# control_flow: timed steps of the foreach LM (and of the RNN-op LM), the
+# LayerNorm body's forwards, and the hybridized while_loop/cond block
+# (batch, width, max_iterations)
+CF_STEPS, CF_LN_FORWARDS, CF_HYB = 5, 3, (8, 16, 6)
 # image_rec: a RAW0 file of 1,280 images stored at 256 x 256, read at
 # train_imagenet's settings (resize 256, 224 x 224 random crops and
 # mirrors, its mean), B=128 on 8 threads; four Module.fit batches of the
@@ -7009,6 +7042,590 @@ def phase_bucketing_fit(dev):
     return res
 
 
+# -- phase 27: sparse_fit ------------------------------------------------------------
+
+def _sp_write_libsvm(path, rows, features, seed):
+    """``example/sparse/linear_classification.py``'s ``synthetic_libsvm``
+    rows at ``features`` columns: 5-19 distinct sorted indices a row,
+    N(0, 1) values written to four decimals, the label the sign of the
+    row against a N(0, 1) rule.  The draws are vectorized, and a row's
+    indices come from ``randint`` with repeats drawn again (``choice``
+    without replacement permutes every column a row)."""
+    rs = np.random.RandomState(seed)
+    w_true = rs.randn(features)
+    nnz = rs.randint(5, 20, size=rows)
+    row = np.repeat(np.arange(rows), nnz)
+    col = rs.randint(0, features, size=row.size)
+    while True:
+        order = np.lexsort((col, row))
+        row, col = row[order], col[order]
+        dup = np.zeros(row.size, bool)
+        dup[1:] = (row[1:] == row[:-1]) & (col[1:] == col[:-1])
+        if not dup.any():
+            break
+        col[dup] = rs.randint(0, features, size=int(dup.sum()))
+    val = rs.randn(row.size)
+    label = np.bincount(row, weights=val * w_true[col],
+                        minlength=rows) > 0
+    starts = np.concatenate([[0], np.cumsum(nnz)])
+    with open(path, "w") as f:
+        for r in range(rows):
+            a, b = starts[r], starts[r + 1]
+            f.write(f"{int(label[r])} " + " ".join(
+                f"{i}:{v:.4f}" for i, v in zip(col[a:b], val[a:b])) + "\n")
+    return int(row.size)
+
+
+def _sp_linear_model(mx, features):
+    """The example's ``linear_model`` (two classes, SoftmaxOutput, a
+    ``row_sparse`` weight declared (features, 2)) with its data declared
+    ``stype="csr"``, as upstream's model declares it."""
+    data = mx.sym.Variable("data", stype="csr")
+    label = mx.sym.Variable("softmax_label")
+    weight = mx.sym.Variable("weight", stype="row_sparse",
+                             shape=(features, 2))
+    bias = mx.sym.Variable("bias", shape=(2,))
+    pred = mx.sym.broadcast_add(mx.sym.dot(data, weight), bias)
+    return mx.sym.SoftmaxOutput(data=pred, label=label, name="softmax")
+
+
+def _sp_fit(mx, ctx, path, init, batches=None, epochs=1, callback=None):
+    """``Module.fit`` of the linear model over ``LibSVMIter`` on ``ctx``
+    from the numpy ``init`` (SGD lr SP_LR, accuracy); the Module and its
+    train accuracy after the fit (``score``)."""
+    with ctx:
+        it = mx.io.LibSVMIter(data_libsvm=path, data_shape=(SP_FEATURES,),
+                              batch_size=SP_BATCH, label_name="softmax_label")
+        feed = it if batches is None else mx.io.ResizeIter(it, batches)
+        mod = mx.mod.Module(_sp_linear_model(mx, SP_FEATURES),
+                            label_names=["softmax_label"], context=ctx)
+        mod.fit(feed, num_epoch=epochs, optimizer="sgd",
+                optimizer_params={"learning_rate": SP_LR},
+                arg_params={k: mx.nd.array(v) for k, v in init.items()},
+                initializer=mx.init.Zero(), eval_metric="accuracy",
+                batch_end_callback=callback)
+        metric = mx.metric.Accuracy()
+        feed.reset()
+        mod.score(feed, metric)
+    return mod, metric.get()[1]
+
+
+def _sp_example_main(mx, ctx):
+    """The repo's ``example/sparse/linear_classification.py`` ``main`` at
+    its defaults (100 features, batch 64, five epochs, SGD lr 0.1) on
+    ``ctx``: its final train accuracy.  Its ``Normal(0.01)`` draws from one
+    seeded CPU generator, so the card and the CPU start alike."""
+    import argparse
+    import types
+
+    import torch
+
+    ns = _example_ns(os.path.join("example", "sparse",
+                                  "linear_classification.py"))
+
+    class SeededNormal(mx.init.Normal):
+        def __call__(self, desc, arr, generator=None):
+            return super().__call__(desc, arr, torch.Generator().manual_seed(
+                SEED))
+
+    ns["mx"] = types.SimpleNamespace(**{k: getattr(mx, k) for k in dir(mx)
+                                        if not k.startswith("__")})
+    ns["mx"].init = types.SimpleNamespace(
+        **{k: getattr(mx.init, k) for k in dir(mx.init)
+           if not k.startswith("__")})
+    ns["mx"].init.Normal = SeededNormal
+    args = argparse.Namespace(data=None, num_features=100, batch_size=64,
+                              epochs=5, lr=0.1, optimizer="sgd")
+    with ctx:
+        return float(ns["main"](args))
+
+
+def phase_sparse_fit(dev):
+    """Path A (sparse storage): the example's linear classifier at the
+    Avazu width (SP_FEATURES columns, batch SP_BATCH) with its data
+    declared csr, over SP_BATCHES x SP_BATCH seeded synthetic LibSVM rows:
+    ``LibSVMIter`` alone (rows/s parsing and serving batches to the card),
+    then SP_EPOCHS epochs of ``Module.fit`` on the card (the fused step;
+    the batch's data, indices and indptr on the card, no dense buffer):
+    samples/s and step ms (median, a sync in the batch-end callback), the
+    peak device bytes the fit added (under SP_PEAK_BYTES; a dense batch
+    would be 32.8 GB).  Checks: SP_CHECK_STEPS fitted steps card against
+    CPU from the same weights (rtol 1e-5 with an absolute floor of 1e-5 x
+    the largest CPU magnitude: the card's ``index_add_`` sums in no fixed
+    order), no port kernel launched, and the repo's example ``main`` at
+    its defaults reaching the CPU's final accuracy on the card."""
+    import gc
+
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ndarray.sparse import CSRNDArray
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise SystemExit("TF32 is on: the f32 comparison needs full f32")
+    out_dir = os.path.join("build", "sparse_fit")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "avazu_width.libsvm")
+    rows = SP_BATCH * SP_BATCHES
+    t0 = time.perf_counter()
+    nnz = _sp_write_libsvm(path, rows, SP_FEATURES, SEED + 80)
+    write_s = time.perf_counter() - t0
+    bad = []
+    # the iterator alone: parse, then one epoch of batches on the card
+    with mx.gpu(0):
+        t0 = time.perf_counter()
+        it = mx.io.LibSVMIter(data_libsvm=path, data_shape=(SP_FEATURES,),
+                              batch_size=SP_BATCH,
+                              label_name="softmax_label")
+        parse_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        served = 0
+        for b in it:
+            served += b.data[0].shape[0] - b.pad
+            on_card = b.data[0].data_.is_cuda and b.label[0]._data.is_cuda
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        del it, b
+    if served != rows or not on_card:
+        bad.append(f"LibSVMIter served {served} rows (on the card: "
+                   f"{on_card}), expected {rows}")
+    rs = np.random.RandomState(SEED + 81)
+    init = {"weight": (rs.randn(SP_FEATURES, 2) * 0.01).astype(np.float32),
+            "bias": np.zeros(2, np.float32)}
+    # the main path on the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    marks = []
+
+    def timing(param):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mod, acc = _sp_fit(mx, mx.gpu(0), path, init, epochs=SP_EPOCHS,
+                       callback=timing)
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = [(b - a) * 1e3 for a, b in zip([t0] + marks, marks)]
+    steady = float(np.median(ms[2:]))
+    data_arg = mod._exec.arg_dict["data"]
+    fused = mod._fused_step_count
+    moved = float(np.abs(mod.get_params()[0]["weight"].asnumpy()
+                         - init["weight"]).max())
+    del mod
+    # card against CPU over the first steps
+    fitted = {}
+    for name, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+        m, _ = _sp_fit(mx, ctx, path, init, batches=SP_CHECK_STEPS)
+        fitted[name] = {k: v.asnumpy() for k, v in
+                        m.get_params()[0].items()}
+        del m
+    excess, err = -np.inf, 0.0
+    for k, cpu in fitted["cpu"].items():
+        d = np.abs(fitted["card"][k] - cpu)
+        floor = 1e-5 * float(np.abs(cpu).max())
+        excess = max(excess, float((d - floor - 1e-5 * np.abs(cpu)).max()))
+        err = max(err, float(d.max()))
+    example = {name: _sp_example_main(mx, ctx) for name, ctx in
+               (("card", mx.gpu(0)), ("cpu", mx.cpu()))}
+    res = {"phase": "sparse_fit",
+           "config": {"model": "example/sparse/linear_classification.py "
+                      "linear_model, data stype=csr",
+                      "features": SP_FEATURES, "batch": SP_BATCH,
+                      "rows": rows, "nnz": nnz, "epochs": SP_EPOCHS,
+                      "lr": SP_LR, "dense_batch_bytes":
+                      SP_BATCH * SP_FEATURES * 4},
+           "write_file_s": write_s,
+           "libsvm_iter": {"parse_s": parse_s,
+                           "parse_rows_per_s": rows / parse_s,
+                           "serve_s": serve_s,
+                           "serve_rows_per_s": rows / serve_s},
+           "fit": {"step_ms": ms, "steady_step_ms": steady,
+                   "samples_per_s": SP_BATCH / (steady / 1e3),
+                   "fused_steps": fused, "train_accuracy": acc,
+                   "weight_moved": moved,
+                   "data_arg": type(data_arg).__name__,
+                   "peak_bytes_added": peak},
+           "card_vs_cpu": {"steps": SP_CHECK_STEPS, "max_abs_err": err,
+                           "excess_over_tol": excess},
+           "example_main_accuracy": example, "launches": launches}
+    emit(res)
+    if not isinstance(data_arg, CSRNDArray) or fused != \
+            SP_BATCHES * SP_EPOCHS:
+        bad.append(f"the fit's data argument {type(data_arg).__name__}, "
+                   f"fused steps {fused}")
+    if peak >= SP_PEAK_BYTES:
+        bad.append(f"the fit added {peak} device bytes at its peak, over "
+                   f"{SP_PEAK_BYTES}")
+    if not np.isfinite(acc) or moved == 0:
+        bad.append(f"fit: accuracy {acc}, weight moved {moved}")
+    if excess > 0:
+        bad.append(f"card against CPU after {SP_CHECK_STEPS} steps: "
+                   f"{res['card_vs_cpu']}")
+    if abs(example["card"] - example["cpu"]) > 1e-3:
+        bad.append(f"example main: card accuracy {example['card']}, CPU "
+                   f"{example['cpu']}")
+    if any(launches.values()):
+        bad.append(f"launches {launches}, expected none")
+    if bad:
+        raise SystemExit("sparse_fit phase failed: " + "; ".join(bad))
+    return res
+
+
+# -- phase 28: control_flow ----------------------------------------------------------
+
+def _cf_lm(mx, fused=False):
+    """A two-layer LSTM word LM at rnn_lm's width over (bptt, batch)
+    tokens (TNC): an Embedding, each layer a ``sym.contrib.foreach`` over
+    an LSTM cell (gates i, f, g, o; no forget bias, as the ``RNN`` op), or
+    with ``fused`` the ``RNN`` op; a FullyConnected decoder and
+    SoftmaxOutput.  Every weight and begin state is declared.  Returns
+    (the loss symbol, the top layer's outputs)."""
+    sym = mx.sym
+    T, N, V, H, L = LM_BPTT, LM_BATCH, LM_VOCAB, LM_WIDTH, LM_LAYERS
+    with mx.name.NameManager():
+        data = sym.Variable("data", shape=(T, N))
+        label = sym.Variable("softmax_label", shape=(T, N))
+        x = sym.Embedding(data, weight=sym.Variable("embed_weight",
+                                                    shape=(V, H)),
+                          input_dim=V, output_dim=H, name="embed")
+        if fused:
+            from mxnet_tpu_torch.ops.rnn import rnn_param_size
+
+            P = rnn_param_size("lstm", L, H, H)
+            x = sym.RNN(x, parameters=sym.Variable("rnn_params", shape=(P,)),
+                        state=sym.Variable("rnn_h0", shape=(L, N, H)),
+                        state_cell=sym.Variable("rnn_c0", shape=(L, N, H)),
+                        state_size=H, num_layers=L, mode="lstm", name="rnn")
+        else:
+            for layer in range(L):
+                w = {k: sym.Variable(f"l{layer}_{k}", shape=s) for k, s in (
+                    ("i2h_weight", (4 * H, H)), ("i2h_bias", (4 * H,)),
+                    ("h2h_weight", (4 * H, H)), ("h2h_bias", (4 * H,)))}
+
+                def cell(x_t, states, w=w, layer=layer):
+                    h, c = states
+                    gates = sym.FullyConnected(
+                        x_t, weight=w["i2h_weight"], bias=w["i2h_bias"],
+                        num_hidden=4 * H, name=f"l{layer}_i2h") + \
+                        sym.FullyConnected(
+                            h, weight=w["h2h_weight"], bias=w["h2h_bias"],
+                            num_hidden=4 * H, name=f"l{layer}_h2h")
+                    i, f, g, o = sym.SliceChannel(gates, num_outputs=4,
+                                                  axis=1,
+                                                  name=f"l{layer}_gates")
+                    c = sym.sigmoid(f) * c + sym.sigmoid(i) * sym.tanh(g)
+                    h = sym.sigmoid(o) * sym.tanh(c)
+                    return h, [h, c]
+
+                x, _ = sym.contrib.foreach(
+                    cell, x, [sym.Variable(f"l{layer}_h0", shape=(N, H)),
+                              sym.Variable(f"l{layer}_c0", shape=(N, H))],
+                    name=f"lstm{layer}")
+        pred = sym.FullyConnected(
+            sym.Reshape(x, shape=(-1, H)),
+            weight=sym.Variable("pred_weight", shape=(V, H)),
+            bias=sym.Variable("pred_bias", shape=(V,)), num_hidden=V,
+            name="pred")
+        loss = sym.SoftmaxOutput(pred, sym.Reshape(label, shape=(-1,)),
+                                 name="softmax")
+    return loss, x
+
+
+def _cf_values(mx):
+    """Seeded numpy arguments of both LMs: the fused ``RNN`` op's blob, and
+    the same weights cut into the foreach cells' variables
+    (``ops.rnn._unpack_params``)."""
+    import torch
+
+    from mxnet_tpu_torch.ops.rnn import _unpack_params, rnn_param_size
+
+    T, N, V, H, L = LM_BPTT, LM_BATCH, LM_VOCAB, LM_WIDTH, LM_LAYERS
+    rs = np.random.RandomState(SEED + 90)
+    blob = rs.uniform(-0.08, 0.08, rnn_param_size("lstm", L, H, H)).astype(
+        np.float32)
+    common = {"data": rs.randint(0, V, (T, N)).astype(np.float32),
+              "softmax_label": rs.randint(0, V, (T, N)).astype(np.float32),
+              "embed_weight": (rs.randn(V, H) * 0.1).astype(np.float32),
+              "pred_weight": (rs.randn(V, H) * 0.05).astype(np.float32),
+              "pred_bias": np.zeros(V, np.float32)}
+    Ws, Bs = _unpack_params(torch.from_numpy(blob), "lstm", L, H, H, False)
+    cells = dict(common)
+    for layer, ((wx, wh), (bx, bh)) in enumerate(zip(Ws, Bs)):
+        cells.update({f"l{layer}_i2h_weight": wx.numpy().copy(),
+                      f"l{layer}_h2h_weight": wh.numpy().copy(),
+                      f"l{layer}_i2h_bias": bx.numpy().copy(),
+                      f"l{layer}_h2h_bias": bh.numpy().copy(),
+                      f"l{layer}_h0": np.zeros((N, H), np.float32),
+                      f"l{layer}_c0": np.zeros((N, H), np.float32)})
+    fused = dict(common, rnn_params=blob,
+                 rnn_h0=np.zeros((L, N, H), np.float32),
+                 rnn_c0=np.zeros((L, N, H), np.float32))
+    return cells, fused
+
+
+_CF_FIXED = ("data", "softmax_label")
+
+
+def _cf_bind(mx, net, vals, ctx, train=True):
+    req = {n: ("write" if train and n not in _CF_FIXED
+               and not n.endswith(("_h0", "_c0")) else "null")
+           for n in net.list_arguments()}
+    ex = net.simple_bind(ctx=ctx, grad_req=req)
+    for n, v in vals.items():
+        if n in ex.arg_dict:
+            ex.arg_dict[n][:] = v
+    return ex
+
+
+def _cf_step(ex):
+    ex.forward(is_train=True)
+    ex.backward()
+
+
+def _cf_step_ms(ex, n):
+    import torch
+
+    ms = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _cf_step(ex)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def _cf_ln_symbol(mx):
+    """A ``foreach`` over (bptt, batch, width) whose body applies LayerNorm
+    to the step's input plus the state: one LayerNorm a step."""
+    sym = mx.sym
+    H = LM_WIDTH
+    with mx.name.NameManager():
+        gamma = sym.Variable("ln_gamma", shape=(H,))
+        beta = sym.Variable("ln_beta", shape=(H,))
+        outs, _ = sym.contrib.foreach(
+            lambda x_t, st: (lambda h: (h, [h]))(sym.LayerNorm(
+                x_t + st[0], gamma=gamma, beta=beta, name="ln")),
+            sym.Variable("data", shape=(LM_BPTT, LM_BATCH, H)),
+            [sym.Variable("h0", shape=(LM_BATCH, H))], name="ln_scan")
+    return outs
+
+
+def _cf_hybrid_block(mx):
+    """A hybridized block whose forward runs ``F.contrib.while_loop`` (at
+    most CF_HYB[2] masked steps, stopping after three) and
+    ``F.contrib.cond`` on the card."""
+    B, W, K = CF_HYB
+
+    class Net(mx.gluon.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            with self.name_scope():
+                self.inp = mx.gluon.nn.Dense(W, in_units=W, flatten=False)
+                self.step = mx.gluon.nn.Dense(W, in_units=W, flatten=False)
+
+        def hybrid_forward(self, F, x, n0):
+            outs, lv = F.contrib.while_loop(
+                lambda a, n: n < 3.0,
+                lambda a, n: ([F.tanh(self.step(a))],
+                              [F.tanh(self.step(a)), n + 1.0]),
+                [self.inp(x), n0], max_iterations=K)
+            picked = F.contrib.cond(F.sum(lv[0]) > 0.0,
+                                    lambda: lv[0] * 2.0,
+                                    lambda: lv[0] - 1.0)
+            return outs[0], picked, lv[1]
+
+    return Net()
+
+
+def _cf_hybrid(mx):
+    """The while_loop/cond block on the card (three calls: captured and
+    replayed) against the same block on the CPU; the captures it holds and
+    the change in ``cached_op.UNCAPTURED``."""
+    import torch
+
+    from mxnet_tpu_torch.gluon import cached_op
+
+    B, W, K = CF_HYB
+    rs = np.random.RandomState(SEED + 91)
+    x = rs.randn(B, W).astype(np.float32)
+    vals = [(rs.randn(W, W) * 0.5).astype(np.float32),
+            (rs.randn(W) * 0.1).astype(np.float32)] * 2
+    outs = {}
+    before = dict(cached_op.UNCAPTURED)
+    captures = 0
+    for name, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+        net = _cf_hybrid_block(mx)
+        net.initialize(ctx=ctx)
+        for p, v in zip(net.collect_params().values(), vals):
+            p.set_data(mx.nd.array(v, ctx=ctx))
+        net.hybridize()
+        for _ in range(3):
+            got = net(mx.nd.array(x, ctx=ctx), mx.nd.zeros((1,), ctx=ctx))
+        outs[name] = [g._data.cpu() for g in got]
+        if name == "card":
+            captures = sum(len(c) for prog in net._cached_ops.values()
+                           for c in prog._captures.values())
+    unc = {k: cached_op.UNCAPTURED[k] - before[k] for k in before}
+    err = max(float((a - b).abs().max())
+              for a, b in zip(outs["card"], outs["cpu"]))
+    ok = all(_close(a, b, "float32")[0]
+             for a, b in zip(outs["card"], outs["cpu"]))
+    steps = float(outs["card"][2].reshape(-1)[0])
+    return {"batch": B, "width": W, "max_iterations": K, "loop_steps": steps,
+            "max_abs_err": err, "captures": captures, "uncaptured": unc}, \
+        ([] if ok and captures > 0 and not any(unc.values()) and steps == 3
+         else [f"hybridized while_loop/cond: card vs CPU {err} (within TOL: "
+               f"{ok}), captures {captures}, uncaptured {unc}, loop steps "
+               f"{steps}"])
+
+
+def phase_control_flow(dev, rnn_lm=None):
+    """Path B (control flow): a two-layer LSTM word LM of
+    ``sym.contrib.foreach`` cells at rnn_lm's width (LM_*), its weights
+    declared, through the executor on the card.  Checks: (a) one training
+    forward + backward, loss and every gradient card against CPU
+    (normwise 1e-4, the loss 1e-5); (b) its top-layer outputs and loss
+    against the fused ``RNN`` op's given the same weights (TOL float32);
+    (c) a ``foreach`` body of LayerNorm over the 650-wide state launches
+    kernel 5 LM_BPTT times a forward, and its outputs match the plain
+    version's loop on the card (TOL float32); (d) a hybridized block's
+    ``while_loop`` and ``cond`` on the card against the CPU, captured as
+    CUDA graphs (``cached_op.UNCAPTURED`` unchanged); (e) the foreach LM
+    saved and loaded (``sym.save``/``sym.load``) gives the same JSON and
+    bitwise the same outputs.  Numbers: step ms of the foreach LM and of
+    the ``RNN``-op LM (forward + backward through the executor, median
+    of CF_STEPS after one), beside rnn_lm's Gluon step where it ran."""
+    import gc
+
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops.layer_norm import layer_norm_reference
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise SystemExit("TF32 is on: the f32 comparison needs full f32")
+    gc.collect()
+    bad = []
+    net, top = _cf_lm(mx)
+    fused_net, fused_top = _cf_lm(mx, fused=True)
+    cells, fused_vals = _cf_values(mx)
+    # the main path: timed foreach LM steps and LayerNorm-body forwards
+    ex = _cf_bind(mx, net, cells, mx.gpu(0))
+    _cf_step(ex)
+    ln_net = _cf_ln_symbol(mx)
+    rs = np.random.RandomState(SEED + 92)
+    ln_vals = {"data": rs.randn(LM_BPTT, LM_BATCH, LM_WIDTH).astype(
+        np.float32), "h0": np.zeros((LM_BATCH, LM_WIDTH), np.float32),
+        "ln_gamma": (1 + 0.1 * rs.randn(LM_WIDTH)).astype(np.float32),
+        "ln_beta": (0.1 * rs.randn(LM_WIDTH)).astype(np.float32)}
+    ln_ex = _cf_bind(mx, ln_net, ln_vals, mx.gpu(0), train=False)
+    torch.cuda.synchronize()
+    _reset_launches()
+    ms = _cf_step_ms(ex, CF_STEPS)
+    for _ in range(CF_LN_FORWARDS):
+        ln_out = ln_ex.forward(is_train=False)[0]._data.clone()
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    # (c) the LayerNorm body against the plain version's loop
+    with torch.no_grad():
+        h = torch.from_numpy(ln_vals["h0"]).to(ln_out.device)
+        g, b = (torch.from_numpy(ln_vals[k]).to(ln_out.device)
+                for k in ("ln_gamma", "ln_beta"))
+        x = torch.from_numpy(ln_vals["data"]).to(ln_out.device)
+        plain = []
+        for t in range(LM_BPTT):
+            h = layer_norm_reference(x[t] + h, g, b, 1e-5)
+            plain.append(h)
+        plain = torch.stack(plain)
+    ln_ok, ln_err, _ = _close(ln_out, plain, "float32")
+    # (a) card against CPU
+    card = (_ce(ex.outputs[0], mx.nd.array(cells["softmax_label"].reshape(
+        -1))), {n: g._data.float().cpu() for n, g in ex.grad_dict.items()})
+    cpu_ex = _cf_bind(mx, net, cells, mx.cpu())
+    _cf_step(cpu_ex)
+    cpu = (_ce(cpu_ex.outputs[0], mx.nd.array(
+        cells["softmax_label"].reshape(-1), ctx=mx.cpu())),
+        {n: g._data.float() for n, g in cpu_ex.grad_dict.items()})
+    del cpu_ex
+    grad_err = {n: _rel(card[1][n], cpu[1][n]) for n in cpu[1]}
+    loss_err = abs(card[0] - cpu[0]) / abs(cpu[0])
+    if loss_err > 1e-5 or max(grad_err.values()) > 1e-4:
+        bad.append(f"foreach LM card vs CPU: loss {card[0]} / {cpu[0]}, "
+                   f"gradients {grad_err}")
+    # (b) against the fused RNN op, and its step time
+    fused_ex = _cf_bind(mx, fused_net, fused_vals, mx.gpu(0))
+    fused_ms = _cf_step_ms(fused_ex, CF_STEPS + 1)[1:]
+    fused_loss = _ce(fused_ex.outputs[0], mx.nd.array(
+        cells["softmax_label"].reshape(-1)))
+    del fused_ex
+    tops = [_bound_outputs(s, {k: v for k, v in vals.items()
+                               if k in s.list_arguments()}, dev)[0]
+            for s, vals in ((top, cells), (fused_top, fused_vals))]
+    top_ok, top_err, _ = _close(torch.from_numpy(tops[0]),
+                                torch.from_numpy(tops[1]), "float32")
+    fused_loss_err = abs(card[0] - fused_loss) / abs(fused_loss)
+    if not top_ok or fused_loss_err > 1e-5:
+        bad.append(f"foreach LSTM vs the RNN op: outputs {top_err}, loss "
+                   f"{card[0]} / {fused_loss}")
+    # (e) saved and loaded
+    path = os.path.join("build", "control_flow", "foreach_lm-symbol.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    net.save(path)
+    loaded = mx.sym.load(path)
+    lex = _cf_bind(mx, loaded, cells, mx.gpu(0), train=False)
+    same_json = loaded.tojson() == net.tojson()
+    a = ex.forward(is_train=False)[0]._data
+    bitwise = bool(torch.equal(a, lex.forward(is_train=False)[0]._data))
+    del lex
+    if not (same_json and bitwise):
+        bad.append(f"saved and loaded foreach LM: same JSON {same_json}, "
+                   f"bitwise outputs {bitwise}")
+    del ex
+    gc.collect()
+    torch.cuda.empty_cache()
+    hyb, hyb_bad = _cf_hybrid(mx)
+    bad += hyb_bad
+    want_ln = LM_BPTT * CF_LN_FORWARDS
+    res = {"phase": "control_flow",
+           "config": {"vocab": LM_VOCAB, "width": LM_WIDTH,
+                      "layers": LM_LAYERS, "bptt": LM_BPTT,
+                      "batch": LM_BATCH, "cells": "sym.contrib.foreach"},
+           "foreach_step_ms": ms, "foreach_steady_ms":
+           float(np.median(ms[1:])), "rnn_op_step_ms": fused_ms,
+           "rnn_op_steady_ms": float(np.median(fused_ms)),
+           "rnn_lm_gluon_steady_ms": (rnn_lm or {}).get("steady_step_ms"),
+           "card_vs_cpu": {"loss": [card[0], cpu[0]],
+                           "grad_rel_err": grad_err},
+           "vs_rnn_op": {"top_max_abs_err": top_err,
+                         "loss": [card[0], fused_loss]},
+           "layer_norm_body": {"forwards": CF_LN_FORWARDS,
+                               "launches": launches["layer_norm"],
+                               "per_forward": launches["layer_norm"]
+                               / CF_LN_FORWARDS, "max_abs_err": ln_err},
+           "saved_loaded": {"same_json": same_json, "bitwise": bitwise},
+           "hybridized": hyb, "launches": launches}
+    emit(res)
+    if launches["layer_norm"] != want_ln or not ln_ok:
+        bad.append(f"LayerNorm body: {launches['layer_norm']} launches, "
+                   f"expected {want_ln}; against the plain loop {ln_err}")
+    others = {k: v for k, v in launches.items() if k != "layer_norm" and v}
+    if others:
+        bad.append(f"other kernels launched: {others}")
+    if bad:
+        raise SystemExit("control_flow phase failed: " + "; ".join(bad))
+    return res
+
+
 # -- phase 16: image_rec -------------------------------------------------------------
 
 def _write_rec(path):
@@ -9670,7 +10287,8 @@ def main(argv) -> int:
         "bucketing_fit", "image_rec", "serving_spec", "serving_fleet",
         "ops_breadth", "fcn_fit", "spmd_lm", "dp_mesh", "dist_kvstore",
         "model_parallel", "module_parallel", "amp", "fit_resume",
-        "inference_service", "inference_int8", "optimizers", "custom_op"}
+        "inference_service", "inference_int8", "optimizers", "custom_op",
+        "sparse_fit", "control_flow"}
     if "serving_int8" in phases:
         phases.add("serving")   # its float baseline
     t_start = time.perf_counter()
@@ -9736,6 +10354,10 @@ def main(argv) -> int:
         runs["rnn_lm"] = phase_rnn_lm(dev)
     if "bucketing_fit" in phases:
         runs["bucketing_fit"] = phase_bucketing_fit(dev)
+    if "sparse_fit" in phases:
+        runs["sparse_fit"] = phase_sparse_fit(dev)
+    if "control_flow" in phases:
+        runs["control_flow"] = phase_control_flow(dev, runs.get("rnn_lm"))
     if "image_rec" in phases:
         runs["image_rec"] = phase_image_rec(dev, runs.get("module_fit"))
     if "ops_breadth" in phases:

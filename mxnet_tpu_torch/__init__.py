@@ -34,7 +34,10 @@ telemetry and the micro-batching ``serving.InferenceService``; int8
 quantization (``quantization``: calibration, graph conversion, int8
 serving; ``contrib.quantization``, the reference's QuantizeGraph pass),
 every optimizer of the reference, and user ops in Python
-(``operator``: ``nd.Custom``/``sym.Custom``).  Entry points run on ``cuda`` (``mx.gpu()``, the default
+(``operator``: ``nd.Custom``/``sym.Custom``); sparse storage
+(``nd.sparse`` row-sparse and csr arrays, ``io.LibSVMIter``, csr
+arguments of the executor, the row-sparse kvstore) and control flow
+(``sym.contrib``/``nd.contrib`` ``foreach``, ``while_loop``, ``cond``).  Entry points run on ``cuda`` (``mx.gpu()``, the default
 context) unless the caller passes the CPU (``ctx=mx.cpu()``,
 ``context=mx.cpu()`` or ``device="cpu"``).
 """

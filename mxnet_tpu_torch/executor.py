@@ -82,6 +82,14 @@ scalars from the summed gradients and the updated parameters, and kept
 Checkpoints: ``snapshot_arrays`` clones the bound arguments and aux
 states on the current stream (the step updates its buffers in place),
 whole where the mesh stores blocks.
+
+Sparse input: an argument bound as a ``CSRNDArray`` (``stype="csr"``
+declared on its variable, or ``simple_bind(stype_dict=)``) holds no dense
+buffer.  A feed (``forward``, ``fused_step``) moves the batch's ``data``,
+``indices`` and ``indptr`` onto the argument's device, and the graph sees
+an ``ops.spatial.CsrTensor``, which ``dot`` takes as its left operand.
+Such an argument takes no gradient (its ``grad_req`` must be ``null``)
+and is no batch argument of a mesh (``set_spmd`` refuses it by name).
 """
 from __future__ import annotations
 
@@ -93,9 +101,20 @@ from . import random as _random
 from .base import MXNetError
 from .context import Context, resolve_device
 from .ndarray.ndarray import NDArray
+from .ndarray.sparse import CSRNDArray
 from .symbol.graph import release_plan, topo_order, trace
 
-__all__ = ["Executor"]
+__all__ = ["Executor", "check_csr_grad_req"]
+
+
+def check_csr_grad_req(stypes: Dict[str, str], req: Dict[str, str]) -> None:
+    """A csr argument takes no gradient: raise for a non-null request."""
+    for n in stypes:
+        if req.get(n, "null") != "null":
+            raise MXNetError(
+                f"argument {n!r} is bound with storage type csr and takes "
+                f"no gradient: its grad_req must be 'null', got "
+                f"{req[n]!r}")
 
 
 def _ones_cotangent(x: torch.Tensor) -> torch.Tensor:
@@ -145,6 +164,10 @@ class Executor:
         self._forwarded = False
         self._last_rng = None
         self._monitor_callback = None
+        self._csr_args = frozenset(n for n, a in args.items()
+                                   if isinstance(a, CSRNDArray))
+        check_csr_grad_req(dict.fromkeys(self._csr_args, "csr"),
+                           self.grad_req)
         self._grad_arg_names = sorted(
             n for n in self._arg_names if self.grad_req.get(n, "null") != "null"
             and n in self.grad_dict)
@@ -229,6 +252,10 @@ class Executor:
         for n in batch_args:
             if n not in self.arg_dict:
                 raise MXNetError(f"set_spmd: unknown batch argument {n!r}")
+            if n in self._csr_args:
+                raise MXNetError(
+                    f"set_spmd: batch argument {n!r} is bound with storage "
+                    f"type csr; the mesh step cuts dense batches only")
             shape = self.arg_dict[n].shape
             if not shape:
                 raise MXNetError(f"set_spmd: batch argument {n!r} is scalar")
@@ -446,7 +473,7 @@ class Executor:
         with torch.no_grad():
             args = {n: self.spmd_whole(n, self.arg_dict[n]._data).clone()
                     for n in self._arg_names
-                    if n in self.arg_dict
+                    if n in self.arg_dict and n not in self._csr_args
                     and self.arg_dict[n]._data is not None}
             aux = {}
             if include_aux:
@@ -461,10 +488,31 @@ class Executor:
         for k, v in (feed or {}).items():
             if k not in self.arg_dict:
                 raise MXNetError(f"forward: unknown argument {k!r}")
+            if k in self._csr_args:
+                self._feed_csr(self.arg_dict[k], v)
+                continue
             t = _as_tensor(v, self.arg_dict[k]._data)
             if self._spmd_mesh is not None and k in self._spmd_batch_args:
                 t = self._spmd_batch_whole(k, t)
             self.arg_dict[k]._data = t
+
+    @staticmethod
+    def _feed_csr(dst: CSRNDArray, v) -> None:
+        """A batch into a csr argument: its arrays onto the argument's
+        device (a dense batch is compressed first)."""
+        if not isinstance(v, CSRNDArray):
+            from .ndarray import sparse as _sparse
+
+            v = _sparse.cast_storage(
+                v if isinstance(v, NDArray) else NDArray(torch.as_tensor(v)),
+                "csr")
+        if tuple(v.shape) != tuple(dst.shape):
+            raise MXNetError(f"forward: csr batch of shape {v.shape} for an "
+                             f"argument bound as {dst.shape}")
+        dev = dst.data_.device
+        dst.data_ = v.data_.to(dev, dst.data_.dtype)
+        dst.indices_ = v.indices_.to(dev)
+        dst.indptr_ = v.indptr_.to(dev)
 
     def _spmd_batch_whole(self, name, t):
         """A batch argument fed as this rank's block (``shard_data_batch``)
@@ -481,7 +529,8 @@ class Executor:
     def _env(self):
         """Variable name -> tensor; parameters stored as blocks gathered
         whole."""
-        env = {n: self.spmd_whole(n, self.arg_dict[n]._data)
+        env = {n: self.arg_dict[n].csr_tensor() if n in self._csr_args
+               else self.spmd_whole(n, self.arg_dict[n]._data)
                for n in self._arg_names}
         env.update((n, self.aux_dict[n]._data) for n in self._aux_names)
         return env

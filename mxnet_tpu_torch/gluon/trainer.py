@@ -116,6 +116,14 @@ class Trainer:
     def set_learning_rate(self, lr):
         self._optimizer.set_learning_rate(lr)
 
+    def _row_sparse_pull(self, parameter, out, row_id, full_idx=False):
+        """Pull the rows ``row_id`` of ``parameter`` from the kvstore into
+        ``out`` (reference: ``Trainer._row_sparse_pull``)."""
+        self._check_init()
+        if self._kvstore is not None:
+            self._kvstore.row_sparse_pull(self._param2idx[parameter.name],
+                                          out=out, row_ids=row_id)
+
     def step(self, batch_size, ignore_stale_grad=False):
         """Rescale by ``1 / batch_size``, reduce through the kvstore and
         update (reference: trainer.py step)."""
@@ -144,7 +152,7 @@ class Trainer:
         keys = [i for i, _ in live]
         grads = [p.list_grad() for _, p in live]
         self._kvstore.push(keys, grads)
-        self._kvstore.pull(keys, grads)
+        self._kvstore.pull(keys, grads, ignore_sparse=False)
 
     def update(self, batch_size, ignore_stale_grad=False):
         self._check_init()

@@ -17,6 +17,10 @@ default RecordIO image route: decode, resize, crop and mirror on host
 worker threads into uint8 NHWC batches, normalized and transposed on the
 device; ``RecordIOIter`` yields a shard's raw records.
 
+``LibSVMIter`` reads a LibSVM file straight into CSR arrays (no dense
+row is ever made) and serves ``CSRNDArray`` batches with the reference's
+rows, labels and ``pad``.
+
 ``shard_data_batch`` cuts this rank's block of a batch over a mesh axis
 (one process per device: a rank holds its own block of a sharded array).
 ``fast_forward`` skips batches for a mid-epoch resume
@@ -24,8 +28,7 @@ device; ``RecordIOIter`` yields a shard's raw records.
 
 Not ported, refused with ``MXNetError``: ``ImageRecordIter``'s
 ``ImageIter`` route (``use_native=False``, or C != 3; ``image.py``,
-ROADMAP.md, Queue 1, item 7).  ``LibSVMIter`` waits for
-``ndarray/sparse``.
+ROADMAP.md, Queue 1, item 7).
 """
 from __future__ import annotations
 
@@ -47,8 +50,8 @@ from .ndarray.ndarray import NDArray
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
            "PrefetchingIter", "CSVIter", "MNISTIter", "ImageRecordIter",
-           "ImageRecordIterNative", "RecordIOIter", "shard_data_batch",
-           "fast_forward"]
+           "ImageRecordIterNative", "RecordIOIter", "LibSVMIter",
+           "shard_data_batch", "fast_forward"]
 
 
 def fast_forward(data_iter, num_batches: int) -> int:
@@ -270,6 +273,109 @@ class NDArrayIter(DataIter):
         if self.last_batch_handle == "pad" and self.cursor + self.batch_size > self.num_data:
             return self.cursor + self.batch_size - self.num_data
         return 0
+
+
+def _parse_libsvm(path, ncol: int):
+    """A LibSVM file as (labels float64, indptr int64, indices int32,
+    values float32): each row's features sorted by index, a repeated
+    index keeping its last value and zeros dropped, which is the CSR of
+    the dense rows the reference builds.  Every number of the file is read
+    by one ``np.fromstring``; the host loop only counts each line's
+    features."""
+    with open(path) as f:
+        text = f.read()
+    lines = [ln for ln in text.splitlines() if ln.strip()]
+    counts = _np.fromiter((ln.count(":") for ln in lines), dtype=_np.int64,
+                          count=len(lines))
+    nums = _np.fromstring("\n".join(lines).replace(":", " "), sep=" ")
+    if nums.size != len(lines) + 2 * int(counts.sum()):
+        raise MXNetError(f"{path}: not a LibSVM file (a line is not "
+                         f"'label index:value ...')")
+    starts = _np.zeros(len(lines), dtype=_np.int64)
+    _np.cumsum(1 + 2 * counts[:-1], out=starts[1:])
+    labels = nums[starts]
+    is_label = _np.zeros(nums.size, dtype=bool)
+    is_label[starts] = True
+    pairs = nums[~is_label].reshape(-1, 2)
+    cols = pairs[:, 0].astype(_np.int64)
+    vals = pairs[:, 1].astype(_np.float32)
+    if cols.size and (cols.min() < 0 or cols.max() >= ncol):
+        raise MXNetError(f"{path}: feature index out of range [0, {ncol})")
+    rows = _np.repeat(_np.arange(len(lines), dtype=_np.int64), counts)
+    key = rows * ncol + cols
+    order = _np.argsort(key, kind="stable")
+    key = key[order]
+    last = _np.ones(len(key), dtype=bool)
+    last[:-1] = key[1:] != key[:-1]
+    keep = order[last]
+    keep = keep[vals[keep] != 0]
+    indptr = _np.zeros(len(lines) + 1, dtype=_np.int64)
+    _np.cumsum(_np.bincount(rows[keep], minlength=len(lines)),
+               out=indptr[1:])
+    return (labels, indptr, cols[keep].astype(_np.int32), vals[keep])
+
+
+class LibSVMIter(DataIter):
+    """LibSVM reader (reference: ``io.py`` LibSVMIter over
+    ``src/io/iter_libsvm.cc``): batches of ``batch_size`` rows in file
+    order, data a ``CSRNDArray`` of ``data_shape`` columns and labels a
+    float32 vector on the current context; the last batch wraps to the
+    first rows with ``pad`` set (``NDArrayIter``'s default)."""
+
+    def __init__(self, data_libsvm, data_shape, label_shape=(1,),
+                 batch_size=1, data_name="data", label_name="label",
+                 **kwargs):
+        super().__init__(batch_size)
+        self._ncol = int(data_shape[0]) if isinstance(
+            data_shape, (tuple, list)) else int(data_shape)
+        self._labels, self._indptr, self._indices, self._values = \
+            _parse_libsvm(data_libsvm, self._ncol)
+        self.num_data = len(self._labels)
+        self.provide_data = [DataDesc(data_name, (batch_size, self._ncol),
+                                      _np.dtype(_np.float32))]
+        self.provide_label = [DataDesc(label_name, (batch_size,),
+                                       self._labels.dtype)]
+        self.reset()
+
+    def reset(self):
+        self.cursor = -self.batch_size
+
+    def iter_next(self):
+        self.cursor += self.batch_size
+        return self.cursor < self.num_data
+
+    def _spans(self):
+        end = self.cursor + self.batch_size
+        if end <= self.num_data:
+            return [(self.cursor, end)]
+        return [(self.cursor, self.num_data), (0, end - self.num_data)]
+
+    def getdata(self):
+        import torch
+
+        from .ndarray.ndarray import _device
+        from .ndarray.sparse import CSRNDArray
+
+        ptrs, idx, val, base = [_np.zeros(1, _np.int64)], [], [], 0
+        for a, b in self._spans():
+            lo, hi = self._indptr[a], self._indptr[b]
+            ptrs.append(self._indptr[a + 1:b + 1] - lo + base)
+            idx.append(self._indices[lo:hi])
+            val.append(self._values[lo:hi])
+            base += hi - lo
+        dev = _device(None)
+        return [CSRNDArray(
+            torch.from_numpy(_np.concatenate(val)).to(dev),
+            torch.from_numpy(_np.concatenate(idx)).to(dev),
+            torch.from_numpy(_np.concatenate(ptrs).astype(_np.int32)).to(dev),
+            (self.batch_size, self._ncol))]
+
+    def getlabel(self):
+        sel = _np.concatenate([_np.arange(a, b) for a, b in self._spans()])
+        return [nd_array(self._labels[sel])]
+
+    def getpad(self):
+        return max(0, self.cursor + self.batch_size - self.num_data)
 
 
 def _init_data(data, allow_empty, default_name):

@@ -18,6 +18,14 @@ store would track the gradient buffer that the next backward overwrites.
 A push or pull of a list of keys whose values are single tensors copies
 them with one ``torch._foreach_copy_``.
 
+Sparse values (``ndarray.sparse``) are kept sparse and by value too: a
+reduce over row-sparse contributions concatenates them and
+``compact()``s the sum, so the stored gradient holds one row a distinct
+touched row; a pull of a sparse value into a dense destination writes
+its dense value.  ``row_sparse_pull(key, out, row_ids)`` copies only the
+rows ``row_ids`` (one id set per output, or one for all), zero
+elsewhere.
+
 ``set_gradient_compression`` (``device`` store only, as in the
 reference) quantizes and dequantizes every float32 contribution against
 its error-feedback residual before the reduce
@@ -42,6 +50,7 @@ from typing import Dict, List
 import torch
 
 from .base import MXNetError
+from .ndarray import sparse as _sparse
 from .ndarray.ndarray import NDArray
 
 __all__ = ["KVStore", "KVStoreLocal", "KVStoreTPUSync", "create"]
@@ -173,7 +182,20 @@ class KVStoreLocal(KVStore):
 
     def init(self, key, value):
         for k, vs in _pairs(key, value):
-            self._store[k] = NDArray(vs[0]._data.detach().clone())
+            self._store[k] = self._copy_value(vs[0])
+
+    @staticmethod
+    def _copy_value(v):
+        """``v`` by value (a sparse array stays sparse): callers reuse
+        their gradient buffers every backward."""
+        if isinstance(v, _sparse.RowSparseNDArray):
+            return _sparse.RowSparseNDArray(v.values_.detach().clone(),
+                                            v.indices_.clone(), v.shape)
+        if isinstance(v, _sparse.CSRNDArray):
+            return _sparse.CSRNDArray(v.data_.detach().clone(),
+                                      v.indices_.clone(), v.indptr_.clone(),
+                                      v.shape)
+        return NDArray(v._data.detach().clone())
 
     def _compress(self, key, slot, data: torch.Tensor) -> torch.Tensor:
         """One contribution through the 2-bit round trip against its
@@ -191,9 +213,21 @@ class KVStoreLocal(KVStore):
         gc = self._grad_compression
         return gc is not None and gc.type != "none"
 
-    def _reduce(self, vals: List[NDArray], key=None) -> torch.Tensor:
-        """The sum of the contributions (each compressed first), as a
-        tensor of its own on the first one's device."""
+    def _reduce(self, vals: List[NDArray], key=None) -> NDArray:
+        """The sum of the contributions (each compressed first), as an
+        array of its own on the first one's device; row-sparse
+        contributions sum row-sparse (concatenated, then compacted)."""
+        if any(isinstance(v, _sparse.RowSparseNDArray) for v in vals):
+            if len(vals) == 1:
+                return self._copy_value(vals[0])
+            dev = vals[0].values_.device
+            return _sparse.RowSparseNDArray(
+                torch.cat([v.values_.detach().to(dev) for v in vals]),
+                torch.cat([v.indices_.to(dev) for v in vals]),
+                vals[0].shape).compact()
+        return NDArray(self._reduce_dense(vals, key))
+
+    def _reduce_dense(self, vals: List[NDArray], key=None) -> torch.Tensor:
         datas = [v._data.detach() for v in vals]
         if self._compressing():
             datas = [self._compress(key, i, d) for i, d in enumerate(datas)]
@@ -212,8 +246,8 @@ class KVStoreLocal(KVStore):
                 raise MXNetError(f"kvstore: key {k!r} not initialized")
         with torch.no_grad():
             if self._updater is None and not self._compressing() and all(
-                    len(vs) == 1 and _same_slot(self._store[k]._data,
-                                                vs[0]._data)
+                    len(vs) == 1 and _dense(self._store[k], vs[0])
+                    and _same_slot(self._store[k]._data, vs[0]._data)
                     for k, vs in pairs):
                 torch._foreach_copy_([self._store[k]._data for k, _ in pairs],
                                      [vs[0]._data.detach() for _, vs in pairs])
@@ -221,9 +255,9 @@ class KVStoreLocal(KVStore):
             for k, vs in pairs:
                 merged = self._reduce(vs, key=k)
                 if self._updater is not None:
-                    self._updater(k, NDArray(merged), self._store[k])
+                    self._updater(k, merged, self._store[k])
                 else:
-                    self._store[k] = NDArray(merged)
+                    self._store[k] = merged
 
     def pull(self, key, out=None, priority=0, ignore_sparse=True):
         dsts, srcs = [], []
@@ -231,6 +265,10 @@ class KVStoreLocal(KVStore):
             src = self._store.get(k)
             if src is None:
                 raise MXNetError(f"kvstore: key {k!r} not initialized")
+            if not all(_dense(src, d) for d in outs):
+                for dst in outs:
+                    src.copyto(dst)
+                continue
             for dst in outs:
                 if dst._data.shape != src._data.shape:
                     raise MXNetError(
@@ -240,7 +278,33 @@ class KVStoreLocal(KVStore):
                 dsts.append(dst._data)
                 srcs.append(src._data)
         with torch.no_grad():
-            torch._foreach_copy_(dsts, srcs)
+            if dsts:
+                torch._foreach_copy_(dsts, srcs)
+
+    def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
+        """Pull only the rows ``row_ids`` of each key (the rest zero): one
+        id set per output, or one shared by all of a key's outputs
+        (reference: ``kvstore.h`` PullRowSparse)."""
+        keys = _as_list(key)
+        outs, rids = _as_list(out), _as_list(row_ids)
+        if len(keys) == 1:
+            if not isinstance(out, (list, tuple)) or \
+                    not isinstance(out[0], (list, tuple)):
+                outs = [outs]
+            rids = [rids]
+        for k, o, r in zip(keys, outs, rids):
+            src = self._store.get(k)
+            if src is None:
+                raise MXNetError(f"kvstore: key {k!r} not initialized")
+            dsts, rlist = _as_list(o), _as_list(r)
+            if len(rlist) == 1 and len(dsts) > 1:
+                rlist = rlist * len(dsts)
+            for dst, rid in zip(dsts, rlist):
+                _sparse.retain(src, rid).copyto(dst)
+
+
+def _dense(*arrays) -> bool:
+    return not any(isinstance(a, _sparse.BaseSparseNDArray) for a in arrays)
 
 
 class KVStoreTPUSync(KVStoreLocal):

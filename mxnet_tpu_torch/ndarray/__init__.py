@@ -11,9 +11,15 @@ takes ``_training`` gets ``autograd.is_training()`` unless the caller
 passes it, as the reference's ``invoke`` does.
 
 ``save``/``load`` write and read the reference's two file formats, byte
-for byte: the default ``"tpmx"`` and ``format="mxnet"`` (stock MXNet's).
-A bfloat16 array is written from its raw 16-bit pattern under the dtype
-name ``bfloat16`` (tpmx only: the MXNet format has no type flag for it).
+for byte: the default ``"tpmx"`` and ``format="mxnet"`` (stock MXNet's,
+which keeps ``row_sparse`` and ``csr`` arrays sparse; tpmx writes their
+dense values).  A bfloat16 array is written from its raw 16-bit pattern
+under the dtype name ``bfloat16`` (tpmx only: the MXNet format has no type
+flag for it).
+
+``zeros(stype=)``, ``cast_storage`` and ``NDArray.tostype`` reach the
+sparse arrays of ``nd.sparse``; ``nd.contrib`` holds the ``_contrib_*``
+ops and ``foreach``/``while_loop``/``cond``.
 """
 from __future__ import annotations
 
@@ -46,7 +52,7 @@ def _shape(shape):
 
 def zeros(shape, ctx=None, dtype="float32", stype=None):
     if stype not in (None, "default"):
-        raise MXNetError(f"storage type {stype!r} is not ported")
+        return sparse.zeros(stype, shape, ctx=ctx, dtype=dtype)
     return NDArray(torch.zeros(_shape(shape), dtype=torch_dtype(dtype),
                                device=_device(ctx)))
 
@@ -143,6 +149,15 @@ for _name in list(OP_REGISTRY):
 del _this, _name
 
 from . import random  # noqa: E402  (mx.nd.random, after the ops)
+from . import sparse  # noqa: E402
+from . import contrib  # noqa: E402
+
+
+def cast_storage(data, stype="default"):
+    """``data`` in storage type ``stype`` (dense, ``row_sparse`` or
+    ``csr``); the registered op of this name is the identity on dense
+    values (reference: ``nd.cast_storage``)."""
+    return sparse.cast_storage(data, stype)
 
 add = broadcast_add                # noqa: F821 (generated above)
 subtract = broadcast_sub           # noqa: F821
@@ -175,6 +190,30 @@ def _raw(a: NDArray):
     return name, tuple(t.shape), arr
 
 
+def _to_mxnet_value(a):
+    """An array as ``mxnet_format`` writes it: numpy, or a sparse array's
+    ``(kind, data, aux arrays, shape)`` (csr's aux: indptr, indices)."""
+    if a.stype == "row_sparse":
+        return ("row_sparse", a.data.asnumpy(),
+                [a.indices.asnumpy().astype(_np.int64)], tuple(a.shape))
+    if a.stype == "csr":
+        return ("csr", a.data.asnumpy(),
+                [a.indptr.asnumpy().astype(_np.int64),
+                 a.indices.asnumpy().astype(_np.int64)], tuple(a.shape))
+    return _raw(a)[2]
+
+
+def _from_mxnet_value(v, ctx):
+    if isinstance(v, tuple):
+        kind, main, aux, shape = v
+        if kind == "row_sparse":
+            return sparse.row_sparse_array((main, aux[0]), shape=shape,
+                                           ctx=ctx, dtype=main.dtype.name)
+        return sparse.csr_matrix((main, aux[1], aux[0]), shape=shape,
+                                 ctx=ctx, dtype=main.dtype.name)
+    return NDArray(torch.from_numpy(v).to(_device(ctx)))
+
+
 def save(fname: str, data, format: str = "tpmx") -> None:
     """Save an NDArray, a list of them or a ``{name: NDArray}`` dict
     (reference: mx.nd.save); ``format="mxnet"`` writes stock MXNet's
@@ -190,11 +229,11 @@ def save(fname: str, data, format: str = "tpmx") -> None:
 
         values = []
         for a in arrays:
-            name, _, arr = _raw(a)
+            name = dtype_name(a.dtype)
             if name not in _mxf._DTYPE_TO_TYPE_FLAG:
                 raise MXNetError(f"the MXNet format has no type flag for "
                                  f"{name}")
-            values.append(arr)
+            values.append(_to_mxnet_value(a))
         payload = _mxf.save_bytes(
             values, [k for k in keys if k] if kind == b"D" else [])
         with open(fname, "wb") as f:
@@ -238,9 +277,7 @@ def load(fname: str, ctx=None):
         if not _mxf.is_mxnet_format(blob[:8]):
             raise ValueError(f"{fname}: not a tpu-mx or MXNet NDArray file")
         values, keys = _mxf.load_bytes(blob)
-        if any(isinstance(v, tuple) for v in values):
-            raise MXNetError(f"{fname}: sparse arrays are not ported")
-        arrays = [NDArray(torch.from_numpy(v).to(dev)) for v in values]
+        arrays = [_from_mxnet_value(v, ctx) for v in values]
         return dict(zip(keys, arrays)) if keys else arrays
     kind, off = blob[8:9], 9
 

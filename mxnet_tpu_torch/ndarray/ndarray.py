@@ -89,6 +89,12 @@ class NDArray:
         return self._data.ndim
 
     @property
+    def stype(self) -> str:
+        """The storage type: ``"default"`` (dense); ``ndarray.sparse``'s
+        arrays are ``"row_sparse"`` and ``"csr"``."""
+        return "default"
+
+    @property
     def context(self) -> Context:
         return context_of(self._data.device)
 
@@ -159,6 +165,12 @@ class NDArray:
     def copy(self) -> "NDArray":
         return NDArray(self._data.detach().clone())
 
+    def tostype(self, stype: str) -> "NDArray":
+        """This array in storage type ``stype`` (``nd.cast_storage``)."""
+        from . import sparse as _sp
+
+        return _sp.cast_storage(self, stype)
+
     def detach(self) -> "NDArray":
         return NDArray(self._data.detach().clone())
 
@@ -182,7 +194,8 @@ class NDArray:
     # -- autograd -----------------------------------------------------------
     def attach_grad(self, grad_req: str = "write", stype=None) -> None:
         """Allocate a gradient buffer and mark this array as a variable of
-        ``autograd.backward`` (reference: autograd.mark_variables)."""
+        ``autograd.backward`` (reference: autograd.mark_variables).
+        ``stype`` is accepted: the gradient is dense, as the reference's."""
         from .. import autograd
 
         grad = NDArray(torch.zeros_like(self._data.detach()))

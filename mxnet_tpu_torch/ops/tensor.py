@@ -698,7 +698,12 @@ def dot(a, b, transpose_a=False, transpose_b=False):
     """numpy's ``dot`` (reference: src/operator/tensor/dot.cc): a sum
     over the last axis of ``a`` and the first of ``b``.  bfloat16 and
     float16 inputs accumulate in float32 and return float32, as the
-    reference's ``preferred_element_type`` does."""
+    reference's ``preferred_element_type`` does.  A csr left operand (a
+    variable bound with ``stype="csr"``) takes :func:`spatial.csr_dot`."""
+    if not isinstance(a, torch.Tensor):
+        from .spatial import csr_dot
+
+        return csr_dot(a, b, transpose_a, transpose_b)
     if transpose_a and a.ndim > 1:
         a = a.transpose(-1, -2)
     if transpose_b and b.ndim > 1:

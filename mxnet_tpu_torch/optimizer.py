@@ -23,7 +23,10 @@ at once: for ``SGD``, the Gluon loop's optimizer, as one pass of
 compiles them into one program), each op the same elementwise arithmetic,
 in the same order, as the per-parameter ``update``, so both give the same
 bits.  The per-parameter loop stays the ground truth and takes every other
-optimizer.
+optimizer, and any list holding a sparse weight or gradient
+(``ndarray.sparse``): such an update runs the dense rule on the dense
+values, and a sparse weight takes the result back (its pattern the new
+weight's non-zero rows), as the reference's does.
 
 Optimizer state files: ``Updater.get_states(dump_optimizer=False)`` is a
 pickled ``{index: numpy arrays}`` dict that loads in either package
@@ -770,7 +773,9 @@ class Updater:
 
     def __call__(self, index, grad, weight):
         if isinstance(index, (list, tuple)):
-            if not self._batch_fused(list(index), list(grad), list(weight)):
+            if any(a.stype != "default" for a in list(grad) + list(weight)) \
+                    or not self._batch_fused(list(index), list(grad),
+                                             list(weight)):
                 for i, g, w in zip(index, grad, weight):
                     self._update(i, g, w)
         else:
@@ -797,8 +802,13 @@ class Updater:
         return True
 
     def _update(self, index, grad, weight):
-        self.optimizer.update_multi_precision(
-            index, weight, grad, self._state(index, weight))
+        if grad.stype != "default":
+            grad = NDArray(grad._data)
+        w = weight if weight.stype == "default" else NDArray(weight._data)
+        self.optimizer.update_multi_precision(index, w, grad,
+                                              self._state(index, w))
+        if w is not weight:
+            weight._data = w._data
 
     def get_states(self, dump_optimizer=False):
         packed = {k: _pack(v) for k, v in self.states.items()}

@@ -140,9 +140,10 @@ def eval_node(node: Node, ins: List[torch.Tensor], is_train: bool,
     """Evaluate one op node.  A training BatchNorm with ``collect_aux``
     puts its new moving mean and variance (``momentum * old + (1 -
     momentum) * batch``, detached) under its aux variables' names.  A
-    random op takes ``fold_in(rng, node uid)`` (``rng`` a host key, or a
-    program's ``LazyKey``; ``PRNGKey(0)`` without one), on its first
-    input's device or ``device``."""
+    random op takes ``fold_in(rng, node uid)`` (``rng`` a host key, a
+    program's ``LazyKey``, or a key tensor inside a loop body, folded on
+    its device; ``PRNGKey(0)`` without one), on its first input's device
+    or ``device``."""
     kwargs = dict(node.attrs)
     op = node.op
     if _accepts_training(op):
@@ -151,10 +152,17 @@ def eval_node(node: Node, ins: List[torch.Tensor], is_train: bool,
         from .. import random as _random
 
         base = rng if rng is not None else _random.prng_key(0)
-        key = base.folded(node._uid) if isinstance(base, _random.LazyKey) \
-            else _random.fold(base, node._uid)
         dev = ins[0].device if ins else (device or torch.device("cpu"))
-        kwargs["rng_key"] = _random.key_tensor(key, dev)
+        if isinstance(base, torch.Tensor):
+            from ..ops.sampling import threefry2x32
+
+            w0, w1 = threefry2x32(base[0], base[1], 0, node._uid)
+            kwargs["rng_key"] = torch.stack([w0, w1]).to(dev)
+        else:
+            key = base.folded(node._uid) \
+                if isinstance(base, _random.LazyKey) \
+                else _random.fold(base, node._uid)
+            kwargs["rng_key"] = _random.key_tensor(key, dev)
     if op.name == "BatchNorm" and collect_aux is not None and is_train \
             and not attr_bool(kwargs.get("use_global_stats")):
         user_wants_stats = attr_bool(node.attrs.get("output_mean_var"))

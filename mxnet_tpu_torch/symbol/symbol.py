@@ -337,17 +337,36 @@ class Symbol:
         type_dict = type_dict or {}
         from ..ndarray import zeros
 
+        stypes = self._declared_stypes(stype_dict)
+        req = grad_req if isinstance(grad_req, dict) else {n: grad_req for n in arg_names}
+        from ..executor import check_csr_grad_req
+
+        check_csr_grad_req(stypes, req)
         args = {}
         for n, sh in zip(arg_names, arg_shapes):
-            args[n] = zeros(sh, ctx=ctx, dtype=type_dict.get(n, "float32"))
+            args[n] = zeros(sh, ctx=ctx, dtype=type_dict.get(n, "float32"),
+                            stype=stypes.get(n))
         grad_arrays = {}
-        req = grad_req if isinstance(grad_req, dict) else {n: grad_req for n in arg_names}
         for n, sh in zip(arg_names, arg_shapes):
             if req.get(n, "null") != "null":
                 grad_arrays[n] = zeros(sh, ctx=ctx, dtype=type_dict.get(n, "float32"))
         aux = {n: zeros(sh, ctx=ctx) for n, sh in zip(aux_names, aux_shapes)}
         return Executor(self, ctx, args, grad_arrays, req, aux,
                         group2ctx=group2ctx)
+
+    def _declared_stypes(self, stype_dict=None) -> Dict[str, str]:
+        """``{argument: "csr"}`` for each argument bound sparse: declared
+        ``stype="csr"`` (``__storage_type__``) or given in ``stype_dict``.
+        Such an argument is bound with no dense buffer (the executor feeds
+        its ``data``/``indices``/``indptr``); any other storage type binds
+        dense, as in the reference."""
+        out = {}
+        for n in input_nodes(self._entries):
+            st = (stype_dict or {}).get(
+                n.name, n.attr_dict.get("__storage_type__"))
+            if st == "csr":
+                out[n.name] = st
+        return out
 
     def bind(self, ctx=None, args=None, args_grad=None, grad_req="write",
              aux_states=None, group2ctx=None, shared_exec=None):
@@ -505,14 +524,16 @@ def load_json(json_str: str) -> Symbol:
             n = Node("var", spec["name"], attr_dict=attr_dict)
         else:
             if "__control_flow__" in attr_dict:
-                raise MXNetError(
-                    "load_json: control-flow nodes (symbol/control_flow) "
-                    "are not ported (ROADMAP.md, Queue 1, item 6)")
-            if spec["op"] not in OP_REGISTRY:
+                # a per-call-site op rebuilt from its embedded subgraphs
+                from . import control_flow as _cf
+
+                op = _cf.op_from_spec(attr_dict["__control_flow__"])
+            elif spec["op"] not in OP_REGISTRY:
                 raise MXNetError(
                     f"load_json: operator {spec['op']!r} is not ported "
                     f"(ROADMAP.md, Queue 1)")
-            op = get_op(spec["op"])
+            else:
+                op = get_op(spec["op"])
             raw_attrs = spec.get("attrs", spec.get("param", {}))
             attrs = {k: _parse_attr_value(v) for k, v in raw_attrs.items()}
             inputs = [entry_of(e) for e in spec["inputs"]]

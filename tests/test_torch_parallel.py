@@ -30,6 +30,9 @@ with the reference's on the same inputs.  The meshes: ``dp=2 x sp=2``
 - ``make_sharded_train_step`` at dp=2 x sp=2 for ring, ulysses and
   ulysses_flash, three f32 steps: losses and parameters rtol 1e-4, and
   the first step's momenta (the gradients) against the reference's.
+- ``_contrib_SyncBatchNorm`` with ``axis_name="sp"`` over sp=4, each rank
+  on its block of the batch: output and input gradient against the
+  reference's ``shard_map``, the moments against the whole batch's.
 """
 import functools
 import os
@@ -190,6 +193,25 @@ with mx.cpu():
             for n, t in zip("qkv", gs):
                 res[f"attn_{name}_d{n}"] = t.numpy()
 
+    # _contrib_SyncBatchNorm over sp=4: the moments all-reduced
+    from mxnet_tpu_torch.ops.registry import get_op
+
+    sbn = get_op("_contrib_SyncBatchNorm").fn
+    consts = [T(inp[f"sbn_{n}"]) for n in ("gamma", "beta", "mm", "mv")]
+
+    def sbn_f(x):
+        return sbn(x, *consts, eps=1e-3, fix_gamma=False, axis_name="sp",
+                   _training=True)
+
+    y, (gx,) = local_vjp(sbn_f, meshes["m4"], P("sp"), P("sp"),
+                         [inp["sbn_x"]], inp["sbn_c"])
+    res["sbn_out"], res["sbn_dx"] = y.numpy(), gx.numpy()
+    with C.spmd(meshes["m4"]):
+        xb = shard(T(inp["sbn_x"]), NamedSharding(meshes["m4"], P("sp")))
+        _, mean, var = sbn(xb, *consts, eps=1e-3, fix_gamma=False,
+                           axis_name="sp", output_mean_var=True)
+    res["sbn_mean"], res["sbn_var"] = mean.numpy(), var.numpy()
+
     # DataParallelTrainer over dp=4
     dmesh = dp_mesh(4)
 
@@ -289,6 +311,13 @@ def _inputs():
         inp["lm_" + k] = np.asarray(v)
     inp["tokens"] = r.randint(0, CFG["vocab"], (LM_B, LM_T)).astype(np.int32)
     inp["labels"] = np.roll(inp["tokens"], -1, 1)
+    r = np.random.RandomState(1)
+    inp["sbn_x"] = (r.randn(8, 3, 2, 2) * 2 + 1).astype(np.float32)
+    inp["sbn_c"] = r.randn(8, 3, 2, 2).astype(np.float32)
+    inp["sbn_gamma"] = (1 + r.rand(3)).astype(np.float32)
+    inp["sbn_beta"] = r.randn(3).astype(np.float32)
+    inp["sbn_mm"] = np.zeros(3, np.float32)
+    inp["sbn_mv"] = np.ones(3, np.float32)
     return inp
 
 
@@ -516,6 +545,33 @@ def test_sharded_train_step(world, monkeypatch):
 
 
 # -- the synced BatchNorm of the plain mesh step, in this process -------------
+
+def test_sync_batch_norm_op_over_mesh(world):
+    """``_contrib_SyncBatchNorm`` with ``axis_name="sp"`` over sp=4, each
+    rank on its block of the batch: output and input gradient against the
+    reference's ``shard_map``, the moments against the whole batch's."""
+    from mxnet_tpu.ops.registry import get_op as jget
+
+    inp, ranks = world
+    consts = [jnp.asarray(inp[f"sbn_{n}"])
+              for n in ("gamma", "beta", "mm", "mv")]
+
+    def f(x):
+        return jget("_contrib_SyncBatchNorm").fn(
+            x, *consts, eps=1e-3, fix_gamma=False, axis_name="sp",
+            _training=True)
+
+    y, (g,) = _jvjp(f, _jmesh("m4"), JP("sp"), JP("sp"), [inp["sbn_x"]],
+                    inp["sbn_c"])
+    x = inp["sbn_x"].astype(np.float64)
+    mean = x.mean(axis=(0, 2, 3))
+    var = (x * x).mean(axis=(0, 2, 3)) - mean * mean
+    for res in ranks:
+        np.testing.assert_allclose(res["sbn_out"], y, **ATTN_TOL)
+        np.testing.assert_allclose(res["sbn_dx"], g, rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(res["sbn_mean"], mean, rtol=1e-5)
+        np.testing.assert_allclose(res["sbn_var"], var, rtol=1e-5)
+
 
 def _bn_case(shape, seed):
     import torch
