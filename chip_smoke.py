@@ -202,7 +202,9 @@ toolkit (``nvcc``) and PyTorch built for CUDA.  Phases, one JSON line each:
               the others' tokens equal the plain run's, a
               ``gen_quarantine`` dump names it); the generation gauges in
               ``to_prometheus()``, both replicas in ``health()``.
-19. ops_breadth — every op name of ``_breadth_cases`` (151 names) on
+19. ops_breadth — every op name of ``_breadth_cases`` (194 names: the
+              image, detection, spatial and CTC ones among them, CTC
+              also at the OCR example's batch of 32) on
               the card against the same call on the CPU: output
               dtypes, outputs and gradients within rtol 1e-5 (an
               absolute floor of 1e-5 x the largest magnitude), the
@@ -325,6 +327,23 @@ toolkit (``nvcc``) and PyTorch built for CUDA.  Phases, one JSON line each:
               held against the plain version's loop; a hybridized
               ``while_loop``/``cond`` block captured on the card against
               the CPU; the foreach graph saved and loaded, bitwise.
+29. image_iter — the Python image feeds: ``ImageRecordIter(use_native=
+              False)`` at image_rec's settings over an indexed RAW0 file
+              (and a C = 1 one), card batches = CPU batches bitwise under
+              the same seeds, its images/s alone; then
+              ``gluon.data.vision.ImageRecordDataset`` + transforms +
+              ``DataLoader`` (its images/s alone; transforms on the
+              card, its first batch against the CPU's) feeding Gluon
+              ResNet-50 v1 steps channels-last: ms a step, 53 + 53
+              BatchNorm launches a step.
+30. ssd_fit — ``ImageDetIter`` into example/ssd's loop: the ToySSD (64²,
+              B=16, Adam) three steps card against CPU (losses and the
+              final ``MultiBoxDetection`` within 1e-4, the same rows
+              kept; hybridized blocks running ``MultiBoxDetection`` and
+              color jitter stay uncaptured), then an SSD over ``resnet50_v1``'s features at 3 x
+              512², B=32, 20 classes: ms a step, ``MultiBoxTarget`` and
+              ``MultiBoxDetection`` (nms_topk 400) alone, peak bytes, 53 +
+              53 BatchNorm launches a step.
 
 Every ResNet phase also requires that the BatchNorm op copied no
 non-contiguous input (``batch_norm.noncontiguous_copies`` stays 0); no
@@ -340,7 +359,7 @@ also runs ``serving``, its float baseline — ``resnet_training``,
 ``spmd_lm``, ``dp_mesh``, ``dist_kvstore``, ``model_parallel``,
 ``module_parallel``, ``amp``, ``fit_resume``, ``inference_service``,
 ``inference_int8``, ``optimizers``, ``custom_op``, ``sparse_fit``,
-``control_flow``, and
+``control_flow``, ``image_iter``, ``ssd_fit``, and
 ``profile``, ``profile_training`` and ``profile_resnet``, which are not in
 the default run: the serving window, or two bf16 LM or ResNet training
 steps, once more under ``torch.profiler``)
@@ -536,6 +555,27 @@ CF_STEPS, CF_LN_FORWARDS, CF_HYB = 5, 3, (8, 16, 6)
 # example ResNet-50 symbol fed by it; the one-thread card-vs-CPU check's B
 REC_IMAGES, REC_STORED, REC_BATCH, REC_THREADS = 1280, 256, 128, 8
 REC_MEAN, REC_FIT_BATCHES, REC_CHECK_BATCH = (123.68, 116.779, 103.939), 4, 100
+# image_iter: an indexed RAW0 file of II_IMAGES images stored at REC_STORED²
+# read through ImageRecordIter(use_native=False) at image_rec's settings
+# (II_RATE_BATCHES batches of REC_BATCH timed, II_CHECK_BATCHES of B=32
+# card against CPU) and a C = 1 file of II_GRAY images at II_GRAY_HW²; then
+# ImageRecordDataset + transforms + DataLoader(batch_size=II_BATCH) feeding
+# II_STEPS Gluon ResNet-50 v1 steps (the first a warm-up)
+II_IMAGES, II_RATE_BATCHES, II_CHECK_BATCHES = 384, 2, 2
+II_GRAY, II_GRAY_HW, II_BATCH, II_STEPS = 64, 64, 32, 4
+II_MEAN, II_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+# ssd_fit: example/ssd/train.py's ToySSD (64², batch 16, 2 classes, Adam at
+# 0.005, three steps, card against CPU from the same weights, rtol
+# SSD_RTOL); then the full-width leg: resnet50_v1's features as the body
+# (NHWC), 3 x 512 x 512, batch 32, 20 VOC classes, priors on the stride-16
+# and stride-32 maps with upstream example/ssd's resnet50 sizes and ratios
+# for its first two scales, SSD_STEPS steps (the first a warm-up) and
+# MultiBoxDetection with upstream's nms_topk 400
+SSD_TOY_HW, SSD_TOY_BATCH, SSD_TOY_STEPS, SSD_LR, SSD_RTOL = \
+    64, 16, 3, 0.005, 1e-4
+SSD_HW, SSD_BATCH, SSD_CLASSES, SSD_STEPS, SSD_TOPK = 512, 32, 20, 4, 400
+SSD_SCALES = (((0.1, 0.141), (1.0, 2.0, 0.5)),
+              ((0.2, 0.272), (1.0, 2.0, 0.5, 3.0, 1.0 / 3)))
 
 
 def emit(obj) -> None:
@@ -7799,6 +7839,612 @@ def phase_image_rec(dev, module_fit=None):
     return res
 
 
+# -- phase 29: image_iter ------------------------------------------------------------
+
+def _write_indexed_rec(path, n, side, channels, seed, sample=None):
+    """An indexed RAW0 RecordIO file (its ``.idx`` beside it) of ``n``
+    ``side``² images of ``channels`` channels: ``sample(i, rs)`` gives
+    each (uint8 image, label) (default: random pixels and a label below
+    RESNET_CLASSES)."""
+    import struct
+
+    import mxnet_tpu_torch as mx
+
+    def noise(i, rs):
+        return (rs.randint(0, 256, (side, side, channels), dtype=np.uint8),
+                float(rs.randint(RESNET_CLASSES)))
+
+    rs = np.random.RandomState(seed)
+    head = b"RAW0" + struct.pack("<I", 3) + \
+        np.asarray((side, side, channels), np.int32).tobytes()
+    w = mx.recordio.MXIndexedRecordIO(path[:-4] + ".idx", path, "w")
+    for i in range(n):
+        img, lab = (sample or noise)(i, rs)
+        w.write_idx(i, mx.recordio.pack(mx.recordio.IRHeader(0, lab, i, 0),
+                                        head + img.tobytes()))
+    w.close()
+
+
+def _ii_iter(mx, path, **kw):
+    """``ImageRecordIter``'s ImageIter route at image_rec's settings."""
+    args = dict(path_imgrec=path, data_shape=(3, RESNET_HW, RESNET_HW),
+                batch_size=REC_BATCH, resize=REC_STORED, rand_crop=True,
+                rand_mirror=True, mean_r=REC_MEAN[0], mean_g=REC_MEAN[1],
+                mean_b=REC_MEAN[2], use_native=False)
+    args.update(kw)
+    return mx.io.ImageRecordIter(**args)
+
+
+def _ii_card_vs_cpu(mx, rgb, gray):
+    """The first II_CHECK_BATCHES batches (B = 32) of the RGB iterator and
+    of a C = 1 one, under the card's context and the CPU's, Python's and
+    numpy's streams seeded alike: bitwise equal, each on its device."""
+    import random
+
+    import torch
+
+    gray_shape = (1, II_GRAY_HW - 8, II_GRAY_HW - 8)
+    epochs = {}
+    for name, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+        got = []
+        for path, kw in ((rgb, {}), (gray, {"data_shape": gray_shape,
+                                            "resize": 0, "mean_r": 0.0,
+                                            "mean_g": 0.0, "mean_b": 0.0})):
+            random.seed(SEED)
+            np.random.seed(SEED)
+            with ctx:
+                it = _ii_iter(mx, path, batch_size=32, **kw)
+                for _ in range(II_CHECK_BATCHES):
+                    b = it.next()
+                    got.append((b.data[0]._data.cpu(), b.label[0]._data.cpu(),
+                                b.data[0]._data.device.type))
+        epochs[name] = got
+    card, cpu = epochs["card"], epochs["cpu"]
+    same = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+               for a, b in zip(card, cpu))
+    res = {"B": 32, "batches": len(card), "bitwise": same,
+           "shapes": [list(b[0].shape) for b in card],
+           "devices": sorted({b[2] for b in card} | {b[2] for b in cpu})}
+    bad = []
+    if not same:
+        bad.append("ImageIter route: the card's batches differ from the CPU's")
+    if res["shapes"][-1] != [32, *gray_shape]:
+        bad.append(f"C = 1 batches of shape {res['shapes'][-1]}")
+    if res["devices"] != ["cpu", "cuda"]:
+        bad.append(f"batch devices {res['devices']}")
+    return res, bad
+
+
+def _ii_rate(mx, path):
+    """The ImageIter route alone at B = REC_BATCH: images/s over
+    II_RATE_BATCHES batches on the card."""
+    import torch
+
+    it = _ii_iter(mx, path)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = sum(it.next().data[0].shape[0] for _ in range(II_RATE_BATCHES))
+    torch.cuda.synchronize()
+    return {"B": REC_BATCH, "images": n,
+            "images_per_s": n / (time.perf_counter() - t0)}
+
+
+def _ii_gluon(mx, path):
+    """``ImageRecordDataset`` + ``transforms.Compose([RandomResizedCrop,
+    RandomFlipLeftRight, ToTensor, Normalize])`` + ``DataLoader(batch_size
+    =II_BATCH)``: the feed alone (images/s), then II_STEPS Gluon ResNet-50
+    v1 steps fed by it (NCHW batches transposed to channels-last, f32, SGD
+    as gluon_training's): ms a step and each step's kernel launches.  The
+    feed's transforms compute on the card; its first batch is held against
+    the CPU's under the same seeds (rtol 1e-5, atol 1e-5)."""
+    import random
+
+    import torch
+
+    from mxnet_tpu_torch import autograd, gluon
+
+    T = gluon.data.vision.transforms
+    ctx = mx.gpu(0)
+
+    def loader():
+        random.seed(SEED)
+        np.random.seed(SEED)
+        ds = gluon.data.vision.ImageRecordDataset(path).transform_first(
+            T.Compose([T.RandomResizedCrop(RESNET_HW), T.RandomFlipLeftRight(),
+                       T.ToTensor(), T.Normalize(II_MEAN, II_STD)]))
+        return iter(gluon.data.DataLoader(ds, batch_size=II_BATCH,
+                                          last_batch="discard"))
+
+    first = {}
+    for name, c in (("cpu", mx.cpu()), ("card", ctx)):
+        with c:
+            x, y = next(loader())
+            first[name] = (x._data.cpu(), y._data.cpu(), x._data.device.type)
+    feed_err = float((first["card"][0] - first["cpu"][0]).abs().max())
+    feed_same = first["card"][2] == "cuda" and bool(torch.allclose(
+        first["card"][0], first["cpu"][0], rtol=1e-5, atol=1e-5)) and \
+        torch.equal(first["card"][1], first["cpu"][1])
+    with ctx:
+        feed = loader()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = sum(next(feed)[0].shape[0] for _ in range(II_STEPS))
+        torch.cuda.synchronize()
+        feed_rate = n / (time.perf_counter() - t0)
+        torch.manual_seed(SEED)
+        net = gluon.model_zoo.vision.resnet50_v1(classes=RESNET_CLASSES,
+                                                 layout="NHWC")
+        net.initialize(mx.init.Xavier(), ctx=ctx)
+        loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+        trainer = gluon.Trainer(net.collect_params(), "sgd",
+                                {"learning_rate": RESNET_LR,
+                                 "momentum": RESNET_MOMENTUM, "wd": 1e-4})
+        feed = loader()
+        step_ms, losses, per_step = [], [], []
+        for _ in range(II_STEPS):
+            x, y = next(feed)
+            # channels-last, laid out so (a permuted view would reach
+            # the first BatchNorm non-contiguous)
+            x = mx.nd.NDArray(x._data.permute(0, 2, 3, 1).contiguous())
+            y = y.as_in_context(ctx)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _reset_launches()
+            with autograd.record():
+                L = loss_fn(net(x), y)
+            L.backward()
+            trainer.step(x.shape[0])
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            per_step.append(_read_launches())
+            losses.append(L.mean().asscalar().item())
+    launches = {k: sum(s[k] for s in per_step) for k in per_step[0]}
+    res = {"B": II_BATCH, "steps": II_STEPS, "feed_images_per_s": feed_rate,
+           "first_batch_card_vs_cpu": {"max_abs_err": feed_err,
+                                       "within_1e-5": feed_same},
+           "step_ms": step_ms, "steady_step_ms": float(np.median(step_ms[1:])),
+           "losses": losses, "launches_per_step": per_step[0],
+           "launches": launches}
+    want = {k: 0 for k in per_step[0]}
+    want.update(bn_stats=RESNET_BNS, bn_normalize=RESNET_BNS)
+    bad = []
+    off = [s for s in per_step if s != want]
+    if off:
+        bad.append(f"{len(off)} dataset-fed steps launched other counts than "
+                   f"{want}, the first {off[0]}")
+    if not all(np.isfinite(losses)):
+        bad.append(f"dataset-fed steps: non-finite loss {losses}")
+    if not feed_same:
+        bad.append(f"the vision feed's first batch on the card against the "
+                   f"CPU's: {res['first_batch_card_vs_cpu']}")
+    return res, bad
+
+
+def phase_image_iter(dev):
+    """Path A: the Python image pipeline into a training step.  An indexed
+    RAW0 ``.rec`` of II_IMAGES images at REC_STORED² (and a C = 1 one)
+    through ``ImageRecordIter(use_native=False)`` (``image.ImageIter``:
+    resize, random crops and mirrors on the host, Python's ``random``):
+    the first batches on the card bitwise the CPU's under the same seeds,
+    and its images/s alone; then ``gluon.data.vision.ImageRecordDataset``
+    with transforms through a ``DataLoader`` feeding Gluon ResNet-50 v1
+    steps in channels-last: images/s of the feed alone, ms a step, and
+    53 + 53 BatchNorm launches a step (kernels 3 and 4)."""
+    import gc
+    import os
+    import tempfile
+
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    gc.collect()
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            rgb = os.path.join(tmp, "train.rec")
+            gray = os.path.join(tmp, "gray.rec")
+            t0 = time.perf_counter()
+            _write_indexed_rec(rgb, II_IMAGES, REC_STORED, 3, SEED)
+            _write_indexed_rec(gray, II_GRAY, II_GRAY_HW, 1, SEED + 1)
+            write_s = time.perf_counter() - t0
+            check, bad = _ii_card_vs_cpu(mx, rgb, gray)
+            rate = _ii_rate(mx, rgb)
+            torch.cuda.reset_peak_memory_stats()
+            fit, bad_fit = _ii_gluon(mx, rgb)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = det
+    res = {"phase": "image_iter",
+           "config": {"images": II_IMAGES, "stored": [REC_STORED] * 2,
+                      "data_shape": [3, RESNET_HW, RESNET_HW],
+                      "resize": REC_STORED, "rand_crop": True,
+                      "rand_mirror": True, "mean": list(REC_MEAN),
+                      "gray": [II_GRAY, II_GRAY_HW], "dataset_batch": II_BATCH,
+                      "model": "resnet50_v1", "layout": "NHWC"},
+           "write_s": write_s, "card_vs_cpu": check, "image_iter": rate,
+           "dataset_fit": fit, "peak_bytes": torch.cuda.max_memory_allocated(),
+           "launches": fit["launches"]}
+    emit(res)
+    bad += bad_fit
+    gc.collect()
+    torch.cuda.empty_cache()
+    if bad:
+        raise SystemExit("image_iter phase failed: " + "; ".join(bad))
+    return res
+
+
+# -- phase 30: ssd_fit ---------------------------------------------------------------
+
+def _toy_ssd(mx, num_classes, num_anchors):
+    """example/ssd/train.py's ToySSD, its NDArray methods as ``nd`` calls
+    (the port's blocks compute on tensors)."""
+    gluon, nn, nd = mx.gluon, mx.gluon.nn, mx.nd
+
+    class ToySSD(gluon.Block):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.body = nn.Sequential()
+                for f in (16, 32, 64):
+                    self.body.add(nn.Conv2D(f, 3, padding=1, strides=2,
+                                            activation="relu"))
+                self.cls_head = nn.Conv2D(num_anchors * (num_classes + 1), 3,
+                                          padding=1)
+                self.loc_head = nn.Conv2D(num_anchors * 4, 3, padding=1)
+
+        def forward(self, x):
+            feat = self.body(x)
+            B = x.shape[0]
+            cls = nd.reshape(nd.transpose(self.cls_head(feat),
+                                          axes=(0, 2, 3, 1)),
+                             shape=(B, -1, num_classes + 1))
+            loc = nd.reshape(nd.transpose(self.loc_head(feat),
+                                          axes=(0, 2, 3, 1)), shape=(B, -1))
+            return [feat], cls, loc
+
+    return ToySSD()
+
+
+def _resnet_ssd(mx, num_classes):
+    """SSD over ``resnet50_v1``'s features (channels-last): class and box
+    heads (3 x 3 convolutions) on the stride-16 map (the third stage's
+    output) and the stride-32 map (the fourth's), anchors per SSD_SCALES."""
+    gluon, nn, nd = mx.gluon, mx.gluon.nn, mx.nd
+    zoo = gluon.model_zoo.vision.resnet50_v1(classes=num_classes,
+                                             layout="NHWC")
+    stages = list(zoo.features._children.values())
+
+    class ResNetSSD(gluon.Block):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.stage16 = nn.HybridSequential()
+                self.stage16.add(*stages[:7])
+                self.stage32 = stages[7]
+                self.heads = nn.Sequential()
+                for sizes, ratios in SSD_SCALES:
+                    a = len(sizes) + len(ratios) - 1
+                    self.heads.add(nn.Conv2D(a * (num_classes + 1), 3,
+                                             padding=1, layout="NHWC"),
+                                   nn.Conv2D(a * 4, 3, padding=1,
+                                             layout="NHWC"))
+
+        def forward(self, x):
+            f16 = self.stage16(x)
+            f32 = self.stage32(f16)
+            heads = list(self.heads._children.values())
+            B = x.shape[0]
+            cls, loc = [], []
+            for i, f in enumerate((f16, f32)):
+                cls.append(nd.reshape(heads[2 * i](f),
+                                      shape=(B, -1, num_classes + 1)))
+                loc.append(nd.reshape(heads[2 * i + 1](f), shape=(B, -1)))
+            # MultiBoxPrior reads (H, W) from an NCHW shape
+            feats = [nd.transpose(f, axes=(0, 3, 1, 2)) for f in (f16, f32)]
+            return feats, nd.concat(*cls, dim=1), nd.concat(*loc, dim=1)
+
+    return ResNetSSD()
+
+
+def _ssd_anchors(mx, feats, scales):
+    nd = mx.nd
+    return nd.concat(*[nd.contrib.MultiBoxPrior(f, sizes=s, ratios=r)
+                       for f, (s, r) in zip(feats, scales)], dim=1)
+
+
+def _ssd_step(mx, net, trainer, x, y, scales):
+    """example/ssd/train.py's step: anchors, targets, softmax
+    cross-entropy + Huber, backward, Adam; the two losses' means."""
+    from mxnet_tpu_torch import autograd, gluon
+
+    nd = mx.nd
+    with autograd.record():
+        feats, cls_preds, loc_preds = net(x)
+        anchors = _ssd_anchors(mx, feats, scales)
+        loc_t, loc_m, cls_t = nd.contrib.MultiBoxTarget(
+            anchors, y, nd.transpose(cls_preds, axes=(0, 2, 1)))
+        l_cls = gluon.loss.SoftmaxCrossEntropyLoss()(cls_preds, cls_t)
+        l_loc = gluon.loss.HuberLoss()(loc_preds * loc_m, loc_t * loc_m)
+        L = l_cls + l_loc
+    L.backward()
+    trainer.step(x.shape[0])
+    return l_cls.mean().asscalar().item(), l_loc.mean().asscalar().item()
+
+
+def _ssd_detect(mx, net, x, scales, **kw):
+    nd = mx.nd
+    feats, cls_preds, loc_preds = net(x)
+    anchors = _ssd_anchors(mx, feats, scales)
+    probs = nd.transpose(nd.softmax(cls_preds, axis=-1), axes=(0, 2, 1))
+    return probs, loc_preds, anchors, nd.contrib.MultiBoxDetection(
+        probs, loc_preds, anchors, **kw)
+
+
+def _ssd_toy_sample(hw):
+    """example/ssd/train.py's synthetic image (one square in its class's
+    channel, 0 or 255) and its label packed by ``ImageDetIter``."""
+    import mxnet_tpu_torch as mx
+
+    def sample(i, rs):
+        img = np.zeros((hw, hw, 3), np.uint8)
+        cls = rs.randint(0, 2)
+        s = rs.randint(hw // 4, hw // 2)
+        l, t = rs.randint(0, hw - s), rs.randint(0, hw - s)
+        img[t:t + s, l:l + s, cls] = 255
+        return img, mx.image.ImageDetIter.pack_label(
+            [[cls, l / hw, t / hw, (l + s) / hw, (t + s) / hw]])
+
+    return sample
+
+
+def _ssd_hybridized(mx, probs, loc, anchors, eager, images):
+    """Hybridized blocks on the card whose forwards read the card: one
+    runs ``MultiBoxDetection`` (its NMS's greedy pass), one
+    ``nd.image.random_color_jitter`` (its order).  Each program runs
+    uncaptured (``cached_op.UNCAPTURED``: one program, three calls); the
+    detections are the eager call's bitwise, the jittered images finite
+    float32 of the input's shape."""
+    import torch
+
+    from mxnet_tpu_torch.gluon import cached_op
+
+    class Detect(mx.gluon.HybridBlock):
+        def hybrid_forward(self, F, p, l, a):
+            return F.contrib.MultiBoxDetection(p, l, a, nms_threshold=0.45)
+
+    class Jitter(mx.gluon.HybridBlock):
+        def hybrid_forward(self, F, x):
+            return F.image.random_color_jitter(x, brightness=0.3,
+                                               contrast=0.3, saturation=0.3,
+                                               hue=0.1)
+
+    res, bad = {}, []
+    for name, blk, args in (("MultiBoxDetection", Detect(),
+                             (probs, loc, anchors)),
+                            ("random_color_jitter", Jitter(), (images,))):
+        blk.hybridize()
+        before = dict(cached_op.UNCAPTURED)
+        outs = [blk(*args)._data for _ in range(3)]
+        unc = {k: cached_op.UNCAPTURED[k] - before[k] for k in before}
+        if name == "MultiBoxDetection":
+            same = all(torch.equal(o, eager._data) for o in outs)
+        else:
+            same = all(o.shape == images.shape and o.dtype == torch.float32
+                       and bool(torch.isfinite(o).all()) for o in outs)
+        res[name] = {"uncaptured": unc, "as_expected": same}
+        if unc != {"programs": 1, "calls": 3} or not same:
+            bad.append(f"hybridized {name}: {res[name]}")
+    return res, bad
+
+
+def _ssd_toy_card_vs_cpu(mx, rec):
+    """ToySSD at the example's settings fed by ``ImageDetIter`` (pixels
+    scaled to [0, 1]): SSD_TOY_STEPS steps on the card and on the CPU from
+    the same weights (the card's Xavier draw copied), then
+    ``MultiBoxDetection`` on the next batch; losses and detections within
+    SSD_RTOL, the same rows kept."""
+    import torch
+
+    scales = (((0.3, 0.6, 0.9), (1.0, 2.0)),)
+    A = len(scales[0][0]) + len(scales[0][1]) - 1
+    out, weights = {}, None
+    for name, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+        with ctx:
+            it = mx.image.ImageDetIter(
+                SSD_TOY_BATCH, (3, SSD_TOY_HW, SSD_TOY_HW), path_imgrec=rec,
+                max_objects=1, mean=(0.0, 0.0, 0.0),
+                std=(255.0, 255.0, 255.0))
+            batches = [it.next() for _ in range(SSD_TOY_STEPS + 1)]
+            net = _toy_ssd(mx, 2, A)
+            torch.manual_seed(SEED)
+            net.initialize(mx.init.Xavier(), ctx=ctx)
+            net(batches[0].data[0])
+            params = net.collect_params().values()
+            if weights is None:
+                weights = [p.data()._data.cpu().clone() for p in params]
+            else:
+                for p, w in zip(params, weights):
+                    p.set_data(mx.nd.array(w))
+            trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                       {"learning_rate": SSD_LR})
+            losses = [_ssd_step(mx, net, trainer, b.data[0], b.label[0],
+                                scales) for b in batches[:-1]]
+            probs, loc, anchors, det = _ssd_detect(
+                mx, net, batches[-1].data[0], scales, nms_threshold=0.45)
+            out[name] = (losses, det._data.cpu())
+            if name == "card":
+                hyb, bad_hyb = _ssd_hybridized(mx, probs, loc, anchors, det,
+                                               batches[-1].data[0])
+    (lc, dc), (lp, dp) = out["card"], out["cpu"]
+    loss_ok = np.allclose(np.asarray(lc), np.asarray(lp), rtol=SSD_RTOL,
+                          atol=1e-6)
+    kept_same = bool(torch.equal(dc[..., 0], dp[..., 0]))
+    det_err = float((dc - dp).abs().max())
+    det_ok = kept_same and bool(torch.allclose(dc, dp, rtol=SSD_RTOL,
+                                               atol=1e-5))
+    res = {"B": SSD_TOY_BATCH, "hw": SSD_TOY_HW, "steps": SSD_TOY_STEPS,
+           "losses_card": lc, "losses_cpu": lp,
+           "kept": int((dc[..., 0] >= 0).sum()), "kept_same": kept_same,
+           "det_max_abs_err": det_err, "hybridized": hyb}
+    bad = bad_hyb
+    if not loss_ok:
+        bad.append(f"ToySSD losses card {lc} against CPU {lp}")
+    if not det_ok:
+        bad.append(f"ToySSD detections: same kept rows {kept_same}, max "
+                   f"error {det_err}")
+    return res, bad
+
+
+def _ssd_full(mx, rec):
+    """The full-width leg on the card: ResNet-50 SSD at SSD_HW², B =
+    SSD_BATCH, SSD_CLASSES classes, fed by ``ImageDetIter`` (ImageNet mean
+    and std): ms a step and its kernel launches, ``MultiBoxTarget`` and
+    ``MultiBoxDetection`` (nms_topk SSD_TOPK) alone, peak bytes."""
+    import torch
+
+    ctx = mx.gpu(0)
+    nd = mx.nd
+    with ctx:
+        it = mx.image.ImageDetIter(SSD_BATCH, (3, SSD_HW, SSD_HW),
+                                   path_imgrec=rec, max_objects=3, mean=True,
+                                   std=True)
+        net = _resnet_ssd(mx, SSD_CLASSES)
+        torch.manual_seed(SEED)
+        net.initialize(mx.init.Xavier(), ctx=ctx)
+        trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                   {"learning_rate": SSD_LR})
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, data_ms, losses, per_step = [], [], [], []
+        for _ in range(SSD_STEPS):
+            t0 = time.perf_counter()
+            b = it.next()
+            x = nd.NDArray(b.data[0]._data.permute(0, 2, 3, 1).contiguous())
+            y = b.label[0]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _reset_launches()
+            losses.append(_ssd_step(mx, net, trainer, x, y, SSD_SCALES))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            per_step.append(_read_launches())
+            data_ms.append((t1 - t0) * 1e3)
+            step_ms.append((t2 - t1) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        with mx.autograd.pause():
+            probs, loc, anchors, det = _ssd_detect(
+                mx, net, x, SSD_SCALES, nms_threshold=0.45, nms_topk=SSD_TOPK)
+            target_ms = _event_ms(lambda: nd.contrib.MultiBoxTarget(
+                anchors, y, probs)[2].wait_to_read(), 5)
+            # a few steps in, the net calls nearly every anchor background
+            # (no score above 0.01: an empty NMS); time the NMS at its
+            # heaviest on seeded class probabilities where every anchor
+            # passes the threshold
+            gen = torch.Generator(device=probs._data.device).manual_seed(SEED)
+            busy = nd.NDArray(torch.softmax(torch.randn(
+                probs.shape, generator=gen, device=probs._data.device), 1))
+            busy_det = nd.contrib.MultiBoxDetection(
+                busy, loc, anchors, nms_threshold=0.45, nms_topk=SSD_TOPK)
+            detect_ms = _event_ms(lambda: nd.contrib.MultiBoxDetection(
+                busy, loc, anchors, nms_threshold=0.45,
+                nms_topk=SSD_TOPK).wait_to_read(), 5)
+        kept = int((det._data[..., 0] >= 0).sum())
+        busy_kept = int((busy_det._data[..., 0] >= 0).sum())
+    launches = {k: sum(s[k] for s in per_step) for k in per_step[0]}
+    res = {"B": SSD_BATCH, "hw": SSD_HW, "classes": SSD_CLASSES,
+           "anchors": int(anchors.shape[1]), "steps": SSD_STEPS,
+           "step_ms": step_ms, "steady_step_ms": float(np.median(step_ms[1:])),
+           "data_ms": data_ms, "losses": losses,
+           "multibox_target_ms": target_ms,
+           "multibox_detection_ms": detect_ms, "nms_topk": SSD_TOPK,
+           "kept": kept, "timed_detection_kept": busy_kept,
+           "peak_bytes": peak,
+           "launches_per_step": per_step[0], "launches": launches}
+    want = {k: 0 for k in per_step[0]}
+    want.update(bn_stats=RESNET_BNS, bn_normalize=RESNET_BNS)
+    bad = []
+    off = [s for s in per_step if s != want]
+    if off:
+        bad.append(f"{len(off)} ResNet-50 SSD steps launched other counts "
+                   f"than {want}, the first {off[0]}")
+    if not np.all(np.isfinite(losses)):
+        bad.append(f"ResNet-50 SSD: non-finite losses {losses}")
+    if tuple(det.shape) != (SSD_BATCH, res["anchors"], 6) or \
+            not bool(torch.isfinite(det._data).all()) or busy_kept == 0:
+        bad.append(f"ResNet-50 SSD detections {tuple(det.shape)}, finite "
+                   f"{bool(torch.isfinite(det._data).all())}; "
+                   f"{busy_kept} kept of the timed call")
+    return res, bad
+
+
+def phase_ssd_fit(dev):
+    """Path B: detection.  ``ImageDetIter`` over detection ``.rec`` files
+    feeds example/ssd/train.py's loop (MultiBoxPrior, MultiBoxTarget,
+    softmax cross-entropy + Huber, Adam) and ``MultiBoxDetection`` with its
+    NMS: the ToySSD card against the CPU, then the ResNet-50 SSD at full
+    width (53 + 53 BatchNorm launches a step)."""
+    import gc
+    import os
+    import tempfile
+
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    gc.collect()
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+
+    def voc_sample(i, rs):
+        """Random pixels and one to three boxes of the 20 classes."""
+        n = 1 + rs.randint(3)
+        lo = rs.uniform(0.0, 0.6, (n, 2))
+        size = rs.uniform(0.1, 0.4, (n, 2))
+        objs = np.concatenate([rs.randint(0, SSD_CLASSES, (n, 1)), lo,
+                               np.minimum(lo + size, 1.0)], 1)
+        img = rs.randint(0, 256, (SSD_HW, SSD_HW, 3), dtype=np.uint8)
+        return img, mx.image.ImageDetIter.pack_label(objs)
+
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            toy = os.path.join(tmp, "toy.rec")
+            full = os.path.join(tmp, "voc.rec")
+            t0 = time.perf_counter()
+            _write_indexed_rec(toy, SSD_TOY_BATCH * (SSD_TOY_STEPS + 1),
+                               SSD_TOY_HW, 3, SEED,
+                               _ssd_toy_sample(SSD_TOY_HW))
+            _write_indexed_rec(full, SSD_BATCH * SSD_STEPS, SSD_HW, 3,
+                               SEED + 2, voc_sample)
+            write_s = time.perf_counter() - t0
+            toy_res, bad = _ssd_toy_card_vs_cpu(mx, toy)
+            gc.collect()
+            full_res, bad_full = _ssd_full(mx, full)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = det
+    res = {"phase": "ssd_fit",
+           "config": {"toy": {"hw": SSD_TOY_HW, "batch": SSD_TOY_BATCH,
+                              "classes": 2, "optimizer": "adam",
+                              "lr": SSD_LR},
+                      "full": {"body": "resnet50_v1 features (NHWC)",
+                               "hw": SSD_HW, "batch": SSD_BATCH,
+                               "classes": SSD_CLASSES,
+                               "scales": [list(map(list, s))
+                                          for s in SSD_SCALES]}},
+           "write_s": write_s, "toy": toy_res, "full": full_res,
+           "launches": full_res["launches"]}
+    emit(res)
+    bad += bad_full
+    gc.collect()
+    torch.cuda.empty_cache()
+    if bad:
+        raise SystemExit("ssd_fit phase failed: " + "; ".join(bad))
+    return res
+
+
 
 def phase_profile_resnet(dev):
     """Optional (not in the default run): two chained bf16 ResNet-50
@@ -8058,7 +8704,150 @@ def _breadth_cases():
                  ("_sampling_top_p", {"p": 0.6, "temperature": 1.1}),
                  ("sample_top_p", {"p": 0.95})):
         cases.append((n, [logits], a))
+    cases += _breadth_image_cases(rs, f32)
+    cases += _breadth_detection_cases(rs, f32)
     return cases
+
+
+def _breadth_image_cases(rs, f32):
+    """The ``_image_*`` ops (the random ones at ops_breadth's fixed key),
+    ``_copyto`` and the OpenCV-style helpers, on uint8 and float images."""
+    def u8(*shape):
+        return rs.integers(0, 256, shape).astype(np.uint8)
+
+    hwc, chw, nchw = u8(12, 10, 3), f32(3, 12, 10, lo=0, hi=255), \
+        f32(2, 3, 12, 10, lo=0, hi=255)
+    norm = {"mean": (120.0, 110.0, 100.0), "std": (50.0, 55.0, 60.0)}
+    cases = [("_image_to_tensor", [hwc], {}),
+             ("_image_to_tensor", [u8(2, 12, 10, 3)], {}),
+             ("_image_normalize", [chw], norm),
+             ("_image_normalize", [nchw], norm),
+             ("_image_flip_left_right", [chw], {}),
+             ("_image_flip_top_bottom", [nchw], {}),
+             ("_image_crop", [nchw], {"x": 1, "y": 2, "width": 5,
+                                      "height": 6}),
+             ("_image_adjust_lighting", [u8(3, 12, 10)],
+              {"alpha": (2.0, 1.0, -3.0)})]
+    for interp in (0, 1):
+        for size in ((5, 4), (17, 13)):
+            cases += [("_image_resize", [chw], {"size": size,
+                                                "interp": interp}),
+                      ("_image_resize", [u8(3, 12, 10)],
+                       {"size": size, "interp": interp})]
+    rand = {"_image_random_flip_left_right": {},
+            "_image_random_flip_top_bottom": {},
+            "_image_random_brightness": {},
+            "_image_random_contrast": {},
+            "_image_random_saturation": {},
+            "_image_random_hue": {"min_factor": -0.4, "max_factor": 0.4},
+            "_image_random_lighting": {"alpha_std": 0.3},
+            "_image_random_color_jitter": {"brightness": 0.4,
+                                           "contrast": 0.3,
+                                           "saturation": 0.5, "hue": 0.2}}
+    for name, attrs in rand.items():
+        cases += [(name, [u8(3, 12, 10)], attrs), (name, [chw], attrs)]
+    cases += [("_copyto", [chw], {}),
+              ("_cvcopyMakeBorder", [hwc], {"top": 1, "bot": 2, "left": 3,
+                                            "value": 7.0}),
+              ("copyMakeBorder", [f32(12, 10, 3)], {"right": 2})]
+    for interp in (0, 1, 2):
+        cases += [("_cvimresize", [hwc], {"w": 7, "h": 17, "interp": interp}),
+                  ("cv_imresize", [f32(12, 10, 3, lo=0, hi=255)],
+                   {"w": 5, "h": 6, "interp": interp})]
+    return cases
+
+
+def _breadth_detection_cases(rs, f32):
+    """The box, ROI, spatial, SSD, RPN and CTC ops (gradients where the
+    op is differentiable); CTC also at example/ctc/lstm_ocr_ctc.py's batch
+    of 32 (T = 24 columns, 10 digits and the blank, 4-digit labels)."""
+    def boxes(*lead, hi=1.0):
+        a, b = rs.uniform(0, hi, lead + (2,)), rs.uniform(0, hi, lead + (2,))
+        return np.concatenate([np.minimum(a, b), np.maximum(a, b) + 0.05],
+                              -1).astype(np.float32)
+
+    def rois(R, B, H, W, scale=1.0):
+        x = np.sort(rs.uniform(0, (W - 1) / scale, (R, 2)), 1)
+        y = np.sort(rs.uniform(0, (H - 1) / scale, (R, 2)), 1)
+        b = rs.integers(0, B, (R, 1))
+        return np.concatenate([b, x[:, :1], y[:, :1], x[:, 1:], y[:, 1:]],
+                              1).astype(np.float32)
+
+    nms = np.concatenate([rs.integers(0, 3, (2, 40, 1)),
+                          rs.uniform(0, 1, (2, 40, 1)), boxes(2, 40, hi=0.6)],
+                         -1).astype(np.float32)
+    feat = f32(2, 4, 6, 6)
+    anchors = np.concatenate(
+        [np.stack(np.meshgrid(np.linspace(0, .8, 6), np.linspace(0, .8, 6),
+                              indexing="ij"), -1).reshape(-1, 2)] * 2,
+        -1).astype(np.float32)[None] + np.float32([0, 0, .25, .3])
+    label = np.full((2, 3, 5), -1.0, np.float32)
+    label[:, :2] = np.concatenate([rs.integers(0, 2, (2, 2, 1)),
+                                   boxes(2, 2, hi=0.7)], -1)
+    N = anchors.shape[1]
+    logits = f32(2, 3, N)
+    probs = (np.exp(logits) / np.exp(logits).sum(1, keepdims=True)).astype(
+        np.float32)
+    A = 6
+    cls = rs.uniform(0, 1, (2, 2 * A, 5, 6)).astype(np.float32)
+    info = np.asarray([[40, 48, 1.0], [36, 44, 0.8]], np.float32)
+    prop = {"rpn_pre_nms_top_n": 60, "rpn_post_nms_top_n": 12,
+            "threshold": 0.6, "rpn_min_size": 4, "scales": (2.0, 4.0),
+            "ratios": (0.5, 1.0, 2.0), "feature_stride": 8}
+    ctc_x = f32(7, 4, 6)
+    ctc_y = rs.integers(1, 6, (4, 3)).astype(np.float32)
+    ctc_y[1, 2:] = 0
+    ocr_x = f32(24, 32, 11)
+    ocr_y = rs.integers(1, 11, (32, 4)).astype(np.float32)
+    theta = (np.asarray([1, 0, 0, 0, 1, 0], np.float32)
+             + 0.2 * f32(2, 6)).astype(np.float32)
+    return [
+        ("_contrib_box_iou", [boxes(2, 5), boxes(2, 3)], {}),
+        ("box_iou", [boxes(4), boxes(3)], {"format": "center"}),
+        ("_contrib_box_nms", [nms], {"id_index": 0, "overlap_thresh": 0.3}),
+        ("box_nms", [nms[0]], {"topk": 12, "valid_thresh": 0.2}),
+        ("_contrib_box_encode", [rs.uniform(0, 1, (2, 6)).astype(
+            np.float32), rs.integers(0, 4, (2, 6)).astype(np.float32),
+            np.abs(f32(2, 6, 4)) + 0.2, np.abs(f32(2, 4, 4)) + 0.2], {}),
+        ("_contrib_bipartite_matching", [f32(2, 5, 4)], {"threshold": 0.1}),
+        ("ROIPooling", [f32(2, 3, 12, 10), rois(5, 2, 12, 10, 0.5)],
+         {"pooled_size": (3, 2), "spatial_scale": 0.5}),
+        ("_contrib_ROIAlign", [f32(2, 3, 9, 11), rois(4, 2, 9, 11)],
+         {"pooled_size": (3, 3)}),
+        ("_contrib_PSROIPooling", [f32(2, 18, 10, 12), rois(4, 2, 10, 12)],
+         {"output_dim": 2, "pooled_size": 3, "group_size": 3}),
+        ("_contrib_DeformablePSROIPooling",
+         [f32(2, 8, 9, 10), rois(3, 2, 9, 10), 0.5 * f32(3, 4, 2, 2)],
+         {"output_dim": 2, "group_size": 2, "pooled_size": 3,
+          "part_size": 2, "sample_per_part": 2, "trans_std": 0.1}),
+        ("_contrib_DeformableConvolution",
+         [f32(2, 4, 7, 8), 1.5 * f32(2, 36, 7, 8), f32(6, 2, 3, 3),
+          f32(6)], {"kernel": (3, 3), "pad": (1, 1), "num_filter": 6,
+                    "num_group": 2, "num_deformable_group": 2}),
+        ("GridGenerator", [theta], {"target_shape": (5, 7)}),
+        ("GridGenerator", [f32(2, 2, 6, 5)], {"transform_type": "warp"}),
+        ("BilinearSampler", [f32(2, 3, 6, 5),
+                             f32(2, 2, 4, 7, lo=-1.1, hi=1.1)], {}),
+        ("SpatialTransformer", [f32(2, 3, 6, 5), theta],
+         {"target_shape": (4, 6)}),
+        ("Correlation", [f32(2, 3, 8, 9), f32(2, 3, 8, 9)],
+         {"kernel_size": 3, "max_displacement": 2, "stride2": 2,
+          "pad_size": 3}),
+        ("_contrib_MultiBoxPrior", [feat], {"sizes": (0.3, 0.6),
+                                            "ratios": (1.0, 2.0, 0.5)}),
+        ("_contrib_MultiBoxTarget", [anchors, label, logits],
+         {"negative_mining_ratio": 3.0}),
+        ("_contrib_MultiBoxDetection", [probs, 0.5 * f32(2, N * 4), anchors],
+         {"nms_threshold": 0.45}),
+        ("_contrib_Proposal", [cls, 0.3 * f32(2, 4 * A, 5, 6), info], prop),
+        ("_contrib_MultiProposal", [cls, 0.3 * f32(2, 4 * A, 5, 6), info],
+         dict(prop, output_score=True)),
+        ("_contrib_CTCLoss", [ctc_x, ctc_y], {}),
+        ("CTCLoss", [ctc_x, ctc_y - 1, np.float32([7, 5, 6, 7]),
+                     np.float32([3, 2, 3, 1])],
+         {"blank_label": "last", "use_data_lengths": True,
+          "use_label_lengths": True}),
+        ("ctc_loss", [ocr_x, ocr_y], {})]
 
 
 def _breadth_same(a, b):
@@ -10288,7 +11077,7 @@ def main(argv) -> int:
         "ops_breadth", "fcn_fit", "spmd_lm", "dp_mesh", "dist_kvstore",
         "model_parallel", "module_parallel", "amp", "fit_resume",
         "inference_service", "inference_int8", "optimizers", "custom_op",
-        "sparse_fit", "control_flow"}
+        "sparse_fit", "control_flow", "image_iter", "ssd_fit"}
     if "serving_int8" in phases:
         phases.add("serving")   # its float baseline
     t_start = time.perf_counter()
@@ -10360,6 +11149,10 @@ def main(argv) -> int:
         runs["control_flow"] = phase_control_flow(dev, runs.get("rnn_lm"))
     if "image_rec" in phases:
         runs["image_rec"] = phase_image_rec(dev, runs.get("module_fit"))
+    if "image_iter" in phases:
+        runs["image_iter"] = phase_image_iter(dev)
+    if "ssd_fit" in phases:
+        runs["ssd_fit"] = phase_ssd_fit(dev)
     if "ops_breadth" in phases:
         runs["ops_breadth"] = phase_ops_breadth(dev)
     if "fcn_fit" in phases:

@@ -37,7 +37,10 @@ every optimizer of the reference, and user ops in Python
 (``operator``: ``nd.Custom``/``sym.Custom``); sparse storage
 (``nd.sparse`` row-sparse and csr arrays, ``io.LibSVMIter``, csr
 arguments of the executor, the row-sparse kvstore) and control flow
-(``sym.contrib``/``nd.contrib`` ``foreach``, ``while_loop``, ``cond``).  Entry points run on ``cuda`` (``mx.gpu()``, the default
+(``sym.contrib``/``nd.contrib`` ``foreach``, ``while_loop``, ``cond``);
+images and detection (``image``: ``ImageIter``, the augmenters,
+``ImageDetIter``; ``nd.image``, ``gluon.data.vision``; the SSD, RPN, ROI,
+spatial-transform and CTC ops, ``gluon.loss.CTCLoss``).  Entry points run on ``cuda`` (``mx.gpu()``, the default
 context) unless the caller passes the CPU (``ctx=mx.cpu()``,
 ``context=mx.cpu()`` or ``device="cpu"``).
 """
@@ -61,12 +64,13 @@ from .context import (Context, cpu, current_context, gpu, num_devices,
 from . import kvstore_server
 from . import amp
 from . import contrib, operator, quantization
+from . import image
 
 random._install_samplers()
 
 __version__ = "0.1.0"
 
-__all__ = ["MXNetError", "amp", "contrib", "operator", "quantization",
+__all__ = ["MXNetError", "amp", "contrib", "image", "operator", "quantization",
            "Context", "cpu", "gpu", "tpu", "current_context",
            "num_devices", "resolve_device", "attribute", "autograd", "base",
            "callback", "checkpoint", "context", "engine", "executor", "fault", "gluon",

@@ -1,11 +1,11 @@
 """Datasets (PyTorch counterpart of ``mxnet_tpu/gluon/data/dataset.py``):
 ``Dataset`` with ``filter``/``take``/``transform``/``transform_first``,
-``SimpleDataset`` and ``ArrayDataset``."""
+``SimpleDataset``, ``ArrayDataset`` and ``RecordFileDataset``."""
 from __future__ import annotations
 
 from ...ndarray.ndarray import NDArray
 
-__all__ = ["Dataset", "SimpleDataset", "ArrayDataset"]
+__all__ = ["Dataset", "SimpleDataset", "ArrayDataset", "RecordFileDataset"]
 
 
 class Dataset:
@@ -84,3 +84,20 @@ class ArrayDataset(Dataset):
 
     def __len__(self):
         return self._length
+
+
+class RecordFileDataset(Dataset):
+    """The raw records of an indexed RecordIO file (its ``.idx`` beside
+    it), in the index's order."""
+
+    def __init__(self, filename):
+        from ... import recordio
+
+        idx_file = filename[:-4] + ".idx"
+        self._record = recordio.MXIndexedRecordIO(idx_file, filename, "r")
+
+    def __getitem__(self, idx):
+        return self._record.read_idx(self._record.keys[idx])
+
+    def __len__(self):
+        return len(self._record.keys)

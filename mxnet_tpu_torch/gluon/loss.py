@@ -6,12 +6,11 @@ python/mxnet/gluon/loss.py): the same classes, constructor arguments,
 Each loss is a ``HybridBlock`` whose ``hybrid_forward`` calls the op
 namespace ``F`` by the reference's op names: called with ``NDArray``s
 (the imperative loop) a loss returns an NDArray, called with
-``torch.Tensor``s a tensor.  ``CTCLoss`` needs the
-``CTCLoss`` op, which is not ported yet: constructing it raises.
+``torch.Tensor``s a tensor.  ``CTCLoss`` runs the ``CTCLoss`` op with
+the blank last, as the reference's does.
 """
 from __future__ import annotations
 
-from ..base import MXNetError
 from .block import HybridBlock
 
 __all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
@@ -147,13 +146,41 @@ class KLDivLoss(Loss):
 
 
 class CTCLoss(Loss):
-    """Not ported yet: it needs the ``CTCLoss`` op (ROADMAP.md, Queue 1,
-    item 6, with the rest of ``rnn``)."""
+    """The CTC loss of each sequence (``pred`` NTC or TNC, ``label`` NT or
+    TN), the blank the last class and labels 0-based over the others,
+    negative labels padding; optional ``pred_lengths`` and
+    ``label_lengths``."""
 
     def __init__(self, layout="NTC", label_layout="NT", weight=None,
                  **kwargs):
-        raise MXNetError("CTCLoss is not ported yet: it needs the CTCLoss "
-                         "op (ROADMAP.md, Queue 1, item 6)")
+        assert layout in ("NTC", "TNC")
+        assert label_layout in ("NT", "TN")
+        self._layout = layout
+        self._label_layout = label_layout
+        batch_axis = label_layout.find("N")
+        super().__init__(weight, batch_axis, **kwargs)
+
+    def hybrid_forward(self, F, pred, label, pred_lengths=None,
+                       label_lengths=None, sample_weight=None):
+        if self._layout == "NTC":
+            pred = F.transpose(pred, axes=(1, 0, 2))
+        if self._batch_axis == 1:
+            label = F.transpose(label, axes=(1, 0))
+        args = [pred, label]
+        kwargs = {"blank_label": "last"}
+        if pred_lengths is None and label_lengths is not None:
+            # data_lengths comes before label_lengths: an ignored
+            # placeholder holds its place
+            args.append(F.sum(F.zeros_like(label), axis=1))
+            kwargs["use_data_lengths"] = False
+        elif pred_lengths is not None:
+            args.append(pred_lengths)
+            kwargs["use_data_lengths"] = True
+        if label_lengths is not None:
+            args.append(label_lengths)
+            kwargs["use_label_lengths"] = True
+        loss = F.CTCLoss(*args, **kwargs)
+        return _apply_weighting(F, loss, self._weight, sample_weight)
 
 
 class HuberLoss(Loss):

@@ -12,10 +12,12 @@ current when it started.  ``MNISTIter`` reads idx
 files already on disk (or makes the reference's synthetic set when they
 are absent); nothing is downloaded.
 
-``ImageRecordIter`` (``ImageRecordIterNative``) is the reference's
-default RecordIO image route: decode, resize, crop and mirror on host
-worker threads into uint8 NHWC batches, normalized and transposed on the
-device; ``RecordIOIter`` yields a shard's raw records.
+``ImageRecordIter`` takes the reference's two RecordIO image routes:
+``ImageRecordIterNative`` (the default for RGB: decode, resize, crop and
+mirror on host worker threads into uint8 NHWC batches, normalized and
+transposed on the device) and, with ``use_native=False``, no
+``path_imgrec`` or C != 3, ``image.ImageRecordIterImpl`` (``ImageIter``
+with its augmenters); ``RecordIOIter`` yields a shard's raw records.
 
 ``LibSVMIter`` reads a LibSVM file straight into CSR arrays (no dense
 row is ever made) and serves ``CSRNDArray`` batches with the reference's
@@ -25,10 +27,6 @@ rows, labels and ``pad``.
 (one process per device: a rank holds its own block of a sharded array).
 ``fast_forward`` skips batches for a mid-epoch resume
 (``NDArrayIter.seek`` jumps without making them).
-
-Not ported, refused with ``MXNetError``: ``ImageRecordIter``'s
-``ImageIter`` route (``use_native=False``, or C != 3; ``image.py``,
-ROADMAP.md, Queue 1, item 7).
 """
 from __future__ import annotations
 
@@ -991,9 +989,9 @@ class ImageRecordIterNative(DataIter):
 
         c, h, w = data_shape
         if c != 3:
-            raise MXNetError("ImageRecordIter: the native route is RGB only "
-                             "(C=3); the ImageIter route (image.py) is not "
-                             "ported (ROADMAP.md, Queue 1, item 7)")
+            raise MXNetError("ImageRecordIterNative: RGB only (C=3); "
+                             "ImageRecordIter sends other shapes to the "
+                             "ImageIter route")
         if resize <= 0:
             resize = max(h, w)
         pin = resolve_device(current_context()).type == "cuda"
@@ -1066,14 +1064,16 @@ class ImageRecordIterNative(DataIter):
 def ImageRecordIter(**kwargs):
     """The RecordIO image pipeline (reference: src/io/
     iter_image_recordio_2.cc): :class:`ImageRecordIterNative`, the
-    reference's default route.  ``use_native=False`` (the reference's
-    Python ``ImageIter`` route, ``image.py``) is not ported and raises
-    ``MXNetError`` (ROADMAP.md, Queue 1, item 7)."""
-    if not kwargs.pop("use_native", True) or not kwargs.get("path_imgrec"):
-        raise MXNetError("ImageRecordIter: the ImageIter route (image.py: "
-                         "use_native=False, or no path_imgrec) is not "
-                         "ported (ROADMAP.md, Queue 1, item 7)")
-    return ImageRecordIterNative(**kwargs)
+    reference's default route, for an RGB ``data_shape`` over a
+    ``path_imgrec``; otherwise (``use_native=False``, no ``path_imgrec``,
+    or C != 3) the ``ImageIter`` route, ``image.ImageRecordIterImpl``."""
+    use_native = kwargs.pop("use_native", True)
+    if use_native and kwargs.get("path_imgrec") and \
+            tuple(kwargs.get("data_shape", (3, 224, 224)))[0] == 3:
+        return ImageRecordIterNative(**kwargs)
+    from .image import ImageRecordIterImpl
+
+    return ImageRecordIterImpl(**kwargs)
 
 
 class RecordIOIter:

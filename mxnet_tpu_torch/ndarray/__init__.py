@@ -151,6 +151,7 @@ del _this, _name
 from . import random  # noqa: E402  (mx.nd.random, after the ops)
 from . import sparse  # noqa: E402
 from . import contrib  # noqa: E402
+from . import image  # noqa: E402
 
 
 def cast_storage(data, stype="default"):
@@ -158,6 +159,24 @@ def cast_storage(data, stype="default"):
     ``csr``); the registered op of this name is the identity on dense
     values (reference: ``nd.cast_storage``)."""
     return sparse.cast_storage(data, stype)
+
+def imdecode(buf, **kwargs):
+    """An encoded image as an HWC uint8 NDArray (``mx.image.imdecode``)."""
+    from ..image import imdecode as _imdecode
+
+    return _imdecode(buf, **kwargs)
+
+
+def imresize(src, w, h, interp=1):
+    """``src`` (HWC) resized to ``h`` x ``w`` (bilinear, antialiased when
+    shrinking, or nearest with ``interp=0``), in its own dtype."""
+    from ..ops.image_ops import scale_resize
+
+    x = src._data.to(torch.float32)
+    out = scale_resize(x, (int(h), int(w)) + tuple(x.shape[2:]),
+                       "linear" if interp else "nearest")
+    return NDArray(_tensor.cast(out, src._data.dtype))
+
 
 add = broadcast_add                # noqa: F821 (generated above)
 subtract = broadcast_sub           # noqa: F821

@@ -6,14 +6,18 @@ token-sampling functions of the generation engine, the random samplers
 recurrent ``RNN`` op (``rnn``, plain torch), the 2-bit gradient
 compression kernels (``twobit``) and the optimizers' update rules
 (``optimizer_ops``, also registered as ops), the legacy ``Crop`` and
-``SVMOutput`` (``spatial``), the flash attention op (``contrib``), the
-int8 quantization ops (``quantization_ops``) and the user-defined op
-``Custom`` (``custom``, over ``mx.operator``'s registry)."""
-from . import (batch_norm, contrib, custom, flash_attention, layer_norm, nn,
-               optimizer_ops, paged_attention, quantization_ops, random_ops,
-               registry, rnn, sampling, spatial, tensor, twobit)
+``SVMOutput`` with the grid sampler, spatial transformer, correlation
+and the OpenCV-style helpers (``spatial``), the flash attention op, the
+box, ROI, deformable and CTC ops (``contrib``), the SSD and RPN ops
+(``detection``), the image ops (``image_ops``), the int8 quantization ops
+(``quantization_ops``) and the user-defined op ``Custom`` (``custom``,
+over ``mx.operator``'s registry)."""
+from . import (batch_norm, contrib, custom, detection, flash_attention,
+               image_ops, layer_norm, nn, optimizer_ops, paged_attention,
+               quantization_ops, random_ops, registry, rnn, sampling, spatial,
+               tensor, twobit)
 
-__all__ = ["batch_norm", "contrib", "custom", "flash_attention", "layer_norm",
-           "nn", "optimizer_ops", "paged_attention", "quantization_ops",
-           "random_ops", "registry", "rnn", "sampling", "spatial", "tensor",
-           "twobit"]
+__all__ = ["batch_norm", "contrib", "custom", "detection", "flash_attention",
+           "image_ops", "layer_norm", "nn", "optimizer_ops",
+           "paged_attention", "quantization_ops", "random_ops", "registry",
+           "rnn", "sampling", "spatial", "tensor", "twobit"]

@@ -55,6 +55,7 @@ from .batch_norm import bn_train_fused
 from .layer_norm import layer_norm_fused, layer_norm_reference
 from .random_ops import bernoulli_mask
 from .registry import alias, register
+from .tensor import relu
 
 __all__ = ["fully_connected", "is_channels_last", "convolution",
            "deconvolution", "pooling",
@@ -378,7 +379,7 @@ batch_norm.noncontiguous_copies = 0
 @register("Activation")
 def activation(data, act_type="relu"):
     if act_type == "relu":
-        return torch.relu(data)
+        return relu(data)
     if act_type == "sigmoid":
         return torch.sigmoid(data)
     if act_type == "tanh":

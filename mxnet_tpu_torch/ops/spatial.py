@@ -1,9 +1,12 @@
-"""The legacy ``Crop`` op, the ``SVMOutput`` loss head and the sparse
-storage ops.
+"""The spatial-transform ops (``GridGenerator``, ``BilinearSampler``,
+``SpatialTransformer``, ``Correlation``, ``DeformablePSROIPooling``), the
+legacy ``Crop`` op, the ``SVMOutput`` loss head, the sparse storage ops,
+``_copyto`` and the OpenCV-style ``copyMakeBorder`` and ``cv_imresize``.
 
-PyTorch counterpart of ``mxnet_tpu/ops/spatial.py`` (the grid sampler,
-spatial transformer, correlation and the rest are ROADMAP.md Queue 1,
-item 6g).  ``SVMOutput``'s backward is its own (a
+PyTorch counterpart of ``mxnet_tpu/ops/spatial.py``.  The samplers are
+clipped gathers weighted bilinearly with in-bounds masks, their gradients
+autograd's (an index's backward is an ``index_add``).  ``SVMOutput``'s
+backward is its own (a
 ``torch.autograd.Function``), the reference's custom vjp: the L1 or L2
 hinge gradient, whatever the incoming cotangent.
 
@@ -26,7 +29,9 @@ import torch
 from . import tensor as _tensor  # noqa: F401  (registers Embedding)
 from .registry import alias, register
 
-__all__ = ["crop_legacy", "svm_output", "CsrTensor", "csr_dot",
+__all__ = ["grid_generator", "bilinear_sampler", "spatial_transformer",
+           "correlation", "deformable_psroi_pooling", "cv_copy_make_border",
+           "cv_imresize", "crop_legacy", "svm_output", "CsrTensor", "csr_dot",
            "cast_storage_op", "sparse_retain_op", "scatter_plus_scalar",
            "scatter_minus_scalar", "scatter_elemwise_div", "scatter_set_nd"]
 
@@ -190,3 +195,254 @@ def scatter_set_nd(lhs, rhs, indices):
 
 # the reference's SparseEmbedding: a dense gather with a dense gradient
 alias("_contrib_SparseEmbedding", "Embedding")
+
+
+# ---------------------------------------------------------------------------
+# grid generation and bilinear sampling (grid_generator-inl.h,
+# bilinear_sampler-inl.h, spatial_transformer-inl.h)
+# ---------------------------------------------------------------------------
+
+def _linspace(n, dtype, device):
+    """``jnp.linspace(-1, 1, n)``: ``-1 * (1 - s) + 1 * s`` at ``s = i /
+    (n - 1)``, the end point exact."""
+    if n <= 1:
+        return torch.full((n,), -1.0, dtype=dtype, device=device)
+    s = torch.arange(n - 1, dtype=dtype, device=device) / (n - 1)
+    out = -1.0 * (1 - s) + 1.0 * s
+    return torch.cat([out, torch.ones(1, dtype=dtype, device=device)])
+
+
+def _affine_grid(theta, height, width):
+    """theta (B, 6) -> the normalized sampling grid (B, 2, H, W), channel 0
+    x and channel 1 y."""
+    xs = _linspace(width, theta.dtype, theta.device)
+    ys = _linspace(height, theta.dtype, theta.device)
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    dst = torch.stack([gx.reshape(-1), gy.reshape(-1),
+                       torch.ones_like(gx).reshape(-1)])   # (3, H * W)
+    src = theta.reshape(-1, 2, 3) @ dst
+    return src.reshape(-1, 2, height, width)
+
+
+@register("GridGenerator")
+def grid_generator(data, transform_type="affine", target_shape=(0, 0)):
+    """``affine``: (B, 6) parameters -> the grid (B, 2, H, W) over
+    ``target_shape``; ``warp``: a flow (B, 2, H, W) plus the identity,
+    normalized to [-1, 1]."""
+    if transform_type == "affine":
+        return _affine_grid(data, int(target_shape[0]), int(target_shape[1]))
+    if transform_type == "warp":
+        _, _, H, W = data.shape
+        gx = torch.arange(W, dtype=data.dtype, device=data.device) \
+            .expand(H, W)
+        gy = torch.arange(H, dtype=data.dtype, device=data.device)[:, None] \
+            .expand(H, W)
+        ident = torch.stack([gx, gy])[None]
+        denom = torch.tensor([(W - 1) / 2.0, (H - 1) / 2.0], dtype=data.dtype,
+                             device=data.device).reshape(1, 2, 1, 1)
+        return (data + ident) / denom - 1.0
+    raise ValueError(f"unknown transform_type {transform_type!r}")
+
+
+def _bilinear_gather(data, x, y):
+    """data (B, C, H, W) sampled at pixel coordinates x, y (B, Ho, Wo):
+    the four neighbours weighted bilinearly, zero outside the image."""
+    B, C, H, W = data.shape
+    x0, y0 = torch.floor(x), torch.floor(y)
+    b = torch.arange(B, device=data.device)[:, None, None]
+    out = torch.zeros((B, C) + tuple(x.shape[1:]), dtype=data.dtype,
+                      device=data.device)
+    for yi in (y0, y0 + 1.0):
+        for xi in (x0, x0 + 1.0):
+            wgt = (1.0 - (x - xi).abs()) * (1.0 - (y - yi).abs())
+            inb = (xi >= 0) & (xi <= W - 1) & (yi >= 0) & (yi <= H - 1)
+            xc = torch.clamp(xi, 0, W - 1).to(torch.int32).long()
+            yc = torch.clamp(yi, 0, H - 1).to(torch.int32).long()
+            g = data[b, :, yc, xc].permute(0, 3, 1, 2)     # (B, C, Ho, Wo)
+            out = out + (wgt * inb)[:, None] * g
+    return out
+
+
+@register("BilinearSampler")
+def bilinear_sampler(data, grid, cudnn_off=False):
+    """data (B, C, H, W) sampled at ``grid`` (B, 2, Ho, Wo), normalized to
+    [-1, 1], channel 0 x and channel 1 y."""
+    _, _, H, W = data.shape
+    x = (grid[:, 0] + 1.0) * (W - 1) / 2.0
+    y = (grid[:, 1] + 1.0) * (H - 1) / 2.0
+    return _bilinear_gather(data, x, y)
+
+
+@register("SpatialTransformer")
+def spatial_transformer(data, loc, target_shape=(0, 0),
+                        transform_type="affine", sampler_type="bilinear",
+                        cudnn_off=False):
+    """The affine parameters ``loc`` (B, 6) warp ``data`` onto
+    ``target_shape``, sampled bilinearly."""
+    if transform_type != "affine" or sampler_type != "bilinear":
+        raise ValueError("SpatialTransformer: affine and bilinear only")
+    grid = _affine_grid(loc, int(target_shape[0]), int(target_shape[1]))
+    return bilinear_sampler(data, grid)
+
+
+# ---------------------------------------------------------------------------
+# Correlation (FlowNet; correlation-inl.h)
+# ---------------------------------------------------------------------------
+
+@register("Correlation", num_outputs=1)
+def correlation(data1, data2, kernel_size=1, max_displacement=1, stride1=1,
+                stride2=1, pad_size=0, is_multiply=True):
+    """The cost volume of two maps (B, C, H, W): for each displacement on a
+    ``stride2`` grid within ``max_displacement``, the product (or absolute
+    difference) summed over channels and a ``kernel_size`` window, over
+    ``kernel_size**2 * C``: (B, D * D, Ho, Wo)."""
+    from .nn import attr_bool
+
+    k = int(kernel_size)
+    md = int(max_displacement)
+    s1, s2, pad = int(stride1), int(stride2), int(pad_size)
+    B, C, H, W = data1.shape
+    kr = (k - 1) // 2
+    border = md + kr
+    Hp, Wp = H + 2 * pad, W + 2 * pad
+    Ho = -(-(Hp - 2 * border) // s1)
+    Wo = -(-(Wp - 2 * border) // s1)
+    rad = md // s2
+    pa = torch.nn.functional.pad(data1, (pad, pad, pad, pad))
+    pb = torch.nn.functional.pad(data2, (pad + md,) * 4)
+    norm = float(k * k * C)
+    lo = (k - 1) // 2
+    mult = attr_bool(is_multiply, True)
+    planes = []
+    for dy in range(-rad, rad + 1):
+        for dx in range(-rad, rad + 1):
+            oy, ox = md + dy * s2, md + dx * s2
+            shifted = pb[:, :, oy:oy + Hp, ox:ox + Wp]
+            prod = pa * shifted if mult else (pa - shifted).abs()
+            chan = prod.sum(dim=1)                          # (B, Hp, Wp)
+            # the k x k window sum, "SAME" padded
+            padded = torch.nn.functional.pad(chan, (lo, k - 1 - lo,
+                                                    lo, k - 1 - lo))
+            win = sum(padded[:, i:i + Hp, j:j + Wp]
+                      for i in range(k) for j in range(k))
+            centers = win[:, border:border + (Ho - 1) * s1 + 1:s1,
+                          border:border + (Wo - 1) * s1 + 1:s1]
+            planes.append(centers / norm)
+    return torch.stack(planes, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# deformable position-sensitive ROI pooling
+# (contrib/deformable_psroi_pooling-inl.h)
+# ---------------------------------------------------------------------------
+
+@register("_contrib_DeformablePSROIPooling", num_outputs=2)
+def deformable_psroi_pooling(data, rois, trans=None, spatial_scale=1.0,
+                             output_dim=1, group_size=1, pooled_size=1,
+                             part_size=0, sample_per_part=1, trans_std=0.0,
+                             no_trans=False):
+    """Position-sensitive ROI pooling with learned per-part offsets:
+    ``sample_per_part``² bilinear samples a bin (at sub-bin origins, moved
+    by the bin's class offset from ``trans`` (R, 2 * classes, part, part)
+    times ``trans_std`` and the ROI's size), those inside [-0.5, size -
+    0.5] averaged: (out (R, output_dim, P, P), the in-bounds counts)."""
+    from .nn import attr_bool
+
+    P, G, OD = int(pooled_size), int(group_size), int(output_dim)
+    spp = int(sample_per_part)
+    part = int(part_size) or P
+    scale, tstd = float(spatial_scale), float(trans_std)
+    _, C, H, W = data.shape
+    dev, dt = data.device, data.dtype
+    ii, jj = torch.meshgrid(torch.arange(P, device=dev),
+                            torch.arange(P, device=dev), indexing="ij")
+    ph = torch.clamp(ii * part // P, max=part - 1)
+    pw = torch.clamp(jj * part // P, max=part - 1)
+    gh = torch.clamp(ii * G // P, max=G - 1)
+    gw = torch.clamp(jj * G // P, max=G - 1)
+    cidx = (torch.arange(OD, device=dev)[:, None, None] * G + gh) * G + gw
+    use_trans = not (attr_bool(no_trans) or trans is None)
+    sy, sx = torch.meshgrid(torch.arange(spp, device=dev, dtype=torch.float32),
+                            torch.arange(spp, device=dev, dtype=torch.float32),
+                            indexing="ij")
+    sx = sx.reshape(-1, 1, 1, 1)                            # (S, 1, 1, 1)
+    sy = sy.reshape(-1, 1, 1, 1)
+    R = rois.shape[0]
+    b = rois[:, 0].to(torch.int32).long()
+    x1 = torch.round(rois[:, 1]) * scale - 0.5
+    y1 = torch.round(rois[:, 2]) * scale - 0.5
+    w = torch.clamp((torch.round(rois[:, 3]) + 1.0) * scale - 0.5 - x1,
+                    min=0.1)
+    h = torch.clamp((torch.round(rois[:, 4]) + 1.0) * scale - 0.5 - y1,
+                    min=0.1)
+    bin_w, bin_h = w / P, h / P
+    rs = (R, 1, 1, 1, 1)
+    if use_trans:
+        ncls = max(1, trans.shape[1] // 2)
+        cls = torch.arange(OD, device=dev) * ncls // OD
+        dx = trans[:, 2 * cls][:, :, ph, pw] * tstd * w.reshape(R, 1, 1, 1)
+        dy = trans[:, 2 * cls + 1][:, :, ph, pw] * tstd * h.reshape(R, 1, 1, 1)
+        dx, dy = dx[:, None], dy[:, None]                   # (R, 1, OD, P, P)
+    else:
+        dx = dy = torch.zeros((1, 1, 1, 1, 1), dtype=dt, device=dev)
+    full = (R, sx.shape[0], OD, P, P)
+    xx = (x1.reshape(rs) + jj * bin_w.reshape(rs) + sx[None]
+          * (bin_w.reshape(rs) / spp) + dx).expand(full)
+    yy = (y1.reshape(rs) + ii * bin_h.reshape(rs) + sy[None]
+          * (bin_h.reshape(rs) / spp) + dy).expand(full)
+    inb = ((xx >= -0.5) & (xx <= W - 0.5) & (yy >= -0.5)
+           & (yy <= H - 0.5)).to(dt)
+    xc = torch.clamp(xx, 0.0, W - 1.0)
+    yc = torch.clamp(yy, 0.0, H - 1.0)
+    x0, y0 = torch.floor(xc), torch.floor(yc)
+    x1_ = torch.clamp(x0 + 1, max=W - 1.0)
+    y1_ = torch.clamp(y0 + 1, max=H - 1.0)
+    fx, fy = xc - x0, yc - y0
+    flat = data.reshape(data.shape[0], -1)[b]               # (R, C*H*W)
+    chan = cidx.expand(full) * (H * W)
+
+    def at(yv, xv):
+        lin = chan + yv.to(torch.int32).long() * W + xv.to(torch.int32).long()
+        return torch.gather(flat, 1, lin.reshape(R, -1)).reshape(full)
+
+    vals = ((1 - fy) * ((1 - fx) * at(y0, x0) + fx * at(y0, x1_))
+            + fy * ((1 - fx) * at(y1_, x0) + fx * at(y1_, x1_)))
+    cnt = inb.sum(dim=1)                                    # (R, OD, P, P)
+    pooled = torch.where(cnt > 0, (vals * inb).sum(dim=1)
+                         / torch.clamp(cnt, min=1.0), torch.zeros_like(cnt))
+    return pooled, cnt
+
+
+# ---------------------------------------------------------------------------
+# the copy and the OpenCV-style image helpers
+# ---------------------------------------------------------------------------
+
+@register("_copyto")
+def _copyto(data, ctx=None):
+    """The copy between contexts; the NDArray front end places it."""
+    return data
+
+
+@register("_cvcopyMakeBorder", aliases=("copyMakeBorder",))
+def cv_copy_make_border(data, top=0, bot=0, left=0, right=0, type=0,
+                        value=0.0):
+    """An HWC (or HW) image padded with a constant border."""
+    pads = (int(left), int(right), int(top), int(bot))
+    if data.ndim == 3:
+        pads = (0, 0) + pads
+    return torch.nn.functional.pad(data, pads, value=float(value))
+
+
+@register("_cvimresize", aliases=("cv_imresize",))
+def cv_imresize(data, w=0, h=0, interp=1):
+    """An HWC image resized to ``h`` x ``w`` (``interp`` as OpenCV's: 0
+    nearest, 1 linear, 2 cubic, others linear), in its own dtype (a float
+    result truncates and saturates into an integer one)."""
+    from .image_ops import scale_resize
+    from .tensor import cast
+
+    method = {0: "nearest", 1: "linear", 2: "cubic"}.get(int(interp),
+                                                         "linear")
+    shape = (int(h), int(w)) + tuple(data.shape[2:])
+    out = scale_resize(data.to(torch.float32), shape, method)
+    return cast(out, data.dtype)

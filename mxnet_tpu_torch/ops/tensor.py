@@ -82,6 +82,33 @@ def _cbrt(x):
     return torch.sign(x) * torch.abs(x).pow(1.0 / 3.0)
 
 
+class _Relu(torch.autograd.Function):
+    """``torch.relu`` with the reference's ``jnp.maximum(x, 0)`` gradient:
+    1/2 at exactly 0.  It keeps the output (which the next layer holds
+    anyway) and a bool mask of the zeros, not the input."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.relu(x)
+        ctx.save_for_backward(y, x == 0)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, zero = ctx.saved_tensors
+        return torch.where(zero, g * 0.5,
+                           torch.ops.aten.threshold_backward(g, y, 0))
+
+
+def relu(x):
+    """``max(x, 0)`` as the reference's ``jnp.maximum``: at exactly 0 the
+    gradient is 1/2 (``torch.relu`` gives 0 there, which a zero-bias
+    convolution over blank image regions hits everywhere)."""
+    if not x.requires_grad or not torch.is_grad_enabled():
+        return torch.relu(x)
+    return _Relu.apply(x)
+
+
 _UNARY = {
     "negative": torch.neg,
     "abs": torch.abs,
@@ -124,7 +151,7 @@ _UNARY = {
     "erf": _half(torch.erf),
     "erfinv": _half(torch.erfinv),
     "sigmoid": _inexact(torch.sigmoid),
-    "relu": torch.relu,
+    "relu": relu,
     "softsign": _inexact(F.softsign),
     "logical_not": lambda x: (x == 0).to(x.dtype),
 }

@@ -7,7 +7,7 @@ the default constructor arguments and with ``weight``, ``sample_weight``,
 ``from_sigmoid``, ``pos_weight`` and the other options each loss has.
 Tolerance: f32 rtol 1e-5 / atol 1e-6 (XLA:CPU and torch evaluate
 log-softmax, softplus and the reductions in different orders).
-``CTCLoss`` is not ported (it needs the CTCLoss op): the port's raises.
+``CTCLoss`` (blank last) against the reference's loss.
 """
 import numpy as np
 import pytest
@@ -15,7 +15,6 @@ import torch
 
 from mxnet_tpu import gluon as jgluon, nd
 from mxnet_tpu_torch import gluon as tgluon
-from mxnet_tpu_torch.base import MXNetError
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 B, C = 4, 5
@@ -126,9 +125,32 @@ def test_softmax_ce_gradient_matches_closed_form():
                                atol=1e-6)
 
 
-def test_ctc_loss_not_ported():
-    with pytest.raises(MXNetError, match="CTCLoss"):
-        tgluon.loss.CTCLoss()
+@pytest.mark.parametrize("layout,label_layout,lengths", [
+    ("NTC", "NT", "none"), ("TNC", "TN", "none"), ("NTC", "TN", "both"),
+    ("NTC", "NT", "pred"), ("TNC", "NT", "label")])
+def test_ctc_loss_not_ported(layout, label_layout, lengths):
+    """``CTCLoss`` is ported now (the name is the one the test had while
+    it held the refusal): blank last, against the reference's loss in
+    each activation and label layout, with and without the prediction
+    and label lengths."""
+    rs = np.random.RandomState(5)
+    pred = rs.randn(3, 6, 5).astype(np.float32)           # N, T, C
+    label = np.asarray([[0, 1, 2], [3, 3, -1], [2, -1, -1]], np.float32)
+    if layout == "TNC":
+        pred = np.ascontiguousarray(pred.transpose(1, 0, 2))
+    if label_layout == "TN":
+        label = np.ascontiguousarray(label.T)
+    extra = {"none": [], "both": [[6, 4, 5], [3, 2, 1]],
+             "pred": [[5, 6, 4]], "label": [None, [2, 1, 1]]}[lengths]
+    extra = [None if e is None else np.asarray(e, np.float32) for e in extra]
+
+    def args(conv):
+        return [conv(pred), conv(label)] + [None if e is None else conv(e)
+                                            for e in extra]
+
+    want = jgluon.loss.CTCLoss(layout, label_layout)(*args(nd.array))
+    got = tgluon.loss.CTCLoss(layout, label_layout)(*args(torch.from_numpy))
+    np.testing.assert_allclose(got.numpy(), want.asnumpy(), rtol=1e-5)
 
 
 def _op_cases():

@@ -108,8 +108,8 @@ def test_reference_mxnet_json_loads():
     assert ts.infer_shape(data=(2, 5)) == js.infer_shape(data=(2, 5))
     # a graph with an op the port has not registered is refused by name;
     # one with the int8 quantized ops loads
-    unported = text.replace('"op": "Activation"', '"op": "ROIPooling"')
-    with pytest.raises(MXNetError, match="ROIPooling"):
+    unported = text.replace('"op": "Activation"', '"op": "_sample_uniform"')
+    with pytest.raises(MXNetError, match="_sample_uniform"):
         tmx.sym.load_json(unported)
     quantized = text.replace('"op": "Activation"',
                              '"op": "_tpumx_quantized_fc_int8"')
